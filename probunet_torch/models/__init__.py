@@ -1,0 +1,6 @@
+from probunet_torch.models.unet import UNet, UNetBlock, build_unet_plan  # noqa: F401
+from probunet_torch.models.prob_unet import (  # noqa: F401
+    AxisAlignedConvGaussian,
+    Fcomb,
+    ProbabilisticUNet,
+)

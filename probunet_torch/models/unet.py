@@ -1,0 +1,212 @@
+"""ADM-style U-Net backbone — ``probunet_tpu/models/unet.py`` in PyTorch.
+
+The encoder/decoder topology, including every skip concat, is the static
+:func:`build_unet_plan` of the JAX package (a copy of its pure-Python plan).
+Blocks run on NCHW activations in ``channels_last`` memory format; the
+public :class:`UNet` takes and returns NHWC like the JAX module. ``norm0``
+and ``out_norm`` go through kernel K1 (GroupNorm+SiLU), every attention
+block through kernel K2.
+
+Only the downscaling configuration is ported: no noise or label embedding
+(``use_diffuse=False, label_dim=0``), where the embedding is ``silu(0) = 0``.
+``map_layer0``/``map_layer1`` exist, unused, so the parameters and their
+count match the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from probunet_torch.models.layers import (
+    ADM_INIT,
+    ADM_INIT_ZERO,
+    Conv2d,
+    GroupNorm,
+    GroupNormSiLU,
+    Init,
+    Linear,
+    nchw,
+    nhwc,
+    silu,
+)
+from probunet_torch.ops.attention import HEAD_DIM, fused_attention
+from probunet_torch.utils.device import resolve_device
+
+
+class UNetBlock(nn.Module):
+    """Residual block with optional resampling and self-attention
+    (reference networks.py:132-185)."""
+
+    def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
+                 up: bool = False, down: bool = False, attention: bool = False,
+                 fast_attention: bool = False,
+                 dropout: float = 0.0, init: Init = Init(), init_zero: Init = Init(weight=0.0), *,
+                 device=None, generator=None):
+        super().__init__()
+        f = dict(device=device, generator=generator)
+        self.fast_attention = fast_attention
+        self.dropout = dropout
+        self.heads = out_channels // HEAD_DIM if attention else 0
+        self.norm0 = GroupNormSiLU(in_channels, **f)
+        self.conv0 = Conv2d(in_channels, out_channels, 3, up=up, down=down, init=init, **f)
+        # adaptive scale: the affine map gives a (scale, shift) pair per channel
+        self.affine = Linear(emb_channels, out_channels * 2, init=init, **f)
+        self.norm1 = GroupNorm(out_channels, **f)
+        self.conv1 = Conv2d(out_channels, out_channels, 3, init=init_zero, **f)
+        self.skip = None
+        if out_channels != in_channels or up or down:
+            kernel = 1 if out_channels != in_channels else 0
+            self.skip = Conv2d(in_channels, out_channels, kernel, up=up, down=down,
+                               init=init, **f)
+        if self.heads:
+            self.norm2 = GroupNorm(out_channels, **f)
+            self.qkv = Conv2d(out_channels, out_channels * 3, 1, init=init, **f)
+            self.proj = Conv2d(out_channels, out_channels, 1, init=init_zero, **f)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        orig = x
+        x = self.conv0(self.norm0(x))
+        params = self.affine(emb)[:, :, None, None].to(x.dtype)  # (B|1, 2C, 1, 1)
+        scale, shift = params.chunk(2, dim=1)
+        x = silu(self.norm1(x) * (scale + 1) + shift)
+        x = F.dropout(x, self.dropout, self.training)
+        x = self.conv1(x)
+        if self.skip is not None:
+            orig = self.skip(orig)
+        x = x + orig  # skip_scale is 1 in every configuration of the reference
+
+        if self.heads:
+            b, c, h, w = x.shape
+            nh = self.heads
+            y = nhwc(self.qkv(self.norm2(x)))
+            # the channel axis factors as (head, channel, qkv), qkv last, as
+            # in the reference's (B*nh, C/nh, 3, HW) reshape (networks.py:180)
+            y = y.reshape(b, h * w, nh, c // nh, 3)
+            a = fused_attention(y[..., 0], y[..., 1], y[..., 2], self.fast_attention)
+            a = nchw(a.reshape(b, h, w, c))
+            x = x + self.proj(a)
+        return x
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    """Static description of one encoder/decoder entry."""
+
+    name: str          # torch-compatible key, e.g. "64x64_block0"
+    kind: str          # "conv" | "block"
+    in_channels: int
+    out_channels: int
+    up: bool = False
+    down: bool = False
+    attention: bool = False
+    concat_skip: int = 0  # decoder: channels concatenated from the skip stack before the block
+
+
+def build_unet_plan(
+    img_resolution: Tuple[int, int],
+    in_channels: int,
+    model_channels: int,
+    channel_mult: Sequence[int],
+    num_blocks: int,
+    attn_resolutions: Sequence[int],
+    bottleneck_attention: bool = True,
+) -> Tuple[List[BlockSpec], List[BlockSpec], int]:
+    """The full encoder/decoder topology, replicating the reference
+    constructor's channel bookkeeping (networks.py:258-298) including the
+    runtime concat rule (networks.py:327-330) resolved statically.
+
+    Returns (encoder_specs, decoder_specs, final_channels).
+    """
+    enc: List[BlockSpec] = []
+    cout = in_channels
+    for level, mult in enumerate(channel_mult):
+        resx = img_resolution[0] >> level
+        resy = img_resolution[1] >> level
+        if level == 0:
+            cin, cout = cout, model_channels * mult
+            enc.append(BlockSpec(f"{resx}x{resy}_conv", "conv", cin, cout))
+        else:
+            enc.append(BlockSpec(f"{resx}x{resy}_down", "block", cout, cout, down=True))
+        for idx in range(num_blocks):
+            cin, cout = cout, model_channels * mult
+            enc.append(BlockSpec(f"{resx}x{resy}_block{idx}", "block", cin, cout,
+                                 attention=(resx in attn_resolutions)))
+    skips = [s.out_channels for s in enc]
+
+    dec: List[BlockSpec] = []
+    for level, mult in reversed(list(enumerate(channel_mult))):
+        resx = img_resolution[0] >> level
+        resy = img_resolution[1] >> level
+        if level == len(channel_mult) - 1:
+            dec.append(BlockSpec(f"{resx}x{resy}_in0", "block", cout, cout,
+                                 attention=bottleneck_attention))
+            dec.append(BlockSpec(f"{resx}x{resy}_in1", "block", cout, cout))
+        else:
+            dec.append(BlockSpec(f"{resx}x{resy}_up", "block", cout, cout, up=True))
+        for idx in range(num_blocks + 1):
+            cin = cout + skips.pop()
+            cout = model_channels * mult
+            dec.append(BlockSpec(f"{resx}x{resy}_block{idx}", "block", cin, cout,
+                                 attention=(resx in attn_resolutions)))
+    resolved: List[BlockSpec] = []
+    cur = enc[-1].out_channels
+    for spec in dec:
+        concat = spec.in_channels - cur if spec.in_channels != cur else 0
+        if concat < 0:
+            raise AssertionError("decoder channel bookkeeping mismatch")
+        resolved.append(dataclasses.replace(spec, concat_skip=concat))
+        cur = spec.out_channels
+    return enc, resolved, cout
+
+
+class UNet(nn.Module):
+    """The ADM architecture (reference networks.py:224-333) in its
+    downscaling configuration. ``forward`` takes and returns NHWC."""
+
+    def __init__(self, img_resolution: Tuple[int, int], in_channels: int, out_channels: int,
+                 model_channels: int = 128, channel_mult: Tuple[int, ...] = (1, 2, 3, 4),
+                 num_blocks: int = 2, attn_resolutions: Tuple[int, ...] = (32, 16, 8),
+                 dropout: float = 0.10, fast_attention: bool = False, *,
+                 device=None, generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        f = dict(device=device, generator=generator)
+        self.emb_channels = emb = model_channels * 4  # channel_mult_emb (networks.py:233)
+        self.enc_specs, self.dec_specs, final_c = build_unet_plan(
+            tuple(img_resolution), in_channels, model_channels, channel_mult, num_blocks,
+            attn_resolutions)
+        # constructed unconditionally by the reference (networks.py:252-253)
+        self.map_layer0 = Linear(model_channels, emb, init=ADM_INIT, **f)
+        self.map_layer1 = Linear(emb, emb, init=ADM_INIT, **f)
+        block_kw = dict(emb_channels=emb, fast_attention=fast_attention,
+                        dropout=dropout, init=ADM_INIT, init_zero=ADM_INIT_ZERO, **f)
+
+        def make(spec: BlockSpec) -> nn.Module:
+            if spec.kind == "conv":
+                return Conv2d(spec.in_channels, spec.out_channels, 3, init=ADM_INIT, **f)
+            return UNetBlock(spec.in_channels, spec.out_channels, up=spec.up, down=spec.down,
+                             attention=spec.attention, **block_kw)
+
+        self.enc = nn.ModuleDict({s.name: make(s) for s in self.enc_specs})
+        self.dec = nn.ModuleDict({s.name: make(s) for s in self.dec_specs})
+        self.out_norm = GroupNormSiLU(final_c, **f)
+        self.out_conv = Conv2d(final_c, out_channels, 3, init=ADM_INIT_ZERO, **f)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = nchw(x)  # channels_last strides when x is a contiguous NHWC tensor
+        emb = silu(torch.zeros(1, self.emb_channels, dtype=x.dtype, device=x.device))
+        skips = []
+        for spec in self.enc_specs:
+            blk = self.enc[spec.name]
+            x = blk(x) if spec.kind == "conv" else blk(x, emb)
+            skips.append(x)
+        for spec in self.dec_specs:
+            if spec.concat_skip:
+                x = torch.cat([x, skips.pop()], dim=1)
+            x = self.dec[spec.name](x, emb)
+        return nhwc(self.out_conv(self.out_norm(x)))

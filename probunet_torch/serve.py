@@ -1,0 +1,172 @@
+"""Batch inference: checkpoint -> downscaled ensemble netCDF —
+``downscale`` of ``probunet_tpu/serve.py``.
+
+Load a checkpoint, stream the requested years through the ensemble sampler
+on the card, and write physical-unit HR ensembles as netCDF, one dataset
+per variable shaped (time, member, rlat, rlon). Writes stream batch by batch
+with a one-deep overlap: batch i's ensemble is copied to pinned host memory
+behind its compute on the CUDA stream, and written while batch i+1 computes,
+so host memory stays O(batch).
+
+Single process, Probabilistic U-Net only: other ``ds_model`` values and
+multi-process serving come in later slices of the port.
+
+    python -m probunet_torch.serve --checkpoint ./results/checkpoints/probunet \\
+        --out ./results/downscaled.nc --num_samples 16 [config flags...]
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional, Sequence
+
+import torch
+
+from probunet_torch.config import Config, get_config
+from probunet_torch.data.dataset import ClimexDataset
+from probunet_torch.data.netcdf import StreamingFieldWriter, pack_params
+from probunet_torch.train.checkpoint import restore_checkpoint
+from probunet_torch.train.loop import build_probunet
+from probunet_torch.train.steps import make_sample_fn
+from probunet_torch.utils.device import full_fp32, resolve_device
+
+
+def _batch_generator(seed: int, batch_index: int) -> torch.Generator:
+    """CPU generator for one batch's prior draws: the same members whatever
+    device samples them, and independent of the batch order."""
+    return torch.Generator().manual_seed(seed * 1_000_003 + batch_index)
+
+
+def downscale(
+    cfg: Config,
+    checkpoint_dir: str,
+    out_path: str,
+    years: Optional[Sequence[int]] = None,
+    num_samples: Optional[int] = None,
+    batch_size: Optional[int] = None,
+    seed: int = 0,
+    dataset: Optional[ClimexDataset] = None,
+    compression: Optional[str] = None,
+    batch_seconds: Optional[list] = None,
+    pack_ranges: Optional[dict] = None,
+    device=None,
+) -> str:
+    """Run ensemble downscaling over a year range and write netCDF output.
+
+    Returns the written path. Output per variable: (T, K, H, W) physical-unit
+    HR fields, as netCDF-4 where h5py is installed, else netCDF classic.
+    ``compression``: 'gzip' | 'lzf' | 'none' (default gzip for netCDF-4,
+    none for classic, which has no compression). ``batch_seconds``:
+    optional list; each loop iteration's wall time is appended.
+    ``pack_ranges``: optional {var: (lo, hi)} covering every output
+    variable; the ensemble is CF-packed to int16 on the device, so half the
+    bytes cross to the host, and stored as int16 with scale_factor/add_offset.
+    ``device``: default the CUDA card; ``"cpu"`` runs the plain versions."""
+    if cfg.ds_model != "probabilistic_unet":
+        raise NotImplementedError(f"serving ds_model={cfg.ds_model!r} is not ported yet")
+    if torch.distributed.is_available() and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        raise NotImplementedError("multi-process serving is not ported yet")
+    dev = resolve_device(device)
+    years = list(years if years is not None else cfg.years("test"))
+    num_samples = num_samples or cfg.num_samples
+    batch_size = batch_size or cfg.batch_size
+
+    ds = dataset or ClimexDataset(
+        cfg.datadir, years=years, variables=cfg.variables, coords=cfg.coords,
+        lowres_scale=cfg.lowres_scale, standardization=cfg.standardization, device=dev)
+    model = build_probunet(cfg, device="meta").to_empty(device=dev).eval()
+    restore_checkpoint(checkpoint_dir, model)
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    sample_fn = make_sample_fn(model, cfg.lowres_scale, cfg.standardization, num_samples, dtype)
+
+    pack = None
+    if pack_ranges is not None:
+        missing = [v for v in cfg.variables if v not in pack_ranges]
+        if missing:
+            raise ValueError(f"pack_ranges must cover every output variable; missing {missing}")
+        scales, offsets = zip(*(pack_params(*pack_ranges[v]) for v in cfg.variables))
+        sc = torch.tensor(scales, dtype=torch.float32, device=dev)
+        off = torch.tensor(offsets, dtype=torch.float32, device=dev)
+
+        def pack(preds):  # (..., C) float -> CF int16, clipped
+            q = torch.round((preds.float() - off) / sc)
+            return q.clamp_(-32767, 32767).to(torch.int16)
+
+    batches = ds.epoch_indices(0, batch_size, shuffle=False, drop_remainder=False)
+    batches_dev = torch.from_numpy(batches).to(dev)
+    hr_all, stats = ds.hr_device(), ds.stats
+    n, (h, w) = len(ds), ds.spatial_shape
+    attrs = {"source": "probunet_torch ensemble downscaling", "members": str(num_samples)}
+    shapes = {var: (n, num_samples, h, w) for var in cfg.variables}
+    on_cuda = dev.type == "cuda"
+    host_bufs = []  # two pinned buffers, alternating: one filling, one writing
+
+    def to_host(preds: torch.Tensor, slot: int):
+        if len(host_bufs) <= slot:
+            host_bufs.append(torch.empty(preds.shape, dtype=preds.dtype, pin_memory=on_cuda))
+        buf = host_bufs[slot]
+        buf.copy_(preds, non_blocking=on_cuda)
+        done = None
+        if on_cuda:
+            done = torch.cuda.Event()
+            done.record()
+        return buf, done
+
+    def write(t0: int, take: int, buf: torch.Tensor, done) -> None:
+        if done is not None:
+            done.synchronize()
+        arr = buf.numpy()[:take]
+        writer.append({var: arr[..., i] for i, var in enumerate(cfg.variables)}, t0)
+
+    with full_fp32(), StreamingFieldWriter(out_path, shapes, ds.timestamps_np, lat=ds.lat,
+                                           lon=ds.lon, attrs=attrs, compression=compression,
+                                           packing=pack_ranges) as writer:
+        pending = None  # (t0, rows_to_keep, host buffer, copy-done event)
+        last_t = time.perf_counter()
+        for bi in range(len(batches)):
+            eps = torch.randn((num_samples, batch_size, cfg.latent_dim),
+                              generator=_batch_generator(seed, bi))
+            preds, _ = sample_fn(hr_all, stats, batches_dev[bi], eps=eps)
+            if pack is not None:
+                preds = pack(preds)  # int16 crosses the host link, not fp32
+            staged = to_host(preds, bi % 2)
+            if pending is not None:
+                write(*pending)  # overlaps this batch's compute on the card
+            pending = (bi * batch_size, min(batch_size, n - bi * batch_size), *staged)
+            if batch_seconds is not None:
+                now = time.perf_counter()
+                batch_seconds.append(now - last_t)
+                last_t = now
+        if pending is not None:
+            write(*pending)
+    return out_path
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--out", default="./results/downscaled.nc")
+    p.add_argument("--nc_compression", default=None, choices=("gzip", "lzf", "none"),
+                   help="default: gzip for netCDF-4, none for netCDF classic")
+    p.add_argument("--pack", action="append", default=None, metavar="VAR=LO:HI",
+                   help="CF int16 packing range per variable (repeatable; must cover "
+                        "every output variable), e.g. --pack pr=0:0.02")
+    p.add_argument("--device", default=None, help="default: the CUDA card")
+    args, rest = p.parse_known_args(argv)
+    cfg = get_config(rest)
+    pack_ranges = None
+    if args.pack:
+        pack_ranges = {}
+        for spec in args.pack:
+            var, rng = spec.split("=", 1)
+            lo, hi = rng.split(":", 1)
+            pack_ranges[var] = (float(lo), float(hi))
+    path = downscale(cfg, args.checkpoint, args.out, compression=args.nc_compression,
+                     pack_ranges=pack_ranges, device=args.device)
+    print(f"wrote {path}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,164 @@
+"""Port models (on the CPU) against the JAX models with the same weights,
+carried across by flax_unet_to_torch / flax_probunet_to_torch."""
+
+import functools
+
+import flax.linen
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from probunet_torch.models import ProbabilisticUNet as TProbUNet
+from probunet_torch.models import UNet as TUNet
+from probunet_torch.models import layers as tl
+from probunet_torch.utils.transplant import flax_probunet_to_torch, flax_unet_to_torch
+from probunet_tpu.models import ProbabilisticUNet as JProbUNet
+from probunet_tpu.models import UNet as JUNet
+from probunet_tpu.models import layers as jl
+from probunet_tpu.utils.transplant import assert_tree_shapes_match, torch_probunet_to_flax
+
+# Small widths: model_channels 64 gives attention 1-2 heads of 64.
+UNET_KW = dict(model_channels=64, channel_mult=(1, 2), num_blocks=1, attn_resolutions=(16,))
+PROB_KW = dict(num_filters=(16, 32), img_resolution=(16, 16), dropout=0.0, **UNET_KW)
+
+
+def _params(module, *args, seed, method=None):
+    """Random JAX params for ``module`` from its abstract init (a real flax
+    init runs op by op and takes tens of seconds here), every leaf filled
+    as bench.py fills them: standard normal / sqrt(fan_in). At init conv1,
+    proj and out_conv are zero, which would hide the attention and most of
+    each block. (A flax Conv2d's ``init`` field, its Init recipe, shadows
+    Module.init, hence the explicit call.)"""
+    rngs = {"params": jax.random.key(0), "latent": jax.random.key(1),
+            "dropout": jax.random.key(2)}
+    shapes = jax.eval_shape(lambda: flax.linen.Module.init(
+        module, rngs, *args, method=method))["params"]
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda s: (rng.standard_normal(s.shape) / np.sqrt(
+        max(1, int(np.prod(s.shape[:-1]))))).astype(np.float32), shapes)
+
+
+def _apply(jm, params, *args, method=None):
+    """Jitted JAX apply: one compile costs less here than eager op-by-op."""
+    return jax.jit(functools.partial(jm.apply, method=method))({"params": params}, *args)
+
+
+def _x(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _assert_close(out, ref, rel):
+    """Max abs difference within ``rel`` of the reference's largest value."""
+    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    assert out.shape == ref.shape
+    err = np.abs(out - ref).max()
+    assert err <= rel * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("kernel,up,down", [(3, False, False), (3, True, False),
+                                            (3, False, True), (1, False, True),
+                                            (0, True, False), (0, False, True)])
+def test_conv2d_resample(kernel, up, down):
+    jm = jl.Conv2d(8, 8 if kernel == 0 else 16, kernel, up=up, down=down)
+    x = _x((2, 8, 8, 8), 0)
+    params = _params(jm, jnp.asarray(x), seed=1) if kernel else {}
+    ref = jm.apply({"params": params}, jnp.asarray(x))
+    tm = tl.Conv2d(8, 8 if kernel == 0 else 16, kernel, up=up, down=down, device="cpu")
+    tm.load_state_dict({k.split(".", 1)[1]: v
+                        for k, v in flax_unet_to_torch({"out_conv": params}).items()})
+    with torch.no_grad():
+        out = tl.nhwc(tm(tl.nchw(torch.from_numpy(x))))
+    # fp32 convolutions of 72 terms in another order
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+def test_positional_embedding():
+    x = np.linspace(0.0, 3.0, 5).astype(np.float32)
+    ref = jl.PositionalEmbedding(16).apply({}, jnp.asarray(x))
+    out = tl.PositionalEmbedding(16)(torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+
+
+def test_unet_forward_parity_with_attention():
+    kw = dict(img_resolution=(16, 16), in_channels=3, out_channels=3, dropout=0.0, **UNET_KW)
+    jm = JUNet(label_dim=0, use_diffuse=False, **kw)
+    x = _x((2, 16, 16, 3), 2)
+    params = _params(jm, jnp.asarray(x), seed=3)
+    ref = _apply(jm, params, jnp.asarray(x))
+    tm = TUNet(device="cpu", **kw).eval()
+    # attention at 16x16 (one head of 64) in enc block0 and dec block0/1, and
+    # in the bottleneck in0 (two heads)
+    assert [b.heads for b in tm.modules() if getattr(b, "heads", 0)] == [1, 2, 1, 1]
+    tm.load_state_dict(flax_unet_to_torch(params))
+    with torch.no_grad():
+        out = tm(torch.from_numpy(x))
+    # fp32 through ~20 conv/norm layers: 1e-4 of the output's scale
+    _assert_close(out.numpy(), ref, 1e-4)
+
+
+@pytest.fixture(scope="module")
+def probunet_pair():
+    jm = JProbUNet(input_channels=3, num_classes=3, latent_dim=4, **PROB_KW)
+    x0 = jnp.zeros((1, 16, 16, 3))
+    params = _params(jm, x0, x0, seed=4, method=jm.elbo)
+    tm = TProbUNet(3, 3, latent_dim=4, device="cpu", **PROB_KW).eval()
+    tm.load_state_dict(flax_probunet_to_torch(params))
+    return jm, params, tm
+
+
+def test_state_dict_keys_follow_reference_scheme(probunet_pair):
+    """The port's state_dict parses with the JAX package's torch->flax
+    transplant (the reference key scheme) into the JAX tree, shapes and all,
+    and the round trip is exact."""
+    jm, params, tm = probunet_pair
+    sd = {k: v.numpy() for k, v in tm.state_dict().items()}
+    back = torch_probunet_to_flax(sd)
+    assert_tree_shapes_match(back, jax.tree.map(np.asarray, params))
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_latent_dists_and_reconstruct(probunet_pair):
+    jm, params, tm = probunet_pair
+    x, y = _x((2, 16, 16, 3), 5), _x((2, 16, 16, 3), 6)
+    pj, qj = _apply(jm, params, jnp.asarray(x), jnp.asarray(y), method=jm.latent_dists)
+    with torch.no_grad():
+        pt, qt = tm.latent_dists(torch.from_numpy(x), torch.from_numpy(y))
+    for a, b in [(pt.mu, pj.mu), (pt.log_sigma, pj.log_sigma),
+                 (qt.mu, qj.mu), (qt.log_sigma, qj.log_sigma)]:
+        _assert_close(a.numpy(), b, 1e-5)
+    z = _x((2, 4), 7)
+    ref = _apply(jm, params, jnp.asarray(x), jnp.asarray(z), method=jm.reconstruct)
+    with torch.no_grad():
+        out = tm.reconstruct(torch.from_numpy(x), torch.from_numpy(z))
+    _assert_close(out.numpy(), ref, 1e-4)
+
+
+def test_sample_with_explicit_eps(probunet_pair):
+    """Member k of input b is prior.mu + sigma * eps[k, b] through Fcomb, in
+    the JAX package's K-major order."""
+    jm, params, tm = probunet_pair
+    k = 3
+    x, eps = _x((2, 16, 16, 3), 8), _x((k, 2, 4), 9)
+    with torch.no_grad():
+        out = tm.sample(torch.from_numpy(x), k, eps=torch.from_numpy(eps))
+    assert out.shape == (2, k, 16, 16, 3)
+    prior, _ = _apply(jm, params, jnp.asarray(x), method=jm.latent_dists)
+    for m in range(k):
+        z = prior.mu + jnp.exp(prior.log_sigma) * eps[m]
+        ref = _apply(jm, params, jnp.asarray(x), z, method=jm.reconstruct)
+        _assert_close(out[:, m].numpy(), ref, 1e-4)
+
+
+@pytest.mark.parametrize("res,count", [(128, 103_541_083), (64, 104_859_483)])
+def test_full_width_parameter_count(res, count):
+    tm = TProbUNet(3, 3, img_resolution=(res, res), device="meta")
+    assert sum(p.numel() for p in tm.parameters()) == count
+    jm = JProbUNet(input_channels=3, num_classes=3, img_resolution=(res, res))
+    x0 = jnp.zeros((1, res, res, 3))
+    shapes = jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.key(0), "latent": jax.random.key(1),
+         "dropout": jax.random.key(2)}, x0, x0, method=jm.elbo))["params"]
+    assert sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes)) == count
