@@ -4,9 +4,10 @@
     python3 chip_smoke.py          # one CUDA card, no arguments
 
 Builds the port's hand-written kernels from ``probunet_torch/csrc`` and
-drives the serving path (``probunet_torch.serve.downscale``) at the full
-width of the 128x128 Probabilistic U-Net (103,541,083 parameters, seeded
-random weights), in strict fp32 and in fast bf16 mode. Phases:
+drives the serving path (``probunet_torch.serve.downscale``) and the
+training step (``probunet_torch.train.steps.make_probunet_train_step``) at
+the full width of the 128x128 Probabilistic U-Net (103,541,083 parameters,
+seeded random weights), in strict fp32 and in fast bf16 mode. Phases:
 
   1. card and build: nvidia-smi name and power limit; nvcc for sm_90a with
      ptxas registers, shared memory and spills;
@@ -21,7 +22,21 @@ random weights), in strict fp32 and in fast bf16 mode. Phases:
      weights and eps, on the card and on the CPU;
   6. timings with CUDA events: each kernel, its plain version, one PyTorch
      call computing the same function (a yardstick the port never calls),
-     the bound; the serving rate; a profile of one batch.
+     the bound; the serving rate; a profile of one batch;
+  7. K3 attention backward against its plain version at the path's
+     (B, L, heads) and a ragged L, on stride-3 views, strict, fast and
+     strict with bf16 activations; K2's row log-sum-exp against logsumexp;
+  8. the training path: the model with its own init, 10 AdamW steps at b8
+     in each mode on a fixed batch and eps with dropout 0.1; launch
+     counters must show 29 K1, 11 K2 and 11 K3 launches per step; loss and
+     gradient norm finite, the loss falling; peak device memory;
+  9. one training step on the card against the plain step on the CPU: b=1,
+     dropout 0, the same filled weights and eps; loss, gradient norm, every
+     gradient and the parameters after the AdamW step;
+ 10. timings: K3 per U-Net backward (kernel, plain, bound, the backward of
+     scaled_dot_product_attention as yardstick), K2 with its lse, the
+     training rate over 10 steps after 3 warm-up steps, a profile of one
+     step.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. The line before the last is the ``kernels`` JSON object, the last
@@ -47,6 +62,8 @@ BF16_FLOPS = 989e12      # tensor cores
 RES, BATCH, MEMBERS = 128, 8, 16
 DAYS = 32                # four batches of 8 test days
 K1_PER_BATCH, K2_PER_BATCH = 29, 11
+K3_PER_STEP = 11          # one K3 launch per attention block in the backward
+TRAIN_STEPS, WARMUP_STEPS = 10, 3
 EXPECTED_PARAMS = 103_541_083
 GN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 2 ** -8)}   # (atol, rtol)
 # strict: fp32 FMAs in another order than the plain einsum; fast: the plain
@@ -55,6 +72,19 @@ ATTN_TOL = {"strict": 2e-5, "fast": 2e-2}
 # the whole path, card against CPU, strict fp32: cuDNN and oneDNN sum the
 # convolutions in other orders through ~60 layers of random weights
 PATH_TOL = 1e-3
+# K3 against its plain version, max |err| / max(1e-3, max |ref|): the
+# tolerances of tests/test_pallas_attn.py:48; fp32 sums in another order
+# (strict), bf16 results and weights rounded at other points (bf16)
+ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# one training step, card against CPU, strict fp32 (phase 9): the loss and
+# the gradient norm relative to their size, each gradient relative to its
+# tensor's largest entry (cuDNN's and oneDNN's backward convolutions sum in
+# other orders through ~60 layers and back); parameters after the AdamW step
+# in absolute terms (fp32 rounding of the weights), compared only where the
+# gradient is clear of the gradient error: Adam's first step moves each
+# element by about lr * sign(g), so where |g| lies within that error of
+# zero the two sides can part by 2 lr
+STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_PARAM_TOL = 1e-4, 1e-3, 1e-6
 
 
 def log(msg=""):
@@ -167,6 +197,12 @@ def run_phases(torch, dev, card):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(1)
+    clock = [time.perf_counter()]
+
+    def mark(phase):
+        now = time.perf_counter()
+        log(f"[{phase}] phase wall time {now - clock[0]:.1f} s")
+        clock[0] = now
 
     datadir = os.path.join(WORK, "data")
     generate_climex_like(datadir, years=(2000,), grid=RES, days_per_year=DAYS)
@@ -211,6 +247,8 @@ def run_phases(torch, dev, card):
                 raise AssertionError("K1 disagrees with its plain version")
         k1_err[dtype] = worst
 
+    mark(2)
+
     # ---- 3. K2 against its plain version -------------------------------------
     k2_err = {}
     shapes = sorted(set(attn_sites), reverse=True) + [(64, 8)]
@@ -233,12 +271,15 @@ def run_phases(torch, dev, card):
                 raise AssertionError("K2 disagrees with its plain version")
         k2_err[mode] = worst
 
+    mark(3)
+
     # ---- 4. the main path ----------------------------------------------------
     ckpt = os.path.join(WORK, "ckpt")
     save_checkpoint(ckpt, model)
     nb = DAYS // BATCH
     K1.gn_silu.launches = 0
     K2.fused_attention.launches = 0
+    K2.attention_bwd.launches = 0
     outs, secs = {}, {}
     for name, c in (("strict", cfg), ("fast", fast_cfg)):
         secs[name] = []
@@ -252,9 +293,10 @@ def run_phases(torch, dev, card):
             f"(netCDF output), per batch {[round(s, 3) for s in secs[name]]} s, peak device "
             f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
             f"launches so far K1 {n1}, K2 {n2}")
-    launches = {"gn": K1.gn_silu.launches, "attn": K2.fused_attention.launches}
-    want = (2 * nb * K1_PER_BATCH, 2 * nb * K2_PER_BATCH)
-    if (launches["gn"], launches["attn"]) != want:
+    launches = {"gn": K1.gn_silu.launches, "attn": K2.fused_attention.launches,
+                "attn_bwd": K2.attention_bwd.launches}
+    want = (2 * nb * K1_PER_BATCH, 2 * nb * K2_PER_BATCH, 0)
+    if (launches["gn"], launches["attn"], launches["attn_bwd"]) != want:
         raise AssertionError(f"launches {launches}, expected {want} "
                              f"({K1_PER_BATCH} K1 and {K2_PER_BATCH} K2 per batch)")
     for name, path in outs.items():
@@ -272,6 +314,8 @@ def run_phases(torch, dev, card):
             a, b = f.read_var(var), g.read_var(var)
             log(f"[4] fast vs strict {var}: max abs diff {np.abs(a - b).max():.4g} "
                 f"(field max {np.abs(a).max():.4g})")
+
+    mark(4)
 
     # ---- 5. the path against the plain path -------------------------------------
     ds = ClimexDataset(cfg.datadir, years=[2000], coords=cfg.coords,
@@ -294,6 +338,7 @@ def run_phases(torch, dev, card):
     if not rel <= PATH_TOL:
         raise AssertionError("the path on the card disagrees with the plain path")
     del cpu_model
+    mark(5)
 
     # ---- 6. timings ----------------------------------------------------------
     def time_k1(dtype):
@@ -379,8 +424,12 @@ def run_phases(torch, dev, card):
             log(f"[6] sampler {name}: {per * 1e3:.2f} ms per batch of {BATCH} inputs x "
                 f"{MEMBERS} members at {RES}x{RES}: {rates[name][0]:.2f} inputs/s, "
                 f"{rates[name][1]:.1f} members/s ({card})")
-            profile_batch(torch, fn, hr_all, ds.stats, batches[0], e, name)
+            profile(torch, lambda: fn(hr_all, ds.stats, batches[0], eps=e),
+                    f"sampler {name}", "one batch")
         del m
+    mark(6)
+
+    train = training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark)
 
     def entry(name, source, replaces, n, err, tol, t, extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -389,18 +438,247 @@ def run_phases(torch, dev, card):
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"], **extra}
 
     per = f"sum over the {{}} sites of one U-Net forward at b{BATCH}, {RES}x{RES}"
+    by_path = {name: {"serve": launches[key], "train": train["launches"][key]}
+               for name, key in (("gn", "gn"), ("attn", "attn"), ("attn_bwd", "attn_bwd"))}
     return [
         entry("gn_silu_fwd", "probunet_torch/csrc/gn_silu.cu",
-              "probunet_tpu/ops/pallas_gn.py:72", launches["gn"],
+              "probunet_tpu/ops/pallas_gn.py:72", launches["gn"] + train["launches"]["gn"],
               k1_err[torch.float32], GN_TOL["float32"], k1_t["fp32"],
               {"timed": per.format(K1_PER_BATCH) + ", fp32", "bf16": k1_t["bf16"],
-               "bf16_max_abs_err": k1_err[torch.bfloat16]}),
+               "bf16_max_abs_err": k1_err[torch.bfloat16], "launches_by_path": by_path["gn"]}),
         entry("attention_fwd", "probunet_torch/csrc/attention_fwd.cu",
-              "probunet_tpu/ops/pallas_attn.py:69", launches["attn"],
+              "probunet_tpu/ops/pallas_attn.py:69", launches["attn"] + train["launches"]["attn"],
               k2_err["strict"], ATTN_TOL["strict"], k2_t["strict"],
               {"timed": per.format(K2_PER_BATCH) + ", strict fp32", "fast": k2_t["fast"],
-               "fast_max_abs_err": k2_err["fast"]}),
+               "fast_max_abs_err": k2_err["fast"], "launches_by_path": by_path["attn"],
+               "with_lse": train["k2_lse"]}),
+        entry("attention_bwd", "probunet_torch/csrc/attention_bwd.cu",
+              "probunet_tpu/ops/pallas_attn.py:91", train["launches"]["attn_bwd"],
+              train["k3_err"]["float32"], ATTN_BWD_TOL, train["k3_t"]["strict"],
+              {"timed": f"sum over the {K2_PER_BATCH} sites of one U-Net backward at b{BATCH}, "
+                        f"{RES}x{RES}, strict fp32",
+               "fast": train["k3_t"]["fast"], "max_rel_err": train["k3_rel"],
+               "launches_by_path": by_path["attn_bwd"], "training": train["rates"]}),
     ]
+
+
+def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
+    """Phases 7-10: K3 on its own, the training path, the step against the
+    plain step on the CPU, and the timings. Returns the launch counts of the
+    training path, K3's errors and times, K2's time with its lse, and the
+    training rates."""
+    import torch.nn.functional as F
+
+    from probunet_torch.ops import attention as K2
+    from probunet_torch.ops import gn_silu as K1
+    from probunet_torch.train.loop import build_probunet, init_probunet_state
+    from probunet_torch.train.state import create_train_state, make_optimizer
+    from probunet_torch.train.steps import beta_schedule, make_probunet_train_step
+    from probunet_torch.utils.device import full_fp32
+
+    # ---- 7. K3 against its plain version -------------------------------------
+    modes = {"strict": (torch.float32, False), "fast": (torch.bfloat16, True),
+             "strict_bf16": (torch.bfloat16, False)}
+    k3_abs, k3_rel = {}, {}
+    shapes = [(BATCH, s) for s in sorted(set(attn_sites), reverse=True)] + [(2, (100, 2))]
+    for mode, (dtype, fast) in modes.items():
+        tol = ATTN_BWD_TOL[str(dtype).split(".")[1]]
+        for b, (L, nh) in shapes:
+            y = torch.randn(b, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
+            do = torch.randn(b, L, nh, 64, device=dev, generator=gen).to(dtype)
+            q, k, v = y[..., 0], y[..., 1], y[..., 2]   # stride-3 views, as in the block
+            with torch.no_grad():
+                out, lse = K2._launch(q, k, v, with_lse=True)
+                got = K2.attention_bwd(q, k, v, out, lse, do, fast)
+                ref = K2._plain_attention_bwd(q, k, v, do, fast)
+                k2 = (k / 8).to(dtype) if fast else k.float() / 8
+                ref_lse = torch.logsumexp(torch.einsum("bqhc,bkhc->bhqk", q.float(), k2.float()),
+                                          dim=-1).reshape(b * nh, L)
+            torch.cuda.synchronize()
+            errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(got, ref)]
+            rels = [e / max(1e-3, r.float().abs().max().item()) for e, r in zip(errs, ref)]
+            lse_err = (lse - ref_lse).abs().max().item()
+            ok = max(rels) <= tol and lse_err <= 1e-4 and all(g.dtype == dtype for g in got)
+            k3_abs[mode] = max(k3_abs.get(mode, 0.0), max(errs))
+            k3_rel[mode] = max(k3_rel.get(mode, 0.0), max(rels))
+            log(f"[7] K3 {mode:11s} B={b} L={L} heads={nh}: max abs err dq/dk/dv "
+                f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, / max|ref| {max(rels):.3e} "
+                f"(tol {tol}); K2 lse max abs err {lse_err:.3e} (tol 1e-4) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("K3 or K2's lse disagrees with its plain version")
+    mark(7)
+
+    # ---- 8. the training path --------------------------------------------------
+    train_cfgs = {"strict": cfg.replace(dropout=0.1),
+                  "fast": cfg.replace(dropout=0.1, compute_dtype="bfloat16", fast_attention=True,
+                                      opt_state_dtype="bfloat16")}
+    hr_all = ds.hr_device()
+    fixed_idx = torch.arange(BATCH, device=dev)
+    fixed_eps = torch.randn(BATCH, cfg.latent_dim, generator=torch.Generator().manual_seed(3))
+    runs, counts = {}, {"gn": 0, "attn": 0, "attn_bwd": 0}
+    for name, c in train_cfgs.items():
+        dtype = torch.bfloat16 if c.compute_dtype == "bfloat16" else torch.float32
+        tx = make_optimizer(c.lr, c.weight_decay, c.accum, c.optimizer, None, c.opt_state_dtype)
+        state = init_probunet_state(c, build_probunet(c, device="meta"), tx, device=dev)
+        step = make_probunet_train_step(
+            state.model, c.lowres_scale, c.standardization,
+            beta_schedule(c.beta_schedule, c.beta, c.beta_warmup_steps), dtype, c.accum)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K1.gn_silu.launches = K2.fused_attention.launches = K2.attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        ms = [step(state, hr_all, ds.stats, fixed_idx, c.seed, eps=fixed_eps.to(dev))
+              for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches)
+        want = (TRAIN_STEPS * K1_PER_BATCH, TRAIN_STEPS * K2_PER_BATCH, TRAIN_STEPS * K3_PER_STEP)
+        losses = [m["train_loss"].item() for m in ms]
+        norms = [m["grad_norm"].item() for m in ms]
+        log(f"[8] train {name}: {TRAIN_STEPS} steps at b{BATCH} in {wall:.2f} s; launches K1 "
+            f"{n[0]}, K2 {n[1]}, K3 {n[2]} (expected {want}); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"[8] train {name}: loss {[round(x, 1) for x in losses]}")
+        log(f"[8] train {name}: grad norm {[round(x, 2) for x in norms]}; kl "
+            f"{ms[-1]['kl_div'].item():.4g}, beta {ms[-1]['beta']}")
+        if n != want:
+            raise AssertionError(f"training launches {n}, expected {want} ({K1_PER_BATCH} K1, "
+                                 f"{K2_PER_BATCH} K2 and {K3_PER_STEP} K3 per step)")
+        if not all(math.isfinite(x) for x in losses + norms):
+            raise AssertionError(f"{name}: non-finite loss or gradient norm")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: the loss did not fall on a fixed batch")
+        for key, val in zip(("gn", "attn", "attn_bwd"), n):
+            counts[key] += val
+        runs[name] = (state, step, c)
+    mark(8)
+
+    # ---- 9. one step on the card against the plain step on the CPU ---------------
+    c9 = cfg.replace(dropout=0.0)
+    card_model = build_probunet(c9, device="meta").to_empty(device=dev)
+    fill_weights(torch, card_model, seed=9)
+    cpu_model = build_probunet(c9, device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict(card_model.state_dict())
+    eps1 = torch.randn(1, cfg.latent_dim, generator=torch.Generator().manual_seed(4))
+    res = {}
+    for where, m, d in (("card", card_model, ds), ("cpu", cpu_model, ds_cpu)):
+        state = create_train_state(m, make_optimizer(c9.lr, c9.weight_decay))
+        idx = torch.tensor([3], device=d.device)
+        t0 = time.perf_counter()
+        metrics = make_probunet_train_step(m, c9.lowres_scale, c9.standardization)(
+            state, d.hr_device(), d.stats, idx, 0, eps=eps1)
+        loss = metrics["train_loss"].item()
+        res[where] = (loss, metrics["grad_norm"].item(),
+                      {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+                      {k: p.detach().cpu() for k, p in m.named_parameters()})
+        log(f"[9] one step on the {where}: {time.perf_counter() - t0:.1f} s, loss {loss:.6g}, "
+            f"grad norm {res[where][1]:.6g}")
+    (l_c, n_c, g_c, p_c), (l_r, n_r, g_r, p_r) = res["card"], res["cpu"]
+    loss_rel, norm_rel = abs(l_c - l_r) / abs(l_r), abs(n_c - n_r) / n_r
+    grad_rel, worst, param_err, compared = 0.0, "", 0.0, 0
+    for k in g_r:
+        scale = g_r[k].abs().max().item()
+        if scale == 0.0:   # map_layer* and the emb-fed affine weights: zero on both sides
+            if g_c[k].abs().max().item() != 0.0:
+                raise AssertionError(f"{k}: gradient should be zero")
+            continue
+        rel = (g_c[k] - g_r[k]).abs().max().item() / scale
+        if rel > grad_rel:
+            grad_rel, worst = rel, k
+        clear = g_r[k].abs() > 10 * STEP_GRAD_TOL * scale
+        compared += int(clear.sum())
+        if clear.any():
+            param_err = max(param_err, (p_c[k] - p_r[k])[clear].abs().max().item())
+    total = sum(p.numel() for p in p_r.values())
+    ok = (loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_LOSS_TOL
+          and grad_rel <= STEP_GRAD_TOL and param_err <= STEP_PARAM_TOL)
+    log(f"[9] card vs CPU (b=1, {RES}x{RES}, strict fp32): loss rel err {loss_rel:.3e}, grad "
+        f"norm rel err {norm_rel:.3e} (tol {STEP_LOSS_TOL}); worst gradient max|err| / max|g| "
+        f"{grad_rel:.3e} ({worst}; tol {STEP_GRAD_TOL}); parameters after AdamW max abs err "
+        f"{param_err:.3e} (tol {STEP_PARAM_TOL}) over the {compared:,} of {total:,} elements "
+        f"whose gradient is clear of the error {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the training step on the card disagrees with the plain step")
+    del card_model, cpu_model, res
+    mark(9)
+
+    # ---- 10. timings -------------------------------------------------------------
+    def time_k3(mode):
+        dtype, fast = modes[mode]
+        peak = FP32_FLOPS if mode == "strict" else BF16_FLOPS
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        flops_t = bytes_t = 0.0
+        for (L, nh), mult in _counts(attn_sites).items():
+            y = torch.randn(BATCH, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
+            do = torch.randn(BATCH, L, nh, 64, device=dev, generator=gen).to(dtype)
+            q, k, v = y[..., 0], y[..., 1], y[..., 2]
+            with torch.no_grad():
+                out, lse = K2._launch(q, k, v, with_lse=True)
+            # the yardstick: SDPA's backward on contiguous (B, heads, L, 64)
+            # copies, made untimed, its forward outside the timed region
+            qs, ks, vs = (a.permute(0, 2, 1, 3).contiguous().requires_grad_() for a in (q, k, v))
+            os_ = F.scaled_dot_product_attention(qs, ks, vs)
+            dos = do.permute(0, 2, 1, 3).contiguous()
+            with torch.no_grad():
+                t = {"ms": cuda_ms(torch, lambda: K2.attention_bwd(q, k, v, out, lse, do, fast)),
+                     "plain_ms": cuda_ms(torch, lambda: K2._plain_attention_bwd(q, k, v, do, fast),
+                                         reps=5)}
+            t["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+                os_, (qs, ks, vs), dos, retain_graph=True))
+            flops = 10.0 * BATCH * nh * L * L * 64
+            # q, k, v, o, dO read and dq, dk, dv written once, plus the fp32 lse
+            nbytes = 8.0 * BATCH * L * nh * 64 * y.element_size() + 4.0 * BATCH * nh * L
+            t["bound_ms"] = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+            flops_t += mult * flops
+            bytes_t += mult * nbytes
+            log(f"[10] K3 {mode:6s} B={BATCH} L={L} heads={nh} x{mult}: kernel {t['ms']:.4f} ms, "
+                f"plain {t['plain_ms']:.4f}, SDPA backward {t['library_ms']:.4f}, bound "
+                f"{t['bound_ms']:.4f}; kernel {flops / t['ms'] / 1e9:.1f} TFLOP/s "
+                f"(of the 10 L^2 64 FLOP per head)")
+            for key in tot:
+                tot[key] += mult * t[key]
+        tot["bound_by"] = "operations" if flops_t / peak > bytes_t / HBM_BYTES_PER_S else "bytes"
+        return tot
+
+    def time_k2_lse(mode):
+        dtype = modes[mode][0]
+        tot = {"ms": 0.0, "without_lse_ms": 0.0}
+        for (L, nh), mult in _counts(attn_sites).items():
+            y = torch.randn(BATCH, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
+            q, k, v = y[..., 0], y[..., 1], y[..., 2]
+            tot["ms"] += mult * cuda_ms(torch, lambda: K2._launch(q, k, v, with_lse=True))
+            tot["without_lse_ms"] += mult * cuda_ms(torch, lambda: K2._launch(q, k, v, False))
+        return tot
+
+    with full_fp32():
+        k3_t = {mode: time_k3(mode) for mode in ("strict", "fast")}
+        k2_lse = {mode: time_k2_lse(mode) for mode in ("strict", "fast")}
+    for name, tt in list(k3_t.items()) + [(f"K2 {m}", v) for m, v in k2_lse.items()]:
+        log(f"[10] per U-Net pass at b{BATCH} ({name}): " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in tt.items()))
+
+    rates = {}
+    batches = [torch.arange(i * BATCH, (i + 1) * BATCH, device=dev) for i in range(DAYS // BATCH)]
+    for name, (state, step, c) in runs.items():
+        for i in range(WARMUP_STEPS):
+            step(state, hr_all, ds.stats, batches[i % len(batches)], c.seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            m = step(state, hr_all, ds.stats, batches[i % len(batches)], c.seed)
+        torch.cuda.synchronize()
+        per = (time.perf_counter() - t0) / TRAIN_STEPS
+        rates[name] = {"ms_per_step": per * 1e3, "samples_per_s": BATCH / per,
+                       "final_loss": m["train_loss"].item()}
+        log(f"[10] train {name}: {per * 1e3:.2f} ms per step of {BATCH} samples at {RES}x{RES}:"
+            f" {BATCH / per:.2f} samples/s over {TRAIN_STEPS} steps after {WARMUP_STEPS} "
+            f"warm-up steps")
+        profile(torch, lambda: step(state, hr_all, ds.stats, batches[0], c.seed),
+                f"train step {name}", "one step", phase=10, top=16)
+    mark(10)
+    return {"launches": counts, "k3_err": {"float32": k3_abs["strict"]}, "k3_rel": k3_rel,
+            "k3_t": k3_t, "k2_lse": k2_lse, "rates": rates}
 
 
 def _counts(sites):
@@ -410,21 +688,25 @@ def _counts(sites):
     return out
 
 
-def profile_batch(torch, fn, hr_all, stats, idx, eps, name):
-    """Device time of one sampler batch by kernel name (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(torch, fn, name, what, phase=6, top=12):
+    """Device time of one call of ``fn`` by kernel name (torch.profiler).
+    User-annotated ranges (an optimizer's step) span kernels and gaps on
+    the device timeline; they are left out of the kernel sum."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn(hr_all, stats, idx, eps=eps)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     total = sum(getattr(e, "self_device_time_total", 0) for e in events)
     if not total:
-        log(f"[6] profile {name}: the profiler saw no device time")
+        log(f"[{phase}] profile {name}: the profiler saw no device time")
         return
-    log(f"[6] profile {name}: device time {total / 1e3:.2f} ms in one batch; top kernels:")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+    log(f"[{phase}] profile {name}: device time {total / 1e3:.2f} ms in {what}; top kernels:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"      {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}")
 
 

@@ -14,7 +14,10 @@
 // mma.sync / wgmma and TMA are later work.
 //
 // Layout: q, k, v are (B*heads, L, 64) contiguous; the output is written
-// straight into (B, L, heads, 64), the U-Net block's layout.
+// straight into (B, L, heads, 64), the U-Net block's layout. Given a
+// non-null lse, the kernel also writes each row's fp32 log-sum-exp of the
+// logits, (B*heads, L), which the backward kernel (attention_bwd.cu) uses to
+// recompute the weights; serving passes null and writes nothing more.
 //
 // Numerics by storage type T:
 //   fp32 (strict): IEEE fp32 FMAs on fp32 operands, equal to
@@ -59,7 +62,7 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ o, int H, int L, float scale) {
+                  T* __restrict__ o, float* __restrict__ lse, int H, int L, float scale) {
   extern __shared__ float sh[];
   float* Qs = sh;                   // kBQ x kPad
   float* Ks = Qs + kBQ * kPad;      // kBK x kPad, holds K * scale
@@ -165,12 +168,13 @@ __global__ void __launch_bounds__(kThreads)
     const float inv = 1.f / l[i];
 #pragma unroll
     for (int j = 0; j < 4; ++j) orow[tx + 16 * j] = from_float<T>(acc[i][j] * inv);
+    if (lse != nullptr && tx == 0) lse[(size_t)bh * L + r] = m[i] + logf(l[i]);
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int L,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int H, int L, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(attention_fwd<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kSmemBytes);
@@ -178,18 +182,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid((L + kBQ - 1) / kBQ, B * H);
   attention_fwd<T><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, L, scale);
+      static_cast<T*>(o), lse, H, L, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace probunet
 
-// q, k, v: (B*H, L, 64) contiguous; o: (B, L, H, 64) contiguous, same dtype.
-// Returns a cudaError_t code; 0 on success.
-extern "C" int probunet_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                      int H, int L, float scale, int is_bf16, void* stream) {
+// q, k, v: (B*H, L, 64) contiguous; o: (B, L, H, 64) contiguous, same dtype;
+// lse: null or (B*H, L) fp32. Returns a cudaError_t code; 0 on success.
+extern "C" int probunet_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                      void* lse, int B, int H, int L, float scale, int is_bf16,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return probunet::launch<__nv_bfloat16>(q, k, v, o, B, H, L, scale, st);
-  return probunet::launch<float>(q, k, v, o, B, H, L, scale, st);
+  float* l = static_cast<float*>(lse);
+  if (is_bf16) return probunet::launch<__nv_bfloat16>(q, k, v, o, l, B, H, L, scale, st);
+  return probunet::launch<float>(q, k, v, o, l, B, H, L, scale, st);
 }

@@ -89,6 +89,16 @@ class _Layer(nn.Module):
         raise NotImplementedError
 
 
+def reset_parameters(model: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """Draw every layer's parameters of ``model`` anew from ``generator``,
+    in construction order: the weights a fresh model built with the same
+    generator gets."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, _Layer):
+                m.reset_parameters(generator)
+
+
 class Conv2d(_Layer):
     """Convolution with optional 2x up/downsampling (reference networks.py:49-90).
 
@@ -221,3 +231,18 @@ class PositionalEmbedding(nn.Module):
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout`` on an NCHW channels_last tensor: each element is
+    kept with probability 1 - rate and then scaled by 1 / (1 - rate), the
+    mask drawn from ``generator`` (on x's device; None means torch's global
+    generator). The identity when not ``training`` or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    b, c, h, w = x.shape
+    # drawn NHWC so the mask, and the result, keep x's channels_last layout
+    mask = nchw(torch.rand(b, h, w, c, generator=generator, device=x.device) < keep)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -4,7 +4,9 @@ U-Net backbone, axis-aligned Gaussian prior and posterior, and the Fcomb
 fusion. Public methods take NHWC inputs like the JAX module. ``sample``
 computes the U-Net features once and folds the K prior draws into the batch
 axis, K-major, so member ``k`` of input ``b`` uses ``eps[k, b]`` on both
-sides.
+sides. ``elbo`` is the training loss (sum-MSE + beta * KL in fp32); dropout
+follows the module's ``train()``/``eval()`` mode and draws from an explicit
+generator.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from torch import nn
 
 from probunet_torch.models.layers import TorchConv, nchw, nhwc
 from probunet_torch.models.unet import UNet
-from probunet_torch.ops.distributions import DiagGaussian
+from probunet_torch.ops.distributions import DiagGaussian, kl_diag_gaussian
 from probunet_torch.utils.device import resolve_device
 
 
@@ -75,7 +77,7 @@ class ProbabilisticUNet(nn.Module):
     """U-Net backbone + prior/posterior Gaussians + Fcomb (prob_unet.py:123-234)."""
 
     def __init__(self, input_channels: int, num_classes: int, latent_dim: int = 6,
-                 num_filters: Tuple[int, ...] = (64, 128, 256, 512),
+                 num_filters: Tuple[int, ...] = (64, 128, 256, 512), beta: float = 1.0,
                  img_resolution: Tuple[int, int] = (64, 64), dropout: float = 0.10,
                  model_channels: int = 128, channel_mult: Tuple[int, ...] = (1, 2, 3, 4),
                  num_blocks: int = 2, attn_resolutions: Tuple[int, ...] = (32, 16, 8),
@@ -84,6 +86,8 @@ class ProbabilisticUNet(nn.Module):
         device = resolve_device(device)
         f = dict(device=device, generator=generator)
         self.num_classes = num_classes
+        self.latent_dim = latent_dim
+        self.beta = beta  # ELBO KL weight unless a call passes its own
         self.unet = UNet(img_resolution, input_channels, num_filters[0],
                          model_channels=model_channels, channel_mult=channel_mult,
                          num_blocks=num_blocks, attn_resolutions=attn_resolutions,
@@ -105,6 +109,29 @@ class ProbabilisticUNet(nn.Module):
         else:
             dist = self.prior(nchw(x))
         return self.fcomb(features, dist.rsample(generator, eps))
+
+    def elbo(self, x: torch.Tensor, target: torch.Tensor, beta=None,
+             generator: Optional[torch.Generator] = None,
+             eps: Optional[torch.Tensor] = None):
+        """ELBO = sum-MSE reconstruction + beta * sum-KL (prob_unet.py:151-173),
+        with a reparameterized posterior draw mu + sigma * eps; ``eps`` (B, D)
+        or drawn from ``generator``, which also draws the dropout masks in
+        training mode. x, target: NHWC. Returns fp32 (total, recon, kl)."""
+        return self._elbo(x, target, lambda post: post.rsample(generator, eps), beta, generator)
+
+    def elbo_with_z(self, x: torch.Tensor, target: torch.Tensor, z: torch.Tensor, beta=None):
+        """:meth:`elbo` with a supplied posterior draw ``z`` (prob_unet.py:179-191)."""
+        return self._elbo(x, target, lambda post: z, beta, None)
+
+    def _elbo(self, x, target, draw, beta, generator):
+        features = self.unet(x, generator)
+        prior = self.prior(nchw(x))
+        posterior = self.posterior(nchw(x), nchw(target))
+        out = self.fcomb(features, draw(posterior))
+        recon = (out.float() - target.float()).square().sum()
+        kl = kl_diag_gaussian(posterior, prior).sum()
+        b = self.beta if beta is None else beta
+        return recon + b * kl, recon, kl
 
     def reconstruct(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         """Deterministic decode with a supplied latent (no sampling)."""

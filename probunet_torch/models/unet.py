@@ -5,7 +5,7 @@ The encoder/decoder topology, including every skip concat, is the static
 Blocks run on NCHW activations in ``channels_last`` memory format; the
 public :class:`UNet` takes and returns NHWC like the JAX module. ``norm0``
 and ``out_norm`` go through kernel K1 (GroupNorm+SiLU), every attention
-block through kernel K2.
+block through kernels K2 and, in the backward, K3.
 
 Only the downscaling configuration is ported: no noise or label embedding
 (``use_diffuse=False, label_dim=0``), where the embedding is ``silu(0) = 0``.
@@ -16,10 +16,9 @@ count match the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from probunet_torch.models.layers import (
@@ -30,6 +29,7 @@ from probunet_torch.models.layers import (
     GroupNormSiLU,
     Init,
     Linear,
+    dropout,
     nchw,
     nhwc,
     silu,
@@ -68,13 +68,15 @@ class UNetBlock(nn.Module):
             self.qkv = Conv2d(out_channels, out_channels * 3, 1, init=init, **f)
             self.proj = Conv2d(out_channels, out_channels, 1, init=init_zero, **f)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the dropout mask in training mode."""
         orig = x
         x = self.conv0(self.norm0(x))
         params = self.affine(emb)[:, :, None, None].to(x.dtype)  # (B|1, 2C, 1, 1)
         scale, shift = params.chunk(2, dim=1)
         x = silu(self.norm1(x) * (scale + 1) + shift)
-        x = F.dropout(x, self.dropout, self.training)
+        x = dropout(x, self.dropout, self.training, generator)
         x = self.conv1(x)
         if self.skip is not None:
             orig = self.skip(orig)
@@ -197,16 +199,19 @@ class UNet(nn.Module):
         self.out_norm = GroupNormSiLU(final_c, **f)
         self.out_conv = Conv2d(final_c, out_channels, 3, init=ADM_INIT_ZERO, **f)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """NHWC in and out. In training mode every block's dropout mask is
+        drawn from ``generator``, in block order."""
         x = nchw(x)  # channels_last strides when x is a contiguous NHWC tensor
         emb = silu(torch.zeros(1, self.emb_channels, dtype=x.dtype, device=x.device))
         skips = []
         for spec in self.enc_specs:
             blk = self.enc[spec.name]
-            x = blk(x) if spec.kind == "conv" else blk(x, emb)
+            x = blk(x) if spec.kind == "conv" else blk(x, emb, generator)
             skips.append(x)
         for spec in self.dec_specs:
             if spec.concat_skip:
                 x = torch.cat([x, skips.pop()], dim=1)
-            x = self.dec[spec.name](x, emb)
+            x = self.dec[spec.name](x, emb, generator)
         return nhwc(self.out_conv(self.out_norm(x)))

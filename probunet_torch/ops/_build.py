@@ -30,8 +30,10 @@ _SIGNATURES = {
     # x, gamma, beta, out, mean, rstd, partials, B, HW, C, G, S,
     # rows_per_chunk, eps, is_bf16, vec, stream
     "probunet_gn_silu_fwd": [_vp] * 7 + [_int] * 6 + [_float, _int, _int, _vp],
-    # q, k, v, o, B, H, L, scale, is_bf16, stream
-    "probunet_attention_fwd": [_vp] * 4 + [_int] * 3 + [_float, _int, _vp],
+    # q, k, v, o, lse, B, H, L, scale, is_bf16, stream
+    "probunet_attention_fwd": [_vp] * 5 + [_int] * 3 + [_float, _int, _vp],
+    # q, k, v, o, dout, lse, D, dq, dk, dv, B, H, L, scale, is_bf16, fast, stream
+    "probunet_attention_bwd": [_vp] * 10 + [_int] * 3 + [_float, _int, _int, _vp],
 }
 
 

@@ -1,16 +1,20 @@
-"""Fused self-attention forward — kernel K2 of the port.
+"""Fused self-attention — kernels K2 (forward) and K3 (backward) of the port.
 
 ``fused_attention`` launches the hand-written CUDA kernel
 ``csrc/attention_fwd.cu`` for CUDA tensors and runs :func:`_plain_attention`,
 the math of ``probunet_tpu/ops/pallas_attn.py::_xla_attention``, for CPU
-tensors. It replaces ``probunet_tpu/ops/pallas_attn.py::_fwd_kernel``; the
-source note in the ``.cu`` file gives its bound and design. Forward only:
-the backward kernel comes with the training path.
+tensors. When an input requires a gradient it goes through an
+``autograd.Function`` whose backward is :func:`attention_bwd`: the CUDA
+kernel ``csrc/attention_bwd.cu`` for CUDA tensors, :func:`_plain_attention_bwd`
+(the unchunked math of ``pallas_attn.py::_bwd_kernel``) for CPU tensors. K2
+replaces ``pallas_attn.py::_fwd_kernel``, K3 ``pallas_attn.py::_bwd_kernel``;
+the source note in each ``.cu`` file gives its bound and design.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -33,24 +37,109 @@ def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, fast: bo
     return torch.einsum("bhqk,bkhc->bqhc", w, v)
 
 
+def _plain_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                         fast: bool):
+    """(dq, dk, dv) of :func:`_plain_attention` for the output gradient
+    ``do``, by the math of ``_bwd_kernel`` over all rows at once: fp32
+    logits and weights, the dV/dP legs on model-dtype operands, dS rounded
+    to q's dtype only when ``fast``, fp32 sums throughout (run it with TF32
+    off), results cast to the input dtypes."""
+    scale = 1.0 / math.sqrt(k.shape[-1])
+    # _prep: bf16 operands multiply exactly in fp32, so fp32 einsums of the
+    # rounded operands are the kernel's bf16 products with fp32 accumulation
+    k2 = (k * scale).to(q.dtype) if fast else k.float() * scale
+    p = torch.softmax(torch.einsum("bqhc,bkhc->bhqk", q.float(), k2.float()), dim=-1)
+    pc = p.to(v.dtype).float()
+    dof = do.to(v.dtype).float()
+    dv = torch.einsum("bhqk,bqhc->bkhc", pc, dof)
+    dp = torch.einsum("bqhc,bkhc->bhqk", dof, v.float())
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if fast:
+        ds = ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhc->bqhc", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhc->bkhc", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _to_bh(a: torch.Tensor) -> torch.Tensor:
     """(B, L, H, 64), any strides -> contiguous (B*H, L, 64)."""
     b, L, h, c = a.shape
     return a.permute(0, 2, 1, 3).contiguous().view(b * h, L, c)
 
 
+def _check_cuda(q, k, v):
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention kernels take fp32 or bf16 q/k/v of one dtype, "
+                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
+
+
 @torch.no_grad()
-def _launch(q, k, v):
+def _launch(q, k, v, with_lse: bool):
+    """K2: (out, lse), lse the (B*H, L) fp32 row log-sum-exp of the logits
+    when ``with_lse``, else None (the kernel then writes no more than out)."""
     b, L, h, c = q.shape
     out = torch.empty(b, L, h, c, device=q.device, dtype=q.dtype)
+    lse = torch.empty(b * h, L, device=q.device, dtype=torch.float32) if with_lse else None
     q3, k3, v3 = _to_bh(q), _to_bh(k), _to_bh(v)
     lib = _build.lib()
     code = lib.probunet_attention_fwd(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), b, h, L,
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None, b, h, L,
         1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
     _build.check(code, "attention kernel")
     fused_attention.launches += 1
-    return out
+    return out, lse
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: Optional[torch.Tensor],
+                  lse: Optional[torch.Tensor], do: torch.Tensor, fast: bool = False):
+    """(dq, dk, dv) of ``fused_attention(q, k, v, fast)`` for the output
+    gradient ``do``, each (B, L, heads, 64) in its input's dtype. CPU
+    tensors take :func:`_plain_attention_bwd` (``out`` and ``lse`` unused);
+    CUDA tensors launch kernel K3 on ``out`` and the forward kernel's
+    ``lse``, or raise."""
+    if q.device.type == "cpu":
+        return _plain_attention_bwd(q, k, v, do, fast)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"attention_bwd has no path for device {q.device}")
+    _check_cuda(q, k, v)
+    b, L, h, c = q.shape
+    if out is None or lse is None or out.shape != q.shape or not out.is_contiguous() \
+            or out.dtype != q.dtype or lse.shape != (b * h, L) or lse.dtype != torch.float32:
+        raise ValueError("attention_bwd needs the forward kernel's contiguous output "
+                         "and its (B*heads, L) fp32 lse")
+    with torch.no_grad():
+        q3, k3, v3, do3 = _to_bh(q), _to_bh(k), _to_bh(v), _to_bh(do.to(q.dtype))
+        lse = lse.contiguous()
+        rowdot = torch.empty(b * h, L, device=q.device, dtype=torch.float32)
+        dq, dk, dv = (torch.empty(b, L, h, c, device=q.device, dtype=q.dtype) for _ in range(3))
+        code = _build.lib().probunet_attention_bwd(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), do3.data_ptr(),
+            lse.data_ptr(), rowdot.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, L, 1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), int(fast),
+            _build.stream_handle(q.device))
+    _build.check(code, "attention backward kernel")
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """K2 forward (saving its output and row log-sum-exp), K3 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, fast):
+        if q.device.type == "cpu":
+            out, lse = _plain_attention(q, k, v, fast), None
+        else:
+            out, lse = _launch(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.fast = fast
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*attention_bwd(q, k, v, out, lse, do, ctx.fast), None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -60,26 +149,26 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v: (B, L, heads, 64), the U-Net block's layout (the stride-3 views
     of the interleaved qkv conv output are fine). Returns a contiguous
     (B, L, heads, 64) tensor in q's dtype: fp32 in strict mode, bf16 with
-    ``fast``. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    ``fast``. Differentiable: the backward is :func:`attention_bwd`, whose
+    gradients come back in the inputs' dtypes. CPU tensors take the plain
+    versions; CUDA tensors launch the kernels or raise."""
     if q.shape[-1] != HEAD_DIM or q.ndim != 4:
         raise ValueError(f"fused_attention takes (B, L, heads, {HEAD_DIM}), got {tuple(q.shape)}")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q, k and v must have the same shape")
+    if q.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"fused_attention has no path for device {q.device}")
+    if q.device.type == "cuda":
+        # The forward kernel's numerics follow the dtype: fp32 operands give
+        # the strict math, bf16 operands the fast math (in strict mode with
+        # bf16 activations both agree, since K * 1/8 is exact in bf16).
+        _check_cuda(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("fused_attention is forward-only: call it under "
-                           "torch.no_grad() or torch.inference_mode()")
+        return _FusedAttention.apply(q, k, v, fast)
     if q.device.type == "cpu":
         return _plain_attention(q, k, v, fast)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"fused_attention has no path for device {q.device}")
-    # The kernel's numerics follow the dtype: fp32 operands give the strict
-    # math, bf16 operands the fast math (in strict mode with bf16 activations
-    # both agree, since K * 1/8 is exact in bf16).
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"attention kernel takes fp32 or bf16 q/k/v of one dtype, "
-                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
-    return _launch(q, k, v)
+    return _launch(q, k, v, with_lse=False)[0]
 
 
-fused_attention.launches = 0  # kernel launches; CPU calls of the plain version do not count
+fused_attention.launches = 0  # K2 launches; CPU calls of the plain version do not count
+attention_bwd.launches = 0    # K3 launches (one per call, for its three CUDA kernels)

@@ -1,1 +1,13 @@
-from probunet_torch.train.steps import make_sample_fn  # noqa: F401
+from probunet_torch.train.state import (  # noqa: F401
+    TrainState,
+    create_train_state,
+    make_optimizer,
+)
+from probunet_torch.train.steps import (  # noqa: F401
+    beta_schedule,
+    make_crps_eval_fn,
+    make_probunet_eval_step,
+    make_probunet_train_multistep,
+    make_probunet_train_step,
+    make_sample_fn,
+)

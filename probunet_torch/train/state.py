@@ -1,0 +1,152 @@
+"""Training state and optimizer construction — ``probunet_tpu/train/state.py``.
+
+The default optimizer is ``torch.optim.AdamW(lr, (0.9, 0.999), 1e-8,
+weight_decay)``, decoupled decay on every parameter: optax.adamw's math and
+the reference's optimizer. ``state_dtype="bfloat16"`` selects the port's
+:class:`AdamWBf16State`, written out from the JAX package's bandwidth
+variant. Clipping by global norm and gradient accumulation with
+``optax.MultiSteps`` semantics wrap the inner optimizer in :class:`Optimizer`.
+The JAX optimizer is plain XLA, so ``torch.optim`` stands in for it here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, Iterable, List, Optional
+
+import torch
+from torch import nn
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm), fp32."""
+    return torch.nn.utils.get_total_norm([t.float() for t in tensors])
+
+
+class AdamWBf16State(torch.optim.Optimizer):
+    """AdamW with the first moment stored in bf16, written out from
+    ``_scale_by_adam_bf16_state`` and its chain (state.py:26-88): gradients
+    cast to bf16, mu = b1 mu + (1 - b1) g rounded to bf16, nu = b2 nu +
+    (1 - b2) g^2 in fp32, the bias-corrected ratio in fp32, then decoupled
+    weight decay, then -lr. nu stays fp32: its per-step increment is below
+    bf16's resolution."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.01):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
+                                      count=0))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        """One update of every parameter with a gradient. The fp32 math runs
+        as multi-tensor (``torch._foreach_*``) ops over the parameter list;
+        only the bf16 roundings go tensor by tensor."""
+        bf16 = torch.bfloat16
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(mu=torch.zeros_like(p, dtype=bf16),
+                                         nu=torch.zeros_like(p, dtype=torch.float32))
+            states = [self.state[p] for p in params]
+            g = [p.grad.to(bf16).float() for p in params]
+            mu = torch._foreach_mul([st["mu"].float() for st in states], b1)
+            torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
+            nu = [st["nu"] for st in states]
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2))
+            for st, m in zip(states, mu):
+                st["mu"] = m.to(bf16)
+            group["count"] += 1  # one count for the group, as optax keeps one
+            bc1, bc2 = 1 - b1 ** group["count"], 1 - b2 ** group["count"]
+            upd = torch._foreach_div([st["mu"].float() for st in states], bc1)
+            denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+            torch._foreach_add_(denom, group["eps"])
+            torch._foreach_div_(upd, denom)
+            torch._foreach_add_(upd, torch._foreach_mul(params, group["weight_decay"]))
+            torch._foreach_mul_(upd, -group["lr"])
+            torch._foreach_add_(params, upd)
+
+
+class Optimizer:
+    """One update rule on a fixed parameter list, as an optax chain:
+    accumulation (``optax.MultiSteps``) around clipping by global norm
+    around the inner ``torch.optim`` optimizer. :meth:`step` consumes the
+    gradients in ``p.grad`` and updates the parameters in place."""
+
+    def __init__(self, params: List[nn.Parameter], inner: torch.optim.Optimizer,
+                 grad_clip: Optional[float] = None, accum: int = 1):
+        self.params = params
+        self.inner = inner
+        self.grad_clip = grad_clip
+        self.accum = max(1, int(accum))
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p) for p in params] if self.accum > 1 else None
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """One micro-step. With ``accum`` > 1 the gradients join the window's
+        running mean (Welford, as MultiSteps keeps it) and the inner update
+        runs with that mean on the window's last micro-step only. Returns
+        whether the parameters were updated."""
+        grads = [p.grad for p in self.params]
+        if self.acc is not None:
+            delta = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(delta, self.mini_step + 1)
+            torch._foreach_add_(self.acc, delta)
+            self.mini_step = (self.mini_step + 1) % self.accum
+            if self.mini_step:
+                return False
+            torch._foreach_copy_(grads, self.acc)
+            torch._foreach_zero_(self.acc)
+        if self.grad_clip:
+            norm = global_norm(grads)
+            torch._foreach_mul_(grads, torch.where(norm < self.grad_clip, 1.0,
+                                                   self.grad_clip / norm))
+        self.inner.step()
+        return True
+
+
+def make_optimizer(lr: float = 1e-3, weight_decay: float = 0.01, accum: int = 1,
+                   optimizer: str = "adamw", grad_clip: Optional[float] = None,
+                   state_dtype: str = "float32") -> Callable[[Iterable[nn.Parameter]], Optimizer]:
+    """The update rule of ``probunet_tpu.train.state.make_optimizer`` for
+    these options. torch optimizers bind to their parameters, so this
+    returns ``tx(params) -> Optimizer``; :func:`create_train_state` calls it."""
+    if optimizer == "adamw" and state_dtype == "bfloat16":
+        inner = functools.partial(AdamWBf16State, lr=lr, weight_decay=weight_decay)
+    elif optimizer == "adamw":
+        inner = functools.partial(torch.optim.AdamW, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=weight_decay)
+    elif optimizer == "adam":  # optax.adam's defaults are torch's
+        inner = functools.partial(torch.optim.Adam, lr=lr)
+    elif optimizer == "sgd":
+        inner = functools.partial(torch.optim.SGD, lr=lr)
+    else:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+
+    def tx(params: Iterable[nn.Parameter]) -> Optimizer:
+        params = list(params)
+        return Optimizer(params, inner(params), grad_clip, accum)
+
+    return tx
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its parameters), its optimizer and the micro-step count.
+    Unlike the JAX package's immutable state, a training step updates all
+    three in place."""
+
+    model: nn.Module
+    optimizer: Optimizer
+    step: int = 0
+
+
+def create_train_state(model: nn.Module, tx: Callable[[Iterable[nn.Parameter]], Optimizer]
+                       ) -> TrainState:
+    return TrainState(model, tx(model.parameters()))

@@ -1,18 +1,163 @@
-"""Ensemble sampler — ``make_sample_fn`` of ``probunet_tpu/train/steps.py``.
+"""Training, evaluation and sampling steps — ``probunet_tpu/train/steps.py``.
 
-Per batch: gather the HR tiles from the device-resident dataset tensor,
-slice the standardization stats, synthesize the LR input (avg-pool, bilinear
-upsample, standardize), draw K prior members with the U-Net features computed
-once, and invert the residual to physical HR fields, all on the device.
+Per step, all on the device: gather the HR batch from the device-resident
+dataset tensor, slice the standardization stats, synthesize the LR input
+(avg-pool, bilinear upsample, standardize), then the model's work. The JAX
+package compiles each step into one XLA program; here PyTorch runs it
+eagerly, and the training step updates its :class:`TrainState` in place.
+Every step runs under :func:`full_fp32`, so fp32 convolutions and matmuls
+are IEEE fp32 (the JAX package's ``Precision.HIGHEST``), never TF32.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from probunet_torch.data import transforms
+from probunet_torch.data.units import k_to_c, kgm2s_to_mmday
+from probunet_torch.ops.crps import crps_empirical
+from probunet_torch.train.state import TrainState, global_norm
+from probunet_torch.utils.device import full_fp32
+
+SeedOrGenerator = Union[int, torch.Generator]
+
+
+def beta_schedule(schedule: str, beta: float, warmup_steps: int = 0) -> Callable[[int], float]:
+    """KL-weight schedule of the optimizer step.
+
+    const  : beta
+    linear : 0 -> beta over warmup_steps, then beta
+    cyclic : sawtooth 0 -> beta every warmup_steps (cyclical annealing)
+    """
+    def fn(step: int) -> float:
+        s = float(step)
+        if schedule == "const" or warmup_steps <= 0:
+            return float(beta)
+        if schedule == "linear":
+            return beta * min(s / warmup_steps, 1.0)
+        if schedule == "cyclic":
+            return beta * min((s % warmup_steps) / (0.5 * warmup_steps), 1.0)
+        raise ValueError(f"unknown beta schedule {schedule!r}")
+    return fn
+
+
+def _step_generators(seed_or_generator: SeedOrGenerator, step: int, device):
+    """(latent, dropout) generators on ``device`` for micro-step ``step``:
+    two streams derived from (seed, step), as ``_split_rngs`` folds the step
+    into the key and splits it, so any step can be replayed. A generator
+    passed instead feeds both streams as it is."""
+    if isinstance(seed_or_generator, torch.Generator):
+        return seed_or_generator, seed_or_generator
+    latent, drop = np.random.SeedSequence([int(seed_or_generator), int(step)]).generate_state(2)
+    return (torch.Generator(device).manual_seed(int(latent)),
+            torch.Generator(device).manual_seed(int(drop)))
+
+
+def _grad_leaf_norms(model: torch.nn.Module) -> dict:
+    """Per-parameter L2 gradient norms under 'gradnorm/<name>' keys, named
+    by the port's (the reference's torch) parameter names."""
+    return {f"gradnorm/{name}": torch.linalg.vector_norm(p.grad.float())
+            for name, p in model.named_parameters() if p.grad is not None}
+
+
+def _pair(hr_all, stats, idx, lowres_scale, standardization, compute_dtype):
+    hr = hr_all[idx]
+    sl = transforms.slice_stats(stats, standardization, idx)
+    pair = transforms.make_pair(hr, lowres_scale, standardization, sl)
+    return pair["inputs"].to(compute_dtype), pair["targets"].to(compute_dtype)
+
+
+def make_probunet_train_step(model, lowres_scale: int, standardization: str,
+                             beta_fn: Optional[Callable[[int], float]] = None,
+                             compute_dtype: torch.dtype = torch.float32, accum: int = 1,
+                             watch: bool = False):
+    """Returns step(state, hr_all, stats, idx, seed_or_generator, eps=None)
+    -> metrics, for ``state.model is model``.
+
+    One micro-step: the ELBO with dropout and a reparameterized posterior
+    draw, backward, and ``state.optimizer.step()``; ``state.step`` counts
+    micro-steps. As in the JAX package, beta follows the optimizer step
+    ``state.step // accum`` (``accum`` must match the optimizer's window),
+    and the latent and dropout draws derive from (seed, micro-step). ``eps``
+    is an optional (B, latent_dim) posterior noise in place of the latent
+    draw. Metrics are ``train_loss``, ``recon_loss``, ``kl_div``, ``beta``
+    and ``grad_norm`` (before clipping), plus per-parameter gradient norms
+    with ``watch``; tensors stay on the device. The JAX factory's ``tx`` and
+    ``donate`` have no counterpart: the optimizer lives in the state, which
+    is updated in place."""
+    beta_fn = beta_fn or (lambda step: model.beta)
+    accum = max(1, int(accum))
+
+    def step(state: TrainState, hr_all: torch.Tensor, stats, idx: torch.Tensor,
+             seed_or_generator: SeedOrGenerator, eps: Optional[torch.Tensor] = None):
+        if state.model is not model:
+            raise ValueError("the train state holds another model than this step's")
+        model.train()
+        with full_fp32():
+            x, y = _pair(hr_all, stats, idx, lowres_scale, standardization, compute_dtype)
+            beta = beta_fn(state.step // accum)
+            g_latent, g_dropout = _step_generators(seed_or_generator, state.step, x.device)
+            if eps is None:
+                eps = torch.randn(x.shape[0], model.latent_dim, generator=g_latent,
+                                  device=x.device)
+            params = state.optimizer.params
+            for p in params:
+                p.grad = None
+            total, recon, kl = model.elbo(x, y, beta, generator=g_dropout, eps=eps)
+            total.backward()
+            for p in params:  # unused parameters (map_layer*) still decay, as in optax
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            metrics = {"train_loss": total.detach(), "recon_loss": recon.detach(),
+                       "kl_div": kl.detach(), "beta": beta,
+                       "grad_norm": global_norm(p.grad for p in params)}
+            if watch:
+                metrics.update(_grad_leaf_norms(model))
+            state.optimizer.step()
+        state.step += 1
+        return metrics
+
+    return step
+
+
+def make_probunet_train_multistep(model, lowres_scale: int, standardization: str,
+                                  beta_fn: Optional[Callable[[int], float]] = None,
+                                  compute_dtype: torch.dtype = torch.float32, accum: int = 1):
+    """multi(state, hr_all, stats, idxs, seed_or_generator) runs one training
+    step per row of ``idxs`` (K, B) and returns the metrics stacked over K:
+    the JAX package's scanned multistep as a plain loop."""
+    step = make_probunet_train_step(model, lowres_scale, standardization, beta_fn,
+                                    compute_dtype, accum)
+
+    def multi(state, hr_all, stats, idxs, seed_or_generator):
+        ms = [step(state, hr_all, stats, idx, seed_or_generator) for idx in idxs]
+        return {k: torch.stack([torch.as_tensor(m[k]) for m in ms]) for k in ms[0]}
+
+    return multi
+
+
+def make_probunet_eval_step(model, lowres_scale: int, standardization: str,
+                            compute_dtype: torch.dtype = torch.float32):
+    """Returns step(hr_all, stats, idx, seed_or_generator, beta, eps=None)
+    -> {val_loss, val_recon_loss, val_kl_div}: the ELBO with dropout off
+    (``model.eval()``) and a seeded posterior draw, as the reference's eval
+    still samples the posterior."""
+
+    @torch.no_grad()
+    def step(hr_all, stats, idx, seed_or_generator: SeedOrGenerator, beta,
+             eps: Optional[torch.Tensor] = None):
+        model.eval()
+        with full_fp32():
+            x, y = _pair(hr_all, stats, idx, lowres_scale, standardization, compute_dtype)
+            gen = (seed_or_generator if isinstance(seed_or_generator, torch.Generator)
+                   else torch.Generator(x.device).manual_seed(int(seed_or_generator)))
+            total, recon, kl = model.elbo(x, y, beta, generator=gen, eps=eps)
+        return {"val_loss": total, "val_recon_loss": recon, "val_kl_div": kl}
+
+    return step
 
 
 def make_sample_fn(model, lowres_scale: int, standardization: str, num_samples: int,
@@ -20,11 +165,13 @@ def make_sample_fn(model, lowres_scale: int, standardization: str, num_samples: 
     """Returns fn(hr_all, stats, idx, generator=None, eps=None) ->
     (hr_preds (B, K, H, W, C) fp32, pair dict). ``eps`` is an optional
     (K, B, latent_dim) tensor of standard normals; else the draws come from
-    ``generator``. Runs under ``torch.inference_mode``."""
+    ``generator``. Runs in eval mode (no dropout, as the JAX sampler runs
+    the U-Net with ``train=False``) under ``torch.inference_mode``."""
 
     @torch.inference_mode()
     def fn(hr_all: torch.Tensor, stats, idx: torch.Tensor,
            generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None):
+        model.eval()
         hr = hr_all[idx]
         sl = transforms.slice_stats(stats, standardization, idx)
         pair = transforms.make_pair(hr, lowres_scale, standardization, sl)
@@ -36,5 +183,39 @@ def make_sample_fn(model, lowres_scale: int, standardization: str, num_samples: 
         hr_preds = transforms.residual_to_hr(preds, pair["lrinterp"][:, None],
                                              standardization, sl)
         return hr_preds, pair
+
+    return fn
+
+
+def _ensemble_crps_metrics(hr_preds: torch.Tensor, hr: torch.Tensor,
+                           variables: Sequence[str]) -> dict:
+    """(B, K, H, W, C) physical ensemble + (B, H, W, C) truth -> per-variable
+    mean CRPS (mm/day, deg C) and ensemble-mean MAE."""
+    def to_physical(field, var):
+        return kgm2s_to_mmday(field) if var == "pr" else k_to_c(field)
+
+    ens = hr_preds.transpose(0, 1)                                # (K, B, H, W, C)
+    out = {}
+    for i, var in enumerate(variables):
+        p = to_physical(ens[..., i], var)
+        t = to_physical(hr[..., i], var)
+        out[f"crps_{var}"] = crps_empirical(p, t).mean()
+        out[f"ensmean_mae_{var}"] = (p.mean(dim=0) - t).abs().mean()
+    return out
+
+
+def make_crps_eval_fn(model, lowres_scale: int, standardization: str,
+                      variables: Tuple[str, ...], num_samples: int = 16,
+                      compute_dtype: torch.dtype = torch.float32):
+    """Returns fn(hr_all, stats, idx, generator=None, eps=None) -> metrics:
+    K prior draws, residual -> HR, per-variable mean CRPS in physical units
+    and the ensemble-mean MAE."""
+    sample = make_sample_fn(model, lowres_scale, standardization, num_samples, compute_dtype)
+
+    def fn(hr_all, stats, idx, generator: Optional[torch.Generator] = None,
+           eps: Optional[torch.Tensor] = None):
+        hr_preds, pair = sample(hr_all, stats, idx, generator, eps)
+        with torch.inference_mode():
+            return _ensemble_crps_metrics(hr_preds, pair["hr"], variables)
 
     return fn

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at the
 edge shapes chip_smoke.py does not reach: scalar (unvectorized) paths,
-unaligned views, single rows, ragged attention lengths, and the wrappers'
+unaligned views, single rows, ragged attention lengths, the attention
+backward (K3) at one row, one head and strided inputs, and the wrappers'
 refusals. Marked ``cuda``: they skip without a card. On the card, without
 JAX (this file imports none):
 
@@ -60,14 +61,21 @@ def test_gn_silu_kernel_unaligned_view(dev):
 
 
 def test_gn_silu_kernel_refusals(dev):
+    """Refused dtype and layout; a gradient is no refusal: the forward
+    launches K1 and the backward runs the plain version."""
     x = torch.randn(1, 2, 2, 8, device=dev)
     w = torch.ones(8, device=dev)
     with pytest.raises(TypeError):
         K1.gn_silu(x.half(), w, w, 2)
     with pytest.raises(ValueError):
         K1.gn_silu(x.permute(0, 2, 1, 3), w, w, 2)
-    with pytest.raises(RuntimeError):
-        K1.gn_silu(x.requires_grad_(), w, w, 2)
+    before, calls = K1.gn_silu.launches, K1.gn_silu.bwd_calls
+    xg = x.clone().requires_grad_()
+    K1.gn_silu(xg, w, w, 2).sum().backward()
+    assert (K1.gn_silu.launches, K1.gn_silu.bwd_calls) == (before + 1, calls + 1)
+    xc = x.cpu().requires_grad_()
+    K1.gn_silu(xc, w.cpu(), w.cpu(), 2).sum().backward()
+    torch.testing.assert_close(xg.grad.cpu(), xc.grad, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("fast", [False, True])
@@ -93,8 +101,52 @@ def test_attention_kernel_refusals(dev):
         K2.fused_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError):
         K2.fused_attention(q[..., :32], q[..., :32], q[..., :32])
-    with pytest.raises(RuntimeError):
-        K2.fused_attention(q.requires_grad_(), q, q)
+    with pytest.raises(TypeError):
+        K2.fused_attention(q.half().requires_grad_(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        K2.attention_bwd(q.half(), q.half(), q.half(), q.half(), None, q.half())
+    with pytest.raises(ValueError):  # K3 needs the forward kernel's lse
+        K2.attention_bwd(q, q, q, q, None, q)
+
+
+# (q/k/v dtype, fast): strict fp32, fast bf16, strict with bf16 activations
+ATTN_BWD_MODES = {"strict": (torch.float32, False), "fast": (torch.bfloat16, True),
+                  "strict_bf16": (torch.bfloat16, False)}
+
+
+@pytest.mark.parametrize("mode", list(ATTN_BWD_MODES))
+@pytest.mark.parametrize("b,L,nh", [(1, 1, 1), (2, 64, 1), (2, 65, 3), (1, 127, 2), (1, 300, 4)])
+def test_attention_bwd_kernel_matches_plain(dev, mode, b, L, nh):
+    """K2 with its lse and K3 through autograd on stride-3 views, against
+    the plain backward on the same inputs."""
+    dtype, fast = ATTN_BWD_MODES[mode]
+    gen = torch.Generator(device=dev).manual_seed(L * nh)
+    y = torch.randn(b, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
+    do = torch.randn(b, L, nh, 64, device=dev, generator=gen).to(dtype)
+    yg = y.clone().requires_grad_()
+    launches = (K2.fused_attention.launches, K2.attention_bwd.launches)
+    K2.fused_attention(yg[..., 0], yg[..., 1], yg[..., 2], fast).backward(do)
+    assert (K2.fused_attention.launches, K2.attention_bwd.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    ref = K2._plain_attention_bwd(y[..., 0], y[..., 1], y[..., 2], do, fast)
+    # the tolerances of test_pallas_attn.py's gradient test, relative to the
+    # largest reference gradient but no less than 1e-3 (at L=1 dq and dk are
+    # zero: the softmax over one key is constant)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for i, r in enumerate(ref):
+        got = yg.grad[..., i]
+        assert got.dtype == dtype
+        scale = max(1e-3, r.float().abs().max().item())
+        assert (got.float() - r.float()).abs().max().item() <= tol * scale
+
+
+def test_attention_lse_matches_logsumexp(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(2, 100, 3, 64, device=dev, generator=gen) for _ in range(3))
+    out, lse = K2._launch(q, k, v, with_lse=True)
+    ref = torch.logsumexp(torch.einsum("bqhc,bkhc->bhqk", q, k / 8), dim=-1).reshape(6, 100)
+    torch.testing.assert_close(lse, ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out, K2._launch(q, k, v, with_lse=False)[0], atol=0, rtol=0)
 
 
 def test_unet_on_card_matches_cpu(dev):

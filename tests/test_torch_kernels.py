@@ -106,16 +106,26 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     assert tgn.gn_silu.launches == 0 and tatt.fused_attention.launches == 0
 
 
-def test_forward_only_wrappers_refuse_grad():
+def test_cpu_autograd_leaves_launch_counters_at_zero():
+    """Gradients flow through both wrappers on the CPU, through the stride-3
+    q/k/v views of the block's interleaved qkv tensor, by the plain versions:
+    no kernel counter moves, and the views' gradients are those of
+    contiguous copies."""
+    tgn.gn_silu.launches = tatt.fused_attention.launches = tatt.attention_bwd.launches = 0
     x, gamma, beta = _gn_data()
     xt = torch.from_numpy(x).requires_grad_()
-    with pytest.raises(RuntimeError):
-        tgn.gn_silu(xt, torch.from_numpy(gamma), torch.from_numpy(beta), 16)
-    with torch.no_grad():
-        tgn.gn_silu(xt, torch.from_numpy(gamma), torch.from_numpy(beta), 16)
-    q = torch.from_numpy(_qkv(64)[0]).requires_grad_()
-    with pytest.raises(RuntimeError):
-        tatt.fused_attention(q, q, q)
+    tgn.gn_silu(xt, torch.from_numpy(gamma), torch.from_numpy(beta), 16).square().sum().backward()
+    assert xt.grad is not None and torch.isfinite(xt.grad).all()
+    rng = np.random.default_rng(4)
+    y = torch.from_numpy(rng.standard_normal((2, 64, 2, 64, 3)).astype(np.float32))
+    yg = y.clone().requires_grad_()
+    tatt.fused_attention(yg[..., 0], yg[..., 1], yg[..., 2]).square().sum().backward()
+    parts = [y[..., i].contiguous().requires_grad_() for i in range(3)]
+    tatt.fused_attention(*parts).square().sum().backward()
+    for i in range(3):
+        torch.testing.assert_close(yg.grad[..., i], parts[i].grad, rtol=0, atol=0)
+    assert (tgn.gn_silu.launches, tatt.fused_attention.launches,
+            tatt.attention_bwd.launches) == (0, 0, 0)
 
 
 def test_stats_split_covers_rows():
@@ -133,8 +143,8 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "sys.modules['triton'] = None\n"
         "os.environ['PATH'] = ''\n"
         "os.environ['CUDA_HOME'] = '/nonexistent'\n"
-        "import probunet_torch.ops.gn_silu, probunet_torch.ops.attention\n"
-        "import probunet_torch.models, probunet_torch.serve\n"
+        "import probunet_torch.ops.gn_silu, probunet_torch.ops.attention, probunet_torch.ops.crps\n"
+        "import probunet_torch.models, probunet_torch.serve, probunet_torch.train\n"
         "from probunet_torch.ops import _build\n"
         "assert _build._lib is None\n"
         "assert 'triton' not in [m for m in sys.modules if sys.modules[m] is not None]\n"
