@@ -10,31 +10,43 @@ the full width of the 128x128 Probabilistic U-Net (103,541,083 parameters,
 seeded random weights), in strict fp32 and in fast bf16 mode. Phases:
 
   1. card and build: nvidia-smi name and power limit; nvcc for sm_90a with
-     ptxas registers, shared memory and spills;
+     ptxas registers, shared memory and spills; ``cuobjdump -sass`` of the
+     library: the tensor-core instructions (HMMA, HGMMA) of every attention
+     kernel, each of which must have some;
   2. K1 GroupNorm+SiLU against its plain version at every (H, W, C) of the
      path at batch 8, fp32 and bf16;
-  3. K2 attention against its plain version at the path's (B, L, heads),
-     strict and fast, plus a ragged L;
+  3. K2 attention against its plain version at the path's (B, L, heads)
+     and at L = 100, 1 and 65, strict, fast and strict with bf16
+     activations, on the U-Net block's views (read in place), on stride-3
+     views (copied first) and on contiguous tensors;
   4. the main path: a checkpoint, then ``downscale`` of synthetic 128x128
      days with 16 members in both modes; files read back and checked;
-     launch counters must show 29 K1 and 11 K2 launches per batch;
+     launch counters must show 29 K1 and 11 K2 launches per batch, and
+     ``kernel_layout`` no copy of q/k/v;
   5. the path against the plain path: one input, two members, the same
      weights and eps, on the card and on the CPU;
-  6. timings with CUDA events: each kernel, its plain version, one PyTorch
-     call computing the same function (a yardstick the port never calls),
-     the bound; the serving rate; a profile of one batch;
-  7. K3 attention backward against its plain version at the path's
-     (B, L, heads) and a ragged L, on stride-3 views, strict, fast and
-     strict with bf16 activations; K2's row log-sum-exp against logsumexp;
+  6. timings with CUDA events: each kernel (K2 on the block's own views,
+     so no q/k/v copy; the wrapper's layout step on those views and the
+     copy it makes of stride-3 views, timed), its plain version, one
+     PyTorch call computing the
+     same function (a yardstick the port never calls; also by its device
+     time from torch.profiler), the bound (strict attention: the smaller of
+     the fp32 CUDA-core and the 3xTF32 tensor-core bound); the serving
+     rate; a profile of one batch;
+  7. K3 attention backward against its plain version, and K2's row
+     log-sum-exp against logsumexp, in the cases of phase 3; strict mode
+     with bf16 activations also against rounded dS (DS_SPLIT_TOL);
   8. the training path: the model with its own init, 10 AdamW steps at b8
      in each mode on a fixed batch and eps with dropout 0.1; launch
-     counters must show 29 K1, 11 K2 and 11 K3 launches per step; loss and
+     counters must show 29 K1, 11 K2 and 11 K3 launches per step and no
+     copy before them; loss and
      gradient norm finite, the loss falling; peak device memory;
   9. one training step on the card against the plain step on the CPU: b=1,
      dropout 0, the same filled weights and eps; loss, gradient norm, every
      gradient and the parameters after the AdamW step;
- 10. timings: K3 per U-Net backward (kernel, plain, bound, the backward of
-     scaled_dot_product_attention as yardstick), K2 with its lse, the
+ 10. timings: K3 per U-Net backward on the block's views (kernel, plain,
+     bound, the backward of scaled_dot_product_attention as yardstick, by
+     events and by device time), K2 with its lse, the
      training rate over 10 steps after 3 warm-up steps, a profile of one
      step.
 
@@ -58,6 +70,7 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12       # CUDA cores, no tensor cores
 BF16_FLOPS = 989e12      # tensor cores
+TF32_FLOPS = 495e12      # tensor cores; strict attention runs 3 TF32 products per fp32 one
 
 RES, BATCH, MEMBERS = 128, 8, 16
 DAYS = 32                # four batches of 8 test days
@@ -66,9 +79,17 @@ K3_PER_STEP = 11          # one K3 launch per attention block in the backward
 TRAIN_STEPS, WARMUP_STEPS = 10, 3
 EXPECTED_PARAMS = 103_541_083
 GN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 2 ** -8)}   # (atol, rtol)
-# strict: fp32 FMAs in another order than the plain einsum; fast: the plain
-# version rounds the logits to bf16, the kernel keeps them fp32
-ATTN_TOL = {"strict": 2e-5, "fast": 2e-2}
+# strict: 3xTF32 products against fp32 einsums; fast (and strict with bf16
+# activations, whose output is bf16 too): the plain version rounds the
+# logits and the weights to bf16 at other points than the kernel
+ATTN_TOL = {"strict": 2e-5, "fast": 2e-2, "strict_bf16": 2e-2}
+# (q/k/v dtype name, fast) of each attention mode
+ATTN_MODES = {"strict": ("float32", False), "fast": ("bfloat16", True),
+              "strict_bf16": ("bfloat16", False)}
+# the U-Net block's (qkv, head, channel) views (read in place), stride-3
+# views of an interleaved qkv tensor (copied first), contiguous tensors
+LAYOUTS = ("block", "stride3", "contiguous")
+EDGE_SHAPES = [(2, (100, 2)), (2, (1, 2)), (2, (65, 3))]   # (B, (L, heads)) off the path
 # the whole path, card against CPU, strict fp32: cuDNN and oneDNN sum the
 # convolutions in other orders through ~60 layers of random weights
 PATH_TOL = 1e-3
@@ -76,6 +97,12 @@ PATH_TOL = 1e-3
 # tolerances of tests/test_pallas_attn.py:48; fp32 sums in another order
 # (strict), bf16 results and weights rounded at other points (bf16)
 ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# strict mode with bf16 activations keeps dS in fp32 (as two bf16 terms):
+# its dq and dk against the plain strict backward with K3's D
+# (plain_dq_dk), ||err||_2 / ||ref||_2, must stay under this limit, which
+# rounding dS to bf16 (the same kernel in fast mode, and plain_dq_dk with
+# dS rounded) must exceed on the same inputs, so the check tells them apart
+DS_SPLIT_TOL = 6e-4
 # one training step, card against CPU, strict fp32 (phase 9): the loss and
 # the gradient norm relative to their size, each gradient relative to its
 # tensor's largest entry (cuDNN's and oneDNN's backward convolutions sum in
@@ -117,11 +144,12 @@ def main() -> int:
         if line.startswith("==") or "registers" in line or "spill" in line or "Compiling" in line:
             log("    " + line.strip())
     _build.lib()
+    sass = sass_census(_build)
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     try:
-        result = run_phases(torch, dev, card)
+        result = run_phases(torch, dev, card, sass)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": result}), flush=True)
@@ -129,6 +157,100 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def sass_census(_build):
+    """Tensor-core instructions (HMMA: mma.sync, HGMMA: wgmma) per attention
+    kernel function in the built library, by ``cuobjdump -sass``. Raises if
+    a function is missing or has none: every mode of K2 and K3 runs on the
+    tensor cores."""
+    import re
+
+    dump = subprocess.run([_build.find_tool("cuobjdump"), "-sass", str(_build.LIB_PATH)],
+                          capture_output=True, text=True, check=True).stdout
+    types = {"f": "fp32", "13__nv_bfloat16": "bf16"}
+    counts, cur = {}, None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(attention_(?:fwd|bwd_dkdv|bwd_dq|bwd_rowdot))I(f|13__nv_bfloat16)"
+                          r"(?:Lb([01]))?E", line)
+            cur = None
+            if m:
+                mode = {None: "", "0": ", strict", "1": ", fast"}[m.group(3)]
+                cur = f"{m.group(1)}<{types[m.group(2)]}{mode}>"
+                counts[cur] = {"HMMA": 0, "HGMMA": 0}
+        elif cur is not None:
+            op = re.search(r"\b(HGMMA|HMMA)\.", line)
+            if op:
+                counts[cur][op.group(1)] += 1
+    for name, c in sorted(counts.items()):
+        log(f"[1] SASS {name}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA")
+    want = 2 + 3 + 3 + 2   # fwd x2 dtypes; dkdv, dq x (fp32, bf16 strict, bf16 fast); rowdot x2
+    if len(counts) != want or any(c["HMMA"] + c["HGMMA"] == 0 for c in counts.values()):
+        raise AssertionError(f"expected {want} attention kernels, each with tensor-core "
+                             f"instructions; found {counts}")
+    return counts
+
+
+def qkv_views(torch, layout, b, L, nh, dtype, dev, gen):
+    """q, k, v of shape (b, L, nh, 64) in ``layout`` (see LAYOUTS)."""
+    if layout == "block":
+        return torch.randn(b, L, 3, nh, 64, device=dev, generator=gen).to(dtype).unbind(2)
+    if layout == "stride3":
+        y = torch.randn(b, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
+        return y[..., 0], y[..., 1], y[..., 2]
+    return tuple(torch.randn(b, L, nh, 64, device=dev, generator=gen).to(dtype)
+                 for _ in range(3))
+
+
+def device_ms(torch, fn, reps=50, traces=5):
+    """Mean device time per call of ``fn`` in ms: the kernels' own time from
+    torch.profiler, free of the host's launch pace. A trace that comes back
+    with no device activity (the profiler now and then loses the records of
+    a window of short kernels) is logged and taken again, up to ``traces``
+    times."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(traces):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False))
+        if total:
+            return total / 1e3 / reps
+        log("    torch.profiler saw no device time in this trace; tracing again")
+    raise AssertionError(f"torch.profiler saw no device time in {traces} traces")
+
+
+def attn_bound(flops, nbytes, mode):
+    """The bound terms in ms of one attention site's work, ``flops`` and
+    ``nbytes``: fast against the bf16 tensor-core rate; strict (fp32, or
+    bf16 activations with fp32 products) against the smaller of the fp32
+    CUDA-core time and three TF32 tensor-core products. Summed over sites."""
+    mem = nbytes / HBM_BYTES_PER_S * 1e3
+    if mode == "fast":
+        ops = flops / BF16_FLOPS * 1e3
+        return {"bound_ms": max(ops, mem), "ops_ms": ops, "bytes_ms": mem}
+    fp32, tf32x3 = flops / FP32_FLOPS * 1e3, 3 * flops / TF32_FLOPS * 1e3
+    return {"bound_ms": max(min(fp32, tf32x3), mem), "ops_ms": min(fp32, tf32x3),
+            "bytes_ms": mem, "bound_fp32_ms": max(fp32, mem), "bound_3xtf32_ms": max(tf32x3, mem)}
+
+
+def attn_totals(tot, flops):
+    """Per-pass totals of summed site timings: what bounds them, which strict
+    bound is the row's, and the kernel's rate."""
+    tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
+    if "bound_3xtf32_ms" in tot:
+        tot["bound_rule"] = "3xtf32" if tot["bound_3xtf32_ms"] <= tot["bound_fp32_ms"] else "fp32"
+    tot["tflops"] = flops / tot["ms"] / 1e9
+    tot["device_tflops"] = flops / tot["device_ms"] / 1e9
+    return tot
 
 
 def cuda_ms(torch, fn, reps=20, warmup=3):
@@ -177,7 +299,7 @@ def fill_weights(torch, model, seed=0):
             p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(fan_in))
 
 
-def run_phases(torch, dev, card):
+def run_phases(torch, dev, card, sass):
     import numpy as np
     import torch.nn.functional as F
 
@@ -251,24 +373,23 @@ def run_phases(torch, dev, card):
 
     # ---- 3. K2 against its plain version -------------------------------------
     k2_err = {}
-    shapes = sorted(set(attn_sites), reverse=True) + [(64, 8)]
-    for mode, dtype in (("strict", torch.float32), ("fast", torch.bfloat16)):
-        worst = 0.0
-        for b, (L, nh) in [(BATCH, s) for s in shapes] + [(2, (100, 2))]:
-            y = torch.randn(b, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
-            q, k, v = y[..., 0], y[..., 1], y[..., 2]   # stride-3 views, as in the block
-            with torch.inference_mode():
-                out = K2.fused_attention(q, k, v, mode == "fast")
-                ref = K2._plain_attention(q, k, v, mode == "fast")
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = ATTN_TOL[mode]
-            ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
-            worst = max(worst, err)
-            log(f"[3] K2 {mode:6s} B={b} L={L} heads={nh}: max abs err {err:.3e} "
-                f"(tol {tol}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError("K2 disagrees with its plain version")
+    shapes = [(BATCH, s) for s in sorted(set(attn_sites), reverse=True)] + EDGE_SHAPES
+    for mode, (dname, fast) in ATTN_MODES.items():
+        dtype, tol, worst = getattr(torch, dname), ATTN_TOL[mode], 0.0
+        for layout in LAYOUTS:
+            for b, (L, nh) in shapes:
+                q, k, v = qkv_views(torch, layout, b, L, nh, dtype, dev, gen)
+                with torch.inference_mode():
+                    out = K2.fused_attention(q, k, v, fast)
+                    ref = K2._plain_attention(q, k, v, fast)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+                worst = max(worst, err)
+                log(f"[3] K2 {mode:11s} {layout:10s} B={b} L={L} heads={nh}: max abs err "
+                    f"{err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("K2 disagrees with its plain version")
         k2_err[mode] = worst
 
     mark(3)
@@ -280,6 +401,7 @@ def run_phases(torch, dev, card):
     K1.gn_silu.launches = 0
     K2.fused_attention.launches = 0
     K2.attention_bwd.launches = 0
+    K2.kernel_layout.copies = 0
     outs, secs = {}, {}
     for name, c in (("strict", cfg), ("fast", fast_cfg)):
         secs[name] = []
@@ -295,10 +417,13 @@ def run_phases(torch, dev, card):
             f"launches so far K1 {n1}, K2 {n2}")
     launches = {"gn": K1.gn_silu.launches, "attn": K2.fused_attention.launches,
                 "attn_bwd": K2.attention_bwd.launches}
+    copies = K2.kernel_layout.copies
     want = (2 * nb * K1_PER_BATCH, 2 * nb * K2_PER_BATCH, 0)
-    if (launches["gn"], launches["attn"], launches["attn_bwd"]) != want:
+    log(f"[4] q/k/v copies before the attention launches: {copies}")
+    if (launches["gn"], launches["attn"], launches["attn_bwd"]) != want or copies:
         raise AssertionError(f"launches {launches}, expected {want} "
-                             f"({K1_PER_BATCH} K1 and {K2_PER_BATCH} K2 per batch)")
+                             f"({K1_PER_BATCH} K1 and {K2_PER_BATCH} K2 per batch); "
+                             f"{copies} tensors copied before a launch, expected 0")
     for name, path in outs.items():
         with NetCDFFile(path) as f:
             for var in cfg.variables:
@@ -364,36 +489,52 @@ def run_phases(torch, dev, card):
         return tot
 
     def time_k2(mode):
-        dtype = torch.float32 if mode == "strict" else torch.bfloat16
-        peak = FP32_FLOPS if mode == "strict" else BF16_FLOPS
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "copy_ms": 0.0}
-        flops_t = bytes_t = 0.0
+        dtype = getattr(torch, ATTN_MODES[mode][0])
+        tot, flops_t = {}, 0.0
         for (L, nh), mult in _counts(attn_sites).items():
-            y = torch.randn(BATCH, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
-            q, k, v = y[..., 0], y[..., 1], y[..., 2]
+            # the block's own views of its qkv conv output: read in place
+            q, k, v = qkv_views(torch, "block", BATCH, L, nh, dtype, dev, gen)
+            q3, k3, v3 = qkv_views(torch, "stride3", BATCH, L, nh, dtype, dev, gen)
             # SDPA gets contiguous (B, heads, L, 64) copies, made untimed: its
-            # best case (on the stride-3 views it takes its slow math path)
+            # best case (on strided views it takes its slow math path)
             qs, ks, vs = (a.permute(0, 2, 1, 3).contiguous() for a in (q, k, v))
+
+            def run():
+                return K2.fused_attention(q, k, v, mode == "fast")
+
+            def lib():
+                return F.scaled_dot_product_attention(qs, ks, vs)
+
             with torch.inference_mode():
-                t = {"ms": cuda_ms(torch, lambda: K2.fused_attention(q, k, v, mode == "fast")),
-                     "plain_ms": cuda_ms(torch, lambda: K2._plain_attention(
-                         q, k, v, mode == "fast")),
-                     "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                         qs, ks, vs)),
-                     "copy_ms": cuda_ms(torch, lambda: [K2._to_bh(a) for a in (q, k, v)])}
+                K2.kernel_layout.copies = 0
+                # copy_ms: what the wrapper's layout step costs on these views
+                t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run),
+                     "copy_ms": cuda_ms(torch, lambda: [K2.kernel_layout(a) for a in (q, k, v)])}
+                if K2.kernel_layout.copies:
+                    raise AssertionError("the block's q/k/v views were copied")
+                t.update({"plain_ms": cuda_ms(torch, lambda: K2._plain_attention(
+                              q, k, v, mode == "fast")),
+                          "library_ms": cuda_ms(torch, lib),
+                          "library_device_ms": device_ms(torch, lib),
+                          "stride3_copy_ms": cuda_ms(torch, lambda: [
+                              K2.kernel_layout(a) for a in (q3, k3, v3)]),
+                          "stride3_ms": cuda_ms(torch, lambda: K2.fused_attention(
+                              q3, k3, v3, mode == "fast"))})
             flops = 4.0 * BATCH * nh * L * L * 64
-            nbytes = 4.0 * BATCH * L * nh * 64 * y.element_size()
-            t["bound_ms"] = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+            nbytes = 4.0 * BATCH * L * nh * 64 * q.element_size()
+            t.update(attn_bound(flops, nbytes, mode))
             flops_t += mult * flops
-            bytes_t += mult * nbytes
             log(f"[6] K2 {mode:6s} B={BATCH} L={L} heads={nh} x{mult}: kernel {t['ms']:.4f} ms "
-                f"(of which the q/k/v copy {t['copy_ms']:.4f}), plain {t['plain_ms']:.4f}, "
-                f"SDPA {t['library_ms']:.4f}, bound {t['bound_ms']:.4f}; kernel "
-                f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
-            for key in tot:
-                tot[key] += mult * t[key]
-        tot["bound_by"] = "operations" if flops_t / peak > bytes_t / HBM_BYTES_PER_S else "bytes"
-        return tot
+                f"(device {t['device_ms']:.4f}; layout step {t['copy_ms']:.4f}, no copy; on "
+                f"stride-3 views with the copy {t['stride3_ms']:.4f}, the copy alone "
+                f"{t['stride3_copy_ms']:.4f}), plain {t['plain_ms']:.4f}, SDPA "
+                f"{t['library_ms']:.4f} (device {t['library_device_ms']:.4f}), bound "
+                f"{t['bound_ms']:.4f}; kernel "
+                f"{flops / t['ms'] / 1e9:.1f} TFLOP/s by events, "
+                f"{flops / t['device_ms'] / 1e9:.1f} by device time")
+            for key, val in t.items():
+                tot[key] = tot.get(key, 0.0) + mult * val
+        return attn_totals(tot, flops_t)
 
     k1_t = {"fp32": time_k1(torch.float32), "bf16": time_k1(torch.bfloat16)}
     k2_t = {"strict": time_k2("strict"), "fast": time_k2("fast")}
@@ -449,16 +590,21 @@ def run_phases(torch, dev, card):
         entry("attention_fwd", "probunet_torch/csrc/attention_fwd.cu",
               "probunet_tpu/ops/pallas_attn.py:69", launches["attn"] + train["launches"]["attn"],
               k2_err["strict"], ATTN_TOL["strict"], k2_t["strict"],
-              {"timed": per.format(K2_PER_BATCH) + ", strict fp32", "fast": k2_t["fast"],
-               "fast_max_abs_err": k2_err["fast"], "launches_by_path": by_path["attn"],
-               "with_lse": train["k2_lse"]}),
+              {"timed": per.format(K2_PER_BATCH) + ", strict fp32, on the block's views",
+               "strict": k2_t["strict"], "fast": k2_t["fast"],
+               "max_abs_err_by_mode": k2_err, "launches_by_path": by_path["attn"],
+               "with_lse": train["k2_lse"],
+               "sass": {n: c for n, c in sass.items() if n.startswith("attention_fwd")}}),
         entry("attention_bwd", "probunet_torch/csrc/attention_bwd.cu",
               "probunet_tpu/ops/pallas_attn.py:91", train["launches"]["attn_bwd"],
               train["k3_err"]["float32"], ATTN_BWD_TOL, train["k3_t"]["strict"],
               {"timed": f"sum over the {K2_PER_BATCH} sites of one U-Net backward at b{BATCH}, "
-                        f"{RES}x{RES}, strict fp32",
-               "fast": train["k3_t"]["fast"], "max_rel_err": train["k3_rel"],
-               "launches_by_path": by_path["attn_bwd"], "training": train["rates"]}),
+                        f"{RES}x{RES}, strict fp32, on the block's views",
+               "strict": train["k3_t"]["strict"], "fast": train["k3_t"]["fast"],
+               "max_rel_err": train["k3_rel"], "strict_bf16_ds_check": train["ds_check"],
+               "launches_by_path": by_path["attn_bwd"],
+               "training": train["rates"],
+               "sass": {n: c for n, c in sass.items() if n.startswith("attention_bwd")}}),
     ]
 
 
@@ -477,36 +623,44 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
     from probunet_torch.utils.device import full_fp32
 
     # ---- 7. K3 against its plain version -------------------------------------
-    modes = {"strict": (torch.float32, False), "fast": (torch.bfloat16, True),
-             "strict_bf16": (torch.bfloat16, False)}
     k3_abs, k3_rel = {}, {}
-    shapes = [(BATCH, s) for s in sorted(set(attn_sites), reverse=True)] + [(2, (100, 2))]
-    for mode, (dtype, fast) in modes.items():
-        tol = ATTN_BWD_TOL[str(dtype).split(".")[1]]
-        for b, (L, nh) in shapes:
-            y = torch.randn(b, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
-            do = torch.randn(b, L, nh, 64, device=dev, generator=gen).to(dtype)
-            q, k, v = y[..., 0], y[..., 1], y[..., 2]   # stride-3 views, as in the block
-            with torch.no_grad():
-                out, lse = K2._launch(q, k, v, with_lse=True)
-                got = K2.attention_bwd(q, k, v, out, lse, do, fast)
-                ref = K2._plain_attention_bwd(q, k, v, do, fast)
-                k2 = (k / 8).to(dtype) if fast else k.float() / 8
-                ref_lse = torch.logsumexp(torch.einsum("bqhc,bkhc->bhqk", q.float(), k2.float()),
-                                          dim=-1).reshape(b * nh, L)
-            torch.cuda.synchronize()
-            errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(got, ref)]
-            rels = [e / max(1e-3, r.float().abs().max().item()) for e, r in zip(errs, ref)]
-            lse_err = (lse - ref_lse).abs().max().item()
-            ok = max(rels) <= tol and lse_err <= 1e-4 and all(g.dtype == dtype for g in got)
-            k3_abs[mode] = max(k3_abs.get(mode, 0.0), max(errs))
-            k3_rel[mode] = max(k3_rel.get(mode, 0.0), max(rels))
-            log(f"[7] K3 {mode:11s} B={b} L={L} heads={nh}: max abs err dq/dk/dv "
-                f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, / max|ref| {max(rels):.3e} "
-                f"(tol {tol}); K2 lse max abs err {lse_err:.3e} (tol 1e-4) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError("K3 or K2's lse disagrees with its plain version")
+    ds_seen = {"kernel": 0.0, "kernel_rounded": math.inf, "plain_rounded": math.inf,
+               "kernel_vs_plain_version": 0.0}
+    shapes = [(BATCH, s) for s in sorted(set(attn_sites), reverse=True)] + EDGE_SHAPES
+    for mode, (dname, fast) in ATTN_MODES.items():
+        dtype = getattr(torch, dname)
+        tol = ATTN_BWD_TOL[dname]
+        for layout in LAYOUTS:
+            for b, (L, nh) in shapes:
+                q, k, v = qkv_views(torch, layout, b, L, nh, dtype, dev, gen)
+                do = torch.randn(b, L, nh, 64, device=dev, generator=gen).to(dtype)
+                with torch.no_grad():
+                    out, lse = K2._launch(*map(K2.kernel_layout, (q, k, v)), with_lse=True)
+                    got = K2.attention_bwd(q, k, v, out, lse, do, fast)
+                    ref = K2._plain_attention_bwd(q, k, v, do, fast)
+                    k2 = (k / 8).to(dtype) if fast else k.float() / 8
+                    ref_lse = torch.logsumexp(torch.einsum("bqhc,bkhc->bhqk", q.float(),
+                                                           k2.float()), dim=-1).reshape(b * nh, L)
+                torch.cuda.synchronize()
+                errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(got, ref)]
+                rels = [e / max(1e-3, r.float().abs().max().item()) for e, r in zip(errs, ref)]
+                lse_err = (lse - ref_lse).abs().max().item()
+                ok = max(rels) <= tol and lse_err <= 1e-4 and all(g.dtype == dtype for g in got)
+                k3_abs[mode] = max(k3_abs.get(mode, 0.0), max(errs))
+                k3_rel[mode] = max(k3_rel.get(mode, 0.0), max(rels))
+                log(f"[7] K3 {mode:11s} {layout:10s} B={b} L={L} heads={nh}: max abs err "
+                    f"dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, / max|ref| "
+                    f"{max(rels):.3e} (tol {tol}); K2 lse max abs err {lse_err:.3e} (tol 1e-4) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("K3 or K2's lse disagrees with its plain version")
+                if mode == "strict_bf16" and L > 1:   # at L=1 dS is exactly 0
+                    split_ds_check(torch, K2, q, k, v, out, lse, do, got, ref, ds_seen,
+                                   f"{layout:10s} B={b} L={L} heads={nh}")
+    log(f"[7] K3 strict_bf16 dS check, over all cases: dq/dk err of the kernel at most "
+        f"{ds_seen['kernel']:.3e}; with dS rounded at least {ds_seen['kernel_rounded']:.3e} "
+        f"(kernel), {ds_seen['plain_rounded']:.3e} (plain); limit {DS_SPLIT_TOL}; the kernel "
+        f"against _plain_attention_bwd at most {ds_seen['kernel_vs_plain_version']:.3e}")
     mark(7)
 
     # ---- 8. the training path --------------------------------------------------
@@ -527,24 +681,28 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         K1.gn_silu.launches = K2.fused_attention.launches = K2.attention_bwd.launches = 0
+        K2.kernel_layout.copies = 0
         t0 = time.perf_counter()
         ms = [step(state, hr_all, ds.stats, fixed_idx, c.seed, eps=fixed_eps.to(dev))
               for _ in range(TRAIN_STEPS)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n = (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches)
+        copies = K2.kernel_layout.copies
         want = (TRAIN_STEPS * K1_PER_BATCH, TRAIN_STEPS * K2_PER_BATCH, TRAIN_STEPS * K3_PER_STEP)
         losses = [m["train_loss"].item() for m in ms]
         norms = [m["grad_norm"].item() for m in ms]
         log(f"[8] train {name}: {TRAIN_STEPS} steps at b{BATCH} in {wall:.2f} s; launches K1 "
-            f"{n[0]}, K2 {n[1]}, K3 {n[2]} (expected {want}); peak device memory "
+            f"{n[0]}, K2 {n[1]}, K3 {n[2]} (expected {want}); q/k/v/out/dO copies before "
+            f"the attention launches {copies}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         log(f"[8] train {name}: loss {[round(x, 1) for x in losses]}")
         log(f"[8] train {name}: grad norm {[round(x, 2) for x in norms]}; kl "
             f"{ms[-1]['kl_div'].item():.4g}, beta {ms[-1]['beta']}")
-        if n != want:
+        if n != want or copies:
             raise AssertionError(f"training launches {n}, expected {want} ({K1_PER_BATCH} K1, "
-                                 f"{K2_PER_BATCH} K2 and {K3_PER_STEP} K3 per step)")
+                                 f"{K2_PER_BATCH} K2 and {K3_PER_STEP} K3 per step); {copies} "
+                                 f"tensors copied before a launch, expected 0")
         if not all(math.isfinite(x) for x in losses + norms):
             raise AssertionError(f"{name}: non-finite loss or gradient norm")
         if not losses[-1] < losses[0]:
@@ -605,48 +763,51 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
 
     # ---- 10. timings -------------------------------------------------------------
     def time_k3(mode):
-        dtype, fast = modes[mode]
-        peak = FP32_FLOPS if mode == "strict" else BF16_FLOPS
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-        flops_t = bytes_t = 0.0
+        dtype, fast = getattr(torch, ATTN_MODES[mode][0]), ATTN_MODES[mode][1]
+        tot, flops_t = {}, 0.0
         for (L, nh), mult in _counts(attn_sites).items():
-            y = torch.randn(BATCH, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
+            q, k, v = qkv_views(torch, "block", BATCH, L, nh, dtype, dev, gen)
             do = torch.randn(BATCH, L, nh, 64, device=dev, generator=gen).to(dtype)
-            q, k, v = y[..., 0], y[..., 1], y[..., 2]
             with torch.no_grad():
-                out, lse = K2._launch(q, k, v, with_lse=True)
+                out, lse = K2._launch(q, k, v, with_lse=True)   # the block's views, in place
             # the yardstick: SDPA's backward on contiguous (B, heads, L, 64)
             # copies, made untimed, its forward outside the timed region
             qs, ks, vs = (a.permute(0, 2, 1, 3).contiguous().requires_grad_() for a in (q, k, v))
             os_ = F.scaled_dot_product_attention(qs, ks, vs)
             dos = do.permute(0, 2, 1, 3).contiguous()
+
+            def run():
+                return K2.attention_bwd(q, k, v, out, lse, do, fast)
+
+            def lib():
+                return torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True)
+
             with torch.no_grad():
-                t = {"ms": cuda_ms(torch, lambda: K2.attention_bwd(q, k, v, out, lse, do, fast)),
+                t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run),
                      "plain_ms": cuda_ms(torch, lambda: K2._plain_attention_bwd(q, k, v, do, fast),
                                          reps=5)}
-            t["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
-                os_, (qs, ks, vs), dos, retain_graph=True))
+            t["library_ms"] = cuda_ms(torch, lib)
+            t["library_device_ms"] = device_ms(torch, lib)
             flops = 10.0 * BATCH * nh * L * L * 64
             # q, k, v, o, dO read and dq, dk, dv written once, plus the fp32 lse
-            nbytes = 8.0 * BATCH * L * nh * 64 * y.element_size() + 4.0 * BATCH * nh * L
-            t["bound_ms"] = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+            nbytes = 8.0 * BATCH * L * nh * 64 * q.element_size() + 4.0 * BATCH * nh * L
+            t.update(attn_bound(flops, nbytes, mode))
             flops_t += mult * flops
-            bytes_t += mult * nbytes
-            log(f"[10] K3 {mode:6s} B={BATCH} L={L} heads={nh} x{mult}: kernel {t['ms']:.4f} ms, "
-                f"plain {t['plain_ms']:.4f}, SDPA backward {t['library_ms']:.4f}, bound "
-                f"{t['bound_ms']:.4f}; kernel {flops / t['ms'] / 1e9:.1f} TFLOP/s "
-                f"(of the 10 L^2 64 FLOP per head)")
-            for key in tot:
-                tot[key] += mult * t[key]
-        tot["bound_by"] = "operations" if flops_t / peak > bytes_t / HBM_BYTES_PER_S else "bytes"
-        return tot
+            log(f"[10] K3 {mode:6s} B={BATCH} L={L} heads={nh} x{mult}: kernel {t['ms']:.4f} ms "
+                f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f}, SDPA backward "
+                f"{t['library_ms']:.4f} (device {t['library_device_ms']:.4f}), bound "
+                f"{t['bound_ms']:.4f}; kernel {flops / t['ms'] / 1e9:.1f} TFLOP/s by events, "
+                f"{flops / t['device_ms'] / 1e9:.1f} by device time (of the 10 L^2 64 FLOP "
+                f"per head)")
+            for key, val in t.items():
+                tot[key] = tot.get(key, 0.0) + mult * val
+        return attn_totals(tot, flops_t)
 
     def time_k2_lse(mode):
-        dtype = modes[mode][0]
+        dtype = getattr(torch, ATTN_MODES[mode][0])
         tot = {"ms": 0.0, "without_lse_ms": 0.0}
         for (L, nh), mult in _counts(attn_sites).items():
-            y = torch.randn(BATCH, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
-            q, k, v = y[..., 0], y[..., 1], y[..., 2]
+            q, k, v = qkv_views(torch, "block", BATCH, L, nh, dtype, dev, gen)
             tot["ms"] += mult * cuda_ms(torch, lambda: K2._launch(q, k, v, with_lse=True))
             tot["without_lse_ms"] += mult * cuda_ms(torch, lambda: K2._launch(q, k, v, False))
         return tot
@@ -678,7 +839,57 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
                 f"train step {name}", "one step", phase=10, top=16)
     mark(10)
     return {"launches": counts, "k3_err": {"float32": k3_abs["strict"]}, "k3_rel": k3_rel,
-            "k3_t": k3_t, "k2_lse": k2_lse, "rates": rates}
+            "k3_t": k3_t, "k2_lse": k2_lse, "rates": rates,
+            "ds_check": {**ds_seen, "limit": DS_SPLIT_TOL}}
+
+
+def rms_rel(got, ref):
+    """||got - ref||_2 / ||ref||_2 in fp32."""
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def plain_dq_dk(torch, q, k, v, out, do, fast):
+    """dq, dk of the plain backward on bf16 q/k/v/dO with fp32 dS (rounded
+    to bf16 when ``fast``), and with D = rowsum(dO o O) taken from K2's
+    output ``out`` as K3 takes it: the plain version's D, rowsum(dP o P) in
+    fp32, parts from it by ~1e-3 in these legs, as much as rounding dS."""
+    qf, kf, vf, dof = (a.float() for a in (q, k, v, do))
+    p = torch.softmax(torch.einsum("bqhc,bkhc->bhqk", qf, kf / 8), dim=-1)
+    dp = torch.einsum("bqhc,bkhc->bhqk", dof, vf)
+    ds = p * (dp - (dof * out.float()).sum(-1).transpose(1, 2)[..., None])
+    if fast:
+        ds = ds.to(q.dtype).float()
+    return (torch.einsum("bhqk,bkhc->bqhc", ds, kf).div(8).to(q.dtype),
+            torch.einsum("bhqk,bqhc->bkhc", ds, qf).div(8).to(q.dtype))
+
+
+def split_ds_check(torch, K2, q, k, v, out, lse, do, got, ref, seen, case):
+    """K3 strict with bf16 activations (``got``) keeps dS in fp32: its dq
+    and dk lie within DS_SPLIT_TOL of the plain strict backward with K3's D
+    (:func:`plain_dq_dk`), and rounding dS to bf16 (the kernel in fast mode,
+    the same plain backward with dS rounded, on the same inputs) lands
+    beyond it. Also logs the reading against the plain version (``ref``).
+    Records the readings in ``seen``; raises if the limit does not tell the
+    two apart."""
+    with torch.no_grad():
+        rounded = K2.attention_bwd(q, k, v, out, lse, do, True)
+        exact = plain_dq_dk(torch, q, k, v, out, do, False)
+        plain_rounded = plain_dq_dk(torch, q, k, v, out, do, True)
+    err = max(rms_rel(g, r) for g, r in zip(got, exact))
+    err_rounded = min(rms_rel(g, r) for g, r in zip(rounded, exact))
+    gap = min(rms_rel(g, r) for g, r in zip(plain_rounded, exact))
+    err_plain = max(rms_rel(g, r) for g, r in zip(got[:2], ref[:2]))
+    seen["kernel"] = max(seen["kernel"], err)
+    seen["kernel_rounded"] = min(seen["kernel_rounded"], err_rounded)
+    seen["plain_rounded"] = min(seen["plain_rounded"], gap)
+    seen["kernel_vs_plain_version"] = max(seen["kernel_vs_plain_version"], err_plain)
+    ok = err <= DS_SPLIT_TOL < min(err_rounded, gap)
+    log(f"[7] K3 strict_bf16 {case}: dq/dk ||err|| / ||ref|| against the plain strict "
+        f"backward with K3's D {err:.3e} (limit {DS_SPLIT_TOL}); with dS rounded to bf16 "
+        f"{err_rounded:.3e} (kernel, fast mode), {gap:.3e} (plain); the kernel against "
+        f"_plain_attention_bwd {err_plain:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the dS check does not separate strict_bf16 from rounded dS")
 
 
 def _counts(sites):

@@ -1,330 +1,329 @@
 // Fused self-attention backward for Hopper (sm_90a): the gradients of
 // O = softmax(Q (K s)^T) V, s = 1/sqrt(64), with respect to Q, K and V,
-// FlashAttention-2 style and deterministic (no atomics).
+// FlashAttention-2 style on the tensor cores, deterministic (no atomics).
 //
 // Replaces probunet_tpu/ops/pallas_attn.py::_bwd_kernel (launched by
 // _bwd_pallas). That kernel walks 256-row q chunks along a sequential grid
 // axis and accumulates dK and dV across them in its output block
 // (pl.when(ci == 0) zeroes it first). Hopper blocks run in no order, so the
 // work is cut into three kernels that each own what they write:
-//   (a) attention_bwd_rowdot: D = rowsum(dO o O), one warp per row;
+//   (a) attention_bwd_rowdot: D = rowsum(dO o O), one block per (batch *
+//       head, 64-row tile), as the diagonal of dO O^T on the tensor cores;
 //   (b) attention_bwd_dkdv: one block per (batch * head, 64-row K/V tile)
 //       loops over the q tiles and keeps dK and dV in registers;
 //   (c) attention_bwd_dq: one block per (batch * head, 64-row q tile) loops
 //       over the K/V tiles and keeps dQ in registers.
-// (b) and (c) recompute the weights as P = exp(S - lse) from the row
+// (b) and (c) recompute the weights as P = exp(S s - lse) from the row
 // log-sum-exp that the forward kernel (attention_fwd.cu) saved, so no
-// (L, L) tensor reaches device memory.
+// (L, L) tensor reaches device memory; like the forward kernel they take
+// the exponential in base 2 by the SFU's ex2 (about 2 ulp).
 //
 // Bound: operations, 10 * B * heads * L^2 * 64 FLOP (the TPU kernel's five
-// L x L x 64 products: S, dV, dP, dQ, dK), against the card's fp32
-// CUDA-core rate in strict mode and its bf16 tensor-core rate in fast mode.
-// This design does seven products (S and dP in both (b) and (c)), all on
-// CUDA cores; mma.sync / wgmma and TMA are later work.
+// L x L x 64 products: S, dV, dP, dQ, dK), against the bf16 tensor-core
+// rate in fast mode and, in strict mode, the smaller of the fp32 CUDA-core
+// time and three TF32 tensor-core products. This design does seven
+// products (S and dP in both (b) and (c)).
+//
+// Design (tile machinery in attention_tiles.cuh): four warps per block, 16
+// rows each; the block's own tiles are loaded once and the streamed tiles
+// pass through a 2-stage cp.async ring. Every product runs on mma.sync
+// with fp32 accumulators in registers. In (b) each warp owns 16 keys and
+// computes the transposed products S^T = K Q^T and dP^T = V dO^T directly,
+// so P^T and dS^T sit in registers in the C layout and feed dV += P^T dO
+// and dK += dS^T Q as A operands; the transposed B operands (dO and Q read
+// down their rows) come from ldmatrix.trans in bf16 and from scalar shared
+// reads in fp32. Neither P^T nor dS^T passes through shared memory.
+//
+// Layout: q, k, v, o (the forward output) and dout are (B, L, heads, 64)
+// with any element strides and a unit-stride head dim, rows 16-byte
+// aligned; dq, dk, dv are contiguous (B, L, heads, 64).
 //
 // Numerics follow _bwd_kernel (pallas_attn.py:101-135):
-//   - S is recomputed exactly as the forward kernel computes it: the same
-//     operands (K * s rounded to the storage type T, as _prep does in fast
-//     mode) and the same fp32 FMA order over the head dim;
+//   - S is recomputed on the forward kernel's operands with the same
+//     products in the same order (in (b) as S^T = K Q^T, the 3xTF32 terms
+//     ordered as in Q K^T). P = exp(S s - lse) is not bit-equal to the
+//     forward kernel's weights, whose lse sums them in another order: they
+//     differ by a few fp32 ulps;
+//   - D and dP are the same tensor-core products (see (a)), so dS = 0
+//     exactly where the plain version's is (a one-hot softmax row);
 //   - the dV and dP legs run at the model dtype: P is rounded to T before
 //     dV = P^T dO, and dP = dO V^T multiplies T-valued operands with fp32
 //     sums;
 //   - dS = P o (dP - D) is fp32, rounded to bf16 before dQ and dK only when
-//     FAST; strict mode with bf16 activations keeps dS, K and Q in fp32;
+//     FAST; strict mode with bf16 activations keeps dS fp32 by carrying it
+//     as two bf16 terms hi + lo (two products, ~2^-16 relative);
+//   - fp32 (strict) products are 3xTF32;
 //   - dQ = (dS K) * s with the raw K, dK = (dS^T Q) * s;
 //   - D = rowsum(dO o O) stands for the TPU kernel's rowsum(dP o P). The two
-//     are equal up to rounding in fp32; in fast mode O is stored as bf16, a
-//     difference within the fast tolerance of 5e-2.
-//
-// Tiles as in the forward kernel: 64 x 64, 256 threads, thread (ty, tx) =
-// (tid / 16, tid % 16) owns rows ty + 16 i and columns tx + 16 j (i, j < 4)
-// of each tile product; shared rows pad to 65 floats so column-strided reads
-// hit distinct banks. A ragged last tile is masked (P = 0 there), so any L
+//     are equal up to rounding in fp32; with bf16 activations (fast mode
+//     and strict mode alike) O is stored as bf16, which moves dQ and dK by
+//     ~1e-3 of their norm, within the bf16 tolerance of 5e-2 (chip_smoke.py
+//     phase 7 measures it).
+// A ragged last tile is zero-filled and masked (P = 0 there), so any L
 // works.
 
 #include <math.h>
 
-#include "common.cuh"
+#include "attention_tiles.cuh"
 
 namespace probunet {
 namespace {
 
-constexpr int kD = 64;    // head dim
-constexpr int kB = 64;    // rows per q tile and per K/V tile
-constexpr int kThreads = 256;
-constexpr int kPad = kD + 1;
-constexpr int kTile = kB * kPad;  // floats in one padded tile
-constexpr int kRowsPerBlock = kThreads / 32;
-constexpr size_t kDkdvSmem = (size_t)(5 * kTile + 2 * kB) * sizeof(float);
-constexpr size_t kDqSmem = (size_t)(6 * kTile) * sizeof(float);
+using namespace tiles;
 
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0, int L,
-                                          int tid) {
-  for (int i = tid; i < kB * kD; i += kThreads) {
-    const int r = i / kD, d = i % kD;
-    dst[r * kPad + d] = (r0 + r < L) ? to_float(src[(size_t)(r0 + r) * kD + d]) : 0.f;
-  }
-}
-
-// K * s rounded to T, exactly the operand the forward kernel multiplies.
-template <typename T>
-__device__ __forceinline__ void load_scaled_k(float* dst, const T* __restrict__ k, int r0, int L,
-                                              int tid, float scale) {
-  for (int i = tid; i < kB * kD; i += kThreads) {
-    const int r = i / kD, d = i % kD;
-    dst[r * kPad + d] =
-        (r0 + r < L) ? round_to<T>(to_float(k[(size_t)(r0 + r) * kD + d]) * scale) : 0.f;
-  }
-}
-
-// acc[i][j] += sum_d A[ra + 16 i][d] * B[rb + 16 j][d], d = 0..63 in order
-// (A and B are padded row-major tiles): S and dP.
-__device__ __forceinline__ void dot_rows(float (&acc)[4][4], const float* A, const float* B,
-                                         int ra, int rb) {
-#pragma unroll 8
-  for (int d = 0; d < kD; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ra + 16 * i) * kPad + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(rb + 16 * j) * kPad + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_c A[ra + 16 i][c] * B[c][cb + 16 j], c = 0..63: dV, dK, dQ.
-__device__ __forceinline__ void dot_inner(float (&acc)[4][4], const float* A, const float* B,
-                                          int ra, int cb) {
-#pragma unroll 8
-  for (int c = 0; c < kB; ++c) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ra + 16 * i) * kPad + c];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[c * kPad + cb + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// Rows r0 + ty + 16 i of a (B*H, L, 64) result tile, written into the
-// (B, L, H, 64) layout, times mul.
-template <typename T>
-__device__ __forceinline__ void store_tile(T* __restrict__ out, const float (&acc)[4][4], int bh,
-                                           int H, int L, int r0, int ty, int tx, float mul) {
-  const int b = bh / H, head = bh % H;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r >= L) continue;
-    T* row = out + (((size_t)b * L + r) * H + head) * kD;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) row[tx + 16 * j] = from_float<T>(acc[i][j] * mul);
-  }
-}
-
+// D = rowsum(dO o O) as the diagonal of the tile product dO O^T, on the
+// tensor cores in the same form as dP = dO V^T in (b) and (c). Where a row's
+// softmax is one-hot (L = 1), O is that row of V as the forward kernel's
+// PV product rounds it, D comes out equal to dP, and dS = P o (dP - D)
+// vanishes as it does in the plain version (an fp32 D from CUDA-core FMAs
+// left ~1e-6 there against 3xTF32's dP).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_rowdot(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ D,
-                         int H, int L, int rows) {
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;  // whole warps leave together
-  const int bh = row / L, r = row % L, b = bh / H, head = bh % H;
-  const T* orow = o + (((size_t)b * L + r) * H + head) * kD;
-  const T* drow = dout + (size_t)row * kD;
-  float acc = to_float(orow[lane]) * to_float(drow[lane]);
-  acc = fmaf(to_float(orow[lane + 32]), to_float(drow[lane + 32]), acc);
+                         int H, int L, Strides so, Strides sdo) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int P = kPitch<T>;
+  T* dOs = reinterpret_cast<T*>(smem);
+  T* Os = dOs + kTile<T>;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, r0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane % 4;
+  load_tile_async(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, r0, L, tid);
+  load_tile_async(Os, o + b * so.b + h * so.h, so.l, r0, L, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  float acc[8][4];
+  zero(acc);
+  mma_nt(acc, dOs + warp * 16 * P, Os, lane);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) D[row] = acc;
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = warp * 16 + lane / 4 + 8 * (e / 2);
+      if (8 * n + 2 * t + (e % 2) == row && r0 + row < L)
+        D[(size_t)bh * L + r0 + row] = acc[n][e];
+    }
 }
+
+// Products with dS as the A operand: bf16 strict keeps dS fp32 as hi + lo.
+template <typename T, bool FAST>
+constexpr bool kSplitDs = !FAST && sizeof(T) == 2;
 
 template <typename T, bool FAST>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        const T* __restrict__ dout, const float* __restrict__ lse,
                        const float* __restrict__ D, T* __restrict__ dk, T* __restrict__ dv, int H,
-                       int L, float scale) {
-  extern __shared__ float sh[];
-  float* Ks = sh;              // K * s, rounded as the forward kernel rounds it
-  float* Vs = Ks + kTile;
-  float* Qs = Vs + kTile;      // raw Q
-  float* dOs = Qs + kTile;
-  float* Ps = dOs + kTile;     // P^T rounded to T, then dS^T
-  float* lse_s = Ps + kTile;   // kB
-  float* D_s = lse_s + kB;     // kB
+                       int L, Strides sq, Strides sk, Strides sv, Strides sdo, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int P = kPitch<T>;
+  T* Ks = reinterpret_cast<T*>(smem);   // this block's K tile
+  T* Vs = Ks + kTile<T>;                // this block's V tile
+  T* Qs = Vs + kTile<T>;                // two stages
+  T* dOs = Qs + 2 * kTile<T>;           // two stages
+  float* stats = reinterpret_cast<float*>(dOs + 2 * kTile<T>);  // per stage: lse[64], D[64]
 
-  const int bh = blockIdx.y, k0 = blockIdx.x * kB;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t base = (size_t)bh * L * kD;
-  load_scaled_k<T>(Ks, k + base, k0, L, tid, scale);
-  load_tile<T>(Vs, v + base, k0, L, tid);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* dob = dout + b * sdo.b + h * sdo.h;
 
-  float dk_acc[4][4], dv_acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+  load_tile_async(Ks, k + b * sk.b + h * sk.h, sk.l, k0, L, tid);
+  load_tile_async(Vs, v + b * sv.b + h * sv.h, sv.l, k0, L, tid);
+  // q tile j into stage st: Q and dO by cp.async, lse (in base 2) and D
+  // (rows of a (B*H, L) array, not 16-byte aligned for every L) by plain
+  // loads
+  auto load_q_tile = [&](int j, int st) {
+    load_tile_async(Qs + st * kTile<T>, qb, sq.l, j * kRows, L, tid);
+    load_tile_async(dOs + st * kTile<T>, dob, sdo.l, j * kRows, L, tid);
+    const int i = j * kRows + tid % kRows;
+    const float* src = (tid < kRows ? lse : D) + (size_t)bh * L;
+    stats[st * 2 * kRows + tid] = i < L ? src[i] * (tid < kRows ? kLog2e : 1.f) : 0.f;
+  };
+  load_q_tile(0, 0);
+  cp_async_commit();
 
-  for (int q0 = 0; q0 < L; q0 += kB) {
-    __syncthreads();  // the previous tile's readers are done with Qs, dOs, Ps
-    load_tile<T>(Qs, q + base, q0, L, tid);
-    load_tile<T>(dOs, dout + base, q0, L, tid);
-    if (tid < kB) {
-      const bool ok = q0 + tid < L;
-      lse_s[tid] = ok ? lse[(size_t)bh * L + q0 + tid] : 0.f;
-      D_s[tid] = ok ? D[(size_t)bh * L + q0 + tid] : 0.f;
+  float dk_acc[8][4], dv_acc[8][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  const int key0 = k0 + warp * 16 + lane / 4;  // this thread's keys: key0, key0 + 8
+  const float c = scale * kLog2e;
+  const int n_tiles = (L + kRows - 1) / kRows;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) {
+      load_q_tile(j + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const T* Qt = Qs + st * kTile<T>;
+    const T* dOt = dOs + st * kTile<T>;
+    const float* lse_s = stats + st * 2 * kRows;
+    const float* D_s = lse_s + kRows;
 
-    // S^T and dP^T: rows are keys ty + 16 i, columns queries tx + 16 j
-    float p[4][4], dp[4][4];
+    // P^T: rows are this warp's keys, columns the tile's queries
+    float p[8][4];
+    zero(p);
+    mma_nt<true>(p, Ks + warp * 16 * P, Qt, lane);  // summed as the forward's S = Q K^T
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) p[i][j] = dp[i][j] = 0.f;
-    dot_rows(p, Ks, Qs, ty, tx);
-    dot_rows(dp, Vs, dOs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = k0 + ty + 16 * i < L && q0 + tx + 16 * j < L;
-        p[i][j] = ok ? expf(p[i][j] - lse_s[tx + 16 * j]) : 0.f;
-        Ps[(ty + 16 * i) * kPad + tx + 16 * j] = round_to<T>(p[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * n + 2 * t + (e % 2);
+        const bool ok = key0 + 8 * (e / 2) < L && j * kRows + col < L;
+        p[n][e] = ok ? exp2_fast(fmaf(p[n][e], c, -lse_s[col])) : 0.f;
       }
-    __syncthreads();
-    dot_inner(dv_acc, Ps, dOs, ty, tx);  // dV += P^T dO
-    __syncthreads();
+    mma_nn<false>(dv_acc, p, dOt, lane);  // dV += P^T dO, P^T rounded to T
+
+    float ds[8][4];  // dP^T, then dS^T
+    zero(ds);
+    mma_nt<true>(ds, Vs + warp * 16 * P, dOt, lane);  // summed as (c)'s dP = dO V^T
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float ds = p[i][j] * (dp[i][j] - D_s[tx + 16 * j]);
-        Ps[(ty + 16 * i) * kPad + tx + 16 * j] = FAST ? round_to<T>(ds) : ds;
-      }
-    __syncthreads();
-    dot_inner(dk_acc, Ps, Qs, ty, tx);  // dK += dS^T Q
+      for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - D_s[8 * n + 2 * t + (e % 2)]);
+    mma_nn<kSplitDs<T, FAST>>(dk_acc, ds, Qt, lane);  // dK += dS^T Q
+    __syncthreads();  // this stage is free for the load two tiles on
   }
-  store_tile<T>(dk, dk_acc, bh, H, L, k0, ty, tx, scale);
-  store_tile<T>(dv, dv_acc, bh, H, L, k0, ty, tx, 1.f);
+  const float one[2] = {1.f, 1.f}, s2[2] = {scale, scale};
+  store_rows(dk, dk_acc, b, h, H, L, k0 + warp * 16, lane, s2);
+  store_rows(dv, dv_acc, b, h, H, L, k0 + warp * 16, lane, one);
 }
 
 template <typename T, bool FAST>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ D, T* __restrict__ dq, int H, int L, float scale) {
-  extern __shared__ float sh[];
-  float* Qs = sh;              // raw Q
-  float* dOs = Qs + kTile;
-  float* Ks = dOs + kTile;     // K * s, rounded as the forward kernel rounds it
-  float* Kr = Ks + kTile;      // raw K
-  float* Vs = Kr + kTile;
-  float* Ps = Vs + kTile;      // dS
+                     const float* __restrict__ D, T* __restrict__ dq, int H, int L, Strides sq,
+                     Strides sk, Strides sv, Strides sdo, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int P = kPitch<T>;
+  T* Qs = reinterpret_cast<T*>(smem);   // this block's Q tile
+  T* dOs = Qs + kTile<T>;               // this block's dO tile
+  T* Ks = dOs + kTile<T>;               // two stages
+  T* Vs = Ks + 2 * kTile<T>;            // two stages
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kB;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t base = (size_t)bh * L * kD;
-  load_tile<T>(Qs, q + base, q0, L, tid);
-  load_tile<T>(dOs, dout + base, q0, L, tid);
-  float lse_r[4], D_r[4], dq_acc[4][4];
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+
+  load_tile_async(Qs, q + b * sq.b + h * sq.h, sq.l, q0, L, tid);
+  load_tile_async(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, q0, L, tid);
+  load_tile_async(Ks, kb, sk.l, 0, L, tid);
+  load_tile_async(Vs, vb, sv.l, 0, L, tid);
+  cp_async_commit();
+
+  const int row0 = q0 + warp * 16 + lane / 4;  // this thread's rows: row0, row0 + 8
+  float lse_r[2], D_r[2], dq_acc[8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    lse_r[i] = r < L ? lse[(size_t)bh * L + r] : 0.f;
-    D_r[i] = r < L ? D[(size_t)bh * L + r] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dq_acc[i][j] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = row0 + 8 * r < L;
+    lse_r[r] = ok ? lse[(size_t)bh * L + row0 + 8 * r] * kLog2e : 0.f;  // base 2
+    D_r[r] = ok ? D[(size_t)bh * L + row0 + 8 * r] : 0.f;
   }
+  zero(dq_acc);
+  const float c = scale * kLog2e;
 
-  for (int k0 = 0; k0 < L; k0 += kB) {
-    __syncthreads();  // the previous tile's readers are done with Ks, Kr, Vs, Ps
-    load_scaled_k<T>(Ks, k + base, k0, L, tid, scale);
-    load_tile<T>(Kr, k + base, k0, L, tid);
-    load_tile<T>(Vs, v + base, k0, L, tid);
+  const int n_tiles = (L + kRows - 1) / kRows;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) {
+      load_tile_async(Ks + (st ^ 1) * kTile<T>, kb, sk.l, (j + 1) * kRows, L, tid);
+      load_tile_async(Vs + (st ^ 1) * kTile<T>, vb, sv.l, (j + 1) * kRows, L, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
+    const T* Kt = Ks + st * kTile<T>;
 
-    // S and dP: rows are queries ty + 16 i, columns keys tx + 16 j
-    float p[4][4], dp[4][4];
+    float p[8][4], ds[8][4];  // S then P; dP then dS
+    zero(p);
+    zero(ds);
+    mma_nt(p, Qs + warp * 16 * P, Kt, lane);
+    mma_nt(ds, dOs + warp * 16 * P, Vs + st * kTile<T>, lane);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) p[i][j] = dp[i][j] = 0.f;
-    dot_rows(p, Qs, Ks, ty, tx);
-    dot_rows(dp, dOs, Vs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = q0 + ty + 16 * i < L && k0 + tx + 16 * j < L;
-        const float pij = ok ? expf(p[i][j] - lse_r[i]) : 0.f;
-        const float ds = pij * (dp[i][j] - D_r[i]);
-        Ps[(ty + 16 * i) * kPad + tx + 16 * j] = FAST ? round_to<T>(ds) : ds;
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        const bool ok = row0 + 8 * r < L && j * kRows + 8 * n + 2 * t + (e % 2) < L;
+        p[n][e] = ok ? exp2_fast(fmaf(p[n][e], c, -lse_r[r])) : 0.f;
+        ds[n][e] = p[n][e] * (ds[n][e] - D_r[r]);
       }
-    __syncthreads();
-    dot_inner(dq_acc, Ps, Kr, ty, tx);  // dQ += dS K
+    mma_nn<kSplitDs<T, FAST>>(dq_acc, ds, Kt, lane);  // dQ += dS K, the raw K
+    __syncthreads();  // this stage is free for the load two tiles on
   }
-  store_tile<T>(dq, dq_acc, bh, H, L, q0, ty, tx, scale);
+  const float s2[2] = {scale, scale};
+  store_rows(dq, dq_acc, b, h, H, L, q0 + warp * 16, lane, s2);
 }
 
 template <typename T, bool FAST>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, float* D, void* dq, void* dk, void* dv, int B, int H, int L,
-                   float scale, cudaStream_t stream) {
+                   Strides sq, Strides sk, Strides sv, Strides so, Strides sdo, float scale,
+                   cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  const int rows = B * H * L;
-  attention_bwd_rowdot<T><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kThreads, 0, stream>>>(
-      static_cast<const T*>(o), dot, D, H, L, rows);
+  const dim3 grid((L + kRows - 1) / kRows, B * H);
+  attention_bwd_rowdot<T><<<grid, kThreads, 2 * kTile<T> * sizeof(T), stream>>>(
+      static_cast<const T*>(o), dot, D, H, L, so, sdo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const dim3 grid((L + kB - 1) / kB, B * H);
+  // K, V, two Q and two dO stages, and two stages of lse and D
+  constexpr size_t dkdv_smem = 6 * kTile<T> * sizeof(T) + 4 * kRows * sizeof(float);
   err = cudaFuncSetAttribute(attention_bwd_dkdv<T, FAST>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDkdvSmem);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkdv_smem);
   if (err != cudaSuccess) return err;
-  attention_bwd_dkdv<T, FAST><<<grid, kThreads, kDkdvSmem, stream>>>(
-      qt, kt, vt, dot, lse, D, static_cast<T*>(dk), static_cast<T*>(dv), H, L, scale);
+  attention_bwd_dkdv<T, FAST><<<grid, kThreads, dkdv_smem, stream>>>(
+      qt, kt, vt, dot, lse, D, static_cast<T*>(dk), static_cast<T*>(dv), H, L, sq, sk, sv, sdo,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
+  constexpr size_t dq_smem = 6 * kTile<T> * sizeof(T);  // Q, dO, two K and two V stages
   err = cudaFuncSetAttribute(attention_bwd_dq<T, FAST>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDqSmem);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
   if (err != cudaSuccess) return err;
-  attention_bwd_dq<T, FAST><<<grid, kThreads, kDqSmem, stream>>>(
-      qt, kt, vt, dot, lse, D, static_cast<T*>(dq), H, L, scale);
+  attention_bwd_dq<T, FAST><<<grid, kThreads, dq_smem, stream>>>(
+      qt, kt, vt, dot, lse, D, static_cast<T*>(dq), H, L, sq, sk, sv, sdo, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace probunet
 
-// q, k, v, dout: (B*H, L, 64) contiguous; o: the forward output, (B, L, H, 64)
-// contiguous; all of one dtype. lse: (B*H, L) fp32 from the forward kernel;
-// D: (B*H, L) fp32 scratch. dq, dk, dv: (B, L, H, 64) contiguous, q's dtype.
-// fast rounds dS to bf16 (it changes nothing for fp32). Returns a
-// cudaError_t code; 0 on success.
-extern "C" int probunet_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                      const void* dout, const void* lse, void* D, void* dq,
-                                      void* dk, void* dv, int B, int H, int L, float scale,
-                                      int is_bf16, int fast, void* stream) {
+// q, k, v, o (the forward output), dout: (B, L, H, 64) of one dtype, element
+// strides (*_sb, *_sl, *_sh), unit-stride head dim, 16-byte-aligned rows.
+// lse: (B*H, L) fp32 from the forward kernel; D: (B*H, L) fp32 scratch.
+// dq, dk, dv: (B, L, H, 64) contiguous, q's dtype. fast rounds dS to bf16
+// (it changes nothing for fp32). Returns a cudaError_t code; 0 on success.
+extern "C" int probunet_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
+    void* D, void* dq, void* dk, void* dv, int B, int H, int L, long long q_sb, long long q_sl,
+    long long q_sh, long long k_sb, long long k_sl, long long k_sh, long long v_sb, long long v_sl,
+    long long v_sh, long long o_sb, long long o_sl, long long o_sh, long long do_sb,
+    long long do_sl, long long do_sh, float scale, int is_bf16, int fast, void* stream) {
+  using probunet::tiles::Strides;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(D);
+  const Strides sq{q_sb, q_sl, q_sh}, sk{k_sb, k_sl, k_sh}, sv{v_sb, v_sl, v_sh};
+  const Strides so{o_sb, o_sl, o_sh}, sdo{do_sb, do_sl, do_sh};
   if (is_bf16 && fast)
-    return probunet::launch<__nv_bfloat16, true>(q, k, v, o, dout, l, d, dq, dk, dv, B, H, L,
-                                                 scale, st);
+    return probunet::launch<__nv_bfloat16, true>(q, k, v, o, dout, l, d, dq, dk, dv, B, H, L, sq,
+                                                 sk, sv, so, sdo, scale, st);
   if (is_bf16)
-    return probunet::launch<__nv_bfloat16, false>(q, k, v, o, dout, l, d, dq, dk, dv, B, H, L,
-                                                  scale, st);
-  return probunet::launch<float, false>(q, k, v, o, dout, l, d, dq, dk, dv, B, H, L, scale, st);
+    return probunet::launch<__nv_bfloat16, false>(q, k, v, o, dout, l, d, dq, dk, dv, B, H, L, sq,
+                                                  sk, sv, so, sdo, scale, st);
+  return probunet::launch<float, false>(q, k, v, o, dout, l, d, dq, dk, dv, B, H, L, sq, sk, sv,
+                                        so, sdo, scale, st);
 }

@@ -19,6 +19,7 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from probunet_torch.models.layers import (
@@ -85,14 +86,26 @@ class UNetBlock(nn.Module):
         if self.heads:
             b, c, h, w = x.shape
             nh = self.heads
-            y = nhwc(self.qkv(self.norm2(x)))
-            # the channel axis factors as (head, channel, qkv), qkv last, as
-            # in the reference's (B*nh, C/nh, 3, HW) reshape (networks.py:180)
-            y = y.reshape(b, h * w, nh, c // nh, 3)
-            a = fused_attention(y[..., 0], y[..., 1], y[..., 2], self.fast_attention)
+            # The reference's output channels factor as (head, channel, qkv),
+            # qkv last ((B*nh, C/nh, 3, HW) reshape, networks.py:180). The
+            # conv runs with its weight and bias rows reordered to (qkv,
+            # head, channel), the same math, so that q, k and v come out as
+            # views with a unit-stride head dim that the attention kernels
+            # read in place; the parameters keep the reference's layout.
+            y = F.conv2d(self.norm2(x), _qkv_major(self.qkv.weight, nh, x.dtype),
+                         _qkv_major(self.qkv.bias, nh, x.dtype))
+            q, k, v = nhwc(y).reshape(b, h * w, 3, nh, c // nh).unbind(2)
+            a = fused_attention(q, k, v, self.fast_attention)
             a = nchw(a.reshape(b, h, w, c))
             x = x + self.proj(a)
         return x
+
+
+def _qkv_major(p: torch.Tensor, heads: int, dtype: torch.dtype) -> torch.Tensor:
+    """The qkv conv's weight or bias in ``dtype`` with its rows from (head,
+    channel, qkv) order to (qkv, head, channel) order, in one copy."""
+    t = p.reshape(heads, -1, 3, *p.shape[1:]).transpose(0, 2).transpose(1, 2)
+    return t.to(dtype, memory_format=torch.contiguous_format).reshape(p.shape)
 
 
 @dataclasses.dataclass(frozen=True)

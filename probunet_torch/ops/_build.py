@@ -25,24 +25,27 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
-_vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_vp, _int, _i64, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # x, gamma, beta, out, mean, rstd, partials, B, HW, C, G, S,
     # rows_per_chunk, eps, is_bf16, vec, stream
     "probunet_gn_silu_fwd": [_vp] * 7 + [_int] * 6 + [_float, _int, _int, _vp],
-    # q, k, v, o, lse, B, H, L, scale, is_bf16, stream
-    "probunet_attention_fwd": [_vp] * 5 + [_int] * 3 + [_float, _int, _vp],
-    # q, k, v, o, dout, lse, D, dq, dk, dv, B, H, L, scale, is_bf16, fast, stream
-    "probunet_attention_bwd": [_vp] * 10 + [_int] * 3 + [_float, _int, _int, _vp],
+    # q, k, v, o, lse, B, H, L, (b, l, h) element strides of q, k and v,
+    # scale, is_bf16, stream
+    "probunet_attention_fwd": [_vp] * 5 + [_int] * 3 + [_i64] * 9 + [_float, _int, _vp],
+    # q, k, v, o, dout, lse, D, dq, dk, dv, B, H, L, (b, l, h) element strides
+    # of q, k, v, o and dout, scale, is_bf16, fast, stream
+    "probunet_attention_bwd": [_vp] * 10 + [_int] * 3 + [_i64] * 15 + [_float, _int, _int, _vp],
 }
 
 
-def find_nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-                 shutil.which("nvcc")):
+def find_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name),
+                 shutil.which(name)):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+    raise RuntimeError(f"{name} not found (set CUDA_HOME or put it on PATH); "
                        "the port's kernels are built from probunet_torch/csrc at first use")
 
 
@@ -62,7 +65,7 @@ def build() -> str:
     """Compile every ``csrc/*.cu`` in parallel and link the shared library.
     Returns the compiler's output (ptxas registers, shared memory, spills);
     raises with that output if any step fails."""
-    nvcc = find_nvcc()
+    nvcc = find_tool("nvcc")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
     tag = f"{os.getpid()}"

@@ -61,10 +61,38 @@ def _plain_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: 
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _to_bh(a: torch.Tensor) -> torch.Tensor:
-    """(B, L, H, 64), any strides -> contiguous (B*H, L, 64)."""
-    b, L, h, c = a.shape
-    return a.permute(0, 2, 1, 3).contiguous().view(b * h, L, c)
+def kernel_layout(a: torch.Tensor) -> torch.Tensor:
+    """``a`` as the kernels read it: a (B, L, heads, 64) tensor with a
+    unit-stride head dim and 16-byte-aligned rows, any other strides. The
+    U-Net block's q/k/v views of its qkv conv output already are, and pass
+    as they are; any other view is copied to a new contiguous tensor (not
+    ``contiguous()``, which keeps a contiguous but misaligned view). This is
+    layout normalisation, not a fallback: the kernel runs either way. Each
+    copy adds one to ``kernel_layout.copies``."""
+    if _in_place(a):
+        return a
+    kernel_layout.copies += 1
+    return a.clone(memory_format=torch.contiguous_format)
+
+
+def _in_place(a: torch.Tensor) -> bool:
+    size = a.element_size()
+    return (a.stride(-1) == 1 and a.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in a.stride()[:-1]))
+
+
+def _strides(*tensors):
+    """The (b, l, h) element strides of each (B, L, heads, 64) tensor, in
+    order, as the kernels' C entry points take them; raises on a tensor the
+    kernels cannot read in place (see :func:`kernel_layout`)."""
+    out = []
+    for a in tensors:
+        if not _in_place(a):
+            raise ValueError(f"the attention kernels read (B, L, heads, 64) tensors with a "
+                             f"unit-stride head dim and 16-byte-aligned rows, got strides "
+                             f"{tuple(a.stride())}; pass it through kernel_layout first")
+        out.extend(a.stride()[:3])
+    return out
 
 
 def _check_cuda(q, k, v):
@@ -75,20 +103,39 @@ def _check_cuda(q, k, v):
 
 @torch.no_grad()
 def _launch(q, k, v, with_lse: bool):
-    """K2: (out, lse), lse the (B*H, L) fp32 row log-sum-exp of the logits
-    when ``with_lse``, else None (the kernel then writes no more than out)."""
+    """K2 on q/k/v as they lie (see :func:`kernel_layout`): (out, lse), lse
+    the (B*H, L) fp32 row log-sum-exp of the logits when ``with_lse``, else
+    None (the kernel then writes no more than out)."""
     b, L, h, c = q.shape
+    strides = _strides(q, k, v)
     out = torch.empty(b, L, h, c, device=q.device, dtype=q.dtype)
     lse = torch.empty(b * h, L, device=q.device, dtype=torch.float32) if with_lse else None
-    q3, k3, v3 = _to_bh(q), _to_bh(k), _to_bh(v)
-    lib = _build.lib()
-    code = lib.probunet_attention_fwd(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if with_lse else None, b, h, L,
+    code = _build.lib().probunet_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None, b, h, L, *strides,
         1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
     _build.check(code, "attention kernel")
     fused_attention.launches += 1
     return out, lse
+
+
+@torch.no_grad()
+def _launch_bwd(q, k, v, out, lse, do, fast: bool):
+    """K3 on q/k/v/out/do as they lie (see :func:`kernel_layout`): (dq, dk,
+    dv), contiguous (B, L, heads, 64)."""
+    b, L, h, c = q.shape
+    strides = _strides(q, k, v, out, do)
+    lse = lse.contiguous()
+    rowdot = torch.empty(b * h, L, device=q.device, dtype=torch.float32)
+    dq, dk, dv = (torch.empty(b, L, h, c, device=q.device, dtype=q.dtype) for _ in range(3))
+    code = _build.lib().probunet_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), rowdot.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, L, *strides, 1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), int(fast),
+        _build.stream_handle(q.device))
+    _build.check(code, "attention backward kernel")
+    attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: Optional[torch.Tensor],
@@ -104,23 +151,12 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: Option
         raise RuntimeError(f"attention_bwd has no path for device {q.device}")
     _check_cuda(q, k, v)
     b, L, h, c = q.shape
-    if out is None or lse is None or out.shape != q.shape or not out.is_contiguous() \
-            or out.dtype != q.dtype or lse.shape != (b * h, L) or lse.dtype != torch.float32:
-        raise ValueError("attention_bwd needs the forward kernel's contiguous output "
+    if out is None or lse is None or out.shape != q.shape or out.dtype != q.dtype \
+            or lse.shape != (b * h, L) or lse.dtype != torch.float32:
+        raise ValueError("attention_bwd needs the forward kernel's output "
                          "and its (B*heads, L) fp32 lse")
-    with torch.no_grad():
-        q3, k3, v3, do3 = _to_bh(q), _to_bh(k), _to_bh(v), _to_bh(do.to(q.dtype))
-        lse = lse.contiguous()
-        rowdot = torch.empty(b * h, L, device=q.device, dtype=torch.float32)
-        dq, dk, dv = (torch.empty(b, L, h, c, device=q.device, dtype=q.dtype) for _ in range(3))
-        code = _build.lib().probunet_attention_bwd(
-            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), do3.data_ptr(),
-            lse.data_ptr(), rowdot.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, L, 1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), int(fast),
-            _build.stream_handle(q.device))
-    _build.check(code, "attention backward kernel")
-    attention_bwd.launches += 1
-    return dq, dk, dv
+    q, k, v, out, do = map(kernel_layout, (q, k, v, out, do.to(q.dtype)))
+    return _launch_bwd(q, k, v, out, lse, do, fast)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -131,6 +167,7 @@ class _FusedAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             out, lse = _plain_attention(q, k, v, fast), None
         else:
+            q, k, v = map(kernel_layout, (q, k, v))
             out, lse = _launch(q, k, v, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.fast = fast
@@ -146,12 +183,15 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     fast: bool = False) -> torch.Tensor:
     """softmax(Q K^T / sqrt(64)) V without materializing the weights.
 
-    q, k, v: (B, L, heads, 64), the U-Net block's layout (the stride-3 views
-    of the interleaved qkv conv output are fine). Returns a contiguous
-    (B, L, heads, 64) tensor in q's dtype: fp32 in strict mode, bf16 with
-    ``fast``. Differentiable: the backward is :func:`attention_bwd`, whose
-    gradients come back in the inputs' dtypes. CPU tensors take the plain
-    versions; CUDA tensors launch the kernels or raise."""
+    q, k, v: (B, L, heads, 64). The kernels read them where they lie when
+    the head dim is unit-stride and rows are 16-byte aligned, as in the
+    U-Net block's views of its qkv conv output; other views (the stride-3
+    views of an interleaved qkv tensor, say) are copied first
+    (:func:`kernel_layout`). Returns a contiguous (B, L, heads, 64) tensor
+    in q's dtype: fp32 in strict mode, bf16 with ``fast``. Differentiable:
+    the backward is :func:`attention_bwd`, whose gradients come back in the
+    inputs' dtypes. CPU tensors take the plain versions; CUDA tensors launch
+    the kernels or raise."""
     if q.shape[-1] != HEAD_DIM or q.ndim != 4:
         raise ValueError(f"fused_attention takes (B, L, heads, {HEAD_DIM}), got {tuple(q.shape)}")
     if k.shape != q.shape or v.shape != q.shape:
@@ -167,8 +207,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _FusedAttention.apply(q, k, v, fast)
     if q.device.type == "cpu":
         return _plain_attention(q, k, v, fast)
-    return _launch(q, k, v, with_lse=False)[0]
+    return _launch(*map(kernel_layout, (q, k, v)), with_lse=False)[0]
 
 
 fused_attention.launches = 0  # K2 launches; CPU calls of the plain version do not count
 attention_bwd.launches = 0    # K3 launches (one per call, for its three CUDA kernels)
+kernel_layout.copies = 0      # tensors copied before a launch (on any device)

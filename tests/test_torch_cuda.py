@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain versions on the card, at the
 edge shapes chip_smoke.py does not reach: scalar (unvectorized) paths,
 unaligned views, single rows, ragged attention lengths, the attention
-backward (K3) at one row, one head and strided inputs, and the wrappers'
-refusals. Marked ``cuda``: they skip without a card. On the card, without
-JAX (this file imports none):
+forward (K2) and backward (K3) in every mode on the U-Net block's
+row-strided views, stride-3 views and contiguous tensors, and the
+wrappers' and kernels' refusals. Marked ``cuda``: they skip without a
+card. On the card, without JAX (this file imports none):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -78,20 +79,48 @@ def test_gn_silu_kernel_refusals(dev):
     torch.testing.assert_close(xg.grad.cpu(), xc.grad, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("fast", [False, True])
+# (q/k/v dtype, fast): strict fp32, fast bf16, strict with bf16 activations
+ATTN_MODES = {"strict": (torch.float32, False), "fast": (torch.bfloat16, True),
+              "strict_bf16": (torch.bfloat16, False)}
+# the U-Net block's views of its (qkv, head, channel)-ordered conv output
+# (row-strided, unit head-dim stride: read in place), stride-3 views of an
+# interleaved qkv tensor (copied by the wrapper), separate contiguous tensors
+LAYOUTS = ("block", "stride3", "contiguous")
+
+
+def _qkv(layout, b, L, nh, dtype, dev, gen, grad=False):
+    """((q, k, v), grad): q/k/v in ``layout``, views of one leaf tensor (or
+    three leaves), and a function giving the gradient of the i-th."""
+    if layout == "block":
+        leaf = torch.randn(b, L, 3, nh, 64, device=dev, generator=gen).to(dtype)
+        leaf.requires_grad_(grad)
+        return leaf.unbind(2), lambda i: leaf.grad[:, :, i]
+    if layout == "stride3":
+        leaf = torch.randn(b, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
+        leaf.requires_grad_(grad)
+        return tuple(leaf[..., i] for i in range(3)), lambda i: leaf.grad[..., i]
+    leaves = [torch.randn(b, L, nh, 64, device=dev, generator=gen).to(dtype).requires_grad_(grad)
+              for _ in range(3)]
+    return tuple(leaves), lambda i: leaves[i].grad
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("mode", list(ATTN_MODES))
 @pytest.mark.parametrize("b,L,nh", [(1, 1, 1), (2, 65, 3), (1, 127, 2), (2, 64, 1), (1, 300, 4)])
-def test_attention_kernel_matches_plain(dev, fast, b, L, nh):
-    dtype = torch.bfloat16 if fast else torch.float32
+def test_attention_kernel_matches_plain(dev, mode, layout, b, L, nh):
+    dtype, fast = ATTN_MODES[mode]
     gen = torch.Generator(device=dev).manual_seed(L)
-    y = torch.randn(b, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
-    q, k, v = y[..., 0], y[..., 1], y[..., 2]
+    (q, k, v), _ = _qkv(layout, b, L, nh, dtype, dev, gen)
+    assert (q.stride(-1) == 1) == (layout != "stride3")
     before = K2.fused_attention.launches
     with torch.no_grad():
         out = K2.fused_attention(q, k, v, fast)
         ref = K2._plain_attention(q, k, v, fast)
     assert K2.fused_attention.launches == before + 1
     assert out.shape == (b, L, nh, 64) and out.dtype == dtype and out.is_contiguous()
-    tol = 2e-2 if fast else 2e-5
+    # fp32: 3xTF32 against fp32 einsums; bf16: the plain version rounds the
+    # logits to bf16, the kernel keeps them fp32
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
@@ -109,42 +138,126 @@ def test_attention_kernel_refusals(dev):
         K2.attention_bwd(q, q, q, q, None, q)
 
 
-# (q/k/v dtype, fast): strict fp32, fast bf16, strict with bf16 activations
-ATTN_BWD_MODES = {"strict": (torch.float32, False), "fast": (torch.bfloat16, True),
-                  "strict_bf16": (torch.bfloat16, False)}
+def test_attention_kernels_refuse_strided_head_dim(dev):
+    """Handed straight to the kernels, a head dim that is not unit-stride (or
+    rows that are not 16-byte aligned) is refused before any launch; the
+    public wrappers copy such views first (kernel_layout)."""
+    y = torch.randn(2, 16, 2, 64, 3, device=dev)
+    q, k, v = y[..., 0], y[..., 1], y[..., 2]
+    flat = torch.randn(2 * 16 * 2 * 64 + 1, device=dev)
+    odd = flat[1:].view(2, 16, 2, 64)  # unit stride, 4 bytes off alignment
+    c = q.contiguous()
+    before = (K2.fused_attention.launches, K2.attention_bwd.launches)
+    for bad in ((q, c, c), (c, k, c), (c, c, v), (odd, c, c)):
+        with pytest.raises(ValueError, match="unit-stride"):
+            K2._launch(*bad, with_lse=True)
+    out, lse = K2._launch(c, c, c, with_lse=True)
+    for bad in ((q, c, c, out, c), (c, c, c, out, v), (c, c, c, out, odd)):
+        with pytest.raises(ValueError, match="unit-stride"):
+            K2._launch_bwd(*bad[:4], lse, bad[4], False)
+    assert (K2.fused_attention.launches, K2.attention_bwd.launches) == (before[0] + 1, before[1])
+    assert K2.kernel_layout(q).is_contiguous() and K2.kernel_layout(c) is c
 
 
-@pytest.mark.parametrize("mode", list(ATTN_BWD_MODES))
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("mode", list(ATTN_MODES))
 @pytest.mark.parametrize("b,L,nh", [(1, 1, 1), (2, 64, 1), (2, 65, 3), (1, 127, 2), (1, 300, 4)])
-def test_attention_bwd_kernel_matches_plain(dev, mode, b, L, nh):
-    """K2 with its lse and K3 through autograd on stride-3 views, against
-    the plain backward on the same inputs."""
-    dtype, fast = ATTN_BWD_MODES[mode]
+def test_attention_bwd_kernel_matches_plain(dev, mode, layout, b, L, nh):
+    """K2 with its lse and K3 through autograd, against the plain backward
+    on the same inputs."""
+    dtype, fast = ATTN_MODES[mode]
     gen = torch.Generator(device=dev).manual_seed(L * nh)
-    y = torch.randn(b, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
+    (q, k, v), grad = _qkv(layout, b, L, nh, dtype, dev, gen, grad=True)
     do = torch.randn(b, L, nh, 64, device=dev, generator=gen).to(dtype)
-    yg = y.clone().requires_grad_()
     launches = (K2.fused_attention.launches, K2.attention_bwd.launches)
-    K2.fused_attention(yg[..., 0], yg[..., 1], yg[..., 2], fast).backward(do)
+    K2.fused_attention(q, k, v, fast).backward(do)
     assert (K2.fused_attention.launches, K2.attention_bwd.launches) == \
         (launches[0] + 1, launches[1] + 1)
-    ref = K2._plain_attention_bwd(y[..., 0], y[..., 1], y[..., 2], do, fast)
+    ref = K2._plain_attention_bwd(q.detach(), k.detach(), v.detach(), do, fast)
     # the tolerances of test_pallas_attn.py's gradient test, relative to the
     # largest reference gradient but no less than 1e-3 (at L=1 dq and dk are
     # zero: the softmax over one key is constant)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     for i, r in enumerate(ref):
-        got = yg.grad[..., i]
+        got = grad(i)
         assert got.dtype == dtype
         scale = max(1e-3, r.float().abs().max().item())
         assert (got.float() - r.float()).abs().max().item() <= tol * scale
 
 
-def test_attention_lse_matches_logsumexp(dev):
+def _rms_rel(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+# strict mode with bf16 activations against rounded dS: chip_smoke.py's
+# DS_SPLIT_TOL, ||err||_2 / ||ref||_2 of dq and dk
+DS_SPLIT_TOL = 6e-4
+
+
+def _plain_dq_dk(q, k, v, out, do, fast):
+    """chip_smoke.py's plain_dq_dk: dq, dk with fp32 dS (rounded to bf16
+    when ``fast``) and D = rowsum(dO o O) from K2's output, as K3 takes it."""
+    qf, kf, vf, dof = (a.float() for a in (q, k, v, do))
+    p = torch.softmax(torch.einsum("bqhc,bkhc->bhqk", qf, kf / 8), dim=-1)
+    dp = torch.einsum("bqhc,bkhc->bhqk", dof, vf)
+    ds = p * (dp - (dof * out.float()).sum(-1).transpose(1, 2)[..., None])
+    if fast:
+        ds = ds.to(q.dtype).float()
+    return (torch.einsum("bhqk,bkhc->bqhc", ds, kf).div(8).to(q.dtype),
+            torch.einsum("bhqk,bqhc->bkhc", ds, qf).div(8).to(q.dtype))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("b,L,nh", [(2, 65, 3), (1, 300, 4), (2, 256, 8)])
+def test_attention_bwd_strict_bf16_keeps_ds_unrounded(dev, layout, b, L, nh):
+    """K3 in strict mode with bf16 activations carries dS as two bf16
+    terms: its dq and dk lie within DS_SPLIT_TOL of the plain strict
+    backward with K3's D, while the same kernel in fast mode (dS rounded to
+    bf16) and the same plain backward with dS rounded land beyond it."""
+    gen = torch.Generator(device=dev).manual_seed(L + nh)
+    (q, k, v), _ = _qkv(layout, b, L, nh, torch.bfloat16, dev, gen)
+    do = torch.randn(b, L, nh, 64, device=dev, generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        out, lse = K2._launch(*map(K2.kernel_layout, (q, k, v)), with_lse=True)
+        split = K2.attention_bwd(q, k, v, out, lse, do, False)
+        rounded = K2.attention_bwd(q, k, v, out, lse, do, True)
+        exact = _plain_dq_dk(q, k, v, out, do, False)
+        plain_rounded = _plain_dq_dk(q, k, v, out, do, True)
+    for i in range(2):
+        assert _rms_rel(split[i], exact[i]) <= DS_SPLIT_TOL
+        assert _rms_rel(rounded[i], exact[i]) > DS_SPLIT_TOL
+        assert _rms_rel(plain_rounded[i], exact[i]) > DS_SPLIT_TOL
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_unet_block_copies_nothing_before_attention(dev, fast):
+    """Forward and backward of a small U-Net with attention on the card:
+    the block's q/k/v, K2's output and the incoming dO reach the kernels
+    without a copy (kernel_layout counts none)."""
+    from probunet_torch.models import UNet
+
+    kw = dict(img_resolution=(16, 16), in_channels=3, out_channels=3, model_channels=64,
+              channel_mult=(1, 2), num_blocks=1, attn_resolutions=(16,), dropout=0.0,
+              fast_attention=fast)
+    net = UNet(device="cpu", generator=torch.Generator().manual_seed(0), **kw).to(dev)
+    x = torch.randn(2, 16, 16, 3, device=dev).to(torch.bfloat16 if fast else torch.float32)
+    K2.kernel_layout.copies = 0
+    launches = (K2.fused_attention.launches, K2.attention_bwd.launches)
+    net(x).float().square().sum().backward()
+    assert K2.fused_attention.launches > launches[0] and K2.attention_bwd.launches > launches[1]
+    assert K2.kernel_layout.copies == 0
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("mode", list(ATTN_MODES))
+def test_attention_lse_matches_logsumexp(dev, mode, layout):
+    dtype, _ = ATTN_MODES[mode]
     gen = torch.Generator(device=dev).manual_seed(0)
-    q, k, v = (torch.randn(2, 100, 3, 64, device=dev, generator=gen) for _ in range(3))
+    (q, k, v), _ = _qkv(layout, 2, 100, 3, dtype, dev, gen)
+    q, k, v = map(K2.kernel_layout, (q, k, v))
     out, lse = K2._launch(q, k, v, with_lse=True)
-    ref = torch.logsumexp(torch.einsum("bqhc,bkhc->bhqk", q, k / 8), dim=-1).reshape(6, 100)
+    ref = torch.logsumexp(torch.einsum("bqhc,bkhc->bhqk", q.float(), k.float() / 8),
+                          dim=-1).reshape(6, 100)
     torch.testing.assert_close(lse, ref, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(out, K2._launch(q, k, v, with_lse=False)[0], atol=0, rtol=0)
 

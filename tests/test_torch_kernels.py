@@ -4,7 +4,9 @@ XLA paths), launch counters stay at 0 off the card, and importing the kernel
 modules needs neither nvcc nor triton. The CUDA kernels themselves are held
 against these plain versions on the card by chip_smoke.py."""
 
+import ctypes
 import importlib
+import re
 import subprocess
 import sys
 
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from probunet_torch.ops import _build
 from probunet_torch.ops import attention as tatt
 from probunet_torch.ops import gn_silu as tgn
 from probunet_torch.ops.norm import num_groups_for
@@ -82,18 +85,161 @@ def test_attention_plain_matches_jax_interpret(fast, L):
                                atol=tol, rtol=tol)
 
 
-def test_attention_takes_strided_qkv_views():
-    """The U-Net block hands over stride-3 views of the interleaved qkv conv
-    output; the result equals that of contiguous copies."""
-    rng = np.random.default_rng(3)
-    y = torch.from_numpy(rng.standard_normal((2, 64, 2, 64, 3)).astype(np.float32))
-    q, k, v = y[..., 0], y[..., 1], y[..., 2]
-    assert q.stride()[-1] == 3
+def _qkv_leaf(layout, L=64, nh=2, b=2, seed=3):
+    """One leaf tensor and its q/k/v views: the U-Net block's (qkv, head,
+    channel) layout (row stride 3C, unit head-dim stride) or the stride-3
+    views of an interleaved qkv tensor."""
+    rng = np.random.default_rng(seed)
+    if layout == "block":
+        y = torch.from_numpy(rng.standard_normal((b, L, 3, nh, 64)).astype(np.float32))
+        return y, lambda t: t.unbind(2)
+    y = torch.from_numpy(rng.standard_normal((b, L, nh, 64, 3)).astype(np.float32))
+    return y, lambda t: (t[..., 0], t[..., 1], t[..., 2])
+
+
+@pytest.mark.parametrize("layout", ["block", "stride3"])
+def test_attention_takes_strided_qkv_views(layout):
+    """The result on the block's row-strided views and on stride-3 views
+    equals that of contiguous copies, bit for bit, in the forward and in the
+    gradients."""
+    y, views = _qkv_leaf(layout)
+    q, k, v = views(y)
+    assert (q.stride()[-1] == 1) == (layout == "block")
     out = tatt.fused_attention(q, k, v)
     ref = tatt.fused_attention(q.contiguous(), k.contiguous(), v.contiguous())
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(out.shape).astype(np.float32))
+    yg = y.clone().requires_grad_()
+    tatt.fused_attention(*views(yg)).backward(g)
+    parts = [a.contiguous().requires_grad_() for a in (q, k, v)]
+    tatt.fused_attention(*parts).backward(g)
+    for got, part in zip(views(yg.grad), parts):
+        np.testing.assert_array_equal(got.numpy(), part.grad.numpy())
     with pytest.raises(ValueError):
         tatt.fused_attention(q[..., :32], k[..., :32], v[..., :32])
+
+
+def test_kernel_layout_reads_block_views_in_place():
+    """kernel_layout passes the block's views through and copies only a view
+    whose head dim is not unit-stride or whose rows are not 16-byte
+    aligned."""
+    y, views = _qkv_leaf("block")
+    for a in views(y):
+        assert tatt.kernel_layout(a) is a
+    y3, views3 = _qkv_leaf("stride3")
+    for a in views3(y3):
+        c = tatt.kernel_layout(a)
+        assert c.is_contiguous() and torch.equal(c, a)
+    flat = torch.zeros(2 * 8 * 2 * 64 + 1)
+    odd = flat[1:].view(2, 8, 2, 64)  # unit stride, 4 bytes off a 16-byte boundary
+    assert odd.data_ptr() % 16 and tatt.kernel_layout(odd) is not odd
+
+
+def test_kernel_layout_counts_its_copies(monkeypatch):
+    """kernel_layout.copies moves by one for each tensor copied and not at
+    all for the block's views, which chip_smoke.py relies on to show that
+    the main paths copy nothing before the attention kernels."""
+    monkeypatch.setattr(tatt.kernel_layout, "copies", 0)
+    y, views = _qkv_leaf("block")
+    for a in views(y):
+        tatt.kernel_layout(a)
+    assert tatt.kernel_layout.copies == 0
+    y3, views3 = _qkv_leaf("stride3")
+    for a in views3(y3):
+        tatt.kernel_layout(a)
+    assert tatt.kernel_layout.copies == 3
+
+
+# ---- the C entry points against the wrappers -------------------------------------
+
+_C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}
+
+
+def _c_declarations():
+    """{name: [ctypes type per parameter]} of every ``extern "C"`` function
+    in csrc/*.cu, parsed from the sources."""
+    decls = {}
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        src = re.sub(r"//[^\n]*", "", path.read_text())
+        for m in re.finditer(r'extern "C"\s+[\w\s\*]+?\b(\w+)\s*\(([^)]*)\)', src):
+            types = []
+            for param in (p.strip() for p in m.group(2).split(",") if p.strip()):
+                decl = re.sub(r"\bconst\b", "", param)
+                base = "void*" if "*" in decl else " ".join(decl.split()[:-1])
+                types.append(_C_TYPES[base])
+            decls[m.group(1)] = types
+    return decls
+
+
+def test_kernel_signatures_match_c_declarations():
+    """Every kernel entry point in _build._SIGNATURES has the arity and the
+    parameter types of its extern "C" declaration in csrc/*.cu (ctypes
+    passes what argtypes says, so a stride argument added on one side only
+    would shift every argument after it)."""
+    decls = _c_declarations()
+    assert set(_build._SIGNATURES) == set(decls) - {"probunet_error_string"}
+    for name, argtypes in _build._SIGNATURES.items():
+        assert argtypes == decls[name], name
+
+
+class _FakeLib:
+    """Records the arguments of each entry-point call; every call succeeds."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    lib = _FakeLib()
+    monkeypatch.setattr(_build, "lib", lambda: lib)
+    monkeypatch.setattr(_build, "stream_handle", lambda device: ctypes.c_void_p(0))
+    monkeypatch.setattr(tatt.fused_attention, "launches", 0)
+    monkeypatch.setattr(tatt.attention_bwd, "launches", 0)
+    return lib
+
+
+def test_attention_wrappers_pass_the_declared_arguments(fake_lib):
+    """What _launch and _launch_bwd hand the C entry points (here a recorder,
+    with CPU tensors standing in) matches the declared arity and types, and
+    the stride arguments are the tensors' own (b, l, h) strides: the block's
+    views go in place."""
+    y, views = _qkv_leaf("block")
+    q, k, v = views(y)
+    out, lse = tatt._launch(q, k, v, with_lse=True)
+    do = torch.zeros_like(out)
+    tatt._launch_bwd(q, k, v, out, lse, do, fast=False)
+    (fwd, fargs), (bwd, bargs) = fake_lib.calls
+    assert (fwd, bwd) == ("probunet_attention_fwd", "probunet_attention_bwd")
+    for args, tensors, first in ((fargs, (q, k, v), 8), (bargs, (q, k, v, out, do), 13)):
+        name = fwd if args is fargs else bwd
+        argtypes = _build._SIGNATURES[name]
+        assert len(args) == len(argtypes), name
+        for a, t in zip(args, argtypes):
+            t.from_param(a)  # raises on an argument ctypes would not pass as declared
+        strides = [s for a in tensors for s in a.stride()[:3]]
+        assert list(args[first:first + len(strides)]) == strides
+    assert args[first + len(strides)] == 1 / 8  # the scale follows the strides
+    assert fargs[0] == q.data_ptr() and fargs[1] == k.data_ptr() and fargs[2] == v.data_ptr()
+
+
+def test_attention_launch_refuses_strided_head_dim(fake_lib):
+    """Handed straight to a launch, a view whose head dim is not unit-stride
+    is refused before the entry point is called; fused_attention normalises
+    it first (kernel_layout)."""
+    y, views = _qkv_leaf("stride3")
+    q, k, v = views(y)
+    c = q.contiguous()
+    with pytest.raises(ValueError, match="unit-stride"):
+        tatt._launch(q, c, c, with_lse=False)
+    lse = torch.zeros(c.shape[0] * c.shape[2], c.shape[1])
+    with pytest.raises(ValueError, match="unit-stride"):
+        tatt._launch_bwd(c, c, c, c, lse, v, fast=True)
+    assert fake_lib.calls == []
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():

@@ -13,10 +13,13 @@ import torch
 from probunet_torch.models import ProbabilisticUNet as TProbUNet
 from probunet_torch.models import UNet as TUNet
 from probunet_torch.models import layers as tl
+from probunet_torch.models import unet as tunet
+from probunet_torch.ops.attention import kernel_layout
 from probunet_torch.utils.transplant import flax_probunet_to_torch, flax_unet_to_torch
 from probunet_tpu.models import ProbabilisticUNet as JProbUNet
 from probunet_tpu.models import UNet as JUNet
 from probunet_tpu.models import layers as jl
+from probunet_tpu.models.unet import UNetBlock as JUNetBlock
 from probunet_tpu.utils.transplant import assert_tree_shapes_match, torch_probunet_to_flax
 
 # Small widths: model_channels 64 gives attention 1-2 heads of 64.
@@ -96,6 +99,69 @@ def test_unet_forward_parity_with_attention():
         out = tm(torch.from_numpy(x))
     # fp32 through ~20 conv/norm layers: 1e-4 of the output's scale
     _assert_close(out.numpy(), ref, 1e-4)
+
+
+def _block_pair(c=128, emb=32, seed=11):
+    """A JAX attention UNetBlock (c channels, c/64 heads) and the port's,
+    with the same filled weights carried across by flax_unet_to_torch."""
+    jm = JUNetBlock(c, c, emb, attention=True)
+    x, e = _x((2, 8, 8, c), seed), _x((2, emb), seed + 1)
+    params = _params(jm, jnp.asarray(x), jnp.asarray(e), seed=seed + 2)
+    tm = tunet.UNetBlock(c, c, emb, attention=True, device="cpu").eval()
+    prefix = "enc.8x8_block0."
+    tm.load_state_dict({k[len(prefix):]: v for k, v in
+                        flax_unet_to_torch({"enc_8x8_block0": params}).items()})
+    return jm, params, tm, x, e
+
+
+def test_unet_block_qkv_reorder_matches_jax():
+    """The block runs its qkv conv with the output rows reordered to (qkv,
+    head, channel) so that q/k/v are unit-stride views; with the
+    reference's parameters and state_dict layout, forward and gradients
+    (input and every parameter) match the JAX block."""
+    jm, params, tm, x, e = _block_pair()
+    g = _x((2, 8, 8, 128), 14)
+
+    def loss(p, xx):
+        return jnp.sum(jm.apply({"params": p}, xx, jnp.asarray(e)) * jnp.asarray(g))
+
+    ref = _apply(jm, params, jnp.asarray(x), jnp.asarray(e))
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(params, jnp.asarray(x))
+    xt = tl.nchw(torch.from_numpy(x)).requires_grad_()
+    out = tm(xt, torch.from_numpy(e))
+    out.backward(tl.nchw(torch.from_numpy(g)))
+    # fp32 through two convs, two norms and the attention: the forward
+    # parity's 1e-4 of the output's scale, and of each gradient's
+    _assert_close(tl.nhwc(out).detach().numpy(), ref, 1e-4)
+    _assert_close(tl.nhwc(xt.grad).numpy(), gx, 1e-4)
+    ref_g = {k[len("enc.8x8_block0."):]: v.numpy()
+             for k, v in flax_unet_to_torch({"enc_8x8_block0": gp}).items()}
+    assert set(ref_g) == {k for k, _ in tm.named_parameters()}
+    for name, p in tm.named_parameters():
+        _assert_close(p.grad.numpy(), ref_g[name], 1e-4)
+
+
+def test_unet_block_hands_unit_stride_qkv_views(monkeypatch):
+    """q, k and v reach fused_attention as views of the qkv conv output with
+    a unit-stride head dim (row stride 3C, head stride 64), which the
+    kernels read in place: no copy on the path."""
+    _, _, tm, x, e = _block_pair(c=128)
+    real, seen = tunet.fused_attention, []
+
+    def spy(q, k, v, fast=False):
+        seen.append((q, k, v))
+        return real(q, k, v, fast)
+
+    monkeypatch.setattr(tunet, "fused_attention", spy)
+    with torch.no_grad():
+        tm(tl.nchw(torch.from_numpy(x)), torch.from_numpy(e))
+    (q, k, v), = seen
+    c, hw = 128, 64
+    for i, a in enumerate((q, k, v)):
+        assert a.shape == (2, hw, 2, 64)
+        assert a.stride() == (hw * 3 * c, 3 * c, 64, 1)
+        assert a.data_ptr() == q.data_ptr() + i * c * a.element_size()
+        assert kernel_layout(a) is a
 
 
 @pytest.fixture(scope="module")
