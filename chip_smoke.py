@@ -12,9 +12,14 @@ seeded random weights), in strict fp32 and in fast bf16 mode. Phases:
   1. card and build: nvidia-smi name and power limit; nvcc for sm_90a with
      ptxas registers, shared memory and spills; ``cuobjdump -sass`` of the
      library: the tensor-core instructions (HMMA, HGMMA) of every attention
-     kernel, each of which must have some;
-  2. K1 GroupNorm+SiLU against its plain version at every (H, W, C) of the
-     path at batch 8, fp32 and bf16;
+     kernel, each of which must have some; K1's plan at the path's largest
+     site, its threads, shared memory, registers, spills and cluster
+     residency (cudaOccupancyMaxActiveClusters);
+  2. K1 GroupNorm+SiLU against its plain version, output and (B, G) mean
+     and rstd, at every (H, W, C) of the path at batch 8 and at edge shapes
+     (C = 6 without vectors, H*W = 1, B = 1, a view off a 16-byte boundary,
+     one shape streamed through shared memory), fp32 and bf16; two calls
+     bit-equal; every site of the path planned on chip;
   3. K2 attention against its plain version at the path's (B, L, heads)
      and at L = 100, 1 and 65, strict, fast and strict with bf16
      activations, on the U-Net block's views (read in place), on stride-3
@@ -25,14 +30,14 @@ seeded random weights), in strict fp32 and in fast bf16 mode. Phases:
      ``kernel_layout`` no copy of q/k/v;
   5. the path against the plain path: one input, two members, the same
      weights and eps, on the card and on the CPU;
-  6. timings with CUDA events: each kernel (K2 on the block's own views,
-     so no q/k/v copy; the wrapper's layout step on those views and the
-     copy it makes of stride-3 views, timed), its plain version, one
-     PyTorch call computing the
-     same function (a yardstick the port never calls; also by its device
-     time from torch.profiler), the bound (strict attention: the smaller of
-     the fp32 CUDA-core and the 3xTF32 tensor-core bound); the serving
-     rate; a profile of one batch;
+  6. timings with CUDA events and by device time (torch.profiler): each
+     kernel (K1 per site with its share of the bound; K2 on the block's own
+     views, so no q/k/v copy; the wrapper's layout step on those views and
+     the copy it makes of stride-3 views, timed), its plain version, one
+     PyTorch call computing the same function (a yardstick the port never
+     calls), the bound (strict attention: the smaller of the fp32 CUDA-core
+     and the 3xTF32 tensor-core bound); the serving rate; a profile of one
+     batch;
   7. K3 attention backward against its plain version, and K2's row
      log-sum-exp against logsumexp, in the cases of phase 3; strict mode
      with bf16 activations also against rounded dS (DS_SPLIT_TOL);
@@ -55,6 +60,7 @@ result. The line before the last is the ``kernels`` JSON object, the last
 line ``{"ok": true, "device": {...}}``.
 """
 
+import ctypes
 import json
 import math
 import os
@@ -90,6 +96,10 @@ ATTN_MODES = {"strict": ("float32", False), "fast": ("bfloat16", True),
 # views of an interleaved qkv tensor (copied first), contiguous tensors
 LAYOUTS = ("block", "stride3", "contiguous")
 EDGE_SHAPES = [(2, (100, 2)), (2, (1, 2)), (2, (65, 3))]   # (B, (L, heads)) off the path
+# (B, H, W, C, what) of K1 off the path; "unaligned" views x 4 bytes past a
+# 16-byte boundary (the scalar kernel), "streamed" plans off chip (x read twice)
+K1_EDGE = [(3, 5, 7, 6, "C=6, no vectors"), (4, 1, 1, 128, "H*W=1"), (1, 32, 32, 384, "B=1"),
+           (2, 16, 16, 256, "unaligned"), (1, 256, 256, 64, "streamed")]
 # the whole path, card against CPU, strict fp32: cuDNN and oneDNN sum the
 # convolutions in other orders through ~60 layers of random weights
 PATH_TOL = 1e-3
@@ -190,6 +200,39 @@ def sass_census(_build):
         raise AssertionError(f"expected {want} attention kernels, each with tensor-core "
                              f"instructions; found {counts}")
     return counts
+
+
+def k1_kernel_info(torch, K1, site, num_sms):
+    """K1's plan at ``site`` (H, W, C) at batch 8 and what the kernel of
+    that plan is on this card, fp32 and bf16: threads, dynamic and static
+    shared bytes, registers, spilled bytes and the clusters of the plan that
+    can be resident at once (cudaOccupancyMaxActiveClusters). Raises if no
+    cluster fits."""
+    from probunet_torch.ops import _build
+    from probunet_torch.ops.norm import num_groups_for
+
+    h, w, c = site
+    g = num_groups_for(c)
+    keys = ("max_active_clusters", "threads", "dynamic_smem", "registers", "local_bytes",
+            "static_smem")
+    info = {"site": [BATCH, h, w, c]}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        p = K1.plan(BATCH, h, w, c, g, dtype.itemsize, num_sms)
+        buf = (ctypes.c_int * len(keys))()
+        _build.check(_build.lib().probunet_gn_silu_query(
+            int(dtype == torch.bfloat16), 16 // dtype.itemsize, c, g, p.cb, p.n, p.chunk_rows,
+            buf), "gn_silu query")
+        d = {**p._asdict(), **dict(zip(keys, buf)), "blocks": BATCH * c // p.cb * p.n}
+        info[name] = d
+        log(f"[1] K1 {name} at {BATCH}x{h}x{w}x{c}: cb {p.cb} ({c // p.cb} channel blocks), "
+            f"clusters of {p.n} x {d['threads']} threads, {p.rows} rows per block, on chip "
+            f"{p.on_chip}; {d['dynamic_smem']} B dynamic + {d['static_smem']} B static shared "
+            f"per block, {d['registers']} registers, {d['local_bytes']} B spilled; "
+            f"{d['max_active_clusters']} clusters resident at once "
+            f"({d['max_active_clusters'] * p.n} blocks on {num_sms} SMs) of {d['blocks'] // p.n}")
+        if d["max_active_clusters"] < 1:
+            raise AssertionError("no K1 cluster of the largest site fits on the card")
+    return info
 
 
 def qkv_views(torch, layout, b, L, nh, dtype, dev, gen):
@@ -307,6 +350,7 @@ def run_phases(torch, dev, card, sass):
     from probunet_torch.data.dataset import ClimexDataset
     from probunet_torch.data.netcdf import NetCDFFile
     from probunet_torch.data.synthetic import generate_climex_like
+    from probunet_torch.models.unet import build_unet_plan, gn_silu_sites
     from probunet_torch.ops import attention as K2
     from probunet_torch.ops import gn_silu as K1
     from probunet_torch.ops.norm import group_stats, num_groups_for
@@ -342,29 +386,52 @@ def run_phases(torch, dev, card, sass):
     log(f"[2] K1 sites per forward: {len(gn_sites)}; [3] K2 sites: {len(attn_sites)}")
     if (len(gn_sites), len(attn_sites)) != (K1_PER_BATCH, K2_PER_BATCH):
         raise AssertionError("unexpected kernel sites on the path")
+    if sorted(gn_sites) != sorted(gn_silu_sites(*build_unet_plan(
+            (RES, RES), 4, cfg.model_channels, cfg.channel_mult, cfg.num_blocks,
+            cfg.attn_resolutions), (RES, RES))):
+        raise AssertionError("the hooks' K1 sites differ from models.unet.gn_silu_sites")
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k1_info = k1_kernel_info(torch, K1, max(gn_sites, key=math.prod), num_sms)
 
     # ---- 2. K1 against its plain version -------------------------------------
+    for dtype in (torch.float32, torch.bfloat16):
+        off = [site for site in gn_sites if not K1.plan(
+            BATCH, *site, num_groups_for(site[2]), dtype.itemsize, num_sms).on_chip]
+        if off:
+            raise AssertionError(f"K1 sites planned off chip in {dtype}: {off}")
+    log(f"[2] K1: all {len(gn_sites)} sites of the path planned on chip in fp32 and bf16")
     k1_err = {}
+    cases = [(BATCH, h, w, c, "path") for (h, w, c) in sorted(set(gn_sites))] + K1_EDGE
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = GN_TOL[str(dtype).split(".")[1]]
         worst = 0.0
-        for (h, w, c) in sorted(set(gn_sites)):
+        for (b, h, w, c, what) in cases:
             g = num_groups_for(c)
-            x = (torch.randn(BATCH, h, w, c, device=dev, generator=gen) + 0.5).to(dtype)
+            p = K1.plan(b, h, w, c, g, dtype.itemsize, num_sms)
+            x = (torch.randn(b, h, w, c, device=dev, generator=gen) + 0.5).to(dtype)
+            if what == "unaligned":   # one element into a fresh buffer
+                x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(b, h, w, c)
             gamma = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
             beta = 0.1 * torch.randn(c, device=dev, generator=gen)
             with torch.inference_mode():
                 out, mean, rstd = K1.gn_silu(x, gamma, beta, g, return_stats=True)
+                again = K1.gn_silu(x, gamma, beta, g, return_stats=True)
                 ref = K1._plain_gn_silu(x, gamma, beta, g)[0]
                 rmean, rrstd = group_stats(x, g)
             torch.cuda.synchronize()
             d = (out.float() - ref.float()).abs()
             worst = max(worst, d.max().item())
-            ok = bool((d <= atol + rtol * ref.float().abs()).all())
+            stats_err = max((mean - rmean).abs().max().item(), (rstd - rrstd).abs().max().item())
+            same = all(torch.equal(a, b_) for a, b_ in zip(again, (out, mean, rstd)))
+            ok = bool((d <= atol + rtol * ref.float().abs()).all()) and same
             ok &= torch.allclose(mean, rmean, rtol=1e-5, atol=1e-5)
             ok &= torch.allclose(rstd, rrstd, rtol=1e-5, atol=1e-5)
-            log(f"[2] K1 {str(dtype)[6:]:8s} {BATCH}x{h}x{w}x{c} G={g}: max abs err "
-                f"{d.max().item():.3e} (atol {atol}, rtol {rtol:.3g}) {'ok' if ok else 'FAIL'}")
+            ok &= (what == "streamed") != p.on_chip
+            ok &= (what == "unaligned") == bool(x.data_ptr() % 16)
+            log(f"[2] K1 {str(dtype)[6:]:8s} {b}x{h}x{w}x{c} G={g} ({what}; cb {p.cb}, cluster "
+                f"{p.n}, {p.rows} rows/block, {'on chip' if p.on_chip else 'streamed'}): max abs "
+                f"err {d.max().item():.3e} (atol {atol}, rtol {rtol:.3g}), mean/rstd "
+                f"{stats_err:.2e}, two calls bit-equal {same} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError("K1 disagrees with its plain version")
         k1_err[dtype] = worst
@@ -467,25 +534,37 @@ def run_phases(torch, dev, card, sass):
 
     # ---- 6. timings ----------------------------------------------------------
     def time_k1(dtype):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "library_device_ms": 0.0, "bound_ms": 0.0}
         for (h, w, c), mult in _counts(gn_sites).items():
             g = num_groups_for(c)
             x = torch.randn(BATCH, h, w, c, device=dev, generator=gen).to(dtype)
             gamma = torch.ones(c, device=dev)
             beta = torch.zeros(c, device=dev)
             xc = x.permute(0, 3, 1, 2)            # NCHW view, channels_last
+            gl, bl = gamma.to(dtype), beta.to(dtype)
+
+            def run():
+                return K1.gn_silu(x, gamma, beta, g)
+
+            def lib():
+                return F.silu(F.group_norm(xc, g, gl, bl, 1e-5))
+
             with torch.inference_mode():
-                t = {"ms": cuda_ms(torch, lambda: K1.gn_silu(x, gamma, beta, g)),
+                t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run),
                      "plain_ms": cuda_ms(torch, lambda: K1._plain_gn_silu(x, gamma, beta, g)),
-                     "library_ms": cuda_ms(torch, lambda: F.silu(F.group_norm(
-                         xc, g, gamma.to(dtype), beta.to(dtype), 1e-5)))}
+                     "library_ms": cuda_ms(torch, lib), "library_device_ms": device_ms(torch, lib)}
             t["bound_ms"] = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
             log(f"[6] K1 {str(dtype)[6:]:8s} {BATCH}x{h}x{w}x{c} x{mult}: kernel "
-                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, F.group_norm+silu "
-                f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f}")
+                f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}: "
+                f"{t['bound_ms'] / t['device_ms']:.0%} of the bound), plain "
+                f"{t['plain_ms']:.4f}, F.group_norm+silu {t['library_ms']:.4f} (device "
+                f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.4f}")
             for key in tot:
                 tot[key] += mult * t[key]
         tot["bound_by"] = "bytes"
+        tot["bound_share_device"] = tot["bound_ms"] / tot["device_ms"]
+        tot["bound_share_events"] = tot["bound_ms"] / tot["ms"]
         return tot
 
     def time_k2(mode):
@@ -585,8 +664,10 @@ def run_phases(torch, dev, card, sass):
         entry("gn_silu_fwd", "probunet_torch/csrc/gn_silu.cu",
               "probunet_tpu/ops/pallas_gn.py:72", launches["gn"] + train["launches"]["gn"],
               k1_err[torch.float32], GN_TOL["float32"], k1_t["fp32"],
-              {"timed": per.format(K1_PER_BATCH) + ", fp32", "bf16": k1_t["bf16"],
-               "bf16_max_abs_err": k1_err[torch.bfloat16], "launches_by_path": by_path["gn"]}),
+              {"timed": per.format(K1_PER_BATCH) + ", fp32", "device_ms": k1_t["fp32"]["device_ms"],
+               "library_device_ms": k1_t["fp32"]["library_device_ms"], "fp32": k1_t["fp32"],
+               "bf16": k1_t["bf16"], "bf16_max_abs_err": k1_err[torch.bfloat16],
+               "launches_by_path": by_path["gn"], "largest_site": k1_info}),
         entry("attention_fwd", "probunet_torch/csrc/attention_fwd.cu",
               "probunet_tpu/ops/pallas_attn.py:69", launches["attn"] + train["launches"]["attn"],
               k2_err["strict"], ATTN_TOL["strict"], k2_t["strict"],

@@ -58,20 +58,6 @@ template <> struct Pitch<float> { static constexpr int value = kD + 4; };
 template <typename T> constexpr int kPitch = Pitch<T>::value;
 template <typename T> constexpr int kTile = kRows * kPitch<T>;  // elements per shared tile
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; with valid false, 16 zero bytes (src unread).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Rows row0 .. row0 + 63 of one (batch, head) slice, row r at src + r * ld,
 // into a shared tile; rows at or past L are zero. Asynchronous: commit and
 // wait before reading.

@@ -1,5 +1,5 @@
 // Helpers shared by the port's hand-written kernels: fp32 <-> storage-type
-// conversion and 16-byte vector loads/stores.
+// conversion, 16-byte vector loads/stores and cp.async copies.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,6 +40,25 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&in)[V
 #pragma unroll
   for (int i = 0; i < VEC; ++i) pk.v[i] = from_float<T>(in[i]);
   *reinterpret_cast<Pack<T, VEC>*>(p) = pk;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with valid false, 16 zero bytes (src unread).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+// 16 bytes global -> shared, with L2 fetching the aligned 256 bytes around src.
+__device__ __forceinline__ void cp_async16_l2_256(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace probunet

@@ -179,6 +179,21 @@ def build_unet_plan(
     return enc, resolved, cout
 
 
+def gn_silu_sites(enc: List[BlockSpec], dec: List[BlockSpec], final_channels: int,
+                  img_resolution: Tuple[int, int]) -> List[Tuple[int, int, int]]:
+    """(H, W, C) of every GroupNorm+SiLU (kernel K1) call in one forward of
+    the U-Net that ``build_unet_plan`` describes: ``norm0`` of each block, at
+    its input's resolution (a down block's conv halves it after the norm,
+    an up block's doubles it), then ``out_norm``."""
+    sites = []
+    for spec in enc + dec:
+        if spec.kind == "block":
+            hw = [int(v) for v in spec.name.split("_")[0].split("x")]
+            hw = [v * 2 if spec.down else v // 2 if spec.up else v for v in hw]
+            sites.append((hw[0], hw[1], spec.in_channels))
+    return sites + [(img_resolution[0], img_resolution[1], final_channels)]
+
+
 class UNet(nn.Module):
     """The ADM architecture (reference networks.py:224-333) in its
     downscaling configuration. ``forward`` takes and returns NHWC."""

@@ -27,9 +27,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lib: Optional[ctypes.CDLL] = None
 _vp, _int, _i64, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # x, gamma, beta, out, mean, rstd, partials, B, HW, C, G, S,
-    # rows_per_chunk, eps, is_bf16, vec, stream
-    "probunet_gn_silu_fwd": [_vp] * 7 + [_int] * 6 + [_float, _int, _int, _vp],
+    # x, gamma, beta, out, mean, rstd, B, HW, C, G, cb, cluster, rows,
+    # chunk_rows, eps, is_bf16, vec, stream
+    "probunet_gn_silu_fwd": [_vp] * 6 + [_int] * 8 + [_float, _int, _int, _vp],
+    # is_bf16, vec, C, G, cb, cluster, chunk_rows, out (int[6])
+    "probunet_gn_silu_query": [_int] * 7 + [_vp],
     # q, k, v, o, lse, B, H, L, (b, l, h) element strides of q, k and v,
     # scale, is_bf16, stream
     "probunet_attention_fwd": [_vp] * 5 + [_int] * 3 + [_i64] * 9 + [_float, _int, _vp],
@@ -117,7 +119,9 @@ def check(code: int, what: str) -> None:
 
 
 def stream_handle(device) -> ctypes.c_void_p:
-    """The current PyTorch CUDA stream on ``device`` as a C pointer."""
+    """The current PyTorch CUDA stream on ``device`` as a C pointer. Asks
+    for the raw handle (the call Triton's launcher makes) rather than
+    building a ``torch.cuda.Stream`` object on every kernel launch."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(device.index))

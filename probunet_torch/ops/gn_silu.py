@@ -3,24 +3,42 @@
 ``gn_silu`` launches the hand-written CUDA kernel ``csrc/gn_silu.cu`` for a
 CUDA tensor and runs :func:`_plain_gn_silu`, the same function in plain
 PyTorch, for a CPU tensor. It replaces
-``probunet_tpu/ops/pallas_gn.py::_kernel``; the source note in the ``.cu``
-file gives its bound and design. When an input requires a gradient it runs
-inside an ``autograd.Function`` whose backward is
-:func:`_plain_gn_silu_bwd` on every device, as the JAX package's backward
-(``pallas_gn.py::_gn_silu_bwd``) is plain XLA and no Pallas kernel.
+``probunet_tpu/ops/pallas_gn.py::_kernel``. The kernel is bound by bytes: at
+best it reads x once and writes the output once (2N). One launch per call:
+a thread-block cluster per (sample, channel block of whole groups) holds the
+block's (H*W, Cb) slice of x in its blocks' shared memory, merges the group
+statistics across the cluster through distributed shared memory, in rank
+order, and normalizes from the shared copy. A slice too large for a cluster
+is streamed through shared memory twice by the same kernel (3N). The source
+note in the ``.cu`` file gives the details; :func:`plan` sizes the clusters
+on the host, once per shape.
+
+When an input requires a gradient the forward runs inside an
+``autograd.Function`` whose backward is :func:`_plain_gn_silu_bwd` on every
+device, as the JAX package's backward (``pallas_gn.py::_gn_silu_bwd``) is
+plain XLA and no Pallas kernel.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from probunet_torch.ops import _build
 from probunet_torch.ops.norm import group_stats
 
-#: stats-pass blocks to aim for per SM, so batch 8 still fills the card
-_STATS_BLOCKS_PER_SM = 4
+#: bytes of x one block holds in shared memory: with the block's scratch it
+#: stays under half of an SM's 228 KB, so two blocks share an SM and one's
+#: stores overlap the other's loads
+SLICE_BYTES = 100 * 1024
+#: blocks per cluster at most (16 needs the non-portable cluster size)
+MAX_CLUSTER = 16
+#: row segment (Cb channels of one row of x) a plan prefers at least, bytes;
+#: 32 (one sector) is required wherever C allows it
+ROW_BYTES = 64
 
 
 def _plain_gn_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -69,38 +87,79 @@ def _plain_gn_silu_bwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
     return dx.reshape(b, h, w, c).to(x.dtype), dweight, dbias
 
 
-def stats_split(batch: int, hw: int, num_sms: int):
-    """(S, rows_per_chunk): the H*W rows cut into S chunks so that the
-    statistics pass runs about ``_STATS_BLOCKS_PER_SM`` blocks per SM."""
-    s = max(1, min(hw, math.ceil(_STATS_BLOCKS_PER_SM * num_sms / batch)))
-    rows = math.ceil(hw / s)
-    return math.ceil(hw / rows), rows
+class Plan(NamedTuple):
+    """How one call is cut: clusters of ``n`` blocks, one per (sample,
+    channel block of ``cb`` channels); each block takes ``rows`` of the H*W
+    rows, ``chunk_rows`` of them at a time in shared memory."""
+
+    cb: int
+    n: int
+    rows: int
+    on_chip: bool      # the unit's slice stays in the cluster: x read once
+    chunk_rows: int    # == rows when on_chip
 
 
-def _vec_width(x: torch.Tensor, *ptrs) -> int:
-    """Elements per 16-byte access, or 1 where C or an address forbids it."""
-    vec = 16 // x.element_size()
-    if x.shape[-1] % vec or any(p % 16 for p in ptrs):
-        return 1
-    return vec
+def _vec(c: int, itemsize: int) -> int:
+    """Elements per 16-byte access where C allows it, else 1."""
+    vec = 16 // itemsize
+    return 1 if c % vec else vec
 
 
-@torch.no_grad()
+@functools.lru_cache(maxsize=None)
+def plan(b: int, h: int, w: int, c: int, groups: int, itemsize: int, num_sms: int) -> Plan:
+    """The launch plan of K1 for one shape; pure and cached.
+
+    Cb holds whole groups and whole 16-byte vectors, and divides C. Rows of
+    at least 32 bytes are required where C allows them, and ROW_BYTES
+    preferred: the smallest such Cb whose slice fits a cluster of at most
+    MAX_CLUSTER blocks of SLICE_BYTES each is taken, which also gives the
+    most units and, with the fewest blocks that hold the slice, the
+    smallest clusters (each block of a cluster adds latency: spreading a
+    small unit over more blocks measured slower on the H100). When no Cb
+    fits, the unit is streamed (``on_chip`` False) in chunks of SLICE_BYTES,
+    by as many blocks per unit as give every SM one block."""
+    hw, cg = h * w, c // groups
+    base = math.lcm(cg, _vec(c, itemsize))
+    cands = [base * k for k in range(1, c // base + 1) if (c // base) % k == 0]
+    wide = [cb for cb in cands if cb * itemsize >= 32] or cands
+
+    def max_rows(cb):
+        return SLICE_BYTES // (cb * itemsize)
+
+    fits = [cb for cb in wide if max_rows(cb) and math.ceil(hw / max_rows(cb)) <= MAX_CLUSTER]
+    cb = min(fits or wide, key=lambda cb: (-min(cb * itemsize, ROW_BYTES), cb))
+    on_chip = bool(fits)
+    if on_chip:
+        n = math.ceil(hw / max_rows(cb))
+    else:
+        n = min(MAX_CLUSTER, hw, math.ceil(num_sms / (b * (c // cb))))
+    rows = math.ceil(hw / n)
+    n = math.ceil(hw / rows)
+    chunk = rows if on_chip else max(1, max_rows(cb))
+    return Plan(cb, n, rows, on_chip, chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    """SM count of CUDA device ``index``, asked once per device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(x, weight, bias, groups, eps):
     b, h, w, c = x.shape
     dev = x.device
+    p = plan(b, h, w, c, groups, x.element_size(), _num_sms(dev.index))
     gamma = weight.to(dev, torch.float32).contiguous()
     beta = bias.to(dev, torch.float32).contiguous()
     out = torch.empty_like(x)
     mean = torch.empty(b, groups, device=dev, dtype=torch.float32)
     rstd = torch.empty_like(mean)
-    s, rows = stats_split(b, h * w, torch.cuda.get_device_properties(dev).multi_processor_count)
-    partials = torch.empty(b, s, groups, 3, device=dev, dtype=torch.float32)
-    vec = _vec_width(x, x.data_ptr(), out.data_ptr())
-    lib = _build.lib()
-    code = lib.probunet_gn_silu_fwd(
+    vec = _vec(c, x.element_size())
+    if x.data_ptr() % 16 or out.data_ptr() % 16:
+        vec = 1
+    code = _build.lib().probunet_gn_silu_fwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), mean.data_ptr(),
-        rstd.data_ptr(), partials.data_ptr(), b, h * w, c, groups, s, rows, eps,
+        rstd.data_ptr(), b, h * w, c, groups, p.cb, p.n, p.rows, p.chunk_rows, eps,
         int(x.dtype == torch.bfloat16), vec, _build.stream_handle(dev))
     _build.check(code, "gn_silu kernel")
     gn_silu.launches += 1

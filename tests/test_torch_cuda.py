@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at the
 edge shapes chip_smoke.py does not reach: scalar (unvectorized) paths,
-unaligned views, single rows, ragged attention lengths, the attention
+unaligned views, single rows, a GroupNorm+SiLU slice streamed through
+shared memory, bit-equal reruns, ragged attention lengths, the attention
 forward (K2) and backward (K3) in every mode on the U-Net block's
 row-strided views, stride-3 views and contiguous tensors, and the
 wrappers' and kernels' refusals. Marked ``cuda``: they skip without a
@@ -29,9 +30,15 @@ def dev():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,w,c", [(2, 8, 8, 64), (1, 1, 1, 128), (3, 5, 7, 6),
-                                     (2, 4, 4, 12), (1, 9, 3, 1024), (2, 3, 3, 2048)])
+                                     (2, 4, 4, 12), (1, 9, 3, 1024), (2, 3, 3, 2048),
+                                     (1, 256, 256, 64), (8, 128, 128, 384)])
 def test_gn_silu_kernel_matches_plain(dev, dtype, b, h, w, c):
+    """Against the plain version, output and (B, G) statistics; two calls
+    give equal bits (no atomics). (1, 256, 256, 64) is streamed through
+    shared memory (its plan is not on chip); (8, 128, 128, 384) is the
+    path's largest site, clusters of 16 blocks."""
     g = max(1, num_groups_for(c))
+    assert K1.plan(b, h, w, c, g, dtype.itemsize, 132).on_chip == ((h, w) != (256, 256))
     gen = torch.Generator(device=dev).manual_seed(c)
     x = (torch.randn(b, h, w, c, device=dev, generator=gen) * 2 + 1).to(dtype)
     gamma = torch.randn(c, device=dev, generator=gen)
@@ -39,14 +46,17 @@ def test_gn_silu_kernel_matches_plain(dev, dtype, b, h, w, c):
     before = K1.gn_silu.launches
     with torch.no_grad():
         out, mean, rstd = K1.gn_silu(x, gamma, beta, g, return_stats=True)
+        again = K1.gn_silu(x, gamma, beta, g, return_stats=True)
         ref = K1._plain_gn_silu(x, gamma, beta, g)[0]
         rmean, rrstd = group_stats(x, g)
-    assert K1.gn_silu.launches == before + 1
+    assert K1.gn_silu.launches == before + 2
     # fp32: summation order only; bf16: one rounding of an fp32 result apart
     atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 2 ** -8)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(mean, rmean, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(rstd, rrstd, atol=1e-5, rtol=1e-5)
+    for got, first in zip(again, (out, mean, rstd)):
+        assert torch.equal(got, first)
 
 
 def test_gn_silu_kernel_unaligned_view(dev):

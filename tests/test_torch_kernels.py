@@ -9,12 +9,15 @@ import importlib
 import re
 import subprocess
 import sys
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from probunet_torch.config import Config
+from probunet_torch.models.unet import build_unet_plan, gn_silu_sites
 from probunet_torch.ops import _build
 from probunet_torch.ops import attention as tatt
 from probunet_torch.ops import gn_silu as tgn
@@ -274,10 +277,95 @@ def test_cpu_autograd_leaves_launch_counters_at_zero():
             tatt.attention_bwd.launches) == (0, 0, 0)
 
 
-def test_stats_split_covers_rows():
-    for batch, hw, sms in [(8, 128 * 128, 132), (8, 16 * 16, 132), (1, 4, 132), (64, 1024, 132)]:
-        s, rows = tgn.stats_split(batch, hw, sms)
-        assert 1 <= s <= hw and (s - 1) * rows < hw <= s * rows
+def _k1_sites(res=128):
+    cfg = Config()
+    return gn_silu_sites(*build_unet_plan((res, res), 4, cfg.model_channels, cfg.channel_mult,
+                                          cfg.num_blocks, cfg.attn_resolutions), (res, res))
+
+
+def test_k1_sites_of_the_default_unet():
+    """The 29 sites per forward that chip_smoke.py counts on the card by
+    hooks: 7 at each of 128, 64 and 32, 8 at 16."""
+    sites = _k1_sites()
+    assert len(sites) == 29
+    assert sorted(Counter(h for h, _, _ in sites).items()) == [(16, 8), (32, 7), (64, 7), (128, 7)]
+
+
+def _check_plan(b, h, w, c, groups, itemsize, num_sms=132):
+    """K1's plan for a shape, checked against what the kernel assumes."""
+    p = tgn.plan(b, h, w, c, groups, itemsize, num_sms)
+    hw, cg, vec = h * w, c // groups, 16 // itemsize
+    assert p.cb % cg == 0 and c % p.cb == 0          # whole groups, equal channel blocks
+    if c % vec == 0:
+        assert p.cb % vec == 0                        # whole 16-byte vectors
+    assert 1 <= p.n <= tgn.MAX_CLUSTER
+    # block k takes rows [k rows, (k + 1) rows), chunk_rows at a time: every
+    # row exactly once, in order, and no block without rows
+    covered = [r for k in range(p.n)
+               for c0 in range(k * p.rows, min(hw, (k + 1) * p.rows), p.chunk_rows)
+               for r in range(c0, min(c0 + p.chunk_rows, (k + 1) * p.rows, hw))]
+    assert covered == list(range(hw))
+    assert (p.n - 1) * p.rows < hw
+    assert p.chunk_rows * p.cb * itemsize <= tgn.SLICE_BYTES
+    assert (p.chunk_rows == p.rows) == p.on_chip      # on chip: the block's rows stay resident
+    return p
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("site", sorted(set(_k1_sites())), ids=lambda s: "x".join(map(str, s)))
+def test_plan_keeps_every_path_site_on_chip(site, itemsize):
+    """At batch 8 every site of the path is held in its clusters' shared
+    memory (x read from HBM once), with row segments of at least 32 bytes."""
+    h, w, c = site
+    p = _check_plan(8, h, w, c, num_groups_for(c), itemsize)
+    assert p.on_chip and p.cb * itemsize >= 32
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,on_chip", [
+    ((1, 256, 256, 64, 16), False),   # 4 MB per unit of 8 or more channels: streamed
+    ((1, 1, 1, 128, 32), True),       # H*W = 1
+    ((3, 5, 7, 6, 1), True),          # C = 6: no 16-byte vectors
+    ((2, 4, 4, 12, 3), True),
+    ((1, 9, 3, 1024, 32), True),
+], ids=["streamed", "hw1", "c6", "c12", "b1"])
+def test_plan_edge_shapes(shape, on_chip, itemsize):
+    p = _check_plan(*shape, itemsize)
+    assert p.on_chip == on_chip
+    if not on_chip:
+        assert p.cb * itemsize >= 32 and p.rows > p.chunk_rows
+
+
+@pytest.mark.parametrize("dtype,aligned,vec", [(torch.float32, True, 4),
+                                               (torch.bfloat16, True, 8),
+                                               (torch.float32, False, 1)])
+def test_gn_silu_wrapper_passes_the_declared_arguments(fake_lib, monkeypatch, dtype, aligned,
+                                                       vec):
+    """What _launch hands the C entry point (a recorder here, CPU tensors
+    standing in) matches the declared arity and types: x, gamma, beta and
+    the three outputs (no partials buffer), then the shape and the plan; one
+    launch counted. A view off a 16-byte boundary goes scalar (vec 1)."""
+    monkeypatch.setattr(tgn, "_num_sms", lambda index: 132)
+    monkeypatch.setattr(tgn.gn_silu, "launches", 0)
+    x, gamma, beta = (torch.from_numpy(a) for a in _gn_data(b=2, h=8, w=8, c=64))
+    if not aligned:
+        x = torch.cat([torch.zeros(1), x.flatten()])[1:].view(x.shape)
+        assert x.data_ptr() % 16
+    x = x.to(dtype)
+    out, mean, rstd = tgn._launch(x, gamma, beta, 16, 1e-5)
+    (name, args), = fake_lib.calls
+    assert name == "probunet_gn_silu_fwd"
+    argtypes = _build._SIGNATURES[name]
+    assert len(args) == len(argtypes)
+    for a, t in zip(args, argtypes):
+        t.from_param(a)  # raises on an argument ctypes would not pass as declared
+    assert args[:6] == (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+                        mean.data_ptr(), rstd.data_ptr())
+    p = tgn.plan(2, 8, 8, 64, 16, x.element_size(), 132)
+    assert args[6:14] == (2, 64, 64, 16, p.cb, p.n, p.rows, p.chunk_rows)
+    assert args[14:17] == (1e-5, int(dtype == torch.bfloat16), vec)
+    assert (out.shape, out.dtype, mean.shape, rstd.shape) == (x.shape, dtype, (2, 16), (2, 16))
+    assert tgn.gn_silu.launches == 1
 
 
 def test_kernel_modules_import_without_nvcc_or_triton():
