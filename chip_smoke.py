@@ -53,7 +53,21 @@ seeded random weights), in strict fp32 and in fast bf16 mode. Phases:
      bound, the backward of scaled_dot_product_attention as yardstick, by
      events and by device time), K2 with its lse, the
      training rate over 10 steps after 3 warm-up steps, a profile of one
-     step.
+     step;
+ 11. the trainer (``probunet_torch.train.loop.train_probunet``, the model
+     with its own init) on synthetic netCDF (3 train years of 8 days, one
+     val and one test year): 2 epochs of 3 steps with eval, CRPS (4
+     members) and a metrics record per step, strict and fast; the records'
+     keys; launch counters: 29 K1, 11 K2 and 11 K3 per step (plus 29 K1
+     and 11 K2 per eval and CRPS batch); ``downscale`` from the trainer's
+     checkpoint; exact resume (deterministic cuDNN: 2 steps, then resumed
+     to 6, against 6 uninterrupted, parameters bit-equal); streaming
+     ingest against resident (2 epochs, the same train and val losses);
+     remat on a fixed batch, strict and fast (loss and every gradient
+     against the step without it, 57 K1, 22 K2 and 11 K3 launches); the
+     trainer's samples/s beside phase 10's bare step, streaming samples/s,
+     peak memory, memory held by the forward and ms per step with and
+     without remat.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. The line before the last is the ``kernels`` JSON object, the last
@@ -122,6 +136,24 @@ DS_SPLIT_TOL = 6e-4
 # element by about lr * sign(g), so where |g| lies within that error of
 # zero the two sides can part by 2 lr
 STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_PARAM_TOL = 1e-4, 1e-3, 1e-6
+# phase 11: 3 train years of 8 days at batch 8 give 3 steps per epoch
+TRAINER_DAYS, TRAINER_EPOCHS, REMAT_TIMED_STEPS = 8, 2, 4
+# the keys of each metrics record the JAX loop writes (tests/test_torch_trainer.py
+# holds the port's records against the JAX loop's): one per step
+# (log_every=1), then per epoch the eval record and the CRPS record
+STEP_KEYS = {"train_loss", "recon_loss", "kl_div", "beta", "grad_norm", "samples_per_sec",
+             "step", "time"}
+EPOCH_KEYS = {"epoch", "epoch_train_loss", "val_loss", "val_recon_loss", "val_kl_div", "val-loss",
+              "val_beta", "step", "time"}
+CRPS_KEYS = {f"{k}_{v}" for k in ("crps", "ensmean_mae") for v in ("pr", "tasmin", "tasmax")} | {
+    "crps_batches_evaluated", "step", "time"}
+# remat, strict, deterministic cuDNN: the recompute replays the forward's
+# work, so loss and gradients agree to fp32 summation order at most: loss
+# relative, each gradient's max|err| relative to its tensor's largest entry
+REMAT_TOL = 1e-5
+# streaming against resident ingest (deterministic cuDNN, pertimestep
+# statistics per sample either way): the train and val losses, relative
+STREAM_TOL = 1e-6
 
 
 def log(msg=""):
@@ -357,6 +389,7 @@ def run_phases(torch, dev, card, sass):
     from probunet_torch.serve import downscale
     from probunet_torch.train.checkpoint import save_checkpoint
     from probunet_torch.train.loop import build_probunet
+    from probunet_torch.train.state import TrainState
     from probunet_torch.train.steps import make_sample_fn
     from probunet_torch.utils.device import full_fp32
 
@@ -463,7 +496,7 @@ def run_phases(torch, dev, card, sass):
 
     # ---- 4. the main path ----------------------------------------------------
     ckpt = os.path.join(WORK, "ckpt")
-    save_checkpoint(ckpt, model)
+    save_checkpoint(ckpt, TrainState(model, None))   # parameters only, as serving holds them
     nb = DAYS // BATCH
     K1.gn_silu.launches = 0
     K2.fused_attention.launches = 0
@@ -650,6 +683,7 @@ def run_phases(torch, dev, card, sass):
     mark(6)
 
     train = training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark)
+    trainer = trainer_phase(torch, dev, card, train["rates"], mark)
 
     def entry(name, source, replaces, n, err, tol, t, extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -658,18 +692,20 @@ def run_phases(torch, dev, card, sass):
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"], **extra}
 
     per = f"sum over the {{}} sites of one U-Net forward at b{BATCH}, {RES}x{RES}"
-    by_path = {name: {"serve": launches[key], "train": train["launches"][key]}
-               for name, key in (("gn", "gn"), ("attn", "attn"), ("attn_bwd", "attn_bwd"))}
+    by_path = {key: {"serve": launches[key], "train": train["launches"][key],
+                     "trainer": trainer["launches"][key]}
+               for key in ("gn", "attn", "attn_bwd")}
+    launches = {key: sum(by_path[key].values()) for key in by_path}
     return [
         entry("gn_silu_fwd", "probunet_torch/csrc/gn_silu.cu",
-              "probunet_tpu/ops/pallas_gn.py:72", launches["gn"] + train["launches"]["gn"],
+              "probunet_tpu/ops/pallas_gn.py:72", launches["gn"],
               k1_err[torch.float32], GN_TOL["float32"], k1_t["fp32"],
               {"timed": per.format(K1_PER_BATCH) + ", fp32", "device_ms": k1_t["fp32"]["device_ms"],
                "library_device_ms": k1_t["fp32"]["library_device_ms"], "fp32": k1_t["fp32"],
                "bf16": k1_t["bf16"], "bf16_max_abs_err": k1_err[torch.bfloat16],
                "launches_by_path": by_path["gn"], "largest_site": k1_info}),
         entry("attention_fwd", "probunet_torch/csrc/attention_fwd.cu",
-              "probunet_tpu/ops/pallas_attn.py:69", launches["attn"] + train["launches"]["attn"],
+              "probunet_tpu/ops/pallas_attn.py:69", launches["attn"],
               k2_err["strict"], ATTN_TOL["strict"], k2_t["strict"],
               {"timed": per.format(K2_PER_BATCH) + ", strict fp32, on the block's views",
                "strict": k2_t["strict"], "fast": k2_t["fast"],
@@ -677,14 +713,14 @@ def run_phases(torch, dev, card, sass):
                "with_lse": train["k2_lse"],
                "sass": {n: c for n, c in sass.items() if n.startswith("attention_fwd")}}),
         entry("attention_bwd", "probunet_torch/csrc/attention_bwd.cu",
-              "probunet_tpu/ops/pallas_attn.py:91", train["launches"]["attn_bwd"],
+              "probunet_tpu/ops/pallas_attn.py:91", launches["attn_bwd"],
               train["k3_err"]["float32"], ATTN_BWD_TOL, train["k3_t"]["strict"],
               {"timed": f"sum over the {K2_PER_BATCH} sites of one U-Net backward at b{BATCH}, "
                         f"{RES}x{RES}, strict fp32, on the block's views",
                "strict": train["k3_t"]["strict"], "fast": train["k3_t"]["fast"],
                "max_rel_err": train["k3_rel"], "strict_bf16_ds_check": train["ds_check"],
                "launches_by_path": by_path["attn_bwd"],
-               "training": train["rates"],
+               "training": train["rates"], "trainer": trainer["report"],
                "sass": {n: c for n, c in sass.items() if n.startswith("attention_bwd")}}),
     ]
 
@@ -922,6 +958,248 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
     return {"launches": counts, "k3_err": {"float32": k3_abs["strict"]}, "k3_rel": k3_rel,
             "k3_t": k3_t, "k2_lse": k2_lse, "rates": rates,
             "ds_check": {**ds_seen, "limit": DS_SPLIT_TOL}}
+
+
+def trainer_phase(torch, dev, card, bare_rates, mark):
+    """Phase 11: the trainer end to end (see the module docstring). Returns
+    its launch counts (the strict and fast runs) and its report."""
+    import numpy as np
+
+    from probunet_torch.config import Config
+    from probunet_torch.data.synthetic import generate_climex_like
+    from probunet_torch.ops import attention as K2
+    from probunet_torch.ops import gn_silu as K1
+    from probunet_torch.serve import downscale
+    from probunet_torch.train.loop import build_probunet, init_probunet_state, train_probunet
+    from probunet_torch.train.state import make_optimizer
+    from probunet_torch.train.steps import _pair, make_probunet_train_step
+    from probunet_torch.utils.device import full_fp32
+
+    def counters():
+        return (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches,
+                K2.kernel_layout.copies)
+
+    def reset_counters():
+        K1.gn_silu.launches = K2.fused_attention.launches = K2.attention_bwd.launches = 0
+        K2.kernel_layout.copies = 0
+
+    datadir = os.path.join(WORK, "trainer_data")
+    generate_climex_like(datadir, years=range(2000, 2005), grid=RES, days_per_year=TRAINER_DAYS)
+    base = Config(datadir=datadir, years_train=(2000, 2003), years_val=(2003, 2004),
+                  years_test=(2004, 2005), coords=(0, RES, 0, RES), resolution=(RES, RES),
+                  standardization="pertimestep", batch_size=BATCH, num_epochs=TRAINER_EPOCHS,
+                  eval_crps=True, crps_samples=4, log_every=1, num_samples=2)
+    fast = base.replace(compute_dtype="bfloat16", fast_attention=True, opt_state_dtype="bfloat16")
+    steps_per_epoch = 3 * TRAINER_DAYS // BATCH
+    n_steps = TRAINER_EPOCHS * steps_per_epoch
+    n_evals = TRAINER_EPOCHS * 2   # one val batch and one CRPS batch per epoch
+
+    def run(tag, c, **kw):
+        c = c.replace(plotdir=os.path.join(WORK, tag, "plots"),
+                      checkpoints_dir=os.path.join(WORK, tag, "ckpt"), **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_probunet(c, make_plots=False)   # on the card: its default device
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(c.plotdir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["train_loss"] for r in recs if "train_loss" in r]
+        if not losses or not all(math.isfinite(v) for r in recs for v in r.values()):
+            raise AssertionError(f"trainer {tag}: non-finite metrics or no step records")
+        ckpt = os.path.join(c.checkpoints_dir, "probunet")
+        if not os.path.isfile(os.path.join(ckpt, "state", "state.pt")):
+            raise AssertionError(f"trainer {tag}: no checkpoint in {ckpt}")
+        log(f"[11] trainer {tag}: {res['state'].step} steps in {wall:.2f} s (init, data, eval, "
+            f"CRPS and checkpoints included), losses {[round(v, 1) for v in losses]}, peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return res, recs, ckpt
+
+    def epoch_rates(recs):
+        """samples/s of each epoch: StepTimer (CUDA-synced) at its last step."""
+        steps = [r for r in recs if "train_loss" in r]
+        return [steps[i]["samples_per_sec"] for i in range(steps_per_epoch - 1, len(steps),
+                                                          steps_per_epoch)]
+
+    report = {"card": card}
+    # ---- the trainer, strict and fast, as a user runs it -------------------------
+    reset_counters()
+    rates, ckpts = {}, {}
+    for name, c in (("strict", base), ("fast", fast)):
+        res, recs, ckpt = run(name, c)
+        kinds = [STEP_KEYS if "train_loss" in r else CRPS_KEYS if "crps_pr" in r else EPOCH_KEYS
+                 for r in recs]
+        want = ([STEP_KEYS] * steps_per_epoch + [EPOCH_KEYS, CRPS_KEYS]) * TRAINER_EPOCHS
+        if [set(r) for r in recs] != want or kinds != want:
+            raise AssertionError(f"trainer {name}: metrics records {[sorted(r) for r in recs]}")
+        if any(r["crps_batches_evaluated"] != 1 for r in recs if "crps_pr" in r):
+            raise AssertionError(f"trainer {name}: CRPS over the wrong number of batches")
+        if res["state"].step != n_steps or len(res["val_losses"]) != TRAINER_EPOCHS:
+            raise AssertionError(f"trainer {name}: {res['state'].step} steps")
+        rates[name] = epoch_rates(recs)
+        bare = bare_rates[name]["samples_per_s"]
+        log(f"[11] trainer {name}: {rates[name][-1]:.2f} samples/s in epoch {TRAINER_EPOCHS} "
+            f"(StepTimer, CUDA-synced, metrics fetched every step; epoch 1 {rates[name][0]:.2f}), "
+            f"phase 10's bare step {bare:.2f} samples/s: {rates[name][-1] / bare - 1:+.1%} ({card})")
+        ckpts[name] = ckpt
+        del res
+        torch.cuda.empty_cache()
+    n = counters()
+    launches = {"gn": n[0], "attn": n[1], "attn_bwd": n[2]}
+    per_eval = (K1_PER_BATCH, K2_PER_BATCH, 0)
+    want = tuple(2 * (n_steps * k + n_evals * e)
+                 for k, e in zip((K1_PER_BATCH, K2_PER_BATCH, K3_PER_STEP), per_eval)) + (0,)
+    log(f"[11] trainer launches, strict + fast: K1 {n[0]}, K2 {n[1]}, K3 {n[2]}, q/k/v copies "
+        f"{n[3]}; expected {want}: per step {K1_PER_BATCH} K1, {K2_PER_BATCH} K2, "
+        f"{K3_PER_STEP} K3 over {n_steps} steps, per eval or CRPS batch {K1_PER_BATCH} K1 and "
+        f"{K2_PER_BATCH} K2 over {n_evals}, per run")
+    if n != want:
+        raise AssertionError("trainer launch counts differ")
+    out = downscale(base, ckpts["strict"], os.path.join(WORK, "from_trainer.nc"), years=[2004],
+                    num_samples=2)
+    from probunet_torch.data.netcdf import NetCDFFile
+    with NetCDFFile(out) as f:
+        a = f.read_var("pr")
+    if a.shape != (TRAINER_DAYS, 2, RES, RES) or not np.isfinite(a).all():
+        raise AssertionError(f"downscale from the trainer's checkpoint: {a.shape}")
+    log(f"[11] downscale restored the strict trainer's checkpoint (parameters, optimizer "
+        f"state and step saved): {a.shape} finite")
+    for name in ckpts:
+        shutil.rmtree(os.path.join(WORK, name), ignore_errors=True)
+    report.update(rates=rates, bare=bare_rates, launches=launches)
+    mark(11)
+
+    # ---- exact resume and streaming ingest, deterministic cuDNN --------------------
+    torch.backends.cudnn.deterministic = True
+    try:
+        full, full_recs, _ = run("det_full", base)
+        run("det_part", base, max_steps=2)
+        resumed, _, _ = run("det_resumed", base,
+                            resume=os.path.join(WORK, "det_part", "ckpt", "probunet"))
+        diff = max((a - b).abs().max().item() for a, b in zip(
+            full["state"].model.state_dict().values(), resumed["state"].model.state_dict().values()))
+        log(f"[11] exact resume: 2 steps, checkpoint, resumed to {resumed['state'].step}, against "
+            f"{full['state'].step} uninterrupted: parameters max abs diff {diff:.3e} "
+            f"(bit-equal required) {'ok' if diff == 0 else 'FAIL'}")
+        if diff != 0 or resumed["state"].step != full["state"].step:
+            raise AssertionError("the resumed run differs from the uninterrupted one")
+        del full, resumed
+        stream, stream_recs, _ = run("stream", base, device_resident_data=False)
+        del stream
+
+        def losses(recs):   # every step's loss, then every epoch's val loss
+            return ([r["train_loss"] for r in recs if "train_loss" in r]
+                    + [r["val_loss"] for r in recs if "val_loss" in r])
+
+        s_loss, r_loss = losses(stream_recs), losses(full_recs)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(s_loss, r_loss))
+        # both rates over epoch 2 (3 steps), after each run's first steps
+        s_rate, r_rate = epoch_rates(stream_recs)[1], epoch_rates(full_recs)[1]
+        log(f"[11] streaming ingest, {n_steps} steps and {TRAINER_EPOCHS} evals: losses {s_loss} "
+            f"against resident {r_loss}, max rel diff {rel:.3e} (tol {STREAM_TOL}) "
+            f"{'ok' if rel <= STREAM_TOL else 'FAIL'}")
+        log(f"[11] streaming {s_rate:.2f} samples/s against resident {r_rate:.2f} (epoch 2, "
+            f"strict, deterministic cuDNN): {s_rate / r_rate - 1:+.1%}; epoch 1 "
+            f"{epoch_rates(stream_recs)[0]:.2f} against {epoch_rates(full_recs)[0]:.2f} ({card})")
+        if len(s_loss) != len(r_loss) or len(s_loss) != n_steps + TRAINER_EPOCHS \
+                or not rel <= STREAM_TOL:
+            raise AssertionError("streaming ingest differs from resident ingest")
+        report.update(resume_max_abs_diff=diff, stream_loss_rel=rel,
+                      stream_samples_per_s=s_rate, resident_samples_per_s=r_rate)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        for tag in ("det_full", "det_part", "det_resumed", "stream"):
+            shutil.rmtree(os.path.join(WORK, tag), ignore_errors=True)
+        torch.cuda.empty_cache()
+    mark(11)
+
+    # ---- remat on a fixed batch, strict and fast -------------------------------------
+    from probunet_torch.data.dataset import ClimexDataset
+
+    ds = ClimexDataset(datadir, years=[2000], coords=base.coords,
+                       standardization=base.standardization, device=dev)
+    idx = torch.arange(BATCH, device=dev)
+    eps = torch.randn(BATCH, base.latent_dim, generator=torch.Generator().manual_seed(6)).to(dev)
+    want = {False: (K1_PER_BATCH, K2_PER_BATCH, K3_PER_STEP),
+            True: (2 * K1_PER_BATCH - 1, 2 * K2_PER_BATCH, K3_PER_STEP)}
+    report["remat"] = {}
+    for mode, mc in (("strict", base), ("fast", fast)):
+        dtype = torch.bfloat16 if mode == "fast" else torch.float32
+        seen = {}
+        for remat in (False, True):
+            c = mc.replace(dropout=0.1, remat=remat)
+            tx = make_optimizer(c.lr, c.weight_decay, c.accum, c.optimizer, None,
+                                c.opt_state_dtype)
+            state = init_probunet_state(c, build_probunet(c, device="meta"), tx, dev)
+            fill_weights(torch, state.model, seed=11)   # no zero-init conv hides a block
+            step = make_probunet_train_step(state.model, c.lowres_scale, c.standardization,
+                                            compute_dtype=dtype)
+            torch.backends.cudnn.deterministic = True
+            reset_counters()
+            m = step(state, ds.hr_device(), ds.stats, idx, c.seed, eps=eps)
+            torch.cuda.synchronize()
+            torch.backends.cudnn.deterministic = False
+            counts = counters()
+            grads = {k: p.grad.detach().clone() for k, p in state.model.named_parameters()}
+            step(state, ds.hr_device(), ds.stats, idx, c.seed, eps=eps)   # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(REMAT_TIMED_STEPS):
+                t0 = time.perf_counter()
+                step(state, ds.hr_device(), ds.stats, idx, c.seed, eps=eps)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms = float(np.median(times))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            # what the forward holds for the backward: allocated bytes at its end
+            for p in state.model.parameters():
+                p.grad = None
+            x, y = _pair(ds.hr_device(), ds.stats, idx, c.lowres_scale, c.standardization, dtype)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            with full_fp32():
+                total = state.model.elbo(x, y, 1.0, generator=torch.Generator(dev).manual_seed(0),
+                                         eps=eps)[0]
+            torch.cuda.synchronize()
+            held = (torch.cuda.memory_allocated() - before) / 2**30
+            total.backward()
+            seen[remat] = {"loss": m["train_loss"].item(), "grads": grads,
+                           "launches": counts[:3], "copies": counts[3], "ms_per_step": ms,
+                           "step_ms": times, "peak_gib": peak, "forward_holds_gib": held}
+            log(f"[11] {mode} {'remat' if remat else 'no remat'} (b{BATCH}, {RES}x{RES}): first "
+                f"step launches K1 {counts[0]}, K2 {counts[1]}, K3 {counts[2]}, copies "
+                f"{counts[3]}; {ms:.2f} ms per step (median of {[round(t, 1) for t in times]}), "
+                f"peak device memory {peak:.2f} GiB; the forward holds {held:.2f} GiB for the "
+                f"backward ({card})")
+            del state, step, m, grads, total, x, y
+            torch.cuda.empty_cache()
+        plain, rem = seen[False], seen[True]
+        loss_rel = abs(rem["loss"] - plain["loss"]) / abs(plain["loss"])
+        grad_rel, worst = 0.0, "none"
+        for k, g in plain["grads"].items():
+            scale = g.abs().max().item()
+            err = (rem["grads"][k] - g).abs().max().item()
+            rel = err / scale if scale else err
+            if rel > grad_rel:
+                grad_rel, worst = rel, k
+        ok = (loss_rel <= REMAT_TOL and grad_rel <= REMAT_TOL and rem["copies"] == 0
+              and plain["copies"] == 0 and all(seen[r]["launches"] == want[r] for r in seen))
+        log(f"[11] {mode}: remat against no remat (dropout 0.1, the same seed, deterministic "
+            f"cuDNN): loss rel err {loss_rel:.3e}, worst gradient max|err| / max|g| "
+            f"{grad_rel:.3e} ({worst}; tol {REMAT_TOL}); launches {rem['launches']} (expected "
+            f"{want[True]}); {rem['ms_per_step'] / plain['ms_per_step'] - 1:+.1%} ms per step, "
+            f"peak {plain['peak_gib']:.2f} -> {rem['peak_gib']:.2f} GiB, held by the forward "
+            f"{plain['forward_holds_gib']:.2f} -> {rem['forward_holds_gib']:.2f} GiB "
+            f"{'ok' if ok else 'FAIL'} ({card})")
+        if not ok:
+            raise AssertionError(f"{mode}: remat disagrees with the step without it")
+        report["remat"][mode] = {"loss_rel": loss_rel, "grad_rel": grad_rel, **{
+            name: {k: v for k, v in r.items() if k != "grads"}
+            for name, r in (("off", plain), ("on", rem))}}
+    mark(11)
+    return {"launches": launches, "report": report}
 
 
 def rms_rel(got, ref):

@@ -63,7 +63,7 @@ class Config:
     use_pallas: bool = True         # inert in both packages (no reader); kept for flag parity
     fast_attention: bool = False    # QK^T in activation dtype (softmax stays fp32)
     rng_impl: str = "threefry2x32"  # {"threefry2x32","rbg","unsafe_rbg"}; JAX only
-    remat: bool = False             # recompute U-Net blocks in backward (JAX only so far)
+    remat: bool = False             # recompute each U-Net block in the backward (memory/time trade)
     donate_state: bool = True
 
     # --- parallelism ---
@@ -95,7 +95,7 @@ class Config:
     plotdir: str = "./results/plots"
     checkpoints_dir: str = "./results/checkpoints"
     metrics_path: str = ""          # JSONL metrics file ("" => <plotdir>/metrics.jsonl)
-    profile_dir: str = ""           # jax.profiler trace dir ("" => disabled)
+    profile_dir: str = ""           # torch.profiler trace dir of the training run ("" => disabled)
 
     # --- eval / sampling ---
     num_samples: int = 3            # ensemble members for sampling plots

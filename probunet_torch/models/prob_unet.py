@@ -81,7 +81,8 @@ class ProbabilisticUNet(nn.Module):
                  img_resolution: Tuple[int, int] = (64, 64), dropout: float = 0.10,
                  model_channels: int = 128, channel_mult: Tuple[int, ...] = (1, 2, 3, 4),
                  num_blocks: int = 2, attn_resolutions: Tuple[int, ...] = (32, 16, 8),
-                 fast_attention: bool = False, *, device=None, generator=None):
+                 fast_attention: bool = False, remat: bool = False, *, device=None,
+                 generator=None):
         super().__init__()
         device = resolve_device(device)
         f = dict(device=device, generator=generator)
@@ -91,7 +92,7 @@ class ProbabilisticUNet(nn.Module):
         self.unet = UNet(img_resolution, input_channels, num_filters[0],
                          model_channels=model_channels, channel_mult=channel_mult,
                          num_blocks=num_blocks, attn_resolutions=attn_resolutions,
-                         dropout=dropout, fast_attention=fast_attention, **f)
+                         dropout=dropout, fast_attention=fast_attention, remat=remat, **f)
         self.prior = AxisAlignedConvGaussian(input_channels, tuple(num_filters), latent_dim,
                                              posterior=False, **f)
         self.posterior = AxisAlignedConvGaussian(input_channels, tuple(num_filters), latent_dim,

@@ -20,6 +20,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from probunet_torch.models.layers import (
@@ -194,18 +195,47 @@ def gn_silu_sites(enc: List[BlockSpec], dec: List[BlockSpec], final_channels: in
     return sites + [(img_resolution[0], img_resolution[1], final_channels)]
 
 
+def remat_block(block: UNetBlock, x: torch.Tensor, emb: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``block(x, emb, generator)`` with its activations dropped after the
+    forward and recomputed in the backward (``torch.utils.checkpoint``, the
+    counterpart of the JAX package's ``nn.remat(UNetBlock)``).
+
+    ``checkpoint``'s ``preserve_rng_state`` restores only the global RNGs,
+    not a ``torch.Generator`` object: a recompute drawing from ``generator``
+    would take the masks after the forward's and give silently wrong
+    gradients. So the generator's state is snapshotted before the forward,
+    and the recompute draws from a copy of that snapshot, which leaves
+    ``generator`` where the forward left it."""
+    snapshot = generator.get_state() if generator is not None else None
+    calls = [0]
+
+    def run(x, emb):
+        gen = generator
+        if calls[0] and snapshot is not None:  # a recompute: replay the forward's draws
+            gen = torch.Generator(generator.device)
+            gen.set_state(snapshot)
+        calls[0] += 1
+        return block(x, emb, gen)
+
+    return torch.utils.checkpoint.checkpoint(run, x, emb, use_reentrant=False)
+
+
 class UNet(nn.Module):
     """The ADM architecture (reference networks.py:224-333) in its
-    downscaling configuration. ``forward`` takes and returns NHWC."""
+    downscaling configuration. ``forward`` takes and returns NHWC. With
+    ``remat``, every :class:`UNetBlock` is recomputed in the backward
+    (:func:`remat_block`) whenever grad is enabled."""
 
     def __init__(self, img_resolution: Tuple[int, int], in_channels: int, out_channels: int,
                  model_channels: int = 128, channel_mult: Tuple[int, ...] = (1, 2, 3, 4),
                  num_blocks: int = 2, attn_resolutions: Tuple[int, ...] = (32, 16, 8),
-                 dropout: float = 0.10, fast_attention: bool = False, *,
+                 dropout: float = 0.10, fast_attention: bool = False, remat: bool = False, *,
                  device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         f = dict(device=device, generator=generator)
+        self.remat = remat
         self.emb_channels = emb = model_channels * 4  # channel_mult_emb (networks.py:233)
         self.enc_specs, self.dec_specs, final_c = build_unet_plan(
             tuple(img_resolution), in_channels, model_channels, channel_mult, num_blocks,
@@ -233,13 +263,15 @@ class UNet(nn.Module):
         drawn from ``generator``, in block order."""
         x = nchw(x)  # channels_last strides when x is a contiguous NHWC tensor
         emb = silu(torch.zeros(1, self.emb_channels, dtype=x.dtype, device=x.device))
+        run = remat_block if self.remat and torch.is_grad_enabled() else (
+            lambda blk, *args: blk(*args))
         skips = []
         for spec in self.enc_specs:
             blk = self.enc[spec.name]
-            x = blk(x) if spec.kind == "conv" else blk(x, emb, generator)
+            x = blk(x) if spec.kind == "conv" else run(blk, x, emb, generator)
             skips.append(x)
         for spec in self.dec_specs:
             if spec.concat_skip:
                 x = torch.cat([x, skips.pop()], dim=1)
-            x = self.dec[spec.name](x, emb, generator)
+            x = run(self.dec[spec.name], x, emb, generator)
         return nhwc(self.out_conv(self.out_norm(x)))

@@ -28,6 +28,7 @@ from probunet_torch.data.dataset import ClimexDataset
 from probunet_torch.data.netcdf import StreamingFieldWriter, pack_params
 from probunet_torch.train.checkpoint import restore_checkpoint
 from probunet_torch.train.loop import build_probunet
+from probunet_torch.train.state import TrainState
 from probunet_torch.train.steps import make_sample_fn
 from probunet_torch.utils.device import full_fp32, resolve_device
 
@@ -77,7 +78,7 @@ def downscale(
         cfg.datadir, years=years, variables=cfg.variables, coords=cfg.coords,
         lowres_scale=cfg.lowres_scale, standardization=cfg.standardization, device=dev)
     model = build_probunet(cfg, device="meta").to_empty(device=dev).eval()
-    restore_checkpoint(checkpoint_dir, model)
+    restore_checkpoint(checkpoint_dir, TrainState(model, None))
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     sample_fn = make_sample_fn(model, cfg.lowres_scale, cfg.standardization, num_samples, dtype)
 

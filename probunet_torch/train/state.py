@@ -71,6 +71,14 @@ class AdamWBf16State(torch.optim.Optimizer):
             torch._foreach_mul_(upd, -group["lr"])
             torch._foreach_add_(params, upd)
 
+    def load_state_dict(self, state_dict):
+        """torch's load casts each state tensor to its parameter's dtype;
+        mu goes back to bf16 (bf16 -> fp32 -> bf16 is exact)."""
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            if "mu" in st:
+                st["mu"] = st["mu"].to(torch.bfloat16)
+
 
 class Optimizer:
     """One update rule on a fixed parameter list, as an optax chain:
@@ -110,6 +118,35 @@ class Optimizer:
         self.inner.step()
         return True
 
+    def state_dict(self) -> dict:
+        """What exact resume needs: the inner optimizer's ``state_dict``
+        (per-parameter moments and steps, ``AdamWBf16State``'s group
+        ``count``), the accumulation window's position and its running
+        mean (parameter order)."""
+        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step,
+                "acc": None if self.acc is None else list(self.acc)}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Load :meth:`state_dict` output (or a transplanted optax state,
+        ``utils.transplant.flax_opt_state_to_torch``) onto this optimizer's
+        parameters, on their device. The hyperparameters (lr, betas, eps,
+        weight decay) stay this optimizer's, which its config built: as the
+        JAX engine rebuilds ``tx`` from the config on resume, a checkpoint's
+        ``lr`` never wins."""
+        if (state_dict["acc"] is None) != (self.acc is None):
+            raise ValueError(f"the checkpoint's accumulation state does not fit accum="
+                             f"{self.accum}")
+        hyper = [{k: v for k, v in g.items() if k not in ("params", "count")}
+                 for g in self.inner.param_groups]
+        self.inner.load_state_dict(state_dict["inner"])
+        for group, h in zip(self.inner.param_groups, hyper):
+            group.update(h)
+        self.mini_step = int(state_dict["mini_step"])
+        if self.acc is not None:
+            with torch.no_grad():
+                for a, saved in zip(self.acc, state_dict["acc"], strict=True):
+                    a.copy_(saved)
+
 
 def make_optimizer(lr: float = 1e-3, weight_decay: float = 0.01, accum: int = 1,
                    optimizer: str = "adamw", grad_clip: Optional[float] = None,
@@ -140,10 +177,11 @@ def make_optimizer(lr: float = 1e-3, weight_decay: float = 0.01, accum: int = 1,
 class TrainState:
     """The model (its parameters), its optimizer and the micro-step count.
     Unlike the JAX package's immutable state, a training step updates all
-    three in place."""
+    three in place. ``optimizer`` is None where only the model is held
+    (serving): checkpoints then save and restore the parameters and step."""
 
     model: nn.Module
-    optimizer: Optimizer
+    optimizer: Optional[Optimizer]
     step: int = 0
 
 

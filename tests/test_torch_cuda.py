@@ -10,6 +10,7 @@ card. On the card, without JAX (this file imports none):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -291,3 +292,122 @@ def test_unet_on_card_matches_cpu(dev):
         ref = cpu(x)
         out = gpu(x.to(dev)).cpu()
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+# ---- the trainer's pieces on the card -------------------------------------------------
+
+def _tiny_train_state(dev, remat=False, **opt_kw):
+    """A small Probabilistic U-Net with attention at 8x8 (one head), dropout
+    0.1, filled weights, its AdamW state, a train step and 6 days of data,
+    all on the card."""
+    from probunet_torch.models import ProbabilisticUNet
+    from probunet_torch.train.state import create_train_state, make_optimizer
+    from probunet_torch.train.steps import make_probunet_train_step
+
+    model = ProbabilisticUNet(3, 3, latent_dim=4, num_filters=(16, 32), img_resolution=(16, 16),
+                              model_channels=64, channel_mult=(1, 2), num_blocks=1,
+                              attn_resolutions=(8,), dropout=0.1, remat=remat, device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(1)
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    model = model.to(dev, memory_format=torch.channels_last)
+    state = create_train_state(model, make_optimizer(**opt_kw))
+    step = make_probunet_train_step(model, 4, "perpixel")
+    hr = torch.rand(6, 16, 16, 3, generator=torch.Generator().manual_seed(2)).to(dev) + 1
+    stats = (hr.mean(0), hr.std(0))
+    return state, step, hr, stats
+
+
+def test_device_prefetcher_busy_consumer_gets_equal_batches(dev):
+    """Batches copied on the side stream while the consumer's stream is
+    busy, each handed over (wait on its copy, record_stream) and dropped
+    once a kernel on the consumer's stream has read it: every read equals
+    its host batch, bit for bit."""
+    from probunet_torch.data.pipeline import DevicePrefetcher
+
+    rng = np.random.default_rng(0)
+    host = [{"hr": rng.standard_normal((8, 128, 128, 3)).astype(np.float32),
+             "stats": (rng.standard_normal((8, 1, 1, 3)).astype(np.float32),)}
+            for _ in range(12)]
+    a = torch.randn(2048, 2048, device=dev)
+    reads = []
+    for item in DevicePrefetcher(iter(host), buffer_size=2, device=dev):
+        for _ in range(4):   # keep the consumer's stream busy behind the copies
+            a = torch.tanh(a @ a)
+        reads.append((item["hr"] * 1.0, item["stats"][0] + 0.0))
+        del item
+    torch.cuda.synchronize()
+    assert len(reads) == len(host)
+    for (hr, st), ref in zip(reads, host):
+        assert torch.equal(hr.cpu(), torch.from_numpy(ref["hr"]))
+        assert torch.equal(st.cpu(), torch.from_numpy(ref["stats"][0]))
+
+
+def test_remat_launch_counts_and_gradients(dev):
+    """One training step with every U-Net block recomputed: K1 at every
+    block's norm0 twice (+ out_norm once), K2 twice per attention block, K3
+    once; no tensor copied before an attention launch; loss and gradients
+    those of the step without remat (deterministic cuDNN)."""
+    from probunet_torch.models.unet import UNetBlock
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for remat in (False, True):
+            state, step, hr, stats = _tiny_train_state(dev, remat=remat)
+            blocks = [m for m in state.model.unet.modules() if isinstance(m, UNetBlock)]
+            attn = sum(1 for m in blocks if m.heads)
+            counts = (K1.gn_silu.launches, K2.fused_attention.launches,
+                      K2.attention_bwd.launches, K2.kernel_layout.copies)
+            m = step(state, hr, stats, torch.tensor([0, 3], device=dev), 5)
+            torch.cuda.synchronize()
+            n = tuple(after - before for after, before in zip(
+                (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches,
+                 K2.kernel_layout.copies), counts))
+            k = 2 if remat else 1
+            assert n == (k * len(blocks) + 1, k * attn, attn, 0), (remat, n)
+            out[remat] = (m["train_loss"].item(),
+                          {name: p.grad.clone() for name, p in state.model.named_parameters()})
+        assert out[True][0] == pytest.approx(out[False][0], rel=1e-6)
+        for name, g in out[False][1].items():
+            torch.testing.assert_close(out[True][1][name], g, rtol=1e-5, atol=1e-6, msg=name)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.parametrize("opt_kw", [dict(), dict(state_dtype="bfloat16"), dict(accum=2)],
+                         ids=["adamw", "adamw_bf16", "accum2"])
+def test_checkpoint_roundtrip_of_optimizer_state_on_card(dev, tmp_path, opt_kw):
+    """Saved after 3 steps, restored into a fresh state on the card: every
+    moment, count and accumulation buffer lands on the card with its dtype
+    and bits, and one more step on each state gives equal parameters."""
+    from probunet_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        state, step, hr, stats = _tiny_train_state(dev, **opt_kw)
+        for i in range(3):
+            step(state, hr, stats, torch.tensor([i, i + 3], device=dev), 7)
+        save_checkpoint(str(tmp_path), state)
+        fresh, fresh_step, _, _ = _tiny_train_state(dev, **opt_kw)
+        restore_checkpoint(str(tmp_path), fresh)
+        assert fresh.step == 3 and fresh.optimizer.mini_step == state.optimizer.mini_step
+        for p, q in zip(state.model.parameters(), fresh.model.parameters()):
+            assert torch.equal(p, q)
+            for key, val in state.optimizer.inner.state[p].items():
+                got = fresh.optimizer.inner.state[q][key]
+                assert got.device == val.device and got.dtype == val.dtype, key
+                assert torch.equal(got, val), key
+        assert [g.get("count") for g in fresh.optimizer.inner.param_groups] == \
+            [g.get("count") for g in state.optimizer.inner.param_groups]
+        for a, b in zip(state.optimizer.acc or [], fresh.optimizer.acc or []):
+            assert b.is_cuda and torch.equal(a, b)
+        idx = torch.tensor([1, 2], device=dev)
+        step(state, hr, stats, idx, 7)
+        fresh_step(fresh, hr, stats, idx, 7)
+        for p, q in zip(state.model.parameters(), fresh.model.parameters()):
+            assert torch.equal(p, q)
+    finally:
+        torch.backends.cudnn.deterministic = False

@@ -17,6 +17,7 @@ from probunet_torch.data import netcdf as tnc
 from probunet_torch.data import synthetic as tsyn
 from probunet_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from probunet_torch.train.loop import build_probunet as t_build
+from probunet_torch.train.state import TrainState
 from probunet_torch.utils.device import resolve_device
 from probunet_torch.utils.transplant import flax_probunet_to_torch
 from probunet_tpu.config import Config
@@ -61,7 +62,7 @@ def setup(tmp_path_factory):
     tm = t_build(TConfig(datadir=datadir, **FLAGS), device="cpu")
     tm.load_state_dict(flax_probunet_to_torch(params))
     port_ckpt = os.path.join(d, "port_ckpt")
-    save_checkpoint(port_ckpt, tm, step=7)
+    save_checkpoint(port_ckpt, TrainState(tm, None, 7))  # parameters only
     return d, cfg, jax_ckpt, port_ckpt
 
 
@@ -117,7 +118,7 @@ def test_checkpoint_roundtrip_and_guards(setup):
     d, cfg, _, port_ckpt = setup
     tcfg = TConfig(**vars(cfg))
     m = t_build(tcfg, device="meta").to_empty(device="cpu")
-    assert restore_checkpoint(port_ckpt, m) == 7
+    assert restore_checkpoint(port_ckpt, TrainState(m, None)).step == 7
     assert m.prior.conv_log_sigma.bias.detach()[0].item() == -30.0
     with pytest.raises(NotImplementedError):
         tserve.downscale(tcfg.replace(ds_model="edm"), port_ckpt, os.path.join(d, "x.nc"),

@@ -359,8 +359,13 @@ def test_init_probunet_state_draws_from_seed():
     assert state.step == 0 and state.model.beta == cfg.beta
     for a, b in zip(state.model.state_dict().values(), ref.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        init_probunet_state(cfg.replace(remat=True), ref, t_make_optimizer(), device="cpu")
+    # remat: the same weights, every U-Net block recomputed in the backward
+    remat = init_probunet_state(cfg.replace(remat=True),
+                                build_probunet(cfg.replace(remat=True), device="meta"),
+                                t_make_optimizer(), device="cpu")
+    assert remat.model.unet.remat and not state.model.unet.remat
+    for a, b in zip(remat.model.state_dict().values(), ref.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError):
         t_make_optimizer(optimizer="lion")
 
