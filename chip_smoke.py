@@ -7,7 +7,9 @@ Builds the port's hand-written kernels from ``probunet_torch/csrc`` and
 drives the serving path (``probunet_torch.serve.downscale``) and the
 training step (``probunet_torch.train.steps.make_probunet_train_step``) at
 the full width of the 128x128 Probabilistic U-Net (103,541,083 parameters,
-seeded random weights), in strict fp32 and in fast bf16 mode. Phases:
+seeded random weights), in strict fp32 and in fast bf16 mode, then the
+trainer, then the EDM diffusion downscaler (100,349,315 parameters) served,
+stepped and trained. Phases:
 
   1. card and build: nvidia-smi name and power limit; nvcc for sm_90a with
      ptxas registers, shared memory and spills; ``cuobjdump -sass`` of the
@@ -67,7 +69,27 @@ seeded random weights), in strict fp32 and in fast bf16 mode. Phases:
      against the step without it, 57 K1, 22 K2 and 11 K3 launches); the
      trainer's samples/s beside phase 10's bare step, streaming samples/s,
      peak memory, memory held by the forward and ms per step with and
-     without remat.
+     without remat;
+ 12. the EDM diffusion downscaler at full width (``ds_model="edm"``; its
+     U-Net runs fp32 in both modes, fast mode only sets fast attention):
+     card against CPU (the denoiser at b=1, a 4-step Heun chain at b=1, K=2
+     from given noise, one DSM step at b=1 with dropout 0 and given sigma
+     and noise: loss, gradient norm, every gradient); K2 and K3 on fp32
+     operands with fast=True at the path's sites at b8 (the strict limits,
+     and bit-equal to fast=False), K1 at every site and K2 at the 128 rows
+     of a b8, K=16 pass; ``downscale(ds_model="edm")`` from a checkpoint at
+     b2, K=4, 18 steps, strict and fast: 35 x 29 = 1015 K1 and 35 x 11 = 385
+     K2 launches per batch, no q/k/v copy, files finite with members that
+     differ, ms per batch of the sampler alone, inputs/s and members/s; one
+     denoiser pass at 8 and at 128 rows, both modes, by CUDA events and
+     device time, and 35 times the 128-row pass printed as the computed
+     (not run) cost of one b8 K=16 Heun batch; 3 + 10 DSM steps at b8,
+     dropout 0.1, sigma and noise fixed, strict and fast: 29 K1, 11 K2 and
+     11 K3 launches per step, the loss falling, ms per step, samples/s, peak
+     memory and a profile; ``train_edm`` on phase 11's data, 2 epochs of 3
+     steps with eval and CRPS (depth cuts: ``crps_samples`` 2 and
+     ``edm_steps`` 4), its records' keys and launch counts, then
+     ``downscale`` from its checkpoint.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. The line before the last is the ``kernels`` JSON object, the last
@@ -154,6 +176,15 @@ REMAT_TOL = 1e-5
 # streaming against resident ingest (deterministic cuDNN, pertimestep
 # statistics per sample either way): the train and val losses, relative
 STREAM_TOL = 1e-6
+# phase 12, EDM: the denoiser (the same U-Net, 6 input channels, the noise
+# embedding) at full width; the Heun sampler's S steps run 2 S - 1 passes;
+# serving at b2 with K=4 members folds 8 chains into each pass, a b8 K=16
+# batch 128; the card-vs-CPU chain and the trainer's CRPS chain take 4 steps
+EDM_EXPECTED_PARAMS = 100_349_315
+EDM_STEPS, EDM_CHAIN_STEPS = 18, 4
+EDM_SERVE_BATCH, EDM_SERVE_MEMBERS = 2, 4
+EDM_STEP_KEYS = {"train_loss", "grad_norm", "samples_per_sec", "step", "time"}
+EDM_EPOCH_KEYS = {"epoch", "epoch_train_loss", "val_loss", "val-loss", "step", "time"}
 
 
 def log(msg=""):
@@ -278,16 +309,17 @@ def qkv_views(torch, layout, b, L, nh, dtype, dev, gen):
                  for _ in range(3))
 
 
-def device_ms(torch, fn, reps=50, traces=5):
+def device_ms(torch, fn, reps=50, traces=5, warm=True):
     """Mean device time per call of ``fn`` in ms: the kernels' own time from
     torch.profiler, free of the host's launch pace. A trace that comes back
     with no device activity (the profiler now and then loses the records of
     a window of short kernels) is logged and taken again, up to ``traces``
-    times."""
+    times. ``warm=False`` skips the warm-up call (``fn`` ran just before)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     for _ in range(traces):
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -341,9 +373,9 @@ def cuda_ms(torch, fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def census(torch, model, x):
+def census(torch, model, forward):
     """(H, W, C) of every GroupNorm+SiLU site and (L, heads) of every
-    attention block in one forward of ``model`` on ``x``, by hooks."""
+    attention block of ``model`` in one call of ``forward()``, by hooks."""
     from probunet_torch.models.layers import GroupNormSiLU
     from probunet_torch.models.unet import UNetBlock
 
@@ -357,7 +389,7 @@ def census(torch, model, x):
             hooks.append(m.register_forward_hook(
                 lambda mod, args, out: attn.append((out.shape[2] * out.shape[3], mod.heads))))
     with torch.inference_mode():
-        model.unet(x)
+        forward()
     for h in hooks:
         h.remove()
     return gn, attn
@@ -415,7 +447,8 @@ def run_phases(torch, dev, card, sass):
     log(f"[4] model: {RES}x{RES} Probabilistic U-Net, {nparams:,} parameters")
     if nparams != EXPECTED_PARAMS:
         raise AssertionError(f"expected {EXPECTED_PARAMS:,} parameters, got {nparams:,}")
-    gn_sites, attn_sites = census(torch, model, torch.randn(BATCH, RES, RES, 3, device=dev))
+    x_census = torch.randn(BATCH, RES, RES, 3, device=dev)
+    gn_sites, attn_sites = census(torch, model, lambda: model.unet(x_census))
     log(f"[2] K1 sites per forward: {len(gn_sites)}; [3] K2 sites: {len(attn_sites)}")
     if (len(gn_sites), len(attn_sites)) != (K1_PER_BATCH, K2_PER_BATCH):
         raise AssertionError("unexpected kernel sites on the path")
@@ -684,6 +717,7 @@ def run_phases(torch, dev, card, sass):
 
     train = training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark)
     trainer = trainer_phase(torch, dev, card, train["rates"], mark)
+    edm = edm_phase(torch, dev, card, ds, ds_cpu, gen, mark)
 
     def entry(name, source, replaces, n, err, tol, t, extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -693,7 +727,8 @@ def run_phases(torch, dev, card, sass):
 
     per = f"sum over the {{}} sites of one U-Net forward at b{BATCH}, {RES}x{RES}"
     by_path = {key: {"serve": launches[key], "train": train["launches"][key],
-                     "trainer": trainer["launches"][key]}
+                     "trainer": trainer["launches"][key],
+                     **{f"edm_{path}": n[key] for path, n in edm["launches"].items()}}
                for key in ("gn", "attn", "attn_bwd")}
     launches = {key: sum(by_path[key].values()) for key in by_path}
     return [
@@ -703,13 +738,15 @@ def run_phases(torch, dev, card, sass):
               {"timed": per.format(K1_PER_BATCH) + ", fp32", "device_ms": k1_t["fp32"]["device_ms"],
                "library_device_ms": k1_t["fp32"]["library_device_ms"], "fp32": k1_t["fp32"],
                "bf16": k1_t["bf16"], "bf16_max_abs_err": k1_err[torch.bfloat16],
-               "launches_by_path": by_path["gn"], "largest_site": k1_info}),
+               "launches_by_path": by_path["gn"], "largest_site": k1_info,
+               "edm_128_rows_max_abs_err": edm["k1_err"]}),
         entry("attention_fwd", "probunet_torch/csrc/attention_fwd.cu",
               "probunet_tpu/ops/pallas_attn.py:69", launches["attn"],
               k2_err["strict"], ATTN_TOL["strict"], k2_t["strict"],
               {"timed": per.format(K2_PER_BATCH) + ", strict fp32, on the block's views",
                "strict": k2_t["strict"], "fast": k2_t["fast"],
                "max_abs_err_by_mode": k2_err, "launches_by_path": by_path["attn"],
+               "edm_fp32_fast_max_abs_err": edm["k2_err"], "edm": edm["report"],
                "with_lse": train["k2_lse"],
                "sass": {n: c for n, c in sass.items() if n.startswith("attention_fwd")}}),
         entry("attention_bwd", "probunet_torch/csrc/attention_bwd.cu",
@@ -720,6 +757,7 @@ def run_phases(torch, dev, card, sass):
                "strict": train["k3_t"]["strict"], "fast": train["k3_t"]["fast"],
                "max_rel_err": train["k3_rel"], "strict_bf16_ds_check": train["ds_check"],
                "launches_by_path": by_path["attn_bwd"],
+               "edm_fp32_fast_max_rel_err": edm["k3_rel"],
                "training": train["rates"], "trainer": trainer["report"],
                "sass": {n: c for n, c in sass.items() if n.startswith("attention_bwd")}}),
     ]
@@ -1200,6 +1238,374 @@ def trainer_phase(torch, dev, card, bare_rates, mark):
             for name, r in (("off", plain), ("on", rem))}}
     mark(11)
     return {"launches": launches, "report": report}
+
+
+def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
+    """Phase 12: the EDM diffusion downscaler (see the module docstring).
+    Returns its launch counts by path (serve, train, trainer), the worst
+    errors of the kernels in its new cases, and its report."""
+    import numpy as np
+
+    from probunet_torch.config import Config
+    from probunet_torch.data.dataset import ClimexDataset
+    from probunet_torch.data.netcdf import NetCDFFile
+    from probunet_torch.models.unet import build_unet_plan, gn_silu_sites
+    from probunet_torch.ops import attention as K2
+    from probunet_torch.ops import gn_silu as K1
+    from probunet_torch.ops.norm import num_groups_for
+    from probunet_torch.serve import downscale
+    from probunet_torch.train.checkpoint import save_checkpoint
+    from probunet_torch.train.loop import build_edm_model, init_edm_state, train_edm
+    from probunet_torch.train.state import TrainState, create_train_state, make_optimizer
+    from probunet_torch.train.steps import make_edm_sample_fn, make_edm_train_step
+    from probunet_torch.utils.device import full_fp32
+
+    def counters():
+        return (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches,
+                K2.kernel_layout.copies)
+
+    def reset_counters():
+        K1.gn_silu.launches = K2.fused_attention.launches = K2.attention_bwd.launches = 0
+        K2.kernel_layout.copies = 0
+
+    def as_launches(n):
+        return {"gn": n[0], "attn": n[1], "attn_bwd": n[2]}
+
+    cfg = Config(ds_model="edm", coords=(0, RES, 0, RES), resolution=(RES, RES),
+                 standardization="pertimestep", batch_size=BATCH, edm_steps=EDM_STEPS)
+    modes = {"strict": cfg, "fast": cfg.replace(compute_dtype="bfloat16", fast_attention=True)}
+    report = {"card": card}
+
+    # ---- the model, its kernel sites, card against CPU -----------------------------
+    c0 = cfg.replace(dropout=0.0)
+    card_model = build_edm_model(c0, device="meta").to_empty(device=dev).eval()
+    fill_weights(torch, card_model, seed=12)
+    cpu_model = build_edm_model(c0, device="meta").to_empty(device="cpu").eval()
+    cpu_model.load_state_dict(card_model.state_dict())
+    nparams = sum(p.numel() for p in card_model.parameters())
+    g = torch.Generator().manual_seed(12)
+    x1, cond1 = (torch.randn(1, RES, RES, 3, generator=g) for _ in range(2))
+    sig1 = torch.tensor([1.7])
+    gn_sites, attn_sites = census(torch, card_model, lambda: card_model(
+        x1.to(dev), sig1.to(dev), condition_img=cond1.to(dev)))
+    log(f"[12] EDM denoiser: {RES}x{RES}, {nparams:,} parameters; K1 sites per pass "
+        f"{len(gn_sites)}, K2 sites {len(attn_sites)}")
+    plan_sites = gn_silu_sites(*build_unet_plan((RES, RES), 6, cfg.model_channels,
+                                                cfg.channel_mult, cfg.num_blocks,
+                                                cfg.attn_resolutions), (RES, RES))
+    if nparams != EDM_EXPECTED_PARAMS or sorted(gn_sites) != sorted(plan_sites) \
+            or (len(gn_sites), len(attn_sites)) != (K1_PER_BATCH, K2_PER_BATCH):
+        raise AssertionError(f"EDM: {nparams:,} parameters (expected {EDM_EXPECTED_PARAMS:,}), "
+                             f"or unexpected kernel sites")
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    with full_fp32(), torch.inference_mode():
+        got = card_model(x1.to(dev), sig1.to(dev), condition_img=cond1.to(dev)).cpu()
+        ref = cpu_model(x1, sig1, condition_img=cond1)
+    denoiser_rel = rel(got, ref)
+    noise = torch.randn(2, RES, RES, 3, generator=g)
+    idx = torch.tensor([3])
+    t0 = time.perf_counter()
+    got = make_edm_sample_fn(card_model, 4, cfg.standardization, 2, EDM_CHAIN_STEPS)(
+        ds.hr_device(), ds.stats, idx.to(dev), noise=noise)[0].cpu()
+    ref = make_edm_sample_fn(cpu_model, 4, cfg.standardization, 2, EDM_CHAIN_STEPS)(
+        ds_cpu.hr_device(), ds_cpu.stats, idx, noise=noise)[0]
+    chain_rel = {var: rel(got[..., i], ref[..., i]) for i, var in enumerate(cfg.variables)}
+    sigma1, noise1 = torch.tensor([0.9]), torch.randn(1, RES, RES, 3, generator=g)
+    res = {}
+    for where, m, d in (("card", card_model, ds), ("cpu", cpu_model, ds_cpu)):
+        state = create_train_state(m, make_optimizer(c0.lr, c0.weight_decay))
+        metrics = make_edm_train_step(m, 4, cfg.standardization)(
+            state, d.hr_device(), d.stats, idx.to(d.device), 0, sigma=sigma1, noise=noise1)
+        res[where] = (metrics["train_loss"].item(), metrics["grad_norm"].item(),
+                      {k: p.grad.detach().cpu() for k, p in m.named_parameters()})
+    (l_c, n_c, g_c), (l_r, n_r, g_r) = res["card"], res["cpu"]
+    loss_rel, norm_rel = abs(l_c - l_r) / abs(l_r), abs(n_c - n_r) / n_r
+    grad_rel, worst = 0.0, ""
+    for k, ref_g in g_r.items():
+        scale = ref_g.abs().max().item()
+        err = (g_c[k] - ref_g).abs().max().item()
+        r = err / scale if scale else err
+        if r > grad_rel:
+            grad_rel, worst = r, k
+    ok = (denoiser_rel <= PATH_TOL and max(chain_rel.values()) <= PATH_TOL
+          and loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_LOSS_TOL
+          and grad_rel <= STEP_GRAD_TOL)
+    log(f"[12] card vs CPU, strict fp32 ({time.perf_counter() - t0:.1f} s): denoiser (b=1) max "
+        f"abs err / max |ref| {denoiser_rel:.3e}; {EDM_CHAIN_STEPS}-step Heun chain (b=1, K=2, "
+        f"the same noise) per variable {', '.join(f'{v} {e:.3e}' for v, e in chain_rel.items())}"
+        f" (tol {PATH_TOL}); one DSM step (b=1, dropout 0, the same sigma and noise): loss "
+        f"{l_c:.6g} vs {l_r:.6g}, rel err {loss_rel:.3e}, grad norm rel err {norm_rel:.3e} (tol "
+        f"{STEP_LOSS_TOL}), worst gradient max|err| / max|g| {grad_rel:.3e} ({worst}; tol "
+        f"{STEP_GRAD_TOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the EDM path on the card disagrees with the plain path")
+    report["card_vs_cpu"] = {"denoiser_rel": denoiser_rel, "chain_rel": chain_rel,
+                             "step_loss_rel": loss_rel, "step_grad_norm_rel": norm_rel,
+                             "step_grad_rel": grad_rel}
+    ckpt = os.path.join(WORK, "edm_ckpt")
+    save_checkpoint(ckpt, TrainState(card_model, None))
+    del cpu_model, res, g_c, g_r
+    mark(12)
+
+    # ---- the kernels in the EDM path's new cases ---------------------------------
+    # K2/K3 on fp32 operands with fast=True (the U-Net stays fp32 in fast
+    # mode): the strict math, so the strict limits, and bit-equal to fast=False
+    k2_err = k3_rel = 0.0
+    for L, nh in sorted(set(attn_sites), reverse=True):
+        q, k, v = qkv_views(torch, "block", BATCH, L, nh, torch.float32, dev, gen)
+        do = torch.randn(BATCH, L, nh, 64, device=dev, generator=gen)
+        with torch.no_grad(), full_fp32():
+            out = K2.fused_attention(q, k, v, True)
+            ref = K2._plain_attention(q, k, v, True)
+            o, lse = K2._launch(q, k, v, with_lse=True)
+            got = K2.attention_bwd(q, k, v, o, lse, do, True)
+            strict = K2.attention_bwd(q, k, v, o, lse, do, False)
+            refb = K2._plain_attention_bwd(q, k, v, do, True)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        rels = [(a - r).abs().max().item() / max(1e-3, r.abs().max().item())
+                for a, r in zip(got, refb)]
+        same = torch.equal(out, o) and all(torch.equal(a, b) for a, b in zip(got, strict))
+        ok = (torch.allclose(out, ref, atol=ATTN_TOL["strict"], rtol=ATTN_TOL["strict"])
+              and max(rels) <= ATTN_BWD_TOL["float32"] and same)
+        k2_err, k3_rel = max(k2_err, err), max(k3_rel, max(rels))
+        log(f"[12] K2/K3 fp32 with fast=True, B={BATCH} L={L} heads={nh}: K2 max abs err {err:.3e}"
+            f" (tol {ATTN_TOL['strict']}), K3 max|err| / max|ref| {max(rels):.3e} (tol "
+            f"{ATTN_BWD_TOL['float32']}); bit-equal to fast=False {same} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("K2/K3 on fp32 operands with fast=True disagree")
+    # K1 at every site and K2 at the 128 rows of a b8, K=16 chain's pass
+    rows = BATCH * MEMBERS
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    atol, rtol = GN_TOL["float32"]
+    k1_err = 0.0
+    for h, w, c in sorted(set(gn_sites)):
+        gr = num_groups_for(c)
+        p = K1.plan(rows, h, w, c, gr, 4, num_sms)
+        x = torch.randn(rows, h, w, c, device=dev, generator=gen) + 0.5
+        gamma = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+        beta = 0.1 * torch.randn(c, device=dev, generator=gen)
+        with torch.inference_mode():
+            out = K1.gn_silu(x, gamma, beta, gr)
+            ref = K1._plain_gn_silu(x, gamma, beta, gr)[0]
+        torch.cuda.synchronize()
+        d = (out - ref).abs()
+        ok = bool((d <= atol + rtol * ref.abs()).all())
+        k1_err = max(k1_err, d.max().item())
+        log(f"[12] K1 fp32 {rows}x{h}x{w}x{c} (cb {p.cb}, cluster {p.n}, {p.rows} rows/block, "
+            f"{'on chip' if p.on_chip else 'streamed'}): max abs err {d.max().item():.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("K1 disagrees with its plain version at 128 rows")
+        del x, out, ref, d
+    for L, nh in sorted(set(attn_sites), reverse=True):
+        q, k, v = qkv_views(torch, "block", rows, L, nh, torch.float32, dev, gen)
+        with torch.inference_mode(), full_fp32():
+            out = K2.fused_attention(q, k, v, True)
+            ref = K2._plain_attention(q, k, v, True)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        ok = torch.allclose(out, ref, atol=ATTN_TOL["strict"], rtol=ATTN_TOL["strict"])
+        k2_err = max(k2_err, err)
+        log(f"[12] K2 fp32, fast=True, B={rows} L={L} heads={nh}: max abs err {err:.3e} (tol "
+            f"{ATTN_TOL['strict']}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("K2 disagrees with its plain version at 128 rows")
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    mark(12)
+
+    # ---- serving: downscale from the checkpoint, b2, K=4, 18 steps ---------------------
+    sb, sk = EDM_SERVE_BATCH, EDM_SERVE_MEMBERS
+    sds = ClimexDataset(hr=ds.hr_np[:sb], timestamps=ds.timestamps_np[:sb],
+                        standardization=cfg.standardization, device=dev)
+    passes = 2 * EDM_STEPS - 1
+    serve_n = np.zeros(3, np.int64)
+    report["serve"] = {}
+    for name, c in modes.items():
+        reset_counters()
+        t0 = time.perf_counter()
+        path = downscale(c, ckpt, os.path.join(WORK, f"edm_{name}.nc"), dataset=sds,
+                         num_samples=sk, batch_size=sb, device=dev)
+        wall = time.perf_counter() - t0
+        n = counters()
+        want = (passes * K1_PER_BATCH, passes * K2_PER_BATCH, 0, 0)
+        serve_n += n[:3]
+        with NetCDFFile(path) as f:
+            fields = {var: f.read_var(var) for var in cfg.variables}
+        spread = {var: float(a.std(axis=1).mean()) for var, a in fields.items()}
+        ok = n == want and all(a.shape == (sb, sk, RES, RES) and np.isfinite(a).all()
+                               for a in fields.values()) and min(spread.values()) > 0
+        # the sampler alone on one batch, data on the card, no file I/O
+        dtype = torch.bfloat16 if c.compute_dtype == "bfloat16" else torch.float32
+        m = build_edm_model(c, device="meta").to_empty(device=dev).eval()
+        m.load_state_dict(card_model.state_dict())
+        fn = make_edm_sample_fn(m, 4, c.standardization, sk, EDM_STEPS, compute_dtype=dtype)
+        e = torch.randn(sk * sb, RES, RES, 3, device=dev, generator=gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn(sds.hr_device(), sds.stats, torch.arange(sb, device=dev), noise=e)
+        torch.cuda.synchronize()
+        per = time.perf_counter() - t1
+        report["serve"][name] = {"downscale_wall_s": wall, "ms_per_batch": per * 1e3,
+                                 "inputs_per_s": sb / per, "members_per_s": sb * sk / per,
+                                 "launches": n[:3], "copies": n[3]}
+        log(f"[12] EDM downscale {name} (b{sb}, K={sk}, {EDM_STEPS} steps): {wall:.2f} s for one "
+            f"batch (restore and netCDF output included); launches K1 {n[0]}, K2 {n[1]}, K3 "
+            f"{n[2]}, q/k/v copies {n[3]} (expected {want}); members finite, spread "
+            f"{', '.join(f'{v} {s:.4g}' for v, s in spread.items())}; the sampler alone "
+            f"{per * 1e3:.1f} ms per batch: {sb / per:.3f} inputs/s, {sb * sk / per:.3f} "
+            f"members/s ({card}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"EDM serving {name}: launches {n}, expected {want}, or bad "
+                                 f"output")
+        modes[name] = (c, m, dtype)
+    mark(12)
+
+    # ---- one denoiser pass at 8 and 128 rows -------------------------------------------
+    report["pass_ms"] = {}
+    for r in (sb * sk, rows):
+        x = torch.randn(r, RES, RES, 3, device=dev, generator=gen)
+        cond = torch.randn(r, RES, RES, 3, device=dev, generator=gen)
+        sig = torch.full((r,), 2.5, device=dev)
+        for name, (c, m, dtype) in modes.items():
+            cd = cond.to(dtype)
+
+            def run():
+                return m(x, sig, condition_img=cd)
+
+            with torch.inference_mode(), full_fp32():
+                ev = cuda_ms(torch, run, reps=1 if r == rows else 5, warmup=1)
+                dv = device_ms(torch, run, reps=1, warm=False)
+            t = {"ms": ev, "device_ms": dv}
+            if r == rows:
+                t.update(heun_batch_computed_ms=passes * ev,
+                         heun_batch_computed_device_ms=passes * dv)
+            report["pass_ms"][f"{name}_{r}_rows"] = t
+            log(f"[12] one denoiser pass, {name}, {r} rows: {ev:.2f} ms by events, {dv:.2f} ms of "
+                f"device time ({card})" + (
+                    f"; computed, not run: {passes} passes = one b{BATCH} K={MEMBERS} Heun batch "
+                    f"of {EDM_STEPS} steps, {passes * ev / 1e3:.2f} s ({passes * dv / 1e3:.2f} s "
+                    f"of device time)" if r == rows else ""))
+        del x, cond, cd
+    for name in modes:
+        modes[name] = modes[name][0]
+    del m, fn
+    torch.cuda.empty_cache()
+    mark(12)
+
+    # ---- training: DSM steps at b8, dropout 0.1, fixed sigma and noise ---------------
+    g = torch.Generator().manual_seed(13)
+    sigma = torch.exp(-1.2 + 1.2 * torch.randn(BATCH, generator=g)).to(dev)
+    noise = torch.randn(BATCH, RES, RES, 3, generator=g).to(dev)
+    fixed_idx = torch.arange(BATCH, device=dev)
+    train_n = np.zeros(3, np.int64)
+    report["train"] = {}
+    for name, mc in modes.items():
+        c = mc.replace(dropout=0.1, opt_state_dtype="bfloat16" if name == "fast" else "float32")
+        dtype = torch.bfloat16 if c.compute_dtype == "bfloat16" else torch.float32
+        tx = make_optimizer(c.lr, c.weight_decay, c.accum, c.optimizer, None, c.opt_state_dtype)
+        state = init_edm_state(c, build_edm_model(c, device="meta"), tx, device=dev)
+        step = make_edm_train_step(state.model, c.lowres_scale, c.standardization,
+                                   compute_dtype=dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = [step(state, ds.hr_device(), ds.stats, fixed_idx, c.seed, sigma=sigma, noise=noise)
+              for _ in range(WARMUP_STEPS)]
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        ms += [step(state, ds.hr_device(), ds.stats, fixed_idx, c.seed, sigma=sigma, noise=noise)
+               for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        per = (time.perf_counter() - t0) / TRAIN_STEPS
+        n = counters()
+        train_n += n[:3]
+        want = (TRAIN_STEPS * K1_PER_BATCH, TRAIN_STEPS * K2_PER_BATCH,
+                TRAIN_STEPS * K3_PER_STEP, 0)
+        losses = [m_["train_loss"].item() for m_ in ms]
+        norms = [m_["grad_norm"].item() for m_ in ms]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ok = (n == want and all(math.isfinite(v) for v in losses + norms)
+              and losses[-1] < losses[0])
+        report["train"][name] = {"ms_per_step": per * 1e3, "samples_per_s": BATCH / per,
+                                 "peak_gib": peak, "losses": losses}
+        log(f"[12] EDM train {name}: {WARMUP_STEPS} warm-up + {TRAIN_STEPS} DSM steps at b{BATCH},"
+            f" {RES}x{RES}, dropout 0.1, fixed sigma and noise: {per * 1e3:.2f} ms per step, "
+            f"{BATCH / per:.2f} samples/s over the {TRAIN_STEPS}; launches K1 {n[0]}, K2 {n[1]}, "
+            f"K3 {n[2]}, copies {n[3]} (expected {want}); peak device memory {peak:.2f} GiB; "
+            f"loss {[round(v, 3) for v in losses]} ({card}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"EDM training {name}: launches {n}, expected {want}, or the "
+                                 f"loss did not fall")
+        profile(torch, lambda: step(state, ds.hr_device(), ds.stats, fixed_idx, c.seed,
+                                    sigma=sigma, noise=noise),
+                f"EDM train step {name}", "one step", phase=12, top=12)
+        del state, step, ms
+        torch.cuda.empty_cache()
+    mark(12)
+
+    # ---- the trainer, then serving from its checkpoint ---------------------------------
+    base = Config(ds_model="edm", datadir=os.path.join(WORK, "trainer_data"),
+                  years_train=(2000, 2003), years_val=(2003, 2004), years_test=(2004, 2005),
+                  coords=(0, RES, 0, RES), resolution=(RES, RES), standardization="pertimestep",
+                  batch_size=BATCH, num_epochs=TRAINER_EPOCHS, eval_crps=True, crps_samples=2,
+                  edm_steps=EDM_CHAIN_STEPS, log_every=1, num_samples=2,
+                  plotdir=os.path.join(WORK, "edm_trainer", "plots"),
+                  checkpoints_dir=os.path.join(WORK, "edm_trainer", "ckpt"))
+    reset_counters()
+    t0 = time.perf_counter()
+    res = train_edm(base, make_plots=False)   # on the card: its default device
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = counters()
+    with open(os.path.join(base.plotdir, "metrics_edm.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps_per_epoch = 3 * TRAINER_DAYS // BATCH
+    n_steps = TRAINER_EPOCHS * steps_per_epoch
+    crps_passes = 2 * EDM_CHAIN_STEPS - 1
+    # per epoch: one eval batch (one pass), one CRPS batch (a chain)
+    evals = TRAINER_EPOCHS * (1 + crps_passes)
+    want = (n_steps * K1_PER_BATCH + evals * K1_PER_BATCH,
+            n_steps * K2_PER_BATCH + evals * K2_PER_BATCH, n_steps * K3_PER_STEP, 0)
+    kinds = [set(r) for r in recs]
+    want_kinds = (([EDM_STEP_KEYS] * steps_per_epoch + [EDM_EPOCH_KEYS, CRPS_KEYS])
+                  * TRAINER_EPOCHS)
+    finite = all(math.isfinite(v) for r in recs for v in r.values())
+    ckpt = os.path.join(base.checkpoints_dir, "edm")
+    ok = (n == want and kinds == want_kinds and finite and res["state"].step == n_steps
+          and os.path.isfile(os.path.join(ckpt, "state", "state.pt")))
+    seen = "the JAX loop's keys" if kinds == want_kinds else [sorted(k) for k in kinds]
+    log(f"[12] train_edm: {res['state'].step} steps, eval and CRPS ({base.crps_samples} members,"
+        f" {EDM_CHAIN_STEPS} steps) in {wall:.2f} s; losses "
+        f"{[round(r['train_loss'], 3) for r in recs if 'train_loss' in r]}, val "
+        f"{[round(v, 4) for v in res['val_losses']]}; launches K1 {n[0]}, K2 {n[1]}, K3 {n[2]}, "
+        f"copies {n[3]} (expected {want}); records: {seen} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train_edm: launches, records or checkpoint differ")
+    trainer_n = np.array(n[:3])
+    del res
+    out = downscale(base, ckpt, os.path.join(WORK, "edm_from_trainer.nc"), years=[2004],
+                    num_samples=2)
+    with NetCDFFile(out) as f:
+        a = f.read_var("pr")
+    if a.shape != (TRAINER_DAYS, 2, RES, RES) or not np.isfinite(a).all() \
+            or not a.std(axis=1).mean() > 0:
+        raise AssertionError(f"EDM downscale from the trainer's checkpoint: {a.shape}")
+    log(f"[12] downscale (ds_model edm) restored the trainer's checkpoint: {a.shape} finite, "
+        f"members differ")
+    report["trainer_s"] = wall
+    shutil.rmtree(os.path.join(WORK, "edm_trainer"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    mark(12)
+    return {"launches": {"serve": as_launches(serve_n.tolist()),
+                         "train": as_launches(train_n.tolist()),
+                         "trainer": as_launches(trainer_n.tolist())},
+            "k1_err": k1_err, "k2_err": k2_err, "k3_rel": k3_rel, "report": report}
 
 
 def rms_rel(got, ref):

@@ -4,3 +4,4 @@ from probunet_torch.models.prob_unet import (  # noqa: F401
     Fcomb,
     ProbabilisticUNet,
 )
+from probunet_torch.models.edm import EDMPrecond  # noqa: F401

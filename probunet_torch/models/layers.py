@@ -162,25 +162,28 @@ class TorchConv(_Layer):
 
 
 class Linear(_Layer):
-    """Fully-connected layer (reference networks.py:31-44), weight (out, in)."""
+    """Fully-connected layer (reference networks.py:31-44), weight (out, in);
+    no bias parameter when ``use_bias`` is False."""
 
-    def __init__(self, in_features: int, out_features: int, init: Init = Init(), *,
-                 device=None, generator=None):
+    def __init__(self, in_features: int, out_features: int, init: Init = Init(),
+                 use_bias: bool = True, *, device=None, generator=None):
         super().__init__()
         self.in_features, self.out_features, self.init = in_features, out_features, init
         self.weight = self._param(out_features, in_features, device=device)
-        self.bias = self._param(out_features, device=device)
+        self.bias = self._param(out_features, device=device) if use_bias else None
         self._fill(device, generator)
 
     def reset_parameters(self, generator=None) -> None:
         fi, fo = self.in_features, self.out_features
         self.weight.copy_(weight_init(self.weight.shape, self.init.mode, fi, fo, generator)
                           * self.init.weight)
-        self.bias.copy_(weight_init(self.bias.shape, self.init.mode, fi, fo, generator)
-                        * self.init.bias)
+        if self.bias is not None:
+            self.bias.copy_(weight_init(self.bias.shape, self.init.mode, fi, fo, generator)
+                            * self.init.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 class GroupNorm(_Layer):

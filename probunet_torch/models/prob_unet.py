@@ -125,7 +125,7 @@ class ProbabilisticUNet(nn.Module):
         return self._elbo(x, target, lambda post: z, beta, None)
 
     def _elbo(self, x, target, draw, beta, generator):
-        features = self.unet(x, generator)
+        features = self.unet(x, generator=generator)
         prior = self.prior(nchw(x))
         posterior = self.posterior(nchw(x), nchw(target))
         out = self.fcomb(features, draw(posterior))

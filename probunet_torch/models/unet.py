@@ -7,8 +7,12 @@ public :class:`UNet` takes and returns NHWC like the JAX module. ``norm0``
 and ``out_norm`` go through kernel K1 (GroupNorm+SiLU), every attention
 block through kernels K2 and, in the backward, K3.
 
-Only the downscaling configuration is ported: no noise or label embedding
-(``use_diffuse=False, label_dim=0``), where the embedding is ``silu(0) = 0``.
+The mapping network is ported whole (JAX ``unet.py:239-265``): the noise
+embedding ``map_noise`` -> ``map_layer0`` -> SiLU -> ``map_layer1`` with
+``use_diffuse`` (the EDM denoiser, ``models/edm.py``), the bias-free
+``map_label`` with label dropout when ``label_dim`` > 0, and ``map_augment``.
+The embedding is then per sample, (B, 4C). In the downscaling configuration
+(``use_diffuse=False, label_dim=0``) it is ``silu(0) = 0``, (1, 4C), and
 ``map_layer0``/``map_layer1`` exist, unused, so the parameters and their
 count match the reference.
 """
@@ -16,6 +20,7 @@ count match the reference.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -31,6 +36,7 @@ from probunet_torch.models.layers import (
     GroupNormSiLU,
     Init,
     Linear,
+    PositionalEmbedding,
     dropout,
     nchw,
     nhwc,
@@ -222,27 +228,39 @@ def remat_block(block: UNetBlock, x: torch.Tensor, emb: torch.Tensor,
 
 
 class UNet(nn.Module):
-    """The ADM architecture (reference networks.py:224-333) in its
-    downscaling configuration. ``forward`` takes and returns NHWC. With
-    ``remat``, every :class:`UNetBlock` is recomputed in the backward
-    (:func:`remat_block`) whenever grad is enabled."""
+    """The ADM architecture (reference networks.py:224-333). ``forward``
+    takes and returns NHWC. With ``remat``, every :class:`UNetBlock` is
+    recomputed in the backward (:func:`remat_block`) whenever grad is
+    enabled."""
 
     def __init__(self, img_resolution: Tuple[int, int], in_channels: int, out_channels: int,
-                 model_channels: int = 128, channel_mult: Tuple[int, ...] = (1, 2, 3, 4),
+                 label_dim: int = 0, augment_dim: int = 0, model_channels: int = 128,
+                 channel_mult: Tuple[int, ...] = (1, 2, 3, 4), channel_mult_emb: int = 4,
                  num_blocks: int = 2, attn_resolutions: Tuple[int, ...] = (32, 16, 8),
-                 dropout: float = 0.10, fast_attention: bool = False, remat: bool = False, *,
+                 dropout: float = 0.10, label_dropout: float = 0.0, use_diffuse: bool = False,
+                 fast_attention: bool = False, remat: bool = False, *,
                  device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         f = dict(device=device, generator=generator)
         self.remat = remat
-        self.emb_channels = emb = model_channels * 4  # channel_mult_emb (networks.py:233)
+        self.label_dropout = label_dropout
+        self.emb_channels = emb = model_channels * channel_mult_emb  # networks.py:233
         self.enc_specs, self.dec_specs, final_c = build_unet_plan(
             tuple(img_resolution), in_channels, model_channels, channel_mult, num_blocks,
             attn_resolutions)
-        # constructed unconditionally by the reference (networks.py:252-253)
+        # the mapping network (networks.py:249-253); map_layer0/1 are
+        # constructed unconditionally, as the reference does
+        self.map_noise = PositionalEmbedding(model_channels) if use_diffuse else None
         self.map_layer0 = Linear(model_channels, emb, init=ADM_INIT, **f)
         self.map_layer1 = Linear(emb, emb, init=ADM_INIT, **f)
+        self.map_label = self.map_augment = None
+        if label_dim:
+            self.map_label = Linear(label_dim, emb, Init("kaiming_normal", math.sqrt(label_dim)),
+                                    use_bias=False, **f)
+        if augment_dim:
+            self.map_augment = Linear(augment_dim, model_channels, ADM_INIT_ZERO, use_bias=False,
+                                      **f)
         block_kw = dict(emb_channels=emb, fast_attention=fast_attention,
                         dropout=dropout, init=ADM_INIT, init_zero=ADM_INIT_ZERO, **f)
 
@@ -257,12 +275,36 @@ class UNet(nn.Module):
         self.out_norm = GroupNormSiLU(final_c, **f)
         self.out_conv = Conv2d(final_c, out_channels, 3, init=ADM_INIT_ZERO, **f)
 
-    def forward(self, x: torch.Tensor,
+    def embedding(self, x: torch.Tensor, noise_labels: Optional[torch.Tensor] = None,
+                  class_labels: Optional[torch.Tensor] = None,
+                  augment_labels: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The blocks' embedding (JAX ``unet.py:239-265``): (B, 4C), or (1, 4C)
+        with neither labels nor noise. In training mode, label dropout keeps
+        each sample's labels where ``uniform(B, 1) >= label_dropout``, drawn
+        from ``generator``."""
+        emb = torch.zeros(1, self.emb_channels, dtype=x.dtype, device=x.device)
+        if self.map_label is not None:
+            tmp = class_labels.to(x.dtype)
+            if self.training and self.label_dropout:
+                keep = torch.rand(x.shape[0], 1, generator=generator, device=x.device)
+                tmp = tmp * (keep >= self.label_dropout).to(tmp.dtype)
+            emb = self.map_label(tmp)
+        if self.map_noise is not None:
+            emb_n = silu(self.map_layer0(self.map_noise(noise_labels)))
+            emb = emb + self.map_layer1(emb_n)
+        if self.map_augment is not None and augment_labels is not None:
+            emb = emb + self.map_augment(augment_labels)
+        return silu(emb)
+
+    def forward(self, x: torch.Tensor, noise_labels: Optional[torch.Tensor] = None,
+                class_labels: Optional[torch.Tensor] = None,
+                augment_labels: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """NHWC in and out. In training mode every block's dropout mask is
-        drawn from ``generator``, in block order."""
+        """NHWC in and out. In training mode the label dropout and then every
+        block's dropout mask are drawn from ``generator``, in block order."""
+        emb = self.embedding(x, noise_labels, class_labels, augment_labels, generator)
         x = nchw(x)  # channels_last strides when x is a contiguous NHWC tensor
-        emb = silu(torch.zeros(1, self.emb_channels, dtype=x.dtype, device=x.device))
         run = remat_block if self.remat and torch.is_grad_enabled() else (
             lambda blk, *args: blk(*args))
         skips = []

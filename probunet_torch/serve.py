@@ -8,11 +8,15 @@ with a one-deep overlap: batch i's ensemble is copied to pinned host memory
 behind its compute on the CUDA stream, and written while batch i+1 computes,
 so host memory stays O(batch).
 
-Single process, Probabilistic U-Net only: other ``ds_model`` values and
+Single process. ``ds_model`` is the Probabilistic U-Net (K prior draws per
+input) or ``edm``, the diffusion downscaler (K Heun chains of
+``cfg.edm_steps`` steps per input, folded into one batch); the baselines and
 multi-process serving come in later slices of the port.
 
     python -m probunet_torch.serve --checkpoint ./results/checkpoints/probunet \\
         --out ./results/downscaled.nc --num_samples 16 [config flags...]
+    python -m probunet_torch.serve --ds_model edm --checkpoint ./results/checkpoints/edm \\
+        --out ./results/downscaled_edm.nc --num_samples 16 [config flags...]
 """
 
 from __future__ import annotations
@@ -27,15 +31,16 @@ from probunet_torch.config import Config, get_config
 from probunet_torch.data.dataset import ClimexDataset
 from probunet_torch.data.netcdf import StreamingFieldWriter, pack_params
 from probunet_torch.train.checkpoint import restore_checkpoint
-from probunet_torch.train.loop import build_probunet
+from probunet_torch.train.loop import build_edm_model, build_probunet
 from probunet_torch.train.state import TrainState
-from probunet_torch.train.steps import make_sample_fn
+from probunet_torch.train.steps import make_edm_sample_fn, make_sample_fn
 from probunet_torch.utils.device import full_fp32, resolve_device
 
 
 def _batch_generator(seed: int, batch_index: int) -> torch.Generator:
-    """CPU generator for one batch's prior draws: the same members whatever
-    device samples them, and independent of the batch order."""
+    """CPU generator for one batch's draws (prior draws, or the Heun chains'
+    initial noise): the same members whatever device samples them, and
+    independent of the batch order."""
     return torch.Generator().manual_seed(seed * 1_000_003 + batch_index)
 
 
@@ -64,8 +69,9 @@ def downscale(
     variable; the ensemble is CF-packed to int16 on the device, so half the
     bytes cross to the host, and stored as int16 with scale_factor/add_offset.
     ``device``: default the CUDA card; ``"cpu"`` runs the plain versions."""
-    if cfg.ds_model != "probabilistic_unet":
-        raise NotImplementedError(f"serving ds_model={cfg.ds_model!r} is not ported yet")
+    if cfg.ds_model not in ("probabilistic_unet", "edm"):
+        raise NotImplementedError(f"serving ds_model={cfg.ds_model!r} is not ported yet: "
+                                  "ROADMAP Queue 1 item 5 (baselines)")
     if torch.distributed.is_available() and torch.distributed.is_initialized() \
             and torch.distributed.get_world_size() > 1:
         raise NotImplementedError("multi-process serving is not ported yet")
@@ -77,10 +83,17 @@ def downscale(
     ds = dataset or ClimexDataset(
         cfg.datadir, years=years, variables=cfg.variables, coords=cfg.coords,
         lowres_scale=cfg.lowres_scale, standardization=cfg.standardization, device=dev)
-    model = build_probunet(cfg, device="meta").to_empty(device=dev).eval()
-    restore_checkpoint(checkpoint_dir, TrainState(model, None))
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    sample_fn = make_sample_fn(model, cfg.lowres_scale, cfg.standardization, num_samples, dtype)
+    edm = cfg.ds_model == "edm"
+    build = build_edm_model if edm else build_probunet
+    model = build(cfg, device="meta").to_empty(device=dev).eval()
+    restore_checkpoint(checkpoint_dir, TrainState(model, None))
+    if edm:
+        sample_fn = make_edm_sample_fn(model, cfg.lowres_scale, cfg.standardization,
+                                       num_samples, cfg.edm_steps, compute_dtype=dtype)
+    else:
+        sample_fn = make_sample_fn(model, cfg.lowres_scale, cfg.standardization, num_samples,
+                                   dtype)
 
     pack = None
     if pack_ranges is not None:
@@ -127,9 +140,14 @@ def downscale(
         pending = None  # (t0, rows_to_keep, host buffer, copy-done event)
         last_t = time.perf_counter()
         for bi in range(len(batches)):
-            eps = torch.randn((num_samples, batch_size, cfg.latent_dim),
-                              generator=_batch_generator(seed, bi))
-            preds, _ = sample_fn(hr_all, stats, batches_dev[bi], eps=eps)
+            if edm:   # the K*B chains' initial noise, K-major
+                noise = torch.randn((num_samples * batch_size, h, w, cfg.nvars),
+                                    generator=_batch_generator(seed, bi))
+                preds, _ = sample_fn(hr_all, stats, batches_dev[bi], noise=noise)
+            else:
+                eps = torch.randn((num_samples, batch_size, cfg.latent_dim),
+                                  generator=_batch_generator(seed, bi))
+                preds, _ = sample_fn(hr_all, stats, batches_dev[bi], eps=eps)
             if pack is not None:
                 preds = pack(preds)  # int16 crosses the host link, not fp32
             staged = to_host(preds, bi % 2)

@@ -1,9 +1,11 @@
-"""Probabilistic U-Net end-to-end training (reference main.py) — the
-port's ``scripts/train_probunet.py``.
+"""End-to-end training (reference main.py) — the port's
+``scripts/train_probunet.py`` and, with ``--ds_model edm``, its
+``scripts/train_baseline.py --ds_model edm`` (the EDM diffusion downscaler).
 
     python -m probunet_torch.train --datadir /path/to/climex [config flags...]
     python -m probunet_torch.train --synthetic [config flags...]   # generated data
     python -m probunet_torch.train --device cpu ...                # default: the card
+    python -m probunet_torch.train --ds_model edm [config flags...]
 
 All Config fields are flags (see probunet_torch/config.py). ``--synthetic``
 writes ClimEx-like files for every year of the three splits into
@@ -38,9 +40,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             generate_climex_like(datadir, years=years, grid=max(cfg.coords[1], cfg.coords[3]))
         cfg = cfg.replace(datadir=datadir)
 
-    from probunet_torch.train.loop import train_probunet
+    from probunet_torch.train.loop import train_baseline, train_probunet
 
-    results = train_probunet(cfg, device=args.device)
+    train = train_probunet if cfg.ds_model == "probabilistic_unet" else train_baseline
+    results = train(cfg, device=args.device)
     val = results["val_losses"][-1] if results["val_losses"] else float("nan")
     print(f"final train loss: {results['tr_losses'][-1]:.4f}  val loss: {val:.4f}  "
           f"throughput: {results['samples_per_sec']:.1f} samples/s")

@@ -4,11 +4,14 @@ training engine — ``probunet_tpu/train/loop.py``.
 ``train_probunet``: datasets -> ProbabilisticUNet -> epoch loop of training
 steps -> seeded stochastic eval (and ensemble CRPS) -> ensemble sampling
 plots every 2 epochs -> loss curves + checkpoints (reference
-main.py:101-145). The epoch loop itself — ingest modes, logging, watch and
-checkpoint cadences, max_steps, exact resume, eval/CRPS/plot scheduling —
-lives once in :mod:`probunet_torch.train.engine`. The EDM and baseline
-experiments and ``run_bcsd`` are not ported yet; they plug into the same
-engine.
+main.py:101-145). ``train_edm`` (``ds_model="edm"``, through
+``train_baseline``): the EDM diffusion downscaler on the same engine, with
+denoising-score-matching steps, a seeded DSM eval and Heun-sampled
+ensembles for CRPS and plots. The epoch loop itself — ingest modes, logging,
+watch and checkpoint cadences, max_steps, exact resume, eval/CRPS/plot
+scheduling — lives once in :mod:`probunet_torch.train.engine`. The
+deterministic baselines and ``run_bcsd`` are not ported yet; they plug into
+the same engine.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from probunet_torch.config import Config
+from probunet_torch.models.edm import EDMPrecond
 from probunet_torch.models.layers import reset_parameters
 from probunet_torch.models.prob_unet import ProbabilisticUNet
 from probunet_torch.train.engine import (
@@ -32,6 +36,10 @@ from probunet_torch.train.state import TrainState, create_train_state
 from probunet_torch.train.steps import (
     beta_schedule,
     make_crps_eval_fn,
+    make_edm_crps_eval_fn,
+    make_edm_eval_step,
+    make_edm_sample_fn,
+    make_edm_train_step,
     make_probunet_eval_step,
     make_probunet_train_step,
     make_sample_fn,
@@ -45,8 +53,9 @@ def build_probunet(cfg: Config, device=None,
     card), in ``channels_last`` memory format. Its weights are drawn from
     ``generator``; on the ``meta`` device nothing is allocated."""
     if cfg.ds_model != "probabilistic_unet":
-        raise NotImplementedError(f"ds_model={cfg.ds_model!r} is not ported yet; the port "
-                                  "serves the Probabilistic U-Net")
+        raise NotImplementedError(f"build_probunet builds the Probabilistic U-Net, not "
+                                  f"ds_model={cfg.ds_model!r}: build_edm_model builds EDM; "
+                                  "the baselines are not ported yet (ROADMAP Queue 1 item 5)")
     device = resolve_device(device)
     model = ProbabilisticUNet(
         input_channels=cfg.nvars,
@@ -79,6 +88,37 @@ def init_probunet_state(cfg: Config, model: ProbabilisticUNet, tx, device=None) 
     model.to_empty(device=resolve_device(device))
     reset_parameters(model, torch.Generator().manual_seed(cfg.seed))
     return create_train_state(model, tx)
+
+
+def build_edm_model(cfg: Config, device=None,
+                    generator: Optional[torch.Generator] = None) -> EDMPrecond:
+    """The EDM-preconditioned diffusion downscaler for ``cfg`` on ``device``
+    (default the CUDA card), in ``channels_last`` memory format: the
+    denoiser U-Net sees the noisy residual concatenated with the LR-interp
+    condition (2 x nvars channels); ``fast_attention`` and ``remat`` go to
+    the backbone. Its weights are drawn from ``generator``; on the ``meta``
+    device nothing is allocated. As in the JAX package, the backbone runs in
+    fp32 in both numerics modes."""
+    model = EDMPrecond(
+        img_resolution=tuple(cfg.resolution),
+        in_channels=2 * cfg.nvars,
+        out_channels=cfg.nvars,
+        model_channels=cfg.model_channels,
+        channel_mult=tuple(cfg.channel_mult),
+        num_blocks=cfg.num_blocks,
+        attn_resolutions=tuple(cfg.attn_resolutions),
+        dropout=cfg.dropout,
+        fast_attention=cfg.fast_attention,
+        remat=cfg.remat,
+        device=resolve_device(device),
+        generator=generator,
+    )
+    return model.to(memory_format=torch.channels_last)
+
+
+def init_edm_state(cfg: Config, model: EDMPrecond, tx, device=None) -> TrainState:
+    """:func:`init_probunet_state` for an EDM model from :func:`build_edm_model`."""
+    return init_probunet_state(cfg, model, tx, device)
 
 
 def train_probunet(cfg: Config, datasets=None, make_plots: bool = True, device=None) -> Dict:
@@ -134,6 +174,63 @@ def train_probunet(cfg: Config, datasets=None, make_plots: bool = True, device=N
         make_fns=make_fns, desc="Train", rng_offset=1,
         wandb_config=True, loss_curve="loss.png")
     return run_training(cfg, spec, datasets, make_plots, device)
+
+
+def train_edm(cfg: Config, datasets=None, make_plots: bool = True, device=None) -> Dict:
+    """The diffusion downscaler (``ds_model="edm"``) on ``device`` (default
+    the CUDA card): denoising-score-matching training steps, a seeded DSM
+    eval, Heun-sampled ensembles for CRPS and the every-2-epochs plots, loss
+    curve and checkpoints under ``<checkpoints_dir>/edm``. Returns {state,
+    tr_losses, val_losses, samples_per_sec}."""
+    device = resolve_device(device)
+    model = build_edm_model(cfg, device="meta")
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+    def make_fns(ctx):
+        train_step = make_edm_train_step(model, cfg.lowres_scale, cfg.standardization,
+                                         compute_dtype=dtype, watch=cfg.watch_every > 0)
+        eval_step = make_edm_eval_step(model, cfg.lowres_scale, cfg.standardization,
+                                       compute_dtype=dtype)
+        sample_fn = make_edm_sample_fn(model, cfg.lowres_scale, cfg.standardization,
+                                       cfg.num_samples, cfg.edm_steps, compute_dtype=dtype)
+        crps_fn = None
+        if cfg.eval_crps:
+            crps_fn = make_edm_crps_eval_fn(model, cfg.lowres_scale, cfg.standardization,
+                                            cfg.variables, cfg.crps_samples, cfg.edm_steps,
+                                            compute_dtype=dtype)
+
+        def train_call(state, item, seed):
+            return train_step(state, item["hr"], item["stats"], item["idx"], seed)
+
+        def eval_call(state, item, generator, beta):   # DSM has no beta
+            return eval_step(item["hr"], item["stats"], item["idx"], generator)
+
+        def crps_call(state, item, generator):
+            return crps_fn(item["hr"], item["stats"], item["idx"], generator)
+
+        def plot_fn(state, epoch):
+            # the EDM sampler has make_sample_fn's surface
+            _plot_probunet_samples(cfg, ctx.datasets["test"], sample_fn, epoch, device)
+
+        return EngineFns(train_call=train_call, eval_call=eval_call,
+                         crps_call=crps_call if crps_fn is not None else None,
+                         plot_fn=plot_fn)
+
+    spec = EngineSpec(
+        name="edm", metrics_filename="metrics_edm.jsonl",
+        init_state=lambda tx: init_edm_state(cfg, model, tx, device),
+        make_fns=make_fns, desc="Train(edm)", rng_offset=3, loss_curve="loss_edm.png")
+    return run_training(cfg, spec, datasets, make_plots, device)
+
+
+def train_baseline(cfg: Config, datasets=None, make_plots: bool = True, device=None) -> Dict:
+    """The reference ``baseline/main.py`` pipeline: ``ds_model="edm"`` trains
+    the diffusion downscaler (:func:`train_edm`); the deterministic
+    baselines, the conv-VAE and BCSD are not ported yet."""
+    if cfg.ds_model == "edm":
+        return train_edm(cfg, datasets, make_plots, device)
+    raise NotImplementedError(f"ds_model={cfg.ds_model!r} is not ported yet: ROADMAP Queue 1 "
+                              "item 5 (baselines)")
 
 
 def _plot_probunet_samples(cfg: Config, ds_test, sample_fn, epoch: int, device) -> None:

@@ -44,16 +44,15 @@ def beta_schedule(schedule: str, beta: float, warmup_steps: int = 0) -> Callable
     return fn
 
 
-def _step_generators(seed_or_generator: SeedOrGenerator, step: int, device):
-    """(latent, dropout) generators on ``device`` for micro-step ``step``:
-    two streams derived from (seed, step), as ``_split_rngs`` folds the step
-    into the key and splits it, so any step can be replayed. A generator
-    passed instead feeds both streams as it is."""
+def _step_generators(seed_or_generator: SeedOrGenerator, step: int, device, n: int = 2):
+    """``n`` generators on ``device`` for micro-step ``step`` ((latent,
+    dropout) by default): streams derived from (seed, step), as
+    ``_split_rngs`` folds the step into the key and splits it, so any step
+    can be replayed. A generator passed instead feeds every stream as it is."""
     if isinstance(seed_or_generator, torch.Generator):
-        return seed_or_generator, seed_or_generator
-    latent, drop = np.random.SeedSequence([int(seed_or_generator), int(step)]).generate_state(2)
-    return (torch.Generator(device).manual_seed(int(latent)),
-            torch.Generator(device).manual_seed(int(drop)))
+        return (seed_or_generator,) * n
+    seeds = np.random.SeedSequence([int(seed_or_generator), int(step)]).generate_state(n)
+    return tuple(torch.Generator(device).manual_seed(int(s)) for s in seeds)
 
 
 def _grad_leaf_norms(model: torch.nn.Module) -> dict:
@@ -215,6 +214,215 @@ def make_crps_eval_fn(model, lowres_scale: int, standardization: str,
     def fn(hr_all, stats, idx, generator: Optional[torch.Generator] = None,
            eps: Optional[torch.Tensor] = None):
         hr_preds, pair = sample(hr_all, stats, idx, generator, eps)
+        with torch.inference_mode():
+            return _ensemble_crps_metrics(hr_preds, pair["hr"], variables)
+
+    return fn
+
+
+# ---- EDM diffusion downscaler -----------------------------------------------------------
+
+def _edm_pair(hr_all, stats, idx, lowres_scale, standardization, compute_dtype):
+    """(condition in ``compute_dtype``, fp32 clean residual, pair dict)."""
+    hr = hr_all[idx]
+    sl = transforms.slice_stats(stats, standardization, idx)
+    pair = transforms.make_pair(hr, lowres_scale, standardization, sl)
+    return pair["inputs"].to(compute_dtype), pair["targets"].float(), pair, sl
+
+
+def _dsm_loss(model, x, y, sigma, noise, sigma_data, compute_dtype, generator=None):
+    """The lambda(sigma)-weighted denoising loss of one batch: the residual
+    ``y`` noised by ``noise * sigma``, denoised conditioned on ``x``."""
+    weight = (sigma ** 2 + sigma_data ** 2) / (sigma * sigma_data) ** 2
+    noisy = (y + noise * sigma[:, None, None, None]).to(compute_dtype)
+    d = model(noisy, sigma, condition_img=x, generator=generator)
+    per = (d.float() - y).square().mean(dim=(1, 2, 3))
+    return (weight * per).mean()
+
+
+def _dsm_draws(b, shape, device, g_sigma, g_noise, p_mean, p_std, sigma=None, noise=None):
+    """Log-normal sigmas (B,) and standard-normal noise ``shape``, each drawn
+    from its generator unless given."""
+    if sigma is None:
+        sigma = torch.exp(p_mean + p_std * torch.randn(b, generator=g_sigma, device=device))
+    if noise is None:
+        noise = torch.randn(shape, generator=g_noise, device=device)
+    return sigma.to(device, torch.float32), noise.to(device, torch.float32)
+
+
+def make_edm_train_step(model, lowres_scale: int, standardization: str, p_mean: float = -1.2,
+                        p_std: float = 1.2, sigma_data: float = 1.0,
+                        compute_dtype: torch.dtype = torch.float32, watch: bool = False):
+    """Returns step(state, hr_all, stats, idx, seed_or_generator, sigma=None,
+    noise=None) -> metrics, for ``state.model is model`` (an
+    :class:`~probunet_torch.models.edm.EDMPrecond`).
+
+    One denoising-score-matching step (Karras et al.): the clean residual is
+    noised with log-normal sigmas (``p_mean``, ``p_std``), the denoiser
+    conditioned on the LR-interp input, the loss weighted by lambda(sigma) =
+    (sigma^2 + sigma_data^2) / (sigma sigma_data)^2, then backward and
+    ``state.optimizer.step()``. As in the JAX step, the noisy input and the
+    condition are rounded to ``compute_dtype``; the denoiser itself runs in
+    fp32. The sigma, noise and dropout draws derive from (seed, micro-step);
+    ``sigma`` (B,) and ``noise`` (B, H, W, C) standard normals may be given
+    instead. Metrics: ``train_loss`` and ``grad_norm``, plus per-parameter
+    gradient norms with ``watch``; tensors stay on the device."""
+
+    def step(state: TrainState, hr_all: torch.Tensor, stats, idx: torch.Tensor,
+             seed_or_generator: SeedOrGenerator, sigma: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None):
+        if state.model is not model:
+            raise ValueError("the train state holds another model than this step's")
+        model.train()
+        with full_fp32():
+            x, y, _, _ = _edm_pair(hr_all, stats, idx, lowres_scale, standardization,
+                                   compute_dtype)
+            g_sigma, g_noise, g_dropout = _step_generators(seed_or_generator, state.step,
+                                                           x.device, 3)
+            sigma, noise = _dsm_draws(y.shape[0], y.shape, x.device, g_sigma, g_noise, p_mean,
+                                      p_std, sigma, noise)
+            params = state.optimizer.params
+            for p in params:
+                p.grad = None
+            loss = _dsm_loss(model, x, y, sigma, noise, sigma_data, compute_dtype, g_dropout)
+            loss.backward()
+            for p in params:  # a parameter outside the graph still decays, as in optax
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            metrics = {"train_loss": loss.detach(),
+                       "grad_norm": global_norm(p.grad for p in params)}
+            if watch:
+                metrics.update(_grad_leaf_norms(model))
+            state.optimizer.step()
+        state.step += 1
+        return metrics
+
+    return step
+
+
+def make_edm_eval_step(model, lowres_scale: int, standardization: str, p_mean: float = -1.2,
+                       p_std: float = 1.2, sigma_data: float = 1.0,
+                       compute_dtype: torch.dtype = torch.float32):
+    """Returns step(hr_all, stats, idx, seed_or_generator, sigma=None,
+    noise=None) -> {val_loss}: the seeded denoising loss of
+    :func:`make_edm_train_step` with dropout off (``model.eval()``); the
+    sigmas, then the noise, are drawn from the one generator unless given."""
+
+    @torch.inference_mode()
+    def step(hr_all, stats, idx, seed_or_generator: SeedOrGenerator,
+             sigma: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+        model.eval()
+        with full_fp32():
+            x, y, _, _ = _edm_pair(hr_all, stats, idx, lowres_scale, standardization,
+                                   compute_dtype)
+            gen = (seed_or_generator if isinstance(seed_or_generator, torch.Generator)
+                   else torch.Generator(x.device).manual_seed(int(seed_or_generator)))
+            sigma, noise = _dsm_draws(y.shape[0], y.shape, x.device, gen, gen, p_mean, p_std,
+                                      sigma, noise)
+            return {"val_loss": _dsm_loss(model, x, y, sigma, noise, sigma_data,
+                                          compute_dtype)}
+
+    return step
+
+
+def karras_schedule(num_steps: int, sigma_min: float = 0.002, sigma_max: float = 80.0,
+                    rho: float = 7.0) -> np.ndarray:
+    """The EDM noise levels t_0 > ... > t_{S-1}, then 0: (S + 1,) float32,
+    computed in float32 as the JAX chain computes them on the device."""
+    steps = np.arange(num_steps, dtype=np.float32)
+    t = (sigma_max ** (1 / rho)
+         + steps / np.float32(num_steps - 1) * np.float32(sigma_min ** (1 / rho)
+                                                          - sigma_max ** (1 / rho))) ** rho
+    return np.concatenate([t.astype(np.float32), np.zeros(1, np.float32)])
+
+
+def edm_heun_chain(model, x_cond: torch.Tensor, num_steps: int = 18, sigma_min: float = 0.002,
+                   sigma_max: float = 80.0, rho: float = 7.0,
+                   generator: Optional[torch.Generator] = None,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The deterministic EDM sampler (Heun, 2nd order; the last step Euler),
+    noise -> residual, conditioned on the LR-interp tiles ``x_cond`` (B, H,
+    W, C): 2 S - 1 denoiser passes for S steps. ``noise`` (B, H, W, C)
+    standard normals start the chain, else drawn from ``generator``. The
+    schedule lives on the host, so the chain makes no host sync. Runs the
+    model as it is set (the callers set eval mode)."""
+    b = x_cond.shape[0]
+    t = [float(v) for v in karras_schedule(num_steps, sigma_min, sigma_max, rho)]
+    if noise is None:
+        noise = torch.randn(x_cond.shape, generator=generator, device=x_cond.device)
+    x = noise.to(x_cond.device, torch.float32) * t[0]
+
+    def denoise(xk, sigma):
+        return model(xk, torch.full((b,), sigma, device=xk.device), condition_img=x_cond)
+
+    for t_cur, t_next in zip(t[:-1], t[1:]):
+        d = (x - denoise(x, t_cur)) / t_cur
+        x_euler = x + (t_next - t_cur) * d
+        if t_next > 0:
+            d2 = (x_euler - denoise(x_euler, t_next)) / t_next
+            x = x + (t_next - t_cur) * 0.5 * (d + d2)
+        else:
+            x = x_euler
+    return x
+
+
+def edm_sample(model, x_cond: torch.Tensor, num_steps: int = 18, sigma_min: float = 0.002,
+               sigma_max: float = 80.0, rho: float = 7.0,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One EDM (Heun) residual draw per input, (B, H, W, C): the chain in
+    eval mode under ``torch.inference_mode``."""
+    model.eval()
+    with torch.inference_mode(), full_fp32():
+        return edm_heun_chain(model, x_cond, num_steps, sigma_min, sigma_max, rho,
+                              generator, noise)
+
+
+def make_edm_sample_fn(model, lowres_scale: int, standardization: str, num_samples: int,
+                       num_steps: int = 18, sigma_min: float = 0.002, sigma_max: float = 80.0,
+                       rho: float = 7.0, compute_dtype: torch.dtype = torch.float32):
+    """Returns fn(hr_all, stats, idx, generator=None, noise=None) ->
+    (hr_preds (B, K, H, W, C) fp32, pair dict), the surface of
+    :func:`make_sample_fn`: K Heun chains folded K-major into the batch axis
+    (one (K*B)-row chain), then residual -> HR. ``noise`` is an optional
+    (K*B, H, W, C) tensor of the chains' initial standard normals, else they
+    come from ``generator``. Runs in eval mode under ``torch.inference_mode``."""
+
+    @torch.inference_mode()
+    def fn(hr_all: torch.Tensor, stats, idx: torch.Tensor,
+           generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None):
+        model.eval()
+        with full_fp32():
+            x, _, pair, sl = _edm_pair(hr_all, stats, idx, lowres_scale, standardization,
+                                       compute_dtype)
+            b, h, w, c = x.shape
+            k = num_samples
+            x_rep = x[None].expand(k, b, h, w, c).reshape(k * b, h, w, c)
+            residual = edm_heun_chain(model, x_rep, num_steps, sigma_min, sigma_max, rho,
+                                      generator, noise)
+            preds = residual.float().reshape(k, b, h, w, c).transpose(0, 1)   # (B, K, ...)
+            # the stats broadcast over the K axis for the inverse transform
+            if sl is not None and standardization != "perpixel":
+                sl = (sl[0][:, None], sl[1][:, None])
+            hr_preds = transforms.residual_to_hr(preds, pair["lrinterp"][:, None],
+                                                 standardization, sl)
+        return hr_preds, pair
+
+    return fn
+
+
+def make_edm_crps_eval_fn(model, lowres_scale: int, standardization: str,
+                          variables: Tuple[str, ...], num_samples: int = 16,
+                          num_steps: int = 18, compute_dtype: torch.dtype = torch.float32):
+    """Returns fn(hr_all, stats, idx, generator=None, noise=None) -> metrics:
+    the K-member Heun ensemble of :func:`make_edm_sample_fn`, then the
+    per-variable CRPS and ensemble-mean MAE of :func:`make_crps_eval_fn`."""
+    sample = make_edm_sample_fn(model, lowres_scale, standardization, num_samples, num_steps,
+                                compute_dtype=compute_dtype)
+
+    def fn(hr_all, stats, idx, generator: Optional[torch.Generator] = None,
+           noise: Optional[torch.Tensor] = None):
+        hr_preds, pair = sample(hr_all, stats, idx, generator, noise)
         with torch.inference_mode():
             return _ensemble_crps_metrics(hr_preds, pair["hr"], variables)
 

@@ -51,12 +51,22 @@ def flax_unet_to_torch(params: Mapping, prefix: str = "") -> Dict[str, torch.Ten
             # flax "enc_64x64_block0/conv0/weight" -> torch "enc.64x64_block0.conv0.weight"
             side, name = head.split("_", 1)
             key = ".".join([side, name] + parts[1:])
-        elif head in ("map_layer0", "map_layer1", "out_norm", "out_conv"):
+        elif head in ("map_layer0", "map_layer1", "map_label", "map_augment", "out_norm",
+                      "out_conv"):
             key = ".".join(parts)
         else:
             raise KeyError(f"unrecognized UNet param: {path}")
         out[prefix + key] = _convert(arr)
     return out
+
+
+def flax_edm_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``EDMPrecond`` params ({"model": UNet params}) -> port
+    ``EDMPrecond`` state_dict (keys under ``model.``)."""
+    extra = set(params) - {"model"}
+    if extra:
+        raise KeyError(f"unrecognized EDMPrecond params: {sorted(extra)}")
+    return flax_unet_to_torch(params["model"], prefix="model.")
 
 
 def flax_probunet_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:

@@ -3,8 +3,9 @@ edge shapes chip_smoke.py does not reach: scalar (unvectorized) paths,
 unaligned views, single rows, a GroupNorm+SiLU slice streamed through
 shared memory, bit-equal reruns, ragged attention lengths, the attention
 forward (K2) and backward (K3) in every mode on the U-Net block's
-row-strided views, stride-3 views and contiguous tensors, and the
-wrappers' and kernels' refusals. Marked ``cuda``: they skip without a
+row-strided views, stride-3 views and contiguous tensors (and on fp32
+operands with fast=True, as the EDM path runs them), and the wrappers' and
+kernels' refusals. Marked ``cuda``: they skip without a
 card. On the card, without JAX (this file imports none):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -194,6 +195,32 @@ def test_attention_bwd_kernel_matches_plain(dev, mode, layout, b, L, nh):
         assert got.dtype == dtype
         scale = max(1e-3, r.float().abs().max().item())
         assert (got.float() - r.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("b,L,nh", [(1, 1, 1), (2, 65, 3), (1, 300, 4)])
+def test_attention_fp32_with_fast_runs_the_strict_kernels(dev, layout, b, L, nh):
+    """The EDM U-Net runs fp32 activations with fast attention: K2 and K3
+    on fp32 operands with fast=True give the strict kernels' results bit
+    for bit, within the strict tolerances of the plain fast versions."""
+    gen = torch.Generator(device=dev).manual_seed(L + 7 * nh)
+    (q, k, v), grad = _qkv(layout, b, L, nh, torch.float32, dev, gen, grad=True)
+    do = torch.randn(b, L, nh, 64, device=dev, generator=gen)
+    out = K2.fused_attention(q, k, v, True)
+    out.backward(do)
+    got = [grad(i).clone() for i in range(3)]
+    for i in range(3):
+        grad(i).zero_()
+    strict = K2.fused_attention(q, k, v, False)
+    strict.backward(do)
+    assert torch.equal(out, strict)
+    assert all(torch.equal(got[i], grad(i)) for i in range(3))
+    with torch.no_grad():
+        ref = K2._plain_attention(q, k, v, True)
+        ref_b = K2._plain_attention_bwd(q.detach(), k.detach(), v.detach(), do, True)
+    torch.testing.assert_close(out.detach(), ref, atol=2e-5, rtol=2e-5)
+    for g, r in zip(got, ref_b):
+        assert (g - r).abs().max().item() <= 1e-4 * max(1e-3, r.abs().max().item())
 
 
 def _rms_rel(got, ref):

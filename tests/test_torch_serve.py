@@ -121,8 +121,8 @@ def test_checkpoint_roundtrip_and_guards(setup):
     assert restore_checkpoint(port_ckpt, TrainState(m, None)).step == 7
     assert m.prior.conv_log_sigma.bias.detach()[0].item() == -30.0
     with pytest.raises(NotImplementedError):
-        tserve.downscale(tcfg.replace(ds_model="edm"), port_ckpt, os.path.join(d, "x.nc"),
-                         device="cpu")
+        tserve.downscale(tcfg.replace(ds_model="deterministic_unet"), port_ckpt,
+                         os.path.join(d, "x.nc"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             resolve_device(None)
