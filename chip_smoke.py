@@ -9,7 +9,9 @@ training step (``probunet_torch.train.steps.make_probunet_train_step``) at
 the full width of the 128x128 Probabilistic U-Net (103,541,083 parameters,
 seeded random weights), in strict fp32 and in fast bf16 mode, then the
 trainer, then the EDM diffusion downscaler (100,349,315 parameters) served,
-stepped and trained. Phases:
+stepped and trained, then the baselines (the deterministic U-Net,
+22,792,579 parameters, LinearCNN, BCSD and the conv-VAE) trained and the
+conv-VAE served. Phases:
 
   1. card and build: nvidia-smi name and power limit; nvcc for sm_90a with
      ptxas registers, shared memory and spills; ``cuobjdump -sass`` of the
@@ -90,6 +92,26 @@ stepped and trained. Phases:
      steps with eval and CRPS (depth cuts: ``crps_samples`` 2 and
      ``edm_steps`` 4), its records' keys and launch counts, then
      ``downscale`` from its checkpoint.
+ 13. the baselines (``ds_model`` deterministic_unet, linearcnn, bcsd,
+     vae): card against CPU, strict fp32 (the deterministic U-Net forward at
+     full width, b=1, id and cyclic labels, within 1e-3 of the largest
+     value; one deterministic step at b=1, dropout 0, cyclic: loss and
+     gradient norm 1e-4 relative, each gradient 1e-3 of its tensor's
+     largest entry; LinearCNN's forward; the conv-VAE's ELBO with a given z;
+     ``bcsd`` and ``run_bcsd`` with chunk 7 on overlapping days, and two
+     card runs of ``run_bcsd`` bit-equal); K1 against its plain version at
+     every (H, W, C, G) site of the deterministic U-Net at b8 (C from 64 to
+     512, 4 to 16 channels per group), fp32 and bf16, each site's plan
+     printed and required on chip, and K1's times there; 3 + 10
+     deterministic steps at b8, cyclic labels (``map_label`` live), dropout
+     0.1, a fixed batch, strict and fast: exactly 29 K1, 0 K2 and 0 K3
+     launches per step and 29 K1 per eval batch, the loss falling, ms per
+     step, samples/s, peak memory and a profile; ``train_baseline`` on
+     phase 11's data for each ``ds_model``, 2 epochs of 3 steps: the JAX
+     loop's record keys, finite MAE, the launch counts (261 K1 for the
+     U-Net: 6 steps, 2 eval batches, 1 MAE batch); ``downscale(ds_model=
+     "vae")`` from its checkpoint at b8, K=16: finite members that differ,
+     the sampler's inputs/s and members/s.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. The line before the last is the ``kernels`` JSON object, the last
@@ -185,6 +207,13 @@ EDM_STEPS, EDM_CHAIN_STEPS = 18, 4
 EDM_SERVE_BATCH, EDM_SERVE_MEMBERS = 2, 4
 EDM_STEP_KEYS = {"train_loss", "grad_norm", "samples_per_sec", "step", "time"}
 EDM_EPOCH_KEYS = {"epoch", "epoch_train_loss", "val_loss", "val-loss", "step", "time"}
+# phase 13, the baselines: the deterministic U-Net of the reference at
+# 128x128 (width 64, no attention), 22,792,579 parameters with id labels
+# (map_label, 2 x 256, with cyclic); BCSD card against CPU: fp32 day-of-year
+# sums in another order, then a ratio, relative to the largest prediction
+BASELINE_PARAMS = 22_792_579
+BCSD_TOL = 1e-5
+VARS = ("pr", "tasmin", "tasmax")
 
 
 def log(msg=""):
@@ -371,6 +400,51 @@ def cuda_ms(torch, fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_k1(torch, sites, dtype, dev, gen, phase):
+    """K1 at each distinct (H, W, C) of ``sites`` at batch BATCH in
+    ``dtype``: the kernel by CUDA events and by device time, its plain
+    version, F.group_norm + silu (a yardstick the port never calls) and the
+    bound (x read once, the output written once, at the HBM rate); logged
+    per site and summed over ``sites`` (one forward)."""
+    import torch.nn.functional as F
+
+    from probunet_torch.ops import gn_silu as K1
+    from probunet_torch.ops.norm import num_groups_for
+
+    tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "library_device_ms": 0.0, "bound_ms": 0.0}
+    for (h, w, c), mult in _counts(sites).items():
+        g = num_groups_for(c)
+        x = torch.randn(BATCH, h, w, c, device=dev, generator=gen).to(dtype)
+        gamma = torch.ones(c, device=dev)
+        beta = torch.zeros(c, device=dev)
+        xc = x.permute(0, 3, 1, 2)            # NCHW view, channels_last
+        gl, bl = gamma.to(dtype), beta.to(dtype)
+
+        def run():
+            return K1.gn_silu(x, gamma, beta, g)
+
+        def lib():
+            return F.silu(F.group_norm(xc, g, gl, bl, 1e-5))
+
+        with torch.inference_mode():
+            t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run),
+                 "plain_ms": cuda_ms(torch, lambda: K1._plain_gn_silu(x, gamma, beta, g)),
+                 "library_ms": cuda_ms(torch, lib), "library_device_ms": device_ms(torch, lib)}
+        t["bound_ms"] = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        log(f"[{phase}] K1 {str(dtype)[6:]:8s} {BATCH}x{h}x{w}x{c} x{mult}: kernel "
+            f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}: "
+            f"{t['bound_ms'] / t['device_ms']:.0%} of the bound), plain "
+            f"{t['plain_ms']:.4f}, F.group_norm+silu {t['library_ms']:.4f} (device "
+            f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.4f}")
+        for key in tot:
+            tot[key] += mult * t[key]
+    tot["bound_by"] = "bytes"
+    tot["bound_share_device"] = tot["bound_ms"] / tot["device_ms"]
+    tot["bound_share_events"] = tot["bound_ms"] / tot["ms"]
+    return tot
 
 
 def census(torch, model, forward):
@@ -599,40 +673,6 @@ def run_phases(torch, dev, card, sass):
     mark(5)
 
     # ---- 6. timings ----------------------------------------------------------
-    def time_k1(dtype):
-        tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "library_device_ms": 0.0, "bound_ms": 0.0}
-        for (h, w, c), mult in _counts(gn_sites).items():
-            g = num_groups_for(c)
-            x = torch.randn(BATCH, h, w, c, device=dev, generator=gen).to(dtype)
-            gamma = torch.ones(c, device=dev)
-            beta = torch.zeros(c, device=dev)
-            xc = x.permute(0, 3, 1, 2)            # NCHW view, channels_last
-            gl, bl = gamma.to(dtype), beta.to(dtype)
-
-            def run():
-                return K1.gn_silu(x, gamma, beta, g)
-
-            def lib():
-                return F.silu(F.group_norm(xc, g, gl, bl, 1e-5))
-
-            with torch.inference_mode():
-                t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run),
-                     "plain_ms": cuda_ms(torch, lambda: K1._plain_gn_silu(x, gamma, beta, g)),
-                     "library_ms": cuda_ms(torch, lib), "library_device_ms": device_ms(torch, lib)}
-            t["bound_ms"] = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
-            log(f"[6] K1 {str(dtype)[6:]:8s} {BATCH}x{h}x{w}x{c} x{mult}: kernel "
-                f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}: "
-                f"{t['bound_ms'] / t['device_ms']:.0%} of the bound), plain "
-                f"{t['plain_ms']:.4f}, F.group_norm+silu {t['library_ms']:.4f} (device "
-                f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.4f}")
-            for key in tot:
-                tot[key] += mult * t[key]
-        tot["bound_by"] = "bytes"
-        tot["bound_share_device"] = tot["bound_ms"] / tot["device_ms"]
-        tot["bound_share_events"] = tot["bound_ms"] / tot["ms"]
-        return tot
-
     def time_k2(mode):
         dtype = getattr(torch, ATTN_MODES[mode][0])
         tot, flops_t = {}, 0.0
@@ -681,7 +721,8 @@ def run_phases(torch, dev, card, sass):
                 tot[key] = tot.get(key, 0.0) + mult * val
         return attn_totals(tot, flops_t)
 
-    k1_t = {"fp32": time_k1(torch.float32), "bf16": time_k1(torch.bfloat16)}
+    k1_t = {"fp32": time_k1(torch, gn_sites, torch.float32, dev, gen, 6),
+            "bf16": time_k1(torch, gn_sites, torch.bfloat16, dev, gen, 6)}
     k2_t = {"strict": time_k2("strict"), "fast": time_k2("fast")}
     for name, tt in list(k1_t.items()) + list(k2_t.items()):
         log(f"[6] per forward at b{BATCH} ({name}): " + ", ".join(
@@ -718,6 +759,7 @@ def run_phases(torch, dev, card, sass):
     train = training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark)
     trainer = trainer_phase(torch, dev, card, train["rates"], mark)
     edm = edm_phase(torch, dev, card, ds, ds_cpu, gen, mark)
+    baseline = baseline_phase(torch, dev, card, ds, ds_cpu, gen, mark)
 
     def entry(name, source, replaces, n, err, tol, t, extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -728,7 +770,8 @@ def run_phases(torch, dev, card, sass):
     per = f"sum over the {{}} sites of one U-Net forward at b{BATCH}, {RES}x{RES}"
     by_path = {key: {"serve": launches[key], "train": train["launches"][key],
                      "trainer": trainer["launches"][key],
-                     **{f"edm_{path}": n[key] for path, n in edm["launches"].items()}}
+                     **{f"edm_{path}": n[key] for path, n in edm["launches"].items()},
+                     **{f"baseline_{path}": n[key] for path, n in baseline["launches"].items()}}
                for key in ("gn", "attn", "attn_bwd")}
     launches = {key: sum(by_path[key].values()) for key in by_path}
     return [
@@ -739,7 +782,11 @@ def run_phases(torch, dev, card, sass):
                "library_device_ms": k1_t["fp32"]["library_device_ms"], "fp32": k1_t["fp32"],
                "bf16": k1_t["bf16"], "bf16_max_abs_err": k1_err[torch.bfloat16],
                "launches_by_path": by_path["gn"], "largest_site": k1_info,
-               "edm_128_rows_max_abs_err": edm["k1_err"]}),
+               "edm_128_rows_max_abs_err": edm["k1_err"],
+               "baseline": {"timed": per.format(K1_PER_BATCH).replace(
+                                "U-Net", "deterministic U-Net"),
+                            "fp32": baseline["k1_t"]["fp32"], "bf16": baseline["k1_t"]["bf16"],
+                            "max_abs_err": baseline["k1_err"], "report": baseline["report"]}}),
         entry("attention_fwd", "probunet_torch/csrc/attention_fwd.cu",
               "probunet_tpu/ops/pallas_attn.py:69", launches["attn"],
               k2_err["strict"], ATTN_TOL["strict"], k2_t["strict"],
@@ -1005,21 +1052,11 @@ def trainer_phase(torch, dev, card, bare_rates, mark):
 
     from probunet_torch.config import Config
     from probunet_torch.data.synthetic import generate_climex_like
-    from probunet_torch.ops import attention as K2
-    from probunet_torch.ops import gn_silu as K1
     from probunet_torch.serve import downscale
     from probunet_torch.train.loop import build_probunet, init_probunet_state, train_probunet
     from probunet_torch.train.state import make_optimizer
     from probunet_torch.train.steps import _pair, make_probunet_train_step
     from probunet_torch.utils.device import full_fp32
-
-    def counters():
-        return (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches,
-                K2.kernel_layout.copies)
-
-    def reset_counters():
-        K1.gn_silu.launches = K2.fused_attention.launches = K2.attention_bwd.launches = 0
-        K2.kernel_layout.copies = 0
 
     datadir = os.path.join(WORK, "trainer_data")
     generate_climex_like(datadir, years=range(2000, 2005), grid=RES, days_per_year=TRAINER_DAYS)
@@ -1062,7 +1099,7 @@ def trainer_phase(torch, dev, card, bare_rates, mark):
 
     report = {"card": card}
     # ---- the trainer, strict and fast, as a user runs it -------------------------
-    reset_counters()
+    reset_launch_counts()
     rates, ckpts = {}, {}
     for name, c in (("strict", base), ("fast", fast)):
         res, recs, ckpt = run(name, c)
@@ -1083,7 +1120,7 @@ def trainer_phase(torch, dev, card, bare_rates, mark):
         ckpts[name] = ckpt
         del res
         torch.cuda.empty_cache()
-    n = counters()
+    n = launch_counts()
     launches = {"gn": n[0], "attn": n[1], "attn_bwd": n[2]}
     per_eval = (K1_PER_BATCH, K2_PER_BATCH, 0)
     want = tuple(2 * (n_steps * k + n_evals * e)
@@ -1174,11 +1211,11 @@ def trainer_phase(torch, dev, card, bare_rates, mark):
             step = make_probunet_train_step(state.model, c.lowres_scale, c.standardization,
                                             compute_dtype=dtype)
             torch.backends.cudnn.deterministic = True
-            reset_counters()
+            reset_launch_counts()
             m = step(state, ds.hr_device(), ds.stats, idx, c.seed, eps=eps)
             torch.cuda.synchronize()
             torch.backends.cudnn.deterministic = False
-            counts = counters()
+            counts = launch_counts()
             grads = {k: p.grad.detach().clone() for k, p in state.model.named_parameters()}
             step(state, ds.hr_device(), ds.stats, idx, c.seed, eps=eps)   # warm-up
             torch.cuda.synchronize()
@@ -1215,13 +1252,7 @@ def trainer_phase(torch, dev, card, bare_rates, mark):
             torch.cuda.empty_cache()
         plain, rem = seen[False], seen[True]
         loss_rel = abs(rem["loss"] - plain["loss"]) / abs(plain["loss"])
-        grad_rel, worst = 0.0, "none"
-        for k, g in plain["grads"].items():
-            scale = g.abs().max().item()
-            err = (rem["grads"][k] - g).abs().max().item()
-            rel = err / scale if scale else err
-            if rel > grad_rel:
-                grad_rel, worst = rel, k
+        grad_rel, worst = worst_grad(rem["grads"], plain["grads"])
         ok = (loss_rel <= REMAT_TOL and grad_rel <= REMAT_TOL and rem["copies"] == 0
               and plain["copies"] == 0 and all(seen[r]["launches"] == want[r] for r in seen))
         log(f"[11] {mode}: remat against no remat (dropout 0.1, the same seed, deterministic "
@@ -1260,17 +1291,6 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
     from probunet_torch.train.steps import make_edm_sample_fn, make_edm_train_step
     from probunet_torch.utils.device import full_fp32
 
-    def counters():
-        return (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches,
-                K2.kernel_layout.copies)
-
-    def reset_counters():
-        K1.gn_silu.launches = K2.fused_attention.launches = K2.attention_bwd.launches = 0
-        K2.kernel_layout.copies = 0
-
-    def as_launches(n):
-        return {"gn": n[0], "attn": n[1], "attn_bwd": n[2]}
-
     cfg = Config(ds_model="edm", coords=(0, RES, 0, RES), resolution=(RES, RES),
                  standardization="pertimestep", batch_size=BATCH, edm_steps=EDM_STEPS)
     modes = {"strict": cfg, "fast": cfg.replace(compute_dtype="bfloat16", fast_attention=True)}
@@ -1298,13 +1318,10 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
         raise AssertionError(f"EDM: {nparams:,} parameters (expected {EDM_EXPECTED_PARAMS:,}), "
                              f"or unexpected kernel sites")
 
-    def rel(a, b):
-        return ((a - b).abs().max() / b.abs().max()).item()
-
     with full_fp32(), torch.inference_mode():
         got = card_model(x1.to(dev), sig1.to(dev), condition_img=cond1.to(dev)).cpu()
         ref = cpu_model(x1, sig1, condition_img=cond1)
-    denoiser_rel = rel(got, ref)
+    denoiser_rel = max_rel(got, ref)
     noise = torch.randn(2, RES, RES, 3, generator=g)
     idx = torch.tensor([3])
     t0 = time.perf_counter()
@@ -1312,7 +1329,7 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
         ds.hr_device(), ds.stats, idx.to(dev), noise=noise)[0].cpu()
     ref = make_edm_sample_fn(cpu_model, 4, cfg.standardization, 2, EDM_CHAIN_STEPS)(
         ds_cpu.hr_device(), ds_cpu.stats, idx, noise=noise)[0]
-    chain_rel = {var: rel(got[..., i], ref[..., i]) for i, var in enumerate(cfg.variables)}
+    chain_rel = {var: max_rel(got[..., i], ref[..., i]) for i, var in enumerate(cfg.variables)}
     sigma1, noise1 = torch.tensor([0.9]), torch.randn(1, RES, RES, 3, generator=g)
     res = {}
     for where, m, d in (("card", card_model, ds), ("cpu", cpu_model, ds_cpu)):
@@ -1323,13 +1340,7 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
                       {k: p.grad.detach().cpu() for k, p in m.named_parameters()})
     (l_c, n_c, g_c), (l_r, n_r, g_r) = res["card"], res["cpu"]
     loss_rel, norm_rel = abs(l_c - l_r) / abs(l_r), abs(n_c - n_r) / n_r
-    grad_rel, worst = 0.0, ""
-    for k, ref_g in g_r.items():
-        scale = ref_g.abs().max().item()
-        err = (g_c[k] - ref_g).abs().max().item()
-        r = err / scale if scale else err
-        if r > grad_rel:
-            grad_rel, worst = r, k
+    grad_rel, worst = worst_grad(g_c, g_r, "")
     ok = (denoiser_rel <= PATH_TOL and max(chain_rel.values()) <= PATH_TOL
           and loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_LOSS_TOL
           and grad_rel <= STEP_GRAD_TOL)
@@ -1427,12 +1438,12 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
     serve_n = np.zeros(3, np.int64)
     report["serve"] = {}
     for name, c in modes.items():
-        reset_counters()
+        reset_launch_counts()
         t0 = time.perf_counter()
         path = downscale(c, ckpt, os.path.join(WORK, f"edm_{name}.nc"), dataset=sds,
                          num_samples=sk, batch_size=sb, device=dev)
         wall = time.perf_counter() - t0
-        n = counters()
+        n = launch_counts()
         want = (passes * K1_PER_BATCH, passes * K2_PER_BATCH, 0, 0)
         serve_n += n[:3]
         with NetCDFFile(path) as f:
@@ -1517,13 +1528,13 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
         ms = [step(state, ds.hr_device(), ds.stats, fixed_idx, c.seed, sigma=sigma, noise=noise)
               for _ in range(WARMUP_STEPS)]
         torch.cuda.synchronize()
-        reset_counters()
+        reset_launch_counts()
         t0 = time.perf_counter()
         ms += [step(state, ds.hr_device(), ds.stats, fixed_idx, c.seed, sigma=sigma, noise=noise)
                for _ in range(TRAIN_STEPS)]
         torch.cuda.synchronize()
         per = (time.perf_counter() - t0) / TRAIN_STEPS
-        n = counters()
+        n = launch_counts()
         train_n += n[:3]
         want = (TRAIN_STEPS * K1_PER_BATCH, TRAIN_STEPS * K2_PER_BATCH,
                 TRAIN_STEPS * K3_PER_STEP, 0)
@@ -1557,12 +1568,12 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
                   edm_steps=EDM_CHAIN_STEPS, log_every=1, num_samples=2,
                   plotdir=os.path.join(WORK, "edm_trainer", "plots"),
                   checkpoints_dir=os.path.join(WORK, "edm_trainer", "ckpt"))
-    reset_counters()
+    reset_launch_counts()
     t0 = time.perf_counter()
     res = train_edm(base, make_plots=False)   # on the card: its default device
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n = counters()
+    n = launch_counts()
     with open(os.path.join(base.plotdir, "metrics_edm.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     steps_per_epoch = 3 * TRAINER_DAYS // BATCH
@@ -1606,6 +1617,372 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
                          "train": as_launches(train_n.tolist()),
                          "trainer": as_launches(trainer_n.tolist())},
             "k1_err": k1_err, "k2_err": k2_err, "k3_rel": k3_rel, "report": report}
+
+
+def baseline_phase(torch, dev, card, ds, ds_cpu, gen, mark):
+    """Phase 13: the baselines (see the module docstring). Returns their K1
+    launch counts by path, K1's worst errors and its times at the
+    deterministic U-Net's sites, and the report."""
+    import numpy as np
+
+    from probunet_torch.config import Config
+    from probunet_torch.data.dataset import ClimexDataset
+    from probunet_torch.data.netcdf import NetCDFFile
+    from probunet_torch.data.transforms import make_pair, time_features
+    from probunet_torch.models.baselines import bcsd
+    from probunet_torch.models.unet import build_unet_plan, gn_silu_sites
+    from probunet_torch.ops import gn_silu as K1
+    from probunet_torch.ops.norm import group_stats, num_groups_for
+    from probunet_torch.serve import downscale
+    from probunet_torch.train.loop import (build_baseline_model, build_probunet,
+                                           init_probunet_state, run_bcsd, train_baseline)
+    from probunet_torch.train.state import create_train_state, make_optimizer
+    from probunet_torch.train.steps import (make_deterministic_eval_step,
+                                            make_deterministic_train_step, make_sample_fn)
+    from probunet_torch.utils.device import full_fp32
+
+    cfg = Config(ds_model="deterministic_unet", coords=(0, RES, 0, RES), resolution=(RES, RES),
+                 standardization="pertimestep", batch_size=BATCH, timetransform="cyclic")
+    report = {"card": card}
+
+    # ---- card against CPU, strict fp32, the same filled weights ----------------------
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(21)
+    x1, y1 = (torch.randn(1, RES, RES, 3, generator=g) for _ in range(2))
+    idx1 = torch.tensor([5])
+    ts1 = ds_cpu.timestamps_device()[idx1]
+    fwd_rel, nparams = {}, {}
+    for tt in ("id", "cyclic"):
+        c0 = cfg.replace(timetransform=tt, dropout=0.0)
+        card_m = build_baseline_model(c0, device="meta").to_empty(device=dev).eval()
+        fill_weights(torch, card_m, seed=21)
+        cpu_m = build_baseline_model(c0, device="meta").to_empty(device="cpu").eval()
+        cpu_m.load_state_dict(card_m.state_dict())
+        nparams[tt] = sum(p.numel() for p in card_m.parameters())
+        labels = time_features(ts1, tt)
+        with full_fp32(), torch.inference_mode():
+            got = card_m(x1.to(dev), class_labels=labels.to(dev)).cpu()
+            ref = cpu_m(x1, class_labels=labels)
+        fwd_rel[tt] = max_rel(got, ref)
+    xb = torch.randn(BATCH, RES, RES, 3, device=dev, generator=gen)
+    gn_sites, attn_sites = census(torch, card_m, lambda: card_m(
+        xb, class_labels=time_features(ds.timestamps_device()[:BATCH], "cyclic")))
+    plan_sites = gn_silu_sites(*build_unet_plan((RES, RES), 3, cfg.baseline_channels,
+                                                cfg.channel_mult, cfg.num_blocks, (), False),
+                               (RES, RES))
+    log(f"[13] deterministic U-Net: {RES}x{RES}, width {cfg.baseline_channels}, "
+        f"{nparams['id']:,} parameters ({nparams['cyclic']:,} with cyclic labels); K1 sites per "
+        f"forward {len(gn_sites)}, attention blocks {len(attn_sites)}")
+    if (nparams["id"], nparams["cyclic"]) != (BASELINE_PARAMS, BASELINE_PARAMS + 512) \
+            or sorted(gn_sites) != sorted(plan_sites) or len(gn_sites) != K1_PER_BATCH \
+            or attn_sites:
+        raise AssertionError("deterministic U-Net: unexpected parameter count or kernel sites")
+    # one training step, cyclic labels (map_label live), b=1, dropout 0
+    res = {}
+    for where, m, d in (("card", card_m, ds), ("cpu", cpu_m, ds_cpu)):
+        state = create_train_state(m, make_optimizer(cfg.lr, cfg.weight_decay))
+        i = idx1.to(d.device)
+        metrics = make_deterministic_train_step(m, 4, cfg.standardization,
+                                                timetransform="cyclic")(
+            state, d.hr_device(), d.stats, i, d.timestamps_device()[i], 0)
+        grads = {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+        norm = math.sqrt(sum(float(v.double().square().sum()) for v in grads.values()))
+        res[where] = (metrics["train_loss"].item(), norm, grads)
+    (l_c, n_c, g_c), (l_r, n_r, g_r) = res["card"], res["cpu"]
+    loss_rel, norm_rel = abs(l_c - l_r) / abs(l_r), abs(n_c - n_r) / n_r
+    grad_rel, worst = worst_grad(g_c, g_r, "")
+    del card_m, cpu_m, res, g_c, g_r
+    # LinearCNN's forward; the conv-VAE's ELBO with a given z
+    lin = {}
+    for where in ("card", "cpu"):
+        m = build_baseline_model(cfg.replace(ds_model="linearcnn"), device="meta")
+        lin[where] = m.to_empty(device=dev if where == "card" else "cpu").eval()
+    fill_weights(torch, lin["card"], seed=22)
+    lin["cpu"].load_state_dict(lin["card"].state_dict())
+    vae = {}
+    for where in ("card", "cpu"):
+        m = build_probunet(cfg.replace(ds_model="vae"), device="meta")
+        vae[where] = m.to_empty(device=dev if where == "card" else "cpu").eval()
+    fill_weights(torch, vae["card"], seed=23)
+    vae["cpu"].load_state_dict(vae["card"].state_dict())
+    z = torch.randn(1, cfg.latent_dim, generator=g)
+    with full_fp32(), torch.inference_mode():
+        lin_rel = max_rel(lin["card"](x1.to(dev)).cpu(), lin["cpu"](x1))
+        e_c = [v.item() for v in vae["card"].elbo_with_z(x1.to(dev), y1.to(dev), z.to(dev))]
+        e_r = [v.item() for v in vae["cpu"].elbo_with_z(x1, y1, z)]
+    elbo_rel = max(abs(a - b) / abs(b) for a, b in zip(e_c, e_r))
+    # BCSD: the function, and run_bcsd over in-memory splits whose days of
+    # the year overlap (train days 0-23, val 8-31, test 0-7), twice on the card
+    ts_np, hr_np = ds.timestamps_np, ds.hr_np
+    bc, bcpu = {}, {}
+    for where, device, out in (("card", dev, bc), ("cpu", "cpu", bcpu)):
+        splits = {"train": slice(0, 24), "val": slice(8, 32), "test": slice(0, 8)}
+        datasets = {k: ClimexDataset(hr=hr_np[s], timestamps=ts_np[s], device=device)
+                    for k, s in splits.items()}
+        hr_d = datasets["train"].hr_device()
+        lri = make_pair(hr_d, 4, "none", None)["lrinterp"]
+        doy = torch.from_numpy(datasets["train"].dayofyear).to(device)
+        out["fn"] = bcsd(hr_d, lri, lri, doy, doy).cpu()
+        out["run"] = run_bcsd(cfg, datasets, chunk=7, device=device)
+        if where == "card":
+            out["again"] = run_bcsd(cfg, datasets, chunk=7, device=device)
+    bcsd_rel = max(max_rel(bc["fn"], bcpu["fn"]), *(
+        max_rel(torch.from_numpy(bc["run"][s]["preds"]), torch.from_numpy(bcpu["run"][s]["preds"]))
+        for s in ("val", "test")))
+    bcsd_same = all(np.array_equal(bc["run"][s]["preds"], bc["again"][s]["preds"])
+                    for s in ("val", "test"))
+    ok = (max(fwd_rel.values()) <= PATH_TOL and loss_rel <= STEP_LOSS_TOL
+          and norm_rel <= STEP_LOSS_TOL and grad_rel <= STEP_GRAD_TOL and lin_rel <= PATH_TOL
+          and elbo_rel <= STEP_LOSS_TOL and bcsd_rel <= BCSD_TOL and bcsd_same
+          and float(bc["fn"].abs().max()) > 0)
+    log(f"[13] card vs CPU, strict fp32 ({time.perf_counter() - t0:.1f} s): deterministic U-Net "
+        f"forward (b=1) max abs err / max |ref| id {fwd_rel['id']:.3e}, cyclic "
+        f"{fwd_rel['cyclic']:.3e}, LinearCNN {lin_rel:.3e} (tol {PATH_TOL}); one deterministic "
+        f"step (b=1, dropout 0, cyclic): loss {l_c:.6g} vs {l_r:.6g}, rel err {loss_rel:.3e}, "
+        f"grad norm rel err {norm_rel:.3e} (tol {STEP_LOSS_TOL}), worst gradient max|err| / "
+        f"max|g| {grad_rel:.3e} ({worst}; tol {STEP_GRAD_TOL}); conv-VAE ELBO with a given z "
+        f"{e_c[0]:.6g} vs {e_r[0]:.6g}, worst rel err of (total, recon, kl) {elbo_rel:.3e} (tol "
+        f"{STEP_LOSS_TOL}); bcsd and run_bcsd (chunk 7, padded tail) preds max abs err / max "
+        f"|ref| {bcsd_rel:.3e} (tol {BCSD_TOL}), two card runs bit-equal {bcsd_same} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the baselines on the card disagree with the plain path")
+    report["card_vs_cpu"] = {"forward_rel": fwd_rel, "linearcnn_rel": lin_rel,
+                             "step_loss_rel": loss_rel, "step_grad_norm_rel": norm_rel,
+                             "step_grad_rel": grad_rel, "vae_elbo_rel": elbo_rel,
+                             "bcsd_rel": bcsd_rel, "bcsd_bit_equal": bcsd_same}
+    del lin, vae, bc, bcpu
+    mark(13)
+
+    # ---- K1 against its plain version at every site, b8 ---------------------------------
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k1_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = GN_TOL[str(dtype).split(".")[1]]
+        worst = 0.0
+        for h, w, c in sorted(set(gn_sites)):
+            gr = num_groups_for(c)
+            p = K1.plan(BATCH, h, w, c, gr, dtype.itemsize, num_sms)
+            x = (torch.randn(BATCH, h, w, c, device=dev, generator=gen) + 0.5).to(dtype)
+            gamma = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+            beta = 0.1 * torch.randn(c, device=dev, generator=gen)
+            with torch.inference_mode():
+                out, mean, rstd = K1.gn_silu(x, gamma, beta, gr, return_stats=True)
+                ref = K1._plain_gn_silu(x, gamma, beta, gr)[0]
+                rmean, rrstd = group_stats(x, gr)
+            torch.cuda.synchronize()
+            d = (out.float() - ref.float()).abs()
+            worst = max(worst, d.max().item())
+            ok = (bool((d <= atol + rtol * ref.float().abs()).all()) and p.on_chip
+                  and torch.allclose(mean, rmean, rtol=1e-5, atol=1e-5)
+                  and torch.allclose(rstd, rrstd, rtol=1e-5, atol=1e-5))
+            log(f"[13] K1 {str(dtype)[6:]:8s} {BATCH}x{h}x{w}x{c} G={gr} ({c // gr} channels per "
+                f"group; cb {p.cb}, {c // p.cb} channel blocks, cluster {p.n}, {p.rows} "
+                f"rows/block, {'on chip' if p.on_chip else 'streamed: NOT on chip'}): max abs "
+                f"err {d.max().item():.3e} (atol {atol}, rtol {rtol:.3g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("K1 disagrees with its plain version, or a site of the "
+                                     "deterministic U-Net is not planned on chip")
+        k1_err[str(dtype)[6:]] = worst
+    k1_t = {"fp32": time_k1(torch, gn_sites, torch.float32, dev, gen, 13),
+            "bf16": time_k1(torch, gn_sites, torch.bfloat16, dev, gen, 13)}
+    for name, tt_ in k1_t.items():
+        log(f"[13] K1 per deterministic U-Net forward at b{BATCH} ({name}): " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in tt_.items()))
+    mark(13)
+
+    # ---- the training path: 3 + 10 steps at b8, cyclic labels, dropout 0.1 ---------------
+    fixed_idx = torch.arange(BATCH, device=dev)
+    ts_b = ds.timestamps_device()[fixed_idx]
+    train_n, eval_n = np.zeros(3, np.int64), np.zeros(3, np.int64)
+    report["train"] = {}
+    for name, mc in (("strict", cfg), ("fast", cfg.replace(compute_dtype="bfloat16",
+                                                           opt_state_dtype="bfloat16"))):
+        c = mc.replace(dropout=0.1)
+        dtype = torch.bfloat16 if c.compute_dtype == "bfloat16" else torch.float32
+        tx = make_optimizer(c.lr, c.weight_decay, c.accum, c.optimizer, None, c.opt_state_dtype)
+        state = init_probunet_state(c, build_baseline_model(c, device="meta"), tx, dev)
+        step = make_deterministic_train_step(state.model, c.lowres_scale, c.standardization,
+                                             dtype, timetransform=c.timetransform)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = [step(state, ds.hr_device(), ds.stats, fixed_idx, ts_b, c.seed)
+              for _ in range(WARMUP_STEPS)]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ms += [step(state, ds.hr_device(), ds.stats, fixed_idx, ts_b, c.seed)
+               for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        per = (time.perf_counter() - t0) / TRAIN_STEPS
+        n = launch_counts()
+        train_n += n[:3]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        reset_launch_counts()
+        ev = make_deterministic_eval_step(state.model, c.lowres_scale, c.standardization,
+                                          c.variables, timetransform=c.timetransform)(
+            ds.hr_device(), ds.stats, fixed_idx, ts_b)
+        torch.cuda.synchronize()
+        ne = launch_counts()
+        eval_n += ne[:3]
+        losses = [m_["train_loss"].item() for m_ in ms]
+        want = (TRAIN_STEPS * K1_PER_BATCH, 0, 0, 0)
+        ok = (n == want and ne == (K1_PER_BATCH, 0, 0, 0)
+              and all(math.isfinite(v) for v in losses)
+              and all(math.isfinite(v.item()) for v in ev.values()) and losses[-1] < losses[0])
+        report["train"][name] = {"ms_per_step": per * 1e3, "samples_per_s": BATCH / per,
+                                 "peak_gib": peak, "losses": losses}
+        log(f"[13] deterministic train {name}: {WARMUP_STEPS} warm-up + {TRAIN_STEPS} steps at "
+            f"b{BATCH}, {RES}x{RES}, cyclic labels, dropout 0.1, a fixed batch: {per * 1e3:.2f} ms "
+            f"per step, {BATCH / per:.2f} samples/s over the {TRAIN_STEPS}; launches K1 {n[0]}, K2 "
+            f"{n[1]}, K3 {n[2]}, copies {n[3]} (expected {want}); one eval batch K1 {ne[0]}, K2 "
+            f"{ne[1]} (expected {K1_PER_BATCH}, 0); peak device memory {peak:.2f} GiB; loss "
+            f"{[round(v, 4) for v in losses]} ({card}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"deterministic training {name}: launches {n} / {ne}, or the "
+                                 f"loss did not fall")
+        profile(torch, lambda: step(state, ds.hr_device(), ds.stats, fixed_idx, ts_b, c.seed),
+                f"deterministic train step {name}", "one step", phase=13, top=12)
+        del state, step, ms
+        torch.cuda.empty_cache()
+    mark(13)
+
+    # ---- train_baseline through its entry, then serving the conv-VAE ----------------------
+    base = Config(datadir=os.path.join(WORK, "trainer_data"), years_train=(2000, 2003),
+                  years_val=(2003, 2004), years_test=(2004, 2005), coords=(0, RES, 0, RES),
+                  resolution=(RES, RES), standardization="pertimestep", batch_size=BATCH,
+                  num_epochs=TRAINER_EPOCHS, log_every=1, num_samples=2, timetransform="cyclic")
+    steps_per_epoch = 3 * TRAINER_DAYS // BATCH
+    n_steps = TRAINER_EPOCHS * steps_per_epoch
+    det_step = {"train_loss", "step", "time", "samples_per_sec",
+                *(f"train_loss_var{i}" for i in range(3))}
+    det_epoch = {"epoch", "epoch_train_loss", "step", "time", *(f"eval_{v}" for v in VARS)}
+    want_keys = {
+        "deterministic_unet": ([det_step] * steps_per_epoch + [det_epoch]) * TRAINER_EPOCHS
+        + [{"step", "time", *(f"mae_{v}" for v in VARS)}],
+        "vae": ([STEP_KEYS] * steps_per_epoch + [EPOCH_KEYS]) * TRAINER_EPOCHS}
+    want_keys["linearcnn"] = want_keys["deterministic_unet"]
+    # the U-Net per run: each step, one val batch per epoch, one batch of the final MAE
+    want_gn = {"deterministic_unet": (n_steps + TRAINER_EPOCHS + 1) * K1_PER_BATCH}
+    trainer_n = np.zeros(3, np.int64)
+    report["trainer"] = {}
+    for ds_model in ("deterministic_unet", "linearcnn", "vae", "bcsd"):
+        c = base.replace(ds_model=ds_model, plotdir=os.path.join(WORK, "bl", ds_model, "plots"),
+                         checkpoints_dir=os.path.join(WORK, "bl", ds_model, "ckpt"))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_baseline(c, make_plots=False)   # on the card: its default device
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = launch_counts()
+        trainer_n += n[:3]
+        want_n = (want_gn.get(ds_model, 0), 0, 0, 0)
+        if ds_model == "bcsd":
+            mae = {f"{s}_{v}": x for s in ("val", "test") for v, x in res[s]["mae"].items()}
+            ok = set(res) == {"val", "test"} and res["test"]["preds"].shape == (
+                TRAINER_DAYS, RES, RES, 3) and all(math.isfinite(x) for x in mae.values())
+            seen = "val and test"
+        else:
+            fname = "metrics.jsonl" if ds_model == "vae" else "metrics_baseline.jsonl"
+            with open(os.path.join(c.plotdir, fname)) as f:
+                recs = [json.loads(line) for line in f]
+            kinds = [set(r) for r in recs]
+            seen = "the JAX loop's keys" if kinds == want_keys[ds_model] else [
+                sorted(k) for k in kinds]
+            finite = all(math.isfinite(v) for r in recs for v in r.values())
+            mae = res.get("mae", {})
+            ckpt = os.path.join(c.checkpoints_dir, ds_model, "state", "state.pt")
+            ok = (kinds == want_keys[ds_model] and finite and res["state"].step == n_steps
+                  and os.path.isfile(ckpt) and all(math.isfinite(x) for x in mae.values()))
+        ok &= n == want_n
+        report["trainer"][ds_model] = {"wall_s": wall, "launches": n[:3], "mae": mae}
+        log(f"[13] train_baseline {ds_model}: {wall:.2f} s ({TRAINER_EPOCHS} epochs of "
+            f"{steps_per_epoch} steps, eval, init, data and checkpoints included); MAE "
+            f"{', '.join(f'{k} {v:.4g}' for k, v in mae.items()) or 'n/a'}; launches K1 {n[0]}, "
+            f"K2 {n[1]}, K3 {n[2]} (expected {want_n}); records: {seen} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"train_baseline {ds_model}: launches, records, checkpoint or "
+                                 f"MAE differ")
+        del res
+        torch.cuda.empty_cache()
+    vae_cfg = base.replace(ds_model="vae")
+    vae_ckpt = os.path.join(WORK, "bl", "vae", "ckpt", "vae")
+    t0 = time.perf_counter()
+    out = downscale(vae_cfg, vae_ckpt, os.path.join(WORK, "vae_serve.nc"), years=[2004],
+                    num_samples=MEMBERS, batch_size=BATCH)
+    wall = time.perf_counter() - t0
+    with NetCDFFile(out) as f:
+        fields = {var: f.read_var(var) for var in VARS}
+    spread = {var: float(a.std(axis=1).mean()) for var, a in fields.items()}
+    ok = all(a.shape == (TRAINER_DAYS, MEMBERS, RES, RES) and np.isfinite(a).all()
+             for a in fields.values()) and min(spread.values()) > 0
+    # the sampler alone, data on the card, no file I/O
+    m = build_probunet(vae_cfg, device="meta").to_empty(device=dev).eval()
+    from probunet_torch.train.checkpoint import restore_checkpoint
+    from probunet_torch.train.state import TrainState
+    restore_checkpoint(vae_ckpt, TrainState(m, None))
+    sds = ClimexDataset(vae_cfg.datadir, years=[2004], coords=vae_cfg.coords,
+                        standardization=vae_cfg.standardization, device=dev)
+    fn = make_sample_fn(m, 4, vae_cfg.standardization, MEMBERS)
+    with full_fp32():
+        per = cuda_ms(torch, lambda: fn(sds.hr_device(), sds.stats, fixed_idx), reps=10,
+                      warmup=2) / 1e3
+    report["serve"] = {"downscale_wall_s": wall, "ms_per_batch": per * 1e3,
+                       "inputs_per_s": BATCH / per, "members_per_s": BATCH * MEMBERS / per}
+    log(f"[13] downscale vae (b{BATCH}, K={MEMBERS}, num_filters {vae_cfg.num_filters}) from "
+        f"the trainer's checkpoint: {wall:.2f} s for one batch (restore and netCDF output "
+        f"included); members finite, spread {', '.join(f'{v} {s:.4g}' for v, s in spread.items())}"
+        f"; the sampler alone {per * 1e3:.2f} ms per batch (CUDA events): {BATCH / per:.1f} "
+        f"inputs/s, {BATCH * MEMBERS / per:.1f} members/s ({card}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("conv-VAE serving: bad output")
+    shutil.rmtree(os.path.join(WORK, "bl"), ignore_errors=True)
+    del m, fn, sds
+    torch.cuda.empty_cache()
+    mark(13)
+    return {"launches": {"train": as_launches(train_n.tolist()),
+                         "eval": as_launches(eval_n.tolist()),
+                         "trainer": as_launches(trainer_n.tolist())},
+            "k1_err": k1_err, "k1_t": k1_t, "report": report}
+
+
+def launch_counts():
+    """(K1, K2, K3 launches, q/k/v copies before an attention launch) so far."""
+    from probunet_torch.ops import attention as K2
+    from probunet_torch.ops import gn_silu as K1
+
+    return (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches,
+            K2.kernel_layout.copies)
+
+
+def reset_launch_counts():
+    from probunet_torch.ops import attention as K2
+    from probunet_torch.ops import gn_silu as K1
+
+    K1.gn_silu.launches = K2.fused_attention.launches = K2.attention_bwd.launches = 0
+    K2.kernel_layout.copies = 0
+
+
+def as_launches(n):
+    return {"gn": n[0], "attn": n[1], "attn_bwd": n[2]}
+
+
+def max_rel(a, b):
+    """max |a - b| / max |b|."""
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def worst_grad(got, ref, default="none"):
+    """(max over tensors of max|got - ref| / max|ref|, that tensor's name);
+    an all-zero reference counts its absolute error."""
+    worst, name = 0.0, default
+    for k, r in ref.items():
+        scale = r.abs().max().item()
+        err = (got[k] - r).abs().max().item()
+        e = err / scale if scale else err
+        if e > worst:
+            worst, name = e, k
+    return worst, name
 
 
 def rms_rel(got, ref):

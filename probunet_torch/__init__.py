@@ -19,7 +19,7 @@ __all__ = ["Config", "get_config"]
 
 def __getattr__(name):
     """Lazy top-level API (config-only use imports no model code)."""
-    if name in ("ProbabilisticUNet", "UNet"):
+    if name in ("ProbabilisticUNet", "UNet", "LinearCNN", "ConvVAE", "EDMPrecond", "bcsd"):
         import probunet_torch.models as m
         return getattr(m, name)
     if name == "ClimexDataset":

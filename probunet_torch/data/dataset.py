@@ -60,6 +60,7 @@ class ClimexDataset:
         self.years = list(years)
 
         self._hr_dev: Optional[torch.Tensor] = None
+        self._ts_dev: Optional[torch.Tensor] = None
         self._stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._stats_done = False
 
@@ -70,11 +71,32 @@ class ClimexDataset:
     def spatial_shape(self) -> Tuple[int, int]:
         return self.hr_np.shape[1], self.hr_np.shape[2]
 
+    @property
+    def dayofyear(self) -> np.ndarray:
+        """Day-of-year in [0, 365) of each day, from the calendar dates.
+
+        ``netcdf.decode_time`` maps noleap time axes onto real Gregorian
+        dates, so ``floor(ns_since_epoch / 86400e9) % 365`` would drift one
+        day per leap year. Subtracting each date's own year start is exact
+        for the noleap mapping and for standard-calendar data; Dec 31 of a
+        leap year clips into bin 364."""
+        dates = self.timestamps_np.astype(np.int64).astype("datetime64[ns]")
+        year_start = dates.astype("datetime64[Y]").astype("datetime64[ns]")
+        doy = (dates - year_start) / np.timedelta64(1, "D")
+        return np.minimum(np.floor(doy), 364.0).astype(np.int32)
+
     def hr_device(self) -> torch.Tensor:
         """The HR tensor on the dataset's device, copied once."""
         if self._hr_dev is None:
             self._hr_dev = torch.from_numpy(self.hr_np).to(self.device)
         return self._hr_dev
+
+    def timestamps_device(self) -> torch.Tensor:
+        """The timestamps on the dataset's device, float32 as the JAX package
+        carries them (it never enables 64-bit floats), copied once."""
+        if self._ts_dev is None:
+            self._ts_dev = torch.from_numpy(self.timestamps_np.astype(np.float32)).to(self.device)
+        return self._ts_dev
 
     @property
     def stats(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
@@ -91,8 +113,19 @@ class ClimexDataset:
         hr = self.hr_device()[idx]
         stats = transforms.slice_stats(self.stats, self.standardization, idx)
         out = transforms.make_pair(hr, self.lowres_scale, self.standardization, stats)
-        out["timestamps"] = torch.from_numpy(self.timestamps_np).to(self.device)[idx]
+        out["timestamps"] = self.timestamps_device()[idx]
         return out
+
+    def invstand_residual(self, residual, stand_stats=None):
+        """Inverse standardization of a residual, with the split's stats
+        unless ``stand_stats`` is given."""
+        stats = stand_stats if stand_stats is not None else self.stats
+        return transforms.invstand_residual(residual, self.standardization, stats)
+
+    def residual_to_hr(self, residual, lrinterp, stand_stats=None):
+        """Predicted residual -> physical HR field."""
+        stats = stand_stats if stand_stats is not None else self.stats
+        return transforms.residual_to_hr(residual, lrinterp, self.standardization, stats)
 
     def epoch_indices(self, epoch_seed: int, batch_size: int, shuffle: bool = True,
                       drop_remainder: bool = True) -> np.ndarray:

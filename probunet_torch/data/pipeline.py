@@ -151,14 +151,18 @@ def stream_batches(
     standardization: str = "perpixel",
     device=None,
     start_batch: int = 0,
+    timestamps_np: Optional[np.ndarray] = None,
 ) -> Iterator[Dict]:
-    """Yield {hr, stats} batches on ``device`` (default the CUDA card),
-    double-buffered, in the order of ``ClimexDataset.epoch_indices``
-    (``epoch_seed``'s permutation, the remainder dropped) from batch
-    ``start_batch`` on. For pertimestep/minmax, per-sample stats slices ride
-    along with the batch; perpixel (global) stats are copied to the device
-    once and passed with every batch. The returned generator's ``close()``
-    stops the worker thread."""
+    """Yield {hr, stats[, timestamps]} batches on ``device`` (default the
+    CUDA card), double-buffered, in the order of
+    ``ClimexDataset.epoch_indices`` (``epoch_seed``'s permutation, the
+    remainder dropped) from batch ``start_batch`` on. For
+    pertimestep/minmax, per-sample stats slices ride along with the batch;
+    perpixel (global) stats are copied to the device once and passed with
+    every batch. With ``timestamps_np`` (the models that condition on time)
+    each batch's timestamps ride along too, as float32, on the same copy
+    stream as ``hr``. The returned generator's ``close()`` stops the worker
+    thread."""
     dev = resolve_device(device)
     n = hr_np.shape[0]
     order = np.random.default_rng(epoch_seed).permutation(n)
@@ -177,6 +181,8 @@ def stream_batches(
             item = {"hr": hr_np[idx]}
             if per_sample:
                 item["stats"] = (stats_np[0][idx], stats_np[1][idx])
+            if timestamps_np is not None:
+                item["timestamps"] = timestamps_np[idx].astype(np.float32)
             yield item
 
     prefetcher = DevicePrefetcher(host_iter(), device=dev)

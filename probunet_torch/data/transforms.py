@@ -12,6 +12,7 @@ unbiased std (ddof=1), eps=1e-10 added to std (or to max-min) at use time.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -94,3 +95,19 @@ def slice_stats(stats: Optional[Stats], standardization: str,
     if stats is None or standardization == "perpixel":
         return stats
     return stats[0][idx], stats[1][idx]
+
+
+def time_features(timestamps_ns: torch.Tensor, timetransform: str = "id") -> torch.Tensor:
+    """Class labels of the deterministic baselines from timestamps (float
+    ns since the epoch, float32 as the JAX package carries them): 'id'
+    gives float days, (B, 1), inert at ``label_dim=0`` as in the
+    reference; 'cyclic' gives (sin, cos) of the annual phase, (B, 2), which
+    the baseline U-Net's ``map_label`` reads at ``label_dim=2``. Computed in
+    the timestamps' dtype."""
+    days = timestamps_ns / (1e9 * 86400.0)
+    if timetransform == "id":
+        return days[:, None]
+    if timetransform == "cyclic":
+        phase = 2 * math.pi * (days % 365.0) / 365.0
+        return torch.stack([torch.sin(phase), torch.cos(phase)], dim=-1)
+    raise ValueError(f"unknown timetransform {timetransform!r}")

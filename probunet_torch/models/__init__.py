@@ -5,3 +5,9 @@ from probunet_torch.models.prob_unet import (  # noqa: F401
     ProbabilisticUNet,
 )
 from probunet_torch.models.edm import EDMPrecond  # noqa: F401
+from probunet_torch.models.baselines import (  # noqa: F401
+    ConvVAE,
+    LinearCNN,
+    bcsd,
+    day_of_year_365,
+)

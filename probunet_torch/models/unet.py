@@ -231,15 +231,18 @@ class UNet(nn.Module):
     """The ADM architecture (reference networks.py:224-333). ``forward``
     takes and returns NHWC. With ``remat``, every :class:`UNetBlock` is
     recomputed in the backward (:func:`remat_block`) whenever grad is
-    enabled."""
+    enabled. ``bottleneck_attention`` gives the bottleneck's first block an
+    attention layer whatever ``attn_resolutions`` says (the reference's
+    networks.py:284-285); the deterministic baseline turns it off
+    (baseline/deterministic_unet.py:283-284)."""
 
     def __init__(self, img_resolution: Tuple[int, int], in_channels: int, out_channels: int,
                  label_dim: int = 0, augment_dim: int = 0, model_channels: int = 128,
                  channel_mult: Tuple[int, ...] = (1, 2, 3, 4), channel_mult_emb: int = 4,
                  num_blocks: int = 2, attn_resolutions: Tuple[int, ...] = (32, 16, 8),
                  dropout: float = 0.10, label_dropout: float = 0.0, use_diffuse: bool = False,
-                 fast_attention: bool = False, remat: bool = False, *,
-                 device=None, generator=None):
+                 bottleneck_attention: bool = True, fast_attention: bool = False,
+                 remat: bool = False, *, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         f = dict(device=device, generator=generator)
@@ -248,7 +251,7 @@ class UNet(nn.Module):
         self.emb_channels = emb = model_channels * channel_mult_emb  # networks.py:233
         self.enc_specs, self.dec_specs, final_c = build_unet_plan(
             tuple(img_resolution), in_channels, model_channels, channel_mult, num_blocks,
-            attn_resolutions)
+            attn_resolutions, bottleneck_attention)
         # the mapping network (networks.py:249-253); map_layer0/1 are
         # constructed unconditionally, as the reference does
         self.map_noise = PositionalEmbedding(model_channels) if use_diffuse else None

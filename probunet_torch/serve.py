@@ -8,15 +8,18 @@ with a one-deep overlap: batch i's ensemble is copied to pinned host memory
 behind its compute on the CUDA stream, and written while batch i+1 computes,
 so host memory stays O(batch).
 
-Single process. ``ds_model`` is the Probabilistic U-Net (K prior draws per
-input) or ``edm``, the diffusion downscaler (K Heun chains of
-``cfg.edm_steps`` steps per input, folded into one batch); the baselines and
-multi-process serving come in later slices of the port.
+Single process. ``ds_model`` is the Probabilistic U-Net or the conv-VAE
+(``vae``; K prior draws per input), or ``edm``, the diffusion downscaler (K
+Heun chains of ``cfg.edm_steps`` steps per input, folded into one batch).
+The deterministic baselines draw no ensemble and are not served, as in the
+JAX package; multi-process serving comes in a later slice of the port.
 
     python -m probunet_torch.serve --checkpoint ./results/checkpoints/probunet \\
         --out ./results/downscaled.nc --num_samples 16 [config flags...]
     python -m probunet_torch.serve --ds_model edm --checkpoint ./results/checkpoints/edm \\
         --out ./results/downscaled_edm.nc --num_samples 16 [config flags...]
+    python -m probunet_torch.serve --ds_model vae --checkpoint ./results/checkpoints/vae \\
+        --out ./results/downscaled_vae.nc --num_samples 16 [config flags...]
 """
 
 from __future__ import annotations
@@ -69,9 +72,10 @@ def downscale(
     variable; the ensemble is CF-packed to int16 on the device, so half the
     bytes cross to the host, and stored as int16 with scale_factor/add_offset.
     ``device``: default the CUDA card; ``"cpu"`` runs the plain versions."""
-    if cfg.ds_model not in ("probabilistic_unet", "edm"):
-        raise NotImplementedError(f"serving ds_model={cfg.ds_model!r} is not ported yet: "
-                                  "ROADMAP Queue 1 item 5 (baselines)")
+    if cfg.ds_model not in ("probabilistic_unet", "vae", "edm"):
+        raise NotImplementedError(f"ds_model={cfg.ds_model!r} draws no ensemble and is not "
+                                  "served (nor by the JAX package); serving takes "
+                                  "probabilistic_unet, vae or edm")
     if torch.distributed.is_available() and torch.distributed.is_initialized() \
             and torch.distributed.get_world_size() > 1:
         raise NotImplementedError("multi-process serving is not ported yet")

@@ -8,6 +8,8 @@ from probunet_torch.train.steps import (  # noqa: F401
     edm_heun_chain,
     edm_sample,
     make_crps_eval_fn,
+    make_deterministic_eval_step,
+    make_deterministic_train_step,
     make_edm_crps_eval_fn,
     make_edm_eval_step,
     make_edm_sample_fn,

@@ -1,11 +1,12 @@
 """End-to-end training (reference main.py) — the port's
-``scripts/train_probunet.py`` and, with ``--ds_model edm``, its
-``scripts/train_baseline.py --ds_model edm`` (the EDM diffusion downscaler).
+``scripts/train_probunet.py`` and, with any other ``--ds_model``, its
+``scripts/train_baseline.py``: ``edm`` (the diffusion downscaler), ``vae``
+(the conv-VAE), ``deterministic_unet``, ``linearcnn`` and ``bcsd``.
 
     python -m probunet_torch.train --datadir /path/to/climex [config flags...]
     python -m probunet_torch.train --synthetic [config flags...]   # generated data
     python -m probunet_torch.train --device cpu ...                # default: the card
-    python -m probunet_torch.train --ds_model edm [config flags...]
+    python -m probunet_torch.train --ds_model deterministic_unet [config flags...]
 
 All Config fields are flags (see probunet_torch/config.py). ``--synthetic``
 writes ClimEx-like files for every year of the three splits into
@@ -44,10 +45,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     train = train_probunet if cfg.ds_model == "probabilistic_unet" else train_baseline
     results = train(cfg, device=args.device)
-    val = results["val_losses"][-1] if results["val_losses"] else float("nan")
-    print(f"final train loss: {results['tr_losses'][-1]:.4f}  val loss: {val:.4f}  "
-          f"throughput: {results['samples_per_sec']:.1f} samples/s")
+    if cfg.ds_model == "bcsd":
+        print("  ".join(f"{split} MAE: {_fmt(r['mae'])}" for split, r in results.items()))
+    elif "mae" in results:   # the deterministic baselines: per-variable losses
+        last = {v: losses[-1] if losses else float("nan")
+                for v, losses in results["tr_losses"].items()}
+        print(f"final train loss: {_fmt(last)}  val MAE: {_fmt(results['mae'])}  "
+              f"throughput: {results['samples_per_sec']:.1f} samples/s")
+    else:
+        val = results["val_losses"][-1] if results["val_losses"] else float("nan")
+        print(f"final train loss: {results['tr_losses'][-1]:.4f}  val loss: {val:.4f}  "
+              f"throughput: {results['samples_per_sec']:.1f} samples/s")
     return results
+
+
+def _fmt(per_var: dict) -> str:
+    return ", ".join(f"{v} {x:.4g}" for v, x in per_var.items())
 
 
 if __name__ == "__main__":

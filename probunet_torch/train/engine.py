@@ -31,7 +31,8 @@ bi), as the JAX engine folds them into its keys.
 Experiment-specific pieces plug in through :class:`EngineSpec` /
 :class:`EngineFns`. Items flowing through the loop are dicts with keys
 ``hr`` (the batch or the full dataset tensor), ``stats`` (standardization
-statistics or None) and ``idx`` (batch gather indices). Single process,
+statistics or None), ``idx`` (batch gather indices) and, for an experiment
+that asks for them, ``timestamps`` (the batch's float32 ns). Single process,
 data-parallel mode only: the lockstep multi-host plan and the spatial modes
 are not ported yet.
 """
@@ -69,6 +70,11 @@ class EngineFns:
     eval_beta_fn: Optional[Callable] = None
     crps_call: Optional[Callable] = None       # (state, item, generator) -> metrics
     plot_fn: Optional[Callable] = None         # (state, epoch) -> None
+    # (state, logger, global_step) -> dict merged into the result (runs before
+    # logger.close; e.g. the baseline's final physical-unit MAE)
+    final_fn: Optional[Callable] = None
+    on_train_metrics: Optional[Callable] = None  # per-step hook (device metrics)
+    on_val_metrics: Optional[Callable] = None    # per-val-batch hook (floats)
 
 
 @dataclasses.dataclass
@@ -81,6 +87,7 @@ class EngineSpec:
     make_fns: Callable           # (EngineCtx) -> EngineFns
     desc: str = "Train"          # progress-bar prefix
     rng_offset: int = 1          # train noise stream seed = cfg.seed + rng_offset
+    needs_timestamps: bool = False  # items carry float32 ``timestamps`` (B,)
     wandb_config: bool = False   # pass vars(cfg) as the wandb run config
     loss_curve: Optional[str] = None  # filename for the train/val loss plot
 
@@ -132,15 +139,17 @@ class EngineCtx:
     experiment's ``make_fns``: the device, the device-resident tensors or the host-side
     streaming statistics, and the item builders for train/val batches."""
 
-    def __init__(self, cfg: Config, datasets, device):
+    def __init__(self, cfg: Config, datasets, device, needs_timestamps: bool = False):
         self.cfg = cfg
         self.datasets = datasets
         self.device = device
+        self.needs_timestamps = needs_timestamps
         self.ds_train, self.ds_val = datasets["train"], datasets["val"]
         self.streaming = not cfg.resident_data
 
         self.hr_train = self.stats_train = None
         self.hr_val = self.stats_val = None
+        self.ts_train = self.ts_val = None
         self.stats_train_np = self.stats_val_np = None
         self._stats_val_global = None
         if self.streaming:
@@ -154,6 +163,9 @@ class EngineCtx:
         else:
             self.hr_train, self.stats_train = self.ds_train.hr_device(), self.ds_train.stats
             self.hr_val, self.stats_val = self.ds_val.hr_device(), self.ds_val.stats
+            if needs_timestamps:
+                self.ts_train = self.ds_train.timestamps_device()
+                self.ts_val = self.ds_val.timestamps_device()
 
     # ---- epoch geometry ----
     @property
@@ -168,9 +180,10 @@ class EngineCtx:
         cfg = self.cfg
         if self.streaming:
             from probunet_torch.data.pipeline import stream_batches
+            ts_np = self.ds_train.timestamps_np if self.needs_timestamps else None
             it = stream_batches(self.ds_train.hr_np, cfg.batch_size, cfg.seed + epoch,
                                 self.stats_train_np, cfg.standardization, device=self.device,
-                                start_batch=offset)
+                                start_batch=offset, timestamps_np=ts_np)
 
             def gen():
                 try:
@@ -187,7 +200,10 @@ class EngineCtx:
 
         def gen():
             for idx in batches_dev:
-                yield {"hr": self.hr_train, "stats": self.stats_train, "idx": idx}
+                item = {"hr": self.hr_train, "stats": self.stats_train, "idx": idx}
+                if self.ts_train is not None:
+                    item["timestamps"] = self.ts_train[idx]
+                yield item
 
         return gen(), batches.shape[0] - offset
 
@@ -198,10 +214,16 @@ class EngineCtx:
     def val_item(self, gids: np.ndarray) -> Dict:
         idx = np.asarray(gids)
         if not self.streaming:
-            return {"hr": self.hr_val, "stats": self.stats_val,
+            item = {"hr": self.hr_val, "stats": self.stats_val,
                     "idx": torch.from_numpy(idx).to(self.device)}
+            if self.ts_val is not None:
+                item["timestamps"] = self.ts_val[item["idx"]]
+            return item
         item = {"hr": torch.from_numpy(self.ds_val.hr_np[idx]).to(self.device),
                 "idx": torch.arange(len(idx), device=self.device)}
+        if self.needs_timestamps:
+            item["timestamps"] = torch.from_numpy(
+                self.ds_val.timestamps_np[idx].astype(np.float32)).to(self.device)
         stats = self.stats_val_np
         if stats is None:
             item["stats"] = None
@@ -218,7 +240,8 @@ class EngineCtx:
 def run_training(cfg: Config, spec: EngineSpec, datasets=None, make_plots: bool = True,
                  device=None) -> Dict:
     """The shared epoch loop on ``device`` (default the CUDA card). Returns
-    {state, tr_losses, val_losses, samples_per_sec}."""
+    {state, tr_losses, val_losses, samples_per_sec} plus whatever the
+    experiment's ``final_fn`` adds."""
     _require_single_process(cfg)
     device = resolve_device(device)
     datasets = datasets or load_datasets(cfg, device)
@@ -238,7 +261,7 @@ def run_training(cfg: Config, spec: EngineSpec, datasets=None, make_plots: bool 
               f"(step {resume_step}); nothing to do")
         return {"state": state, "tr_losses": [], "val_losses": [], "samples_per_sec": 0.0}
 
-    ctx = EngineCtx(cfg, datasets, device)
+    ctx = EngineCtx(cfg, datasets, device, spec.needs_timestamps)
     fns = spec.make_fns(ctx)
 
     os.makedirs(cfg.plotdir, exist_ok=True)
@@ -269,6 +292,8 @@ def run_training(cfg: Config, spec: EngineSpec, datasets=None, make_plots: bool 
             global_step += 1
             timer.tick(cfg.batch_size)
             running.append(metrics["train_loss"])
+            if fns.on_train_metrics is not None:
+                fns.on_train_metrics(metrics)
             if global_step % cfg.log_every == 0:
                 m = {k: float(v) for k, v in metrics.items() if not k.startswith("gradnorm/")}
                 m["samples_per_sec"] = timer.rate()
@@ -309,8 +334,11 @@ def run_training(cfg: Config, spec: EngineSpec, datasets=None, make_plots: bool 
             for bi in range(vbatches.shape[0]):
                 m = fns.eval_call(state, ctx.val_item(vbatches[bi]),
                                   _seeded_generator(cfg.eval_seed, bi, device), beta)
-                for k, v in m.items():
-                    vacc.setdefault(k, []).append(float(v))
+                mf = {k: float(v) for k, v in m.items()}
+                if fns.on_val_metrics is not None:
+                    fns.on_val_metrics(mf)
+                for k, v in mf.items():
+                    vacc.setdefault(k, []).append(v)
             vmean = {k: float(np.mean(v)) for k, v in vacc.items()}
         if "val_loss" in vmean:
             val_losses.append(vmean["val_loss"])
@@ -341,6 +369,8 @@ def run_training(cfg: Config, spec: EngineSpec, datasets=None, make_plots: bool 
 
     result = {"state": state, "tr_losses": tr_losses, "val_losses": val_losses,
               "samples_per_sec": timer.rate()}
+    if fns.final_fn is not None:
+        result.update(fns.final_fn(state, logger, global_step) or {})
     if make_plots and spec.loss_curve and tr_losses:
         from probunet_torch.viz.plots import plot_loss_curves
         plot_loss_curves(tr_losses, val_losses, os.path.join(cfg.plotdir, spec.loss_curve))

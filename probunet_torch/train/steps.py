@@ -220,6 +220,104 @@ def make_crps_eval_fn(model, lowres_scale: int, standardization: str,
     return fn
 
 
+# ---- deterministic baselines (U-Net, LinearCNN) ------------------------------------------
+
+def _elementwise_loss(loss: str):
+    """fp32 MSE or MAE of (pred, target)."""
+    def loss_of(pred, target):
+        d = pred.float() - target.float()
+        return d.square().mean() if loss == "mse" else d.abs().mean()
+    return loss_of
+
+
+def make_deterministic_train_step(model, lowres_scale: int, standardization: str,
+                                  compute_dtype: torch.dtype = torch.float32, loss: str = "mse",
+                                  timetransform: str = "id", watch: bool = False):
+    """Returns step(state, hr_all, stats, idx, timestamps, seed_or_generator)
+    -> metrics, for ``state.model is model`` (a deterministic U-Net or a
+    :class:`~probunet_torch.models.baselines.LinearCNN`).
+
+    One step of the reference's baseline training (trainmodel.py:119-202):
+    the model maps the standardized LR-interp input to the residual, with
+    class labels ``transforms.time_features(timestamps, timetransform)``
+    (``timestamps`` (B,) float32 ns); the MSE (or MAE) loss in fp32,
+    backward, ``state.optimizer.step()``. Only x and y are cast to
+    ``compute_dtype``; the layers cast their fp32 weights to x's dtype, as
+    the JAX layers do. The dropout draws derive from (seed, micro-step).
+    Metrics: ``train_loss``, ``train_loss_var{i}`` per variable, and
+    per-parameter gradient norms with ``watch``; tensors stay on the device."""
+    loss_of = _elementwise_loss(loss)
+
+    def step(state: TrainState, hr_all: torch.Tensor, stats, idx: torch.Tensor,
+             timestamps: torch.Tensor, seed_or_generator: SeedOrGenerator):
+        if state.model is not model:
+            raise ValueError("the train state holds another model than this step's")
+        model.train()
+        with full_fp32():
+            x, y = _pair(hr_all, stats, idx, lowres_scale, standardization, compute_dtype)
+            _, g_dropout = _step_generators(seed_or_generator, state.step, x.device)
+            labels = transforms.time_features(timestamps, timetransform)
+            params = state.optimizer.params
+            for p in params:
+                p.grad = None
+            preds = model(x, class_labels=labels, generator=g_dropout)
+            total = loss_of(preds, y)
+            total.backward()
+            for p in params:  # unused parameters (map_layer*) still decay, as in optax
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            preds = preds.detach()
+            metrics = {"train_loss": total.detach()}
+            for i in range(y.shape[-1]):
+                metrics[f"train_loss_var{i}"] = loss_of(preds[..., i], y[..., i])
+            if watch:
+                metrics.update(_grad_leaf_norms(model))
+            state.optimizer.step()
+        state.step += 1
+        return metrics
+
+    return step
+
+
+def make_deterministic_eval_step(model, lowres_scale: int, standardization: str,
+                                 variables: Tuple[str, ...], reconstruct: bool = False,
+                                 loss: str = "mse", compute_dtype: torch.dtype = torch.float32,
+                                 timetransform: str = "id"):
+    """Returns step(hr_all, stats, idx, timestamps) -> {eval_<var>}: the
+    per-variable loss of the model's residual (reference
+    trainmodel.py:235-304) in eval mode; with ``reconstruct`` on the
+    physical HR fields after residual -> HR and unit conversion (mm/day,
+    deg C)."""
+    loss_of = _elementwise_loss(loss)
+
+    def to_physical(field, var):
+        return kgm2s_to_mmday(field) if var == "pr" else k_to_c(field)
+
+    @torch.inference_mode()
+    def step(hr_all, stats, idx, timestamps):
+        model.eval()
+        with full_fp32():
+            hr = hr_all[idx]
+            sl = transforms.slice_stats(stats, standardization, idx)
+            pair = transforms.make_pair(hr, lowres_scale, standardization, sl)
+            x = pair["inputs"].to(compute_dtype)
+            preds = model(x, class_labels=transforms.time_features(timestamps, timetransform))
+            out = {}
+            if reconstruct:
+                hr_pred = transforms.residual_to_hr(preds.float(), pair["lrinterp"],
+                                                    standardization, sl)
+                for i, var in enumerate(variables):
+                    out[f"eval_{var}"] = loss_of(to_physical(hr_pred[..., i], var),
+                                                 to_physical(hr[..., i], var))
+            else:
+                y = pair["targets"]
+                for i, var in enumerate(variables):
+                    out[f"eval_{var}"] = loss_of(preds[..., i], y[..., i])
+        return out
+
+    return step
+
+
 # ---- EDM diffusion downscaler -----------------------------------------------------------
 
 def _edm_pair(hr_all, stats, idx, lowres_scale, standardization, compute_dtype):

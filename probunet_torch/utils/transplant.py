@@ -8,9 +8,11 @@ a port ``state_dict`` with the reference torch keys, converting layouts:
 - linear weights (in, out) -> (out, in)
 - 1D params      copied as-is
 
+:func:`flax_params_to_torch` tells the model by the tree's top-level names.
 :func:`flax_train_state_to_torch` carries a whole JAX ``TrainState``
-(parameters, optax state, step) into the port's checkpoint payload, so a run
-trained by the JAX package resumes in the port exactly where it stopped.
+(parameters, optax state, step) of any of the models into the port's
+checkpoint payload, so a run trained by the JAX package resumes in the port
+exactly where it stopped.
 """
 
 from __future__ import annotations
@@ -69,32 +71,91 @@ def flax_edm_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     return flax_unet_to_torch(params["model"], prefix="model.")
 
 
-def flax_probunet_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX ``ProbabilisticUNet`` params -> port ``ProbabilisticUNet`` state_dict."""
-    out = flax_unet_to_torch(params["unet"], prefix="unet.")
-    for net in ("prior", "posterior"):
-        for path, arr in _flatten(params[net]).items():
-            layer, leaf = path.split("/")
-            if layer.startswith("enc_"):
-                # encoder convs sit at nn.Sequential indices 0, 3, 6, 9
-                key = f"{net}.encoder.{3 * int(layer[4:])}.{leaf}"
-            else:  # conv_mu / conv_log_sigma
-                key = f"{net}.{layer}.{leaf}"
-            out[key] = _convert(arr)
-    for path, arr in _flatten(params["fcomb"]).items():
+def _flax_gaussian_to_torch(params: Mapping, net: str) -> Dict[str, torch.Tensor]:
+    """An ``AxisAlignedConvGaussian``'s params -> port keys under ``net``."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params).items():
         layer, leaf = path.split("/")
-        # Fcomb convs sit at nn.Sequential indices 0, 2, 4
-        out[f"fcomb.layers.{2 * int(layer[5:])}.{leaf}"] = _convert(arr)
-    extra = set(params) - {"unet", "prior", "posterior", "fcomb"}
-    if extra:
-        raise KeyError(f"unrecognized ProbabilisticUNet params: {sorted(extra)}")
+        if layer.startswith("enc_"):
+            # encoder convs sit at nn.Sequential indices 0, 3, 6, 9
+            key = f"{net}.encoder.{3 * int(layer[4:])}.{leaf}"
+        else:  # conv_mu / conv_log_sigma
+            key = f"{net}.{layer}.{leaf}"
+        out[key] = _convert(arr)
     return out
 
 
+def _flax_fcomb_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """An ``Fcomb``'s params -> port keys under ``fcomb``; its convs sit at
+    nn.Sequential indices 0, 2, 4."""
+    return {f"fcomb.layers.{2 * int(path.split('/')[0][5:])}.{path.split('/')[1]}": _convert(arr)
+            for path, arr in _flatten(params).items()}
+
+
+def flax_probunet_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``ProbabilisticUNet`` params -> port ``ProbabilisticUNet`` state_dict."""
+    extra = set(params) - {"unet", "prior", "posterior", "fcomb"}
+    if extra:
+        raise KeyError(f"unrecognized ProbabilisticUNet params: {sorted(extra)}")
+    out = flax_unet_to_torch(params["unet"], prefix="unet.")
+    for net in ("prior", "posterior"):
+        out.update(_flax_gaussian_to_torch(params[net], net))
+    out.update(_flax_fcomb_to_torch(params["fcomb"]))
+    return out
+
+
+def flax_convvae_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``ConvVAE`` params (``posterior``, ``enc0``, ``enc1``, ``fcomb``)
+    -> port ``ConvVAE`` state_dict."""
+    extra = set(params) - {"posterior", "enc0", "enc1", "fcomb"}
+    if extra:
+        raise KeyError(f"unrecognized ConvVAE params: {sorted(extra)}")
+    out = _flax_gaussian_to_torch(params["posterior"], "posterior")
+    for layer in ("enc0", "enc1"):
+        out.update({f"{layer}.{leaf}": _convert(arr) for leaf, arr in params[layer].items()})
+    out.update(_flax_fcomb_to_torch(params["fcomb"]))
+    return out
+
+
+def flax_linearcnn_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``LinearCNN`` params -> port ``LinearCNN`` state_dict:
+    ``{first,second}_conv_{weight,bias}`` (weights (kh, kw, cin, cout) ->
+    OIHW) and, with the time embedding, ``Dense_{0,1,2}`` -> ``time_embed``."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params).items():
+        parts = path.split("/")
+        if parts[0].startswith("Dense_") and len(parts) == 2:
+            leaf = {"kernel": "weight", "bias": "bias"}[parts[1]]
+            key = f"time_embed.{int(parts[0][6:])}.{leaf}"
+        elif parts[0] in ("first_conv_weight", "first_conv_bias", "second_conv_weight",
+                          "second_conv_bias"):
+            key = parts[0].replace("_conv_", "_conv.")
+        else:
+            raise KeyError(f"unrecognized LinearCNN param: {path}")
+        out[key] = _convert(arr)
+    return out
+
+
+def flax_params_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Any of the JAX package's model params -> the port model's state_dict,
+    the model told by the tree's top-level names: ProbabilisticUNet,
+    ConvVAE, EDMPrecond, LinearCNN, or else a (deterministic) UNet."""
+    keys = set(params)
+    if "unet" in keys:
+        return flax_probunet_to_torch(params)
+    if "enc0" in keys:
+        return flax_convvae_to_torch(params)
+    if keys == {"model"}:
+        return flax_edm_to_torch(params)
+    if "first_conv_weight" in keys:
+        return flax_linearcnn_to_torch(params)
+    return flax_unet_to_torch(params)
+
+
 def _ordered(tree: Mapping, names: Sequence[str]) -> List[torch.Tensor]:
-    """A JAX ProbabilisticUNet-shaped tree (params, or moments of them) as
-    port tensors in the order of ``names``, the port's parameter names."""
-    flat = flax_probunet_to_torch(tree)
+    """A JAX model-shaped tree (params, or moments of them) as port tensors
+    in the order of ``names``, the port's parameter names."""
+    flat = flax_params_to_torch(tree)
     if set(flat) != set(names):
         raise KeyError(f"the tree's parameters differ from the port's: "
                        f"{sorted(set(flat) ^ set(names))[:5]}")
@@ -180,6 +241,6 @@ def flax_train_state_to_torch(state, names: Sequence[str]) -> dict:
     ``train.checkpoint.load_payload`` loads into a port ``TrainState`` whose
     model's parameter names are ``names``."""
     params, opt_state, step = state
-    return {"params": flax_probunet_to_torch(params),
+    return {"params": flax_params_to_torch(params),
             "optimizer": flax_opt_state_to_torch(opt_state, names),
             "step": int(np.asarray(step))}

@@ -4,8 +4,10 @@ unaligned views, single rows, a GroupNorm+SiLU slice streamed through
 shared memory, bit-equal reruns, ragged attention lengths, the attention
 forward (K2) and backward (K3) in every mode on the U-Net block's
 row-strided views, stride-3 views and contiguous tensors (and on fp32
-operands with fast=True, as the EDM path runs them), and the wrappers' and
-kernels' refusals. Marked ``cuda``: they skip without a
+operands with fast=True, as the EDM path runs them), the baselines' paths
+(K1 at the deterministic U-Net's 10 and 14 channels per group, the
+deterministic step's launches, BCSD's day-of-year sums bit-equal), and the
+wrappers' and kernels' refusals. Marked ``cuda``: they skip without a
 card. On the card, without JAX (this file imports none):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -33,12 +35,15 @@ def dev():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,w,c", [(2, 8, 8, 64), (1, 1, 1, 128), (3, 5, 7, 6),
                                      (2, 4, 4, 12), (1, 9, 3, 1024), (2, 3, 3, 2048),
-                                     (1, 256, 256, 64), (8, 128, 128, 384)])
+                                     (1, 256, 256, 64), (8, 128, 128, 384), (2, 8, 8, 320),
+                                     (2, 8, 8, 448)])
 def test_gn_silu_kernel_matches_plain(dev, dtype, b, h, w, c):
     """Against the plain version, output and (B, G) statistics; two calls
     give equal bits (no atomics). (1, 256, 256, 64) is streamed through
     shared memory (its plan is not on chip); (8, 128, 128, 384) is the
-    path's largest site, clusters of 16 blocks."""
+    path's largest site, clusters of 16 blocks; C = 320 and 448 (10 and 14
+    channels per group, vectors across group edges) are the deterministic
+    U-Net's."""
     g = max(1, num_groups_for(c))
     assert K1.plan(b, h, w, c, g, dtype.itemsize, 132).on_chip == ((h, w) != (256, 256))
     gen = torch.Generator(device=dev).manual_seed(c)
@@ -438,3 +443,59 @@ def test_checkpoint_roundtrip_of_optimizer_state_on_card(dev, tmp_path, opt_kw):
             assert torch.equal(p, q)
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+def test_deterministic_step_launches_k1_only(dev):
+    """One step of the deterministic baseline U-Net (no attention, cyclic
+    labels through map_label) on the card: one K1 launch per GroupNorm+SiLU
+    module, no K2 or K3; loss and gradients those of the CPU step."""
+    from probunet_torch.models import UNet
+    from probunet_torch.models.layers import GroupNormSiLU
+    from probunet_torch.train.state import create_train_state, make_optimizer
+    from probunet_torch.train.steps import make_deterministic_train_step
+
+    model = UNet((16, 16), 3, 3, label_dim=2, model_channels=32, channel_mult=(1, 2, 3),
+                 num_blocks=1, attn_resolutions=(), bottleneck_attention=False, dropout=0.0,
+                 device="cpu", generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(1)
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    hr = torch.rand(6, 16, 16, 3, generator=torch.Generator().manual_seed(2)) + 1
+    ts = (torch.arange(6) * 40 * 86400e9 + 9.5e17).float()
+    out = {}
+    for where in ("cpu", dev):
+        m = UNet((16, 16), 3, 3, label_dim=2, model_channels=32, channel_mult=(1, 2, 3),
+                 num_blocks=1, attn_resolutions=(), bottleneck_attention=False, dropout=0.0,
+                 device="meta").to_empty(device=where).to(memory_format=torch.channels_last)
+        m.load_state_dict(model.state_dict())
+        state = create_train_state(m, make_optimizer())
+        step = make_deterministic_train_step(m, 4, "perpixel", timetransform="cyclic")
+        h = hr.to(where)
+        counts = (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches)
+        metrics = step(state, h, (h.mean(0), h.std(0)), torch.tensor([0, 4], device=where),
+                       ts[[0, 4]].to(where), 3)
+        n = tuple(a - b for a, b in zip(
+            (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches), counts))
+        out[str(where)] = (metrics["train_loss"].item(), n,
+                           {k: p.grad.cpu() for k, p in m.named_parameters()})
+    sites = sum(isinstance(mod, GroupNormSiLU) for mod in model.modules())
+    (loss_c, n_c, g_c), (loss_d, n_d, g_d) = out["cpu"], out[str(dev)]
+    assert n_c == (0, 0, 0) and n_d == (sites, 0, 0)
+    assert loss_d == pytest.approx(loss_c, rel=1e-5)
+    for k, ref in g_c.items():   # each gradient relative to its largest entry
+        assert (g_d[k] - ref).abs().max() <= 1e-3 * max(ref.abs().max(), 1e-12), k
+
+
+def test_bcsd_day_of_year_sums_bit_equal_on_card(dev):
+    """BCSD's day-of-year sums (a one-hot product, no atomics): two calls on
+    the card give equal bits, and agree with the CPU's fp32 sums."""
+    from probunet_torch.models.baselines import doy_sums
+
+    gen = torch.Generator().manual_seed(4)
+    vals = torch.rand(300, 32, 32, 3, generator=gen) * 300
+    doy = torch.randint(0, 365, (300,), generator=gen)
+    a = doy_sums(vals.to(dev), doy.to(dev))
+    b = doy_sums(vals.to(dev), doy.to(dev))
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.cpu(), doy_sums(vals, doy), rtol=1e-6, atol=1e-4)

@@ -423,8 +423,6 @@ def test_train_edm_writes_the_jax_records(jax_run, tmp_path):
     # which move the lambda(sigma)-weighted train loss more than 2 epochs' fit
     assert res["val_losses"][-1] < res["val_losses"][0], res["val_losses"]
     assert os.path.isfile(os.path.join(cfg.checkpoints_dir, "edm", "state", "state.pt"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_train_baseline(cfg.replace(ds_model="linearcnn"), device="cpu")
 
 
 def test_train_edm_exact_resume(tmp_path):
