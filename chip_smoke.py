@@ -11,7 +11,8 @@ seeded random weights), in strict fp32 and in fast bf16 mode, then the
 trainer, then the EDM diffusion downscaler (100,349,315 parameters) served,
 stepped and trained, then the baselines (the deterministic U-Net,
 22,792,579 parameters, LinearCNN, BCSD and the conv-VAE) trained and the
-conv-VAE served. Phases:
+conv-VAE served, then the prob-U-Net trained, served and BCSD run over
+several processes (two ranks sharing the card, one NCCL rank). Phases:
 
   1. card and build: nvidia-smi name and power limit; nvcc for sm_90a with
      ptxas registers, shared memory and spills; ``cuobjdump -sass`` of the
@@ -112,12 +113,42 @@ conv-VAE served. Phases:
      U-Net: 6 steps, 2 eval batches, 1 MAE batch); ``downscale(ds_model=
      "vae")`` from its checkpoint at b8, K=16: finite members that differ,
      the sampler's inputs/s and members/s.
+ 14. several processes (``probunet_torch.parallel``): K1's plan at every
+     site at a rank's 4 rows (printed, on chip required); one rank over
+     NCCL in this process: float64 ``allreduce_sum`` exact where float32
+     is not, ``allgather_counts`` exact above 2**24,
+     ``global_perpixel_stats`` on the card against the CPU's, the cost of
+     drawing the dropout masks of the global batch, and 3 training steps
+     at b8 (dropout 0.1, deterministic cuDNN) through the flat gradient
+     all-reduce bit-equal to the same steps with no process group; then
+     two ranks on the card over gloo, child processes of this script
+     (``--mp-rank``), each running ``train_probunet`` at full width on its
+     shard of 2 train years of phase 11's data (b8 global, 4 rows a rank,
+     2 epochs of 2 steps, eval and CRPS), against
+     this process's run with ``data_shards=2``: the step-1 loss within
+     1e-5, every loss, gradient norm and the val loss within 5e-3, the
+     final parameters' update within MP_PARAM_TOL, 29 K1, 11 K2 and 11 K3
+     launches per step on each rank (plus 29 K1 and 11 K2 per eval and
+     CRPS batch), one checkpoint; the elements whose updates parted by
+     more than lr, with each side's gradients of them at steps 1-3
+     (AdamW's first moments in runs stopped after each step); a negative
+     control, the ranks drawing local-shape dropout (planted in the
+     children only), which must exceed MP_PARAM_TOL; a two-rank resume
+     chain (stopped after steps 1, 2 and 3, then resumed to the end),
+     bit-equal to the uninterrupted run; ``downscale`` of 24 of
+     phase 4's days at b8, K=16 (3 batches: ranks own 2 and 1) merged
+     from the part files, fast mode array-equal to this process's file,
+     strict within MP_STRICT_SERVE_TOL, the parts gone; ``run_bcsd``
+     within BCSD_TOL of one process. Each rank's peak memory and ms per
+     step beside this process's (the ranks share the card: not a scaling
+     figure).
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. The line before the last is the ``kernels`` JSON object, the last
 line ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import ctypes
 import json
 import math
@@ -214,6 +245,33 @@ EDM_EPOCH_KEYS = {"epoch", "epoch_train_loss", "val_loss", "val-loss", "step", "
 BASELINE_PARAMS = 22_792_579
 BCSD_TOL = 1e-5
 VARS = ("pr", "tasmin", "tasmax")
+# phase 14, several processes: two ranks share the card over gloo (NCCL
+# refuses two ranks on one device), each with its rows of the b8 global
+# batch; the one-process run with data_shards 2 computes the same global
+# batches. Limits of tests/test_multihost_e2e.py: the step-1 loss (the same
+# parameters and batch; only the order of the gradient's sum over the two
+# half batches differs) and the trajectory and val loss (that noise
+# compounds through the optimizer), relative
+MP_RANKS, MP_STEP1_TOL, MP_TRAJ_TOL = 2, 1e-5, 5e-3
+# the final parameters: ||update_2ranks - update_1process|| / ||update_1process||
+# over every parameter (update = final - initial). Read 9.54e-3 (PERF.md
+# section 6): 8,879 elements, deep conv0 weights, part by more than lr. Their
+# gradient is 0 until step 3 (the zero-initialized out_conv and conv1 stand
+# before them), and at step 3 it lies within the two sides' rounding (median
+# |g| 5.4e-7, opposite signs in 98 %; cuDNN's fp32 algorithms differ at 4
+# rows and at 8), so AdamW's first bias-corrected step sends each ~0.6 lr one
+# way on one side and the other way on the other. The planted fault of
+# local-shape dropout reads 0.275; the limit sits between the two readings
+MP_PARAM_TOL = 5e-2
+# strict (fp32) serving, max abs diff / max |value| of the merged file against
+# one process's: cuDNN picks its fp32 convolution algorithm by the free memory
+# (the workspace must fit), and ranks sharing a card see less, so a rank may
+# sum in another order: 3.05e-5 K on 284 K read (1e-7). A wrong draw, batch
+# or statistic moves values by the members' spread, which phase 14 prints
+MP_STRICT_SERVE_TOL = 1e-5
+MP_TRAIN_YEARS = 2          # an even count: equal shards, 2 steps per epoch at b8
+MP_GRAD_STEPS = (1, 2, 3)   # the steps whose gradients phase 14 reads from checkpoints
+MP_SERVE_DAYS = 24          # 3 batches of 8 of phase 4's days: rank 0 serves 2, rank 1 one
 
 
 def log(msg=""):
@@ -760,6 +818,7 @@ def run_phases(torch, dev, card, sass):
     trainer = trainer_phase(torch, dev, card, train["rates"], mark)
     edm = edm_phase(torch, dev, card, ds, ds_cpu, gen, mark)
     baseline = baseline_phase(torch, dev, card, ds, ds_cpu, gen, mark)
+    multi = multiprocess_phase(torch, dev, card, gn_sites, mark)
 
     def entry(name, source, replaces, n, err, tol, t, extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -771,7 +830,8 @@ def run_phases(torch, dev, card, sass):
     by_path = {key: {"serve": launches[key], "train": train["launches"][key],
                      "trainer": trainer["launches"][key],
                      **{f"edm_{path}": n[key] for path, n in edm["launches"].items()},
-                     **{f"baseline_{path}": n[key] for path, n in baseline["launches"].items()}}
+                     **{f"baseline_{path}": n[key] for path, n in baseline["launches"].items()},
+                     **{f"multiprocess_{path}": n[key] for path, n in multi["launches"].items()}}
                for key in ("gn", "attn", "attn_bwd")}
     launches = {key: sum(by_path[key].values()) for key in by_path}
     return [
@@ -806,6 +866,7 @@ def run_phases(torch, dev, card, sass):
                "launches_by_path": by_path["attn_bwd"],
                "edm_fp32_fast_max_rel_err": edm["k3_rel"],
                "training": train["rates"], "trainer": trainer["report"],
+               "multiprocess": multi["report"],
                "sass": {n: c for n, c in sass.items() if n.startswith("attention_bwd")}}),
     ]
 
@@ -1946,6 +2007,554 @@ def baseline_phase(torch, dev, card, ds, ds_cpu, gen, mark):
             "k1_err": k1_err, "k1_t": k1_t, "report": report}
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mp_configs():
+    """Phase 14's configs, as this process and the rank children build
+    them: (training, serving fast, serving strict, BCSD)."""
+    from probunet_torch.config import Config
+
+    root = os.path.join(WORK, "p14")
+    data = os.path.join(WORK, "trainer_data")   # phase 11's files
+    y0 = 2000
+    # pertimestep, as phase 11: half the synthetic pr values are 0, so some
+    # pixels' perpixel std over 16 days is ~0 and their standardized values blow up
+    train = Config(datadir=data, years_train=(y0, y0 + MP_TRAIN_YEARS), years_val=(2003, 2004),
+                   years_test=(2004, 2005), coords=(0, RES, 0, RES), resolution=(RES, RES),
+                   standardization="pertimestep", batch_size=BATCH, num_epochs=TRAINER_EPOCHS,
+                   eval_crps=True, crps_samples=4, log_every=1, num_samples=2)
+    # serving in both modes: fast (bf16) array-equal to one process, strict
+    # (fp32) within MP_STRICT_SERVE_TOL
+    strict = train.replace(datadir=os.path.join(WORK, "data"), years_test=(2000, 2001),
+                           num_samples=MEMBERS)
+    fast = strict.replace(compute_dtype="bfloat16", fast_attention=True)
+    # BCSD predicts by day of year: val and test on days the train years cover
+    bcsd = train.replace(years_val=(y0, y0 + MP_TRAIN_YEARS), years_test=(y0 + 1, y0 + 2))
+    return root, train, fast, strict, bcsd
+
+
+def mp_rank(spec_path):
+    """One rank of phase 14 (``python3 chip_smoke.py --mp-rank <spec>``):
+    joins the gloo process group from the environment on cuda:0, runs the
+    trainer (uninterrupted; a resume chain stopped after each of
+    MP_GRAD_STEPS, then to the end; once with the planted fault of
+    ``local_dropout``), serving in both modes and BCSD,
+    and writes what it measured to ``rank<r>.json`` beside the spec."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from probunet_torch.data.dataset import ClimexDataset
+    from probunet_torch.parallel.multihost import maybe_initialize_distributed, process_info
+    from probunet_torch.serve import downscale
+    from probunet_torch.train.engine import load_datasets
+    from probunet_torch.train.loop import run_bcsd, train_probunet
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device("cuda", 0)
+    maybe_initialize_distributed(dev, "gloo")
+    rank = process_info()[0]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True   # the resume is compared bit for bit
+    root, cfg, serve_cfg, strict_cfg, bcsd_cfg = mp_configs()
+    out = {"rank": rank}
+
+    def train(tag, **kw):
+        c = cfg.replace(plotdir=os.path.join(root, tag, "plots"),
+                        checkpoints_dir=os.path.join(root, tag, "ckpt"), **kw)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_probunet(c, make_plots=False, device=dev)
+        torch.cuda.synchronize()
+        out[tag] = {"wall_s": time.perf_counter() - t0, "steps": res["state"].step,
+                    "launches": as_launches(launch_counts()),
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del res
+        torch.cuda.empty_cache()
+
+    train("mp_full")
+    for t in MP_GRAD_STEPS:   # a resume chain, one step a run
+        train(f"mp_part{t}", max_steps=t,
+              resume=os.path.join(root, f"mp_part{t - 1}", "ckpt", "probunet") if t > 1 else "")
+    train("mp_resumed", resume=os.path.join(root, f"mp_part{MP_GRAD_STEPS[-1]}", "ckpt",
+                                            "probunet"))
+    with local_dropout():
+        train("mp_fault", eval_crps=False)
+
+    full = ClimexDataset(serve_cfg.datadir, years=[2000], coords=serve_cfg.coords,
+                         standardization=serve_cfg.standardization, device=dev)
+    days = ClimexDataset(hr=full.hr_np[:MP_SERVE_DAYS], timestamps=full.timestamps_np[:MP_SERVE_DAYS],
+                         lat=full.lat, lon=full.lon, standardization=serve_cfg.standardization,
+                         lowres_scale=serve_cfg.lowres_scale, device=dev)
+    for tag, c in (("serve", serve_cfg), ("serve_strict", strict_cfg)):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        downscale(c, spec["serve_checkpoint"], os.path.join(root, f"mp_{tag}.nc"),
+                  dataset=days, device=dev)
+        out[tag] = {"wall_s": time.perf_counter() - t0, "launches": as_launches(launch_counts())}
+
+    res = run_bcsd(bcsd_cfg, load_datasets(bcsd_cfg, dev), device=dev)
+    if rank == 0:
+        np.savez(os.path.join(root, "mp_bcsd.npz"), **{s: r["preds"] for s, r in res.items()})
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+@contextlib.contextmanager
+def local_dropout():
+    """A planted fault for phase 14's negative control: every dropout mask
+    drawn over the rank's local rows, not as its rows of the global batch's
+    mask (``shard`` ignored), so the ranks train another model than one
+    process does. Patches ``models.unet`` in this process only."""
+    import probunet_torch.models.unet as U
+
+    plain = U.dropout
+    U.dropout = lambda x, rate, training, generator=None, shard=(0, 1): plain(
+        x, rate, training, generator)
+    try:
+        yield
+    finally:
+        U.dropout = plain
+
+
+def global_draw_cost(torch, dev, cfg, card):
+    """The cost of drawing dropout masks for the global batch: one training
+    forward at a rank's rows records every dropout draw's shape, then the
+    draws of one step are timed (CUDA events, 20 after 3) at a rank's rows
+    alone and as rank 0 of MP_RANKS (MP_RANKS times the numbers)."""
+    import probunet_torch.models.unet as U
+    from probunet_torch.models.layers import rand_rows
+    from probunet_torch.train.loop import build_probunet
+
+    model = build_probunet(cfg, device="meta").to_empty(device=dev).train()
+    shapes, plain = [], U.dropout
+
+    def record(x, rate, training, generator=None, shard=(0, 1)):
+        b, c, h, w = x.shape
+        shapes.append((b, h, w, c))
+        return plain(x, rate, training, generator, shard)
+
+    U.dropout = record
+    try:
+        with torch.no_grad():
+            model.unet(torch.zeros(BATCH // MP_RANKS, RES, RES, 3, device=dev))
+    finally:
+        U.dropout = plain
+    del model
+    g = torch.Generator(dev).manual_seed(0)
+    out = {}
+    for world in (1, MP_RANKS):
+        out[f"world{world}_ms"] = cuda_ms(torch, lambda: [rand_rows(sh, g, dev, (0, world))
+                                                         for sh in shapes])
+    elems = sum(math.prod(sh) for sh in shapes)
+    log(f"[14] dropout draws of one step at {BATCH // MP_RANKS} rows ({len(shapes)} masks, "
+        f"{elems:,} uniforms): {out['world1_ms']:.3f} ms alone, {out[f'world{MP_RANKS}_ms']:.3f} "
+        f"ms as rows of the {BATCH}-row global draw (CUDA events, {card})")
+    return out
+
+
+def multiprocess_phase(torch, dev, card, gn_sites, mark):
+    """Phase 14 (see the module docstring). Returns the launch counts of
+    its paths and its report."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from probunet_torch.data.dataset import ClimexDataset
+    from probunet_torch.data.netcdf import NetCDFFile
+    from probunet_torch.data.pipeline import compute_lr_stats_streaming
+    from probunet_torch.ops import gn_silu as K1
+    from probunet_torch.ops.norm import num_groups_for
+    from probunet_torch.parallel import mesh
+    from probunet_torch.parallel.multihost import (allgather_counts, allreduce_sum,
+                                                   global_perpixel_stats)
+    from probunet_torch.serve import downscale
+    from probunet_torch.train.engine import load_datasets
+    from probunet_torch.train.loop import (build_probunet, init_probunet_state, run_bcsd,
+                                           train_probunet)
+    from probunet_torch.train.state import make_optimizer
+    from probunet_torch.train.steps import make_probunet_train_step
+
+    root, cfg, serve_cfg, strict_cfg, bcsd_cfg = mp_configs()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    report = {"card": card}
+    launches = {}
+    rows = BATCH // MP_RANKS
+
+    # ---- K1's plan at a rank's rows ---------------------------------------------------
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for h, w, c in sorted(set(gn_sites)):
+        p = K1.plan(rows, h, w, c, num_groups_for(c), 4, num_sms)
+        log(f"[14] K1 plan at {rows} rows, site {h}x{w}x{c}: {p._asdict()}")
+        if not p.on_chip:
+            raise AssertionError(f"K1 site {(h, w, c)} at {rows} rows planned off chip")
+    log(f"[14] K1: all {len(set(gn_sites))} distinct sites planned on chip at {rows} rows (fp32)")
+
+    # ---- one rank over NCCL --------------------------------------------------------------
+    torch.backends.cudnn.deterministic = True
+    mesh.init_process_group({"init_method": f"tcp://localhost:{_free_port()}", "world_size": 1,
+                             "rank": 0}, dev)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, expected nccl")
+        x = 273.0 + 1e-9 * np.arange(4096.0)
+        lossy = not np.array_equal(x.astype(np.float32).astype(np.float64), x)
+        (s1,) = allreduce_sum(x)
+        counts = allgather_counts(16_777_217)
+        ok = lossy and np.array_equal(s1, x) and counts.tolist() == [16_777_217]
+        log(f"[14] NCCL, 1 rank: float64 allreduce_sum bit-exact on values float32 rounds: "
+            f"{np.array_equal(s1, x)}; allgather_counts(2**24 + 1) = {counts.tolist()} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("a float64 collective lost bits over NCCL")
+        hr_np = ClimexDataset(cfg.datadir, years=[2000, 2001], coords=cfg.coords,
+                              device="cpu").hr_np
+        got = global_perpixel_stats(hr_np, cfg.lowres_scale, dev)
+        want = compute_lr_stats_streaming(hr_np, cfg.lowres_scale, "perpixel", device="cpu")
+        rel = [float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-3)))
+               for g, w in zip(got, want)]
+        log(f"[14] NCCL, 1 rank: global_perpixel_stats (pooled on the card, moments summed in "
+            f"float64 over NCCL) against the CPU's streaming statistics: mean {rel[0]:.3e}, std "
+            f"{rel[1]:.3e} max rel diff (tol 2e-4: each side pools in fp32) "
+            f"{'ok' if max(rel) <= 2e-4 else 'FAIL'}")
+        if max(rel) > 2e-4:
+            raise AssertionError("global_perpixel_stats on the card differ from the CPU's")
+        ds = ClimexDataset(serve_cfg.datadir, years=[2000], coords=serve_cfg.coords,
+                           standardization=serve_cfg.standardization, device=dev)
+        runs = []
+        for dp in (None, mesh.DataParallel()):
+            state = init_probunet_state(cfg, build_probunet(cfg, device="meta"),
+                                        make_optimizer(), device=dev)
+            step = make_probunet_train_step(state.model, cfg.lowres_scale, cfg.standardization,
+                                            dp=dp)
+            reset_launch_counts()
+            ms = [step(state, ds.hr_device(), ds.stats,
+                       torch.arange(BATCH, device=dev) + BATCH * (i % 2), 11) for i in range(3)]
+            ms = [{k: float(v) for k, v in m.items()} for m in ms]
+            n = launch_counts()
+            runs.append((ms, {k: v.clone() for k, v in state.model.state_dict().items()}, n))
+            del state, step
+        (m0, p0, _), (m1, p1, n1) = runs
+        diff = max((a - b).abs().max().item() for a, b in zip(p0.values(), p1.values()))
+        log(f"[14] NCCL, 1 rank: 3 steps at b{BATCH} through the flat all-reduce, losses "
+            f"{[round(m['train_loss'], 3) for m in m1]}, gradient norms "
+            f"{[round(m['grad_norm'], 3) for m in m1]}; against no process group: metrics "
+            f"equal {m0 == m1}, parameters max abs diff {diff:.3e} (bit-equal required); "
+            f"launches {n1[:3]}")
+        if m0 != m1 or diff != 0 or tuple(n1[:3]) != (3 * K1_PER_BATCH, 3 * K2_PER_BATCH,
+                                                       3 * K3_PER_STEP):
+            raise AssertionError("the one-rank NCCL steps differ from the steps without a group")
+        launches["nccl_steps"] = as_launches(n1)
+        del runs, p0, p1, ds
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    report["rng"] = global_draw_cost(torch, dev, cfg, card)
+    mark(14)
+
+    # ---- this process: the references --------------------------------------------------
+    ref_dir = os.path.join(root, "ref")
+    c = cfg.replace(plotdir=os.path.join(ref_dir, "plots"),
+                    checkpoints_dir=os.path.join(ref_dir, "ckpt"), data_shards=MP_RANKS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_probunet(c, make_plots=False, device=dev)
+    torch.cuda.synchronize()
+    ref_wall, ref_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    del res
+    # the same run stopped after each of MP_GRAD_STEPS: AdamW's first moments give
+    # each step's gradient
+    for t in MP_GRAD_STEPS:
+        train_probunet(c.replace(plotdir=os.path.join(root, f"ref{t}", "plots"), max_steps=t,
+                                 checkpoints_dir=os.path.join(root, f"ref{t}", "ckpt"),
+                                 resume=os.path.join(root, f"ref{t - 1}", "ckpt", "probunet")
+                                 if t > 1 else ""),
+                       make_plots=False, device=dev)
+    init = init_probunet_state(cfg, build_probunet(cfg, device="meta"), make_optimizer(),
+                               device="cpu").model.state_dict()
+    torch.cuda.empty_cache()
+    ref_ckpt = os.path.join(ref_dir, "ckpt", "probunet")
+    full = ClimexDataset(serve_cfg.datadir, years=[2000], coords=serve_cfg.coords,
+                         standardization=serve_cfg.standardization, device=dev)
+    days = ClimexDataset(hr=full.hr_np[:MP_SERVE_DAYS], timestamps=full.timestamps_np[:MP_SERVE_DAYS],
+                         lat=full.lat, lon=full.lon, standardization=serve_cfg.standardization,
+                         lowres_scale=serve_cfg.lowres_scale, device=dev)
+    one_nc, serve_wall = {}, {}
+    for tag, sc in (("serve", serve_cfg), ("serve_strict", strict_cfg)):
+        one_nc[tag] = os.path.join(root, f"one_{tag}.nc")
+        t0 = time.perf_counter()
+        downscale(sc, ref_ckpt, one_nc[tag], dataset=days, device=dev)
+        serve_wall[tag] = time.perf_counter() - t0
+    bcsd_ref = run_bcsd(bcsd_cfg, load_datasets(bcsd_cfg, dev), device=dev)
+    torch.backends.cudnn.deterministic = False
+    del full, days
+    torch.cuda.empty_cache()
+    mark(14)
+
+    # ---- two ranks on the card --------------------------------------------------------------
+    spec = os.path.join(root, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"serve_checkpoint": ref_ckpt}, f)
+    port = _free_port()
+    procs = []
+    for r in range(MP_RANKS):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        env.update(COORDINATOR_ADDRESS=f"localhost:{port}", PROBUNET_NUM_PROCESSES=str(MP_RANKS),
+                   PROBUNET_PROCESS_ID=str(r))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mp-rank",
+                                       spec], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    mp_wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            log(text[-6000:])
+            raise AssertionError(f"rank {r} exited with {p.returncode}")
+    ranks = []
+    for r in range(MP_RANKS):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    log(f"[14] {MP_RANKS} ranks (child processes, gloo on cuda:0) ran 3 trainer runs, serving "
+        f"and BCSD in {mp_wall:.1f} s (process start, init and data included)")
+
+    def records(tag):
+        with open(os.path.join(root, tag, "plots", "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    failed = []   # every check runs and logs; the phase raises at its end
+
+    def check(ok, what):
+        if not ok:
+            failed.append(what)
+
+    ref_recs, mp_recs = records("ref"), records("mp_full")
+    n_steps = TRAINER_EPOCHS * (MP_TRAIN_YEARS * TRAINER_DAYS // BATCH)
+    check([sorted(r) for r in mp_recs] == [sorted(r) for r in ref_recs],
+          "the ranks' records differ in keys or count from one process's (rank 0 writes them)")
+    worst = {}
+    for key in ("train_loss", "recon_loss", "kl_div", "grad_norm", "val_loss"):
+        a = np.asarray([r[key] for r in ref_recs if key in r])
+        b = np.asarray([r[key] for r in mp_recs if key in r])
+        log(f"[14] {key}: one process {a.tolist()}, 2 ranks {b.tolist()}")
+        check(np.isfinite(a).all() and np.isfinite(b).all(), f"{key} not finite")
+        worst[key] = float(np.max(np.abs(b - a) / np.abs(a)))
+    step1 = abs(mp_recs[0]["train_loss"] - ref_recs[0]["train_loss"]) / abs(ref_recs[0]["train_loss"])
+    mp_ckpt = os.path.join(root, "mp_full", "ckpt", "probunet")
+
+    def load(tag, where="cpu"):
+        return torch.load(os.path.join(root, tag, "ckpt", "probunet", "state", "state.pt"),
+                          map_location=where, weights_only=True)
+
+    ref_state, mp_state = load("ref"), load("mp_full")
+    ref_p = ref_state["params"]
+
+    def update_gap(params):
+        """||update - update_1process|| / ||update_1process|| over every
+        parameter, and the elements that moved more than lr apart."""
+        num = den = 0.0
+        moved = {}
+        for k, p0 in init.items():
+            if p0.is_floating_point():
+                u_ref = ref_p[k].double() - p0.double()
+                d = params[k].double() - p0.double() - u_ref
+                num += d.square().sum().item()
+                den += u_ref.square().sum().item()
+                if (d.abs() > cfg.lr).any():
+                    moved[k] = d.abs() > cfg.lr
+        return math.sqrt(num / den), moved
+
+    upd, moved = update_gap(mp_state["params"])
+    total = sum(p.numel() for p in init.values() if p.is_floating_point())
+    n_moved = sum(int(m.sum()) for m in moved.values())
+    top = sorted(moved, key=lambda k: -int(moved[k].sum()))[:6]
+    log(f"[14] parameter updates: {n_moved:,} of {total:,} elements moved more than lr = "
+        f"{cfg.lr} apart, in {len(moved)} tensors (most: "
+        + ", ".join(f"{k} {int(moved[k].sum()):,}" for k in top) + ")")
+    if moved:   # why: each side's gradients of those elements at steps 1-3
+        names = [n for n, _ in build_probunet(cfg, device="meta").named_parameters()]
+
+        def grads(tags):
+            """(steps, n) gradients of those elements and of every element of
+            their tensors at the steps the checkpoints ``tags`` stopped at,
+            from AdamW's first moments (m_t = b1 m_t-1 + (1 - b1) g_t)."""
+            out, prev = ([], []), (0.0, 0.0)
+            for tag in tags:
+                st = load(tag, dev)["optimizer"]["inner"]["state"]
+                ms = [torch.cat([st[i]["exp_avg"].double()[moved[k] if mask else ...].ravel()
+                                 for i, k in enumerate(names) if k in moved])
+                      for mask in (True, False)]
+                for o, p, m in zip(out, prev, ms):
+                    o.append((m - 0.9 * p) / 0.1)
+                prev = ms
+            return [torch.stack(o) for o in out]
+
+        parts = []
+        sides = zip(grads([f"ref{t}" for t in MP_GRAD_STEPS]),
+                    grads([f"mp_part{t}" for t in MP_GRAD_STEPS]))
+        for gr, gm in sides:   # those elements; every element of their tensors
+            nz = (gr != 0) | (gm != 0)
+            first = torch.where(nz.any(0), nz.int().argmax(0), len(gr))   # len(gr): none
+            seen = first < len(gr)
+            cols = torch.arange(gr.shape[1], device=dev)[seen]
+            r, m = gr[first[seen], cols], gm[first[seen], cols]
+            parts.append({"first_step": [float((first == t).double().mean())
+                                         for t in range(len(gr) + 1)],
+                          "g": r.abs().median().item(),
+                          "gap": ((m - r).abs() / r.abs().clamp_min(1e-30)).median().item(),
+                          "flip": float((torch.sign(m) != torch.sign(r)).double().mean())})
+            del gr, gm, nz, first, r, m
+        del sides
+        mv, ev = parts
+        log(f"[14] those elements' first step with a nonzero gradient on either side (AdamW "
+            f"first moments after steps {MP_GRAD_STEPS}): "
+            + ", ".join(f"{t} {a:.1%}" for t, a in zip([*MP_GRAD_STEPS, "later"], mv["first_step"]))
+            + " (every element of their tensors: "
+            + ", ".join(f"{t} {a:.1%}" for t, a in zip([*MP_GRAD_STEPS, "later"], ev["first_step"]))
+            + f"); at that step median |g| {mv['g']:.3e} (every element {ev['g']:.3e}), the "
+            f"sides apart by {mv['gap']:.3e} of |g| (median; every element {ev['gap']:.3e}), "
+            f"opposite signs in {mv['flip']:.1%} (every element {ev['flip']:.1%})")
+        report["moved_elements"] = {"count": n_moved, "moved": mv, "every": ev}
+    # the negative control: the ranks drew local-shape dropout (local_dropout)
+    fault_upd, _ = update_gap(load("mp_fault")["params"])
+    fault_recs = records("mp_fault")
+    fault_worst = max(abs(f - r) / abs(r) for k in ("train_loss", "val_loss")
+                      for f, r in zip([x[k] for x in fault_recs if k in x],
+                                      [x[k] for x in ref_recs if k in x]))
+    log(f"[14] negative control, local-shape dropout planted in the ranks: parameter update "
+        f"rel diff {fault_upd:.3e} (must exceed MP_PARAM_TOL {MP_PARAM_TOL}; the sound run "
+        f"{upd:.3e}), worst loss rel diff {fault_worst:.3e} (MP_TRAJ_TOL {MP_TRAJ_TOL}) "
+        f"{'ok' if fault_upd > MP_PARAM_TOL else 'FAIL'}")
+    check(fault_upd > MP_PARAM_TOL, "a rank drawing local-shape dropout passes MP_PARAM_TOL")
+    ok = (step1 <= MP_STEP1_TOL and max(worst.values()) <= MP_TRAJ_TOL and upd <= MP_PARAM_TOL
+          and mp_state["step"] == n_steps)
+    log(f"[14] 2 ranks against 1 process with data_shards=2 ({n_steps} steps, b{BATCH} global): "
+        f"step-1 loss rel diff {step1:.3e} (tol {MP_STEP1_TOL}); worst rel diff over the run "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (tol {MP_TRAJ_TOL}); parameter update rel diff {upd:.3e} (tol {MP_PARAM_TOL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, "two ranks differ from one process computing the same batches")
+    files = sorted(os.path.relpath(os.path.join(d, f), mp_ckpt)
+                   for d, _, fs in os.walk(mp_ckpt) for f in fs)
+    log(f"[14] the ranks' checkpoint directory: {files}")
+    check(files == [os.path.join("state", "state.pt")], f"checkpoint directory holds {files}")
+    res_p = torch.load(os.path.join(root, "mp_resumed", "ckpt", "probunet", "state", "state.pt"),
+                       weights_only=True)
+    rdiff = max((res_p["params"][k] - v).abs().max().item() for k, v in mp_state["params"].items())
+    log(f"[14] two-rank resume chain: stopped after steps {MP_GRAD_STEPS}, resumed to "
+        f"{res_p['step']}: parameters max abs "
+        f"diff {rdiff:.3e} against the uninterrupted two-rank run (bit-equal required) "
+        f"{'ok' if rdiff == 0 and res_p['step'] == n_steps else 'FAIL'}")
+    check(rdiff == 0 and res_p["step"] == n_steps,
+          "the two-rank resume differs from the uninterrupted run")
+    del ref_state, ref_p, mp_state, res_p, init
+
+    per_step = (K1_PER_BATCH, K2_PER_BATCH, K3_PER_STEP)
+    per_eval = (K1_PER_BATCH, K2_PER_BATCH, 0)
+    n_evals = TRAINER_EPOCHS * 2     # one val and one CRPS batch per epoch
+    want = {k: n_steps * s + n_evals * e for k, s, e in zip(("gn", "attn", "attn_bwd"),
+                                                               per_step, per_eval)}
+    for rk in ranks:
+        got = {k: rk["mp_full"]["launches"][k] for k in want}
+        log(f"[14] rank {rk['rank']} launches in its uninterrupted run: {got}, expected {want} "
+            f"(per step {per_step}, per eval or CRPS batch {per_eval}) "
+            f"{'ok' if got == want else 'FAIL'}")
+        check(got == want, f"rank {rk['rank']}: launches {got}")
+        launches[f"rank{rk['rank']}_trainer"] = rk["mp_full"]["launches"]
+        launches[f"rank{rk['rank']}_serve"] = rk["serve"]["launches"]
+        launches[f"rank{rk['rank']}_serve_strict"] = rk["serve_strict"]["launches"]
+
+    def ms_per_step(recs):   # StepTimer (CUDA-synced) at epoch 2's last step
+        steps = [r for r in recs if "train_loss" in r]
+        return 1e3 * BATCH / steps[-1]["samples_per_sec"]
+
+    for rk in ranks:
+        log(f"[14] rank {rk['rank']}: peak device memory {rk['mp_full']['peak_gib']:.2f} GiB, "
+            f"trainer wall {rk['mp_full']['wall_s']:.2f} s; one process (data_shards=2): peak "
+            f"{ref_peak:.2f} GiB, wall {ref_wall:.2f} s ({card})")
+    log(f"[14] ms per step (epoch {TRAINER_EPOCHS}, b{BATCH} global): 2 ranks sharing the card "
+        f"over gloo {ms_per_step(mp_recs):.1f}, one process {ms_per_step(ref_recs):.1f}; the "
+        f"ranks share one card and move gradients through the host: not a scaling figure ({card})")
+
+    # ---- serving ----------------------------------------------------------------------------
+    left = [f for f in os.listdir(root) if ".part" in f]
+    serve_rel = {}
+    for tag, mode in (("serve", "fast"), ("serve_strict", "strict")):
+        with NetCDFFile(one_nc[tag]) as a, NetCDFFile(os.path.join(root, f"mp_{tag}.nc")) as b:
+            rel, spread = {}, {}
+            for v in VARS:
+                fa, fb = a.read_var(v), b.read_var(v)
+                d = np.abs(fa - fb)
+                rel[v] = float(d.max() / np.abs(fa).max())
+                # what a wrong draw moves a value by: the members' spread
+                spread[v] = float(fa.std(axis=1).mean() / np.abs(fa).max())
+                log(f"[14] serving {mode} {v}: max abs diff {d.max():.3e} (max |value| "
+                    f"{np.abs(fa).max():.3e}), differing elements per day "
+                    f"{(d > 0).reshape(len(d), -1).sum(axis=1).tolist()}, members' spread "
+                    f"{spread[v]:.3e} of max |value|")
+            same_t = np.array_equal(a.read_time(), b.read_time())
+            same_attrs = all({k: str(x) for k, x in a._f[v].attrs.items()}
+                             == {k: str(x) for k, x in b._f[v].attrs.items()} for v in VARS)
+            shape = a.read_var("pr").shape
+        serve_rel[mode] = max(rel.values())
+        tol = 0.0 if mode == "fast" else MP_STRICT_SERVE_TOL
+        ok = (serve_rel[mode] <= tol and same_t and same_attrs and not left
+              and shape == (MP_SERVE_DAYS, MEMBERS, RES, RES))
+        log(f"[14] serving {MP_SERVE_DAYS} days at b{BATCH}, K={MEMBERS}, {mode}, on 2 ranks "
+            f"(2 + 1 batches), parts merged by rank 0: {shape}, max abs diff / max |value| "
+            f"{serve_rel[mode]:.3e} against one process's file ("
+            + ("array-equal required" if mode == "fast" else f"tol {tol}")
+            + f"), time {same_t}, attributes {same_attrs}, parts left {left} "
+            f"{'ok' if ok else 'FAIL'}; wall {[round(rk[tag]['wall_s'], 2) for rk in ranks]} s "
+            f"per rank, one process {serve_wall[tag]:.2f} s ({card})")
+        check(ok, f"the merged {mode} serving file differs from one process's")
+        for rk, nb in zip(ranks, (2, 1)):
+            want_s = {"gn": nb * K1_PER_BATCH, "attn": nb * K2_PER_BATCH, "attn_bwd": 0}
+            got_s = {k: rk[tag]["launches"][k] for k in want_s}
+            log(f"[14] rank {rk['rank']} {mode} serving launches {got_s}, expected {want_s} for "
+                f"{nb} batches")
+            check(got_s == want_s, f"rank {rk['rank']} {mode} serving launches {got_s}")
+
+    # ---- BCSD ---------------------------------------------------------------------------------
+    got = np.load(os.path.join(root, "mp_bcsd.npz"))
+    errs = {s: float(np.abs(got[s] - bcsd_ref[s]["preds"]).max() / np.abs(bcsd_ref[s]["preds"]).max())
+            for s in ("val", "test")}
+    ok = max(errs.values()) <= BCSD_TOL
+    log(f"[14] run_bcsd on 2 ranks (climatologies summed in float64) against 1 process: max abs "
+        f"diff / max |pred| {errs} (tol {BCSD_TOL}) {'ok' if ok else 'FAIL'}")
+    check(ok, "two-rank BCSD differs from one process")
+    if failed:
+        raise AssertionError("phase 14: " + "; ".join(failed))
+    report.update(step1_rel=step1, worst_rel=worst, update_rel=upd, resume_max_abs_diff=rdiff,
+                  ms_per_step_2ranks=ms_per_step(mp_recs), ms_per_step_1process=ms_per_step(ref_recs),
+                  peak_gib_ranks=[rk["mp_full"]["peak_gib"] for rk in ranks],
+                  peak_gib_1process=ref_peak, bcsd_rel=errs, ranks_wall_s=mp_wall,
+                  fault_update_rel=fault_upd, serve_rel=serve_rel)
+    shutil.rmtree(root, ignore_errors=True)
+    mark(14)
+    return {"launches": launches, "report": report}
+
+
 def launch_counts():
     """(K1, K2, K3 launches, q/k/v copies before an attention launch) so far."""
     from probunet_torch.ops import attention as K2
@@ -2064,4 +2673,6 @@ def profile(torch, fn, name, what, phase=6, top=12):
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--mp-rank":   # a rank child of phase 14
+        sys.exit(mp_rank(sys.argv[2]))
     sys.exit(main())

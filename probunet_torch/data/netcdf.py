@@ -118,6 +118,15 @@ class NetCDFFile:
                 ds.attrs.get("add_offset", 0.0))
         return data
 
+    def length(self, name: str) -> int:
+        """The length of variable ``name``'s first (time) axis."""
+        return int(self._f[name].shape[0])
+
+    def read_raw(self, name: str, lo: int, hi: int) -> np.ndarray:
+        """Rows ``lo:hi`` of variable ``name``'s first axis as stored: no CF
+        un-pack, so a packed variable reads as its int16 values."""
+        return np.asarray(self._f[name][lo:hi])
+
     def read_time(self) -> np.ndarray:
         t = self._f["time"]
         units = self._attr(t, "units", "days since 1950-01-01")
@@ -306,7 +315,7 @@ class StreamingFieldWriter:
             self._ds[name] = ds
 
     def _open_classic(self, path, shapes, days, lat, lon, time_attrs, var_attrs, dtype_of):
-        dims = {"time": len(days)}
+        dims = {"time": len(days)}   # 0: an empty record dimension (an idle part file)
         names = {4: ("time", "member", "rlat", "rlon"), 3: ("time", "rlat", "rlon")}
         for shape in shapes.values():
             for d, n in zip(names[len(shape)], shape):

@@ -4,8 +4,10 @@ The port's fallback where h5py, and with it netCDF-4/HDF5, is not
 installed: :mod:`probunet_torch.data.netcdf` writes its output (and the
 synthetic inputs) in this format there and reads either format by the
 file's signature. Only what those files need is covered: fixed-size
-variables (no record dimension), big-endian data laid out one variable after
-the other, and attributes of the classic types. Any netCDF reader (netCDF-C,
+variables, big-endian data laid out one variable after the other, and
+attributes of the classic types. A dimension of length 0 is the record
+dimension, and only an empty one (no records) is supported: the part file
+of a serving process that owns no batch. Any netCDF reader (netCDF-C,
 xarray, ``scipy.io.netcdf_file``) opens these files. A variable holds at
 most 4 GiB in CDF-2.
 """
@@ -80,26 +82,32 @@ class ClassicWriter:
     def __init__(self, path: str, dims: Dict[str, int],
                  variables: Dict[str, Tuple[Sequence[str], object, Dict[str, object]]],
                  attrs: Optional[Dict[str, object]] = None):
-        if any(n <= 0 for n in dims.values()):
-            raise ValueError(f"classic-format dimensions must be positive: {dims}")
+        records = [d for d, n in dims.items() if n == 0]
+        if any(n < 0 for n in dims.values()) or len(records) > 1:
+            raise ValueError(f"classic-format dimensions must be positive, but for one empty "
+                             f"record dimension: {dims}")
         dim_ids = {d: i for i, d in enumerate(dims)}
         self._layout = {}
-        sizes = []
+        sizes, spans = [], []   # vsize in the header; bytes in the fixed-size section
         for name, (vdims, dtype, _) in variables.items():
             dt = np.dtype(dtype)
             if dt not in _CODES:
                 raise TypeError(f"{name}: no classic netCDF type for {dt}")
             shape = tuple(dims[d] for d in vdims)
-            nbytes = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+            if records and records[0] in vdims[1:]:
+                raise ValueError(f"{name}: the record dimension must come first")
+            record = bool(records) and vdims[:1] == (records[0],)
+            nbytes = int(np.prod(shape[1:] if record else shape, dtype=np.int64)) * dt.itemsize
             if nbytes >= 2 ** 32 - 4:
                 raise ValueError(f"{name}: {nbytes} bytes exceed a CDF-2 variable's 4 GiB")
             sizes.append(_pad4(nbytes))
+            spans.append(0 if record else _pad4(nbytes))
             self._layout[name] = (shape, np.dtype(_TYPES[_CODES[dt]]))
 
         def header(begins) -> bytes:
             out = _Out()
             out.raw(MAGIC_CDF2)
-            out.int32(0)  # numrecs: no record dimension
+            out.int32(0)  # numrecs: no record dimension, or an empty one
             out.int32(_NC_DIMENSION)
             out.int32(len(dims))
             for d, n in dims.items():
@@ -121,10 +129,11 @@ class ClassicWriter:
             return out.bytes()
 
         offset = len(header([0] * len(variables)))
+        end = offset + sum(spans)
         begins = []
-        for size in sizes:
-            begins.append(offset)
-            offset += size
+        for span in spans:   # a record variable (span 0, no data) begins after the fixed ones
+            begins.append(offset if span else end)
+            offset += span
         self._begin = dict(zip(variables, begins))
         self._f = open(path, "wb")
         self._f.write(header(begins))
@@ -152,7 +161,10 @@ class _Var:
         self.attrs = attrs
         self.shape = tuple(shape)
         self.ndim = len(self.shape)
-        self._data = np.memmap(path, dtype=dtype, mode="r", offset=begin, shape=self.shape)
+        if 0 in self.shape:   # a variable of an empty record dimension
+            self._data = np.zeros(self.shape, dtype)
+        else:
+            self._data = np.memmap(path, dtype=dtype, mode="r", offset=begin, shape=self.shape)
 
     def __getitem__(self, idx) -> np.ndarray:
         a = np.asarray(self._data[idx])
@@ -176,6 +188,7 @@ class ClassicFile:
         magic = buf[:4]
         if magic not in (MAGIC_CDF1, MAGIC_CDF2):
             raise ValueError(f"{path} is not a classic netCDF file")
+        numrecs = int.from_bytes(buf[4:8], "big", signed=True)
         pos = [8]  # after the magic and numrecs
 
         def int32() -> int:
@@ -208,8 +221,8 @@ class ClassicFile:
 
         int32()  # NC_DIMENSION or ABSENT
         dims = [(name(), int32()) for _ in range(int32())]
-        if any(n == 0 for _, n in dims):
-            raise ValueError(f"{path}: record dimensions are not supported")
+        if numrecs and any(n == 0 for _, n in dims):
+            raise ValueError(f"{path}: record dimensions holding records are not supported")
         self.attrs = attrs()
         int32()  # NC_VARIABLE or ABSENT
         self._vars = {}

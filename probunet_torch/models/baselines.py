@@ -59,9 +59,10 @@ class LinearCNN(nn.Module):
         self.second_conv = TorchConv(latent_channels, in_channels, 3, **f)
 
     def forward(self, x: torch.Tensor, class_labels: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """NHWC in and out. ``generator`` is accepted for the surface the
-        deterministic step calls; the model draws nothing."""
+                generator: Optional[torch.Generator] = None,
+                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+        """NHWC in and out. ``generator`` and ``shard`` are accepted for the
+        surface the deterministic step calls; the model draws nothing."""
         if self.time_embed is not None and class_labels is not None:
             t = self.time_embed(class_labels.float()).reshape(x.shape[0], *self.resolution, 1)
             # fp32 t promotes a bf16 x, as jnp.concatenate does
@@ -154,10 +155,12 @@ class ConvVAE(nn.Module):
         return self.fcomb(features, dist.rsample(generator, eps))
 
     def elbo(self, x: torch.Tensor, target: torch.Tensor, beta=None,
-             generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None):
+             generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None,
+             shard: Tuple[int, int] = (0, 1)):
         """sum-MSE + beta * KL(q(z|x, y) || N(0, I)) with the posterior draw
         mu + sigma * eps; ``eps`` (B, D) or drawn from ``generator``. x,
-        target: NHWC. Returns fp32 (total, recon, kl)."""
+        target: NHWC. Returns fp32 (total, recon, kl). ``shard`` is accepted
+        for the surface the train step calls; the model has no dropout."""
         return self._elbo(x, target, lambda post: post.rsample(generator, eps), beta)
 
     def elbo_with_z(self, x: torch.Tensor, target: torch.Tensor, z: torch.Tensor, beta=None):

@@ -46,11 +46,12 @@ class EDMPrecond(nn.Module):
 
     def forward(self, x: torch.Tensor, sigma, condition_img: Optional[torch.Tensor] = None,
                 class_labels: Optional[torch.Tensor] = None, force_fp32: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
         """x: (B, H, W, C) noisy image, NHWC; sigma: (B,) or a scalar; the
         condition (B, H, W, C') is concatenated on channels. In training
-        mode the backbone's dropout draws from ``generator``. Returns the
-        fp32 denoised image (B, H, W, C)."""
+        mode the backbone's dropout draws from ``generator`` (``shard``:
+        ``UNet.forward``). Returns the fp32 denoised image (B, H, W, C)."""
         in_img = x
         if condition_img is not None:
             dtype = torch.promote_types(x.dtype, condition_img.dtype)
@@ -71,5 +72,6 @@ class EDMPrecond(nn.Module):
         c_noise = torch.log(sigma) / 4
 
         f_x = self.model((c_in * in_img).to(dtype), noise_labels=c_noise.flatten(),
-                         class_labels=class_labels, generator=generator).to(dtype)
+                         class_labels=class_labels, generator=generator,
+                         shard=shard).to(dtype)
         return c_skip * x + c_out * f_x.float()

@@ -15,7 +15,7 @@ weights on every device); on the ``meta`` device nothing is drawn.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -236,16 +236,31 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def rand_rows(shape: Sequence[int], generator: Optional[torch.Generator], device,
+              shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """Uniforms of ``shape`` from ``generator``: with ``shard`` = (rank,
+    world), rank's rows of the draw for the global batch of ``world *
+    shape[0]`` rows, so a data-parallel rank draws what one process draws
+    for the whole global batch (as the JAX package draws over the global
+    batch whatever the sharding)."""
+    rank, world = shard
+    b = shape[0]
+    full = torch.rand((b * world, *shape[1:]), generator=generator, device=device)
+    return full[rank * b:(rank + 1) * b]
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """flax ``nn.Dropout`` on an NCHW channels_last tensor: each element is
     kept with probability 1 - rate and then scaled by 1 / (1 - rate), the
     mask drawn from ``generator`` (on x's device; None means torch's global
-    generator). The identity when not ``training`` or at rate 0."""
+    generator) as ``shard``'s rows of the global batch's mask
+    (:func:`rand_rows`). The identity when not ``training`` or at rate 0."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
     b, c, h, w = x.shape
     # drawn NHWC so the mask, and the result, keep x's channels_last layout
-    mask = nchw(torch.rand(b, h, w, c, generator=generator, device=x.device) < keep)
+    mask = nchw(rand_rows((b, h, w, c), generator, x.device, shard) < keep)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

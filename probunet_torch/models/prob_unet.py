@@ -113,19 +113,21 @@ class ProbabilisticUNet(nn.Module):
 
     def elbo(self, x: torch.Tensor, target: torch.Tensor, beta=None,
              generator: Optional[torch.Generator] = None,
-             eps: Optional[torch.Tensor] = None):
+             eps: Optional[torch.Tensor] = None, shard: Tuple[int, int] = (0, 1)):
         """ELBO = sum-MSE reconstruction + beta * sum-KL (prob_unet.py:151-173),
         with a reparameterized posterior draw mu + sigma * eps; ``eps`` (B, D)
         or drawn from ``generator``, which also draws the dropout masks in
-        training mode. x, target: NHWC. Returns fp32 (total, recon, kl)."""
-        return self._elbo(x, target, lambda post: post.rsample(generator, eps), beta, generator)
+        training mode (``shard``'s rows of the global batch's, ``UNet.forward``).
+        x, target: NHWC. Returns fp32 (total, recon, kl)."""
+        return self._elbo(x, target, lambda post: post.rsample(generator, eps), beta, generator,
+                          shard)
 
     def elbo_with_z(self, x: torch.Tensor, target: torch.Tensor, z: torch.Tensor, beta=None):
         """:meth:`elbo` with a supplied posterior draw ``z`` (prob_unet.py:179-191)."""
         return self._elbo(x, target, lambda post: z, beta, None)
 
-    def _elbo(self, x, target, draw, beta, generator):
-        features = self.unet(x, generator=generator)
+    def _elbo(self, x, target, draw, beta, generator, shard=(0, 1)):
+        features = self.unet(x, generator=generator, shard=shard)
         prior = self.prior(nchw(x))
         posterior = self.posterior(nchw(x), nchw(target))
         out = self.fcomb(features, draw(posterior))

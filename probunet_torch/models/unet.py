@@ -40,6 +40,7 @@ from probunet_torch.models.layers import (
     dropout,
     nchw,
     nhwc,
+    rand_rows,
     silu,
 )
 from probunet_torch.ops.attention import HEAD_DIM, fused_attention
@@ -77,14 +78,16 @@ class UNetBlock(nn.Module):
             self.proj = Conv2d(out_channels, out_channels, 1, init=init_zero, **f)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``generator`` draws the dropout mask in training mode."""
+                generator: Optional[torch.Generator] = None,
+                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+        """``generator`` draws the dropout mask in training mode, as
+        ``shard``'s (rank, world) rows of the global batch's mask."""
         orig = x
         x = self.conv0(self.norm0(x))
         params = self.affine(emb)[:, :, None, None].to(x.dtype)  # (B|1, 2C, 1, 1)
         scale, shift = params.chunk(2, dim=1)
         x = silu(self.norm1(x) * (scale + 1) + shift)
-        x = dropout(x, self.dropout, self.training, generator)
+        x = dropout(x, self.dropout, self.training, generator, shard)
         x = self.conv1(x)
         if self.skip is not None:
             orig = self.skip(orig)
@@ -202,8 +205,9 @@ def gn_silu_sites(enc: List[BlockSpec], dec: List[BlockSpec], final_channels: in
 
 
 def remat_block(block: UNetBlock, x: torch.Tensor, emb: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """``block(x, emb, generator)`` with its activations dropped after the
+                generator: Optional[torch.Generator] = None,
+                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """``block(x, emb, generator, shard)`` with its activations dropped after the
     forward and recomputed in the backward (``torch.utils.checkpoint``, the
     counterpart of the JAX package's ``nn.remat(UNetBlock)``).
 
@@ -222,7 +226,7 @@ def remat_block(block: UNetBlock, x: torch.Tensor, emb: torch.Tensor,
             gen = torch.Generator(generator.device)
             gen.set_state(snapshot)
         calls[0] += 1
-        return block(x, emb, gen)
+        return block(x, emb, gen, shard)
 
     return torch.utils.checkpoint.checkpoint(run, x, emb, use_reentrant=False)
 
@@ -281,16 +285,17 @@ class UNet(nn.Module):
     def embedding(self, x: torch.Tensor, noise_labels: Optional[torch.Tensor] = None,
                   class_labels: Optional[torch.Tensor] = None,
                   augment_labels: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
         """The blocks' embedding (JAX ``unet.py:239-265``): (B, 4C), or (1, 4C)
         with neither labels nor noise. In training mode, label dropout keeps
         each sample's labels where ``uniform(B, 1) >= label_dropout``, drawn
-        from ``generator``."""
+        from ``generator`` as ``shard``'s rows of the global batch's draw."""
         emb = torch.zeros(1, self.emb_channels, dtype=x.dtype, device=x.device)
         if self.map_label is not None:
             tmp = class_labels.to(x.dtype)
             if self.training and self.label_dropout:
-                keep = torch.rand(x.shape[0], 1, generator=generator, device=x.device)
+                keep = rand_rows((x.shape[0], 1), generator, x.device, shard)
                 tmp = tmp * (keep >= self.label_dropout).to(tmp.dtype)
             emb = self.map_label(tmp)
         if self.map_noise is not None:
@@ -303,20 +308,23 @@ class UNet(nn.Module):
     def forward(self, x: torch.Tensor, noise_labels: Optional[torch.Tensor] = None,
                 class_labels: Optional[torch.Tensor] = None,
                 augment_labels: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
         """NHWC in and out. In training mode the label dropout and then every
-        block's dropout mask are drawn from ``generator``, in block order."""
-        emb = self.embedding(x, noise_labels, class_labels, augment_labels, generator)
+        block's dropout mask are drawn from ``generator``, in block order;
+        ``shard`` = (rank, world) makes each draw the rank's rows of the
+        global batch's (``layers.rand_rows``)."""
+        emb = self.embedding(x, noise_labels, class_labels, augment_labels, generator, shard)
         x = nchw(x)  # channels_last strides when x is a contiguous NHWC tensor
         run = remat_block if self.remat and torch.is_grad_enabled() else (
             lambda blk, *args: blk(*args))
         skips = []
         for spec in self.enc_specs:
             blk = self.enc[spec.name]
-            x = blk(x) if spec.kind == "conv" else run(blk, x, emb, generator)
+            x = blk(x) if spec.kind == "conv" else run(blk, x, emb, generator, shard)
             skips.append(x)
         for spec in self.dec_specs:
             if spec.concat_skip:
                 x = torch.cat([x, skips.pop()], dim=1)
-            x = run(self.dec[spec.name], x, emb, generator)
+            x = run(self.dec[spec.name], x, emb, generator, shard)
         return nhwc(self.out_conv(self.out_norm(x)))

@@ -8,11 +8,21 @@ with a one-deep overlap: batch i's ensemble is copied to pinned host memory
 behind its compute on the CUDA stream, and written while batch i+1 computes,
 so host memory stays O(batch).
 
-Single process. ``ds_model`` is the Probabilistic U-Net or the conv-VAE
-(``vae``; K prior draws per input), or ``edm``, the diffusion downscaler (K
-Heun chains of ``cfg.edm_steps`` steps per input, folded into one batch).
-The deterministic baselines draw no ensemble and are not served, as in the
-JAX package; multi-process serving comes in a later slice of the port.
+``ds_model`` is the Probabilistic U-Net or the conv-VAE (``vae``; K prior
+draws per input), or ``edm``, the diffusion downscaler (K Heun chains of
+``cfg.edm_steps`` steps per input, folded into one batch). The
+deterministic baselines draw no ensemble and are not served, as in the JAX
+package.
+
+Several processes (one per card, ``torch.distributed``): the batch list is
+split into contiguous ranges by ``multihost.shard_years``, one per process;
+each samples its range on its card, with no collective in the sampling
+path, and writes its time slice to ``<out>.part<rank>`` (an empty part when
+it owns no batch). After a barrier rank 0 merges the parts chunk by chunk
+into ``<out>``, and after a second barrier it removes them. Every process
+reads the same days and statistics and draws each batch's members from the
+batch's GLOBAL index, so the merged file equals a single process's. The
+parts must lie on a filesystem every process sees.
 
     python -m probunet_torch.serve --checkpoint ./results/checkpoints/probunet \\
         --out ./results/downscaled.nc --num_samples 16 [config flags...]
@@ -20,11 +30,13 @@ JAX package; multi-process serving comes in a later slice of the port.
         --out ./results/downscaled_edm.nc --num_samples 16 [config flags...]
     python -m probunet_torch.serve --ds_model vae --checkpoint ./results/checkpoints/vae \\
         --out ./results/downscaled_vae.nc --num_samples 16 [config flags...]
+    torchrun --nproc_per_node 2 -m probunet_torch.serve --checkpoint ... [config flags...]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional, Sequence
 
@@ -32,12 +44,18 @@ import torch
 
 from probunet_torch.config import Config, get_config
 from probunet_torch.data.dataset import ClimexDataset
-from probunet_torch.data.netcdf import StreamingFieldWriter, pack_params
+from probunet_torch.data.netcdf import NetCDFFile, StreamingFieldWriter, pack_params
+from probunet_torch.parallel import mesh
+from probunet_torch.parallel.multihost import (
+    maybe_initialize_distributed,
+    process_info,
+    shard_years,
+)
 from probunet_torch.train.checkpoint import restore_checkpoint
 from probunet_torch.train.loop import build_edm_model, build_probunet
 from probunet_torch.train.state import TrainState
 from probunet_torch.train.steps import make_edm_sample_fn, make_sample_fn
-from probunet_torch.utils.device import full_fp32, resolve_device
+from probunet_torch.utils.device import full_fp32
 
 
 def _batch_generator(seed: int, batch_index: int) -> torch.Generator:
@@ -45,6 +63,14 @@ def _batch_generator(seed: int, batch_index: int) -> torch.Generator:
     initial noise): the same members whatever device samples them, and
     independent of the batch order."""
     return torch.Generator().manual_seed(seed * 1_000_003 + batch_index)
+
+
+def _batch_range(nb: int, pi: int, pc: int):
+    """The contiguous [lo, hi) batch range of process ``pi`` of ``pc``: the
+    partition of :func:`shard_years`. With more processes than batches the
+    last ones get an empty range (they still join the merge's barriers)."""
+    lo = sum(len(shard_years(range(nb), p, pc)) for p in range(pi))
+    return lo, lo + len(shard_years(range(nb), pi, pc))
 
 
 def downscale(
@@ -71,15 +97,15 @@ def downscale(
     ``pack_ranges``: optional {var: (lo, hi)} covering every output
     variable; the ensemble is CF-packed to int16 on the device, so half the
     bytes cross to the host, and stored as int16 with scale_factor/add_offset.
-    ``device``: default the CUDA card; ``"cpu"`` runs the plain versions."""
+    ``device``: default the CUDA card (under a process group this rank's);
+    ``"cpu"`` runs the plain versions. Under a process group every process
+    calls this with the same arguments (see the module docstring)."""
     if cfg.ds_model not in ("probabilistic_unet", "vae", "edm"):
         raise NotImplementedError(f"ds_model={cfg.ds_model!r} draws no ensemble and is not "
                                   "served (nor by the JAX package); serving takes "
                                   "probabilistic_unet, vae or edm")
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError("multi-process serving is not ported yet")
-    dev = resolve_device(device)
+    pi, pc = process_info()
+    dev = mesh.resolve_device(device)
     years = list(years if years is not None else cfg.years("test"))
     num_samples = num_samples or cfg.num_samples
     batch_size = batch_size or cfg.batch_size
@@ -116,8 +142,12 @@ def downscale(
     batches_dev = torch.from_numpy(batches).to(dev)
     hr_all, stats = ds.hr_device(), ds.stats
     n, (h, w) = len(ds), ds.spatial_shape
+    lo_b, hi_b = _batch_range(len(batches), pi, pc)
+    # both bounds clamped: a range past the ragged tail, or empty, owns no day
+    t_lo, t_hi = min(lo_b * batch_size, n), min(hi_b * batch_size, n)
+    my_path = out_path if pc == 1 else f"{out_path}.part{pi}"
     attrs = {"source": "probunet_torch ensemble downscaling", "members": str(num_samples)}
-    shapes = {var: (n, num_samples, h, w) for var in cfg.variables}
+    shapes = {var: (t_hi - t_lo, num_samples, h, w) for var in cfg.variables}
     on_cuda = dev.type == "cuda"
     host_bufs = []  # two pinned buffers, alternating: one filling, one writing
 
@@ -138,12 +168,13 @@ def downscale(
         arr = buf.numpy()[:take]
         writer.append({var: arr[..., i] for i, var in enumerate(cfg.variables)}, t0)
 
-    with full_fp32(), StreamingFieldWriter(out_path, shapes, ds.timestamps_np, lat=ds.lat,
-                                           lon=ds.lon, attrs=attrs, compression=compression,
+    with full_fp32(), StreamingFieldWriter(my_path, shapes, ds.timestamps_np[t_lo:t_hi],
+                                           lat=ds.lat, lon=ds.lon, attrs=attrs,
+                                           compression=compression,
                                            packing=pack_ranges) as writer:
         pending = None  # (t0, rows_to_keep, host buffer, copy-done event)
         last_t = time.perf_counter()
-        for bi in range(len(batches)):
+        for bi in range(lo_b, hi_b):
             if edm:   # the K*B chains' initial noise, K-major
                 noise = torch.randn((num_samples * batch_size, h, w, cfg.nvars),
                                     generator=_batch_generator(seed, bi))
@@ -154,17 +185,51 @@ def downscale(
                 preds, _ = sample_fn(hr_all, stats, batches_dev[bi], eps=eps)
             if pack is not None:
                 preds = pack(preds)  # int16 crosses the host link, not fp32
-            staged = to_host(preds, bi % 2)
+            staged = to_host(preds, (bi - lo_b) % 2)
             if pending is not None:
                 write(*pending)  # overlaps this batch's compute on the card
-            pending = (bi * batch_size, min(batch_size, n - bi * batch_size), *staged)
+            pending = (bi * batch_size - t_lo, min(batch_size, n - bi * batch_size), *staged)
             if batch_seconds is not None:
                 now = time.perf_counter()
                 batch_seconds.append(now - last_t)
                 last_t = now
         if pending is not None:
             write(*pending)
+
+    if pc > 1:
+        mesh.barrier()   # every part file is closed
+        parts = [(_batch_range(len(batches), p, pc)[0] * batch_size, f"{out_path}.part{p}")
+                 for p in range(pc)]
+        if pi == 0:
+            _merge_parts(out_path, parts, cfg.variables,
+                         {var: (n, num_samples, h, w) for var in cfg.variables},
+                         ds.timestamps_np, ds.lat, ds.lon, attrs, compression, pack_ranges)
+        mesh.barrier()   # the merged file is whole before any process returns
+        if pi == 0:
+            for _, part in parts:
+                os.remove(part)
     return out_path
+
+
+def _merge_parts(out_path, part_offsets, variables, shapes, timestamps, lat, lon, attrs,
+                 compression: Optional[str] = None, packing: Optional[dict] = None,
+                 chunk: int = 64) -> None:
+    """Rank 0's merge: copy every part's variables into the full-range file
+    chunk by chunk (host memory stays O(chunk)), each part at its time
+    offset. Parts are read in either format through :class:`NetCDFFile`,
+    packed variables as their raw int16."""
+    missing = [part for _, part in part_offsets if not os.path.exists(part)]
+    if missing:
+        raise RuntimeError(f"part files not visible to rank 0: {missing}; multi-process "
+                           "serving needs the output on a filesystem every process sees")
+    with StreamingFieldWriter(out_path, shapes, timestamps, lat=lat, lon=lon, attrs=attrs,
+                              compression=compression, packing=packing) as writer:
+        for t0, part in part_offsets:
+            with NetCDFFile(part) as f:
+                nt = f.length(variables[0]) if variables else 0
+                for lo in range(0, nt, chunk):
+                    writer.append({var: f.read_raw(var, lo, lo + chunk) for var in variables},
+                                  t0 + lo)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -176,9 +241,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--pack", action="append", default=None, metavar="VAR=LO:HI",
                    help="CF int16 packing range per variable (repeatable; must cover "
                         "every output variable), e.g. --pack pr=0:0.02")
-    p.add_argument("--device", default=None, help="default: the CUDA card")
+    p.add_argument("--device", default=None,
+                   help="default: the CUDA card (under a process group cuda:<LOCAL_RANK>)")
     args, rest = p.parse_known_args(argv)
     cfg = get_config(rest)
+    maybe_initialize_distributed(args.device)
     pack_ranges = None
     if args.pack:
         pack_ranges = {}

@@ -5,7 +5,11 @@ step, all on the CPU, in ``<directory>/<name>/state.pt``. A state without an
 optimizer (serving) saves and restores the parameters and step alone, the
 format of the port's first checkpoints, which serving still reads. JAX
 checkpoints (orbax) carry across through
-:func:`probunet_torch.utils.transplant.flax_train_state_to_torch`."""
+:func:`probunet_torch.utils.transplant.flax_train_state_to_torch`.
+
+Under a process group every rank calls :func:`save_checkpoint`: rank 0
+writes (the ranks hold the same state), then all wait for the file, so a
+rank that goes on to read it finds it whole. Every rank restores."""
 
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import os
 
 import torch
 
+from probunet_torch.parallel import mesh
 from probunet_torch.train.state import TrainState
 
 
@@ -32,14 +37,19 @@ def _to_cpu(obj):
 
 
 def save_checkpoint(directory: str, state: TrainState, name: str = "state") -> str:
-    """Write ``state``; returns the checkpoint's directory."""
+    """Write ``state`` (under a process group: rank 0 writes, then a barrier);
+    returns the checkpoint's directory."""
     path = _path(directory, name)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    payload = {"params": _to_cpu(state.model.state_dict()), "step": int(state.step)}
-    if state.optimizer is not None:
-        payload["optimizer"] = _to_cpu(state.optimizer.state_dict())
-    torch.save(payload, path + ".tmp")
-    os.replace(path + ".tmp", path)  # a run cut mid-write leaves the last checkpoint whole
+    group = mesh.is_initialized()
+    if not group or torch.distributed.get_rank() == 0:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        payload = {"params": _to_cpu(state.model.state_dict()), "step": int(state.step)}
+        if state.optimizer is not None:
+            payload["optimizer"] = _to_cpu(state.optimizer.state_dict())
+        torch.save(payload, path + ".tmp")
+        os.replace(path + ".tmp", path)  # a run cut mid-write leaves the last checkpoint whole
+    if group:
+        mesh.barrier()
     return os.path.dirname(path)
 
 

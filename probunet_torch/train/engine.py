@@ -4,11 +4,16 @@
 The experiments in :mod:`probunet_torch.train.loop` are thin configurations
 of this loop; every lifecycle feature lives here once:
 
-- optimizer and state construction on the device, checkpoint restore;
-- **ingest-mode selection**: the default device-resident dataset tensor with
-  a per-step index gather (each epoch's batch indices go to the device in
-  one copy), or double-buffered host->device streaming
-  (``--device_resident_data false``, :mod:`probunet_torch.data.pipeline`);
+- the multi-process plan (:class:`~probunet_torch.parallel.multihost.
+  MultihostPlan`), optimizer and state construction on the device,
+  checkpoint restore, and the check that every rank holds the same
+  parameters;
+- **ingest-mode selection**: lockstep plan batches (this process's rows of
+  each global batch, assembled ahead on a background thread) under a plan;
+  else the default device-resident dataset tensor with a per-step index
+  gather (each epoch's batch indices go to the device in one copy), or
+  double-buffered host->device streaming (``--device_resident_data
+  false``, :mod:`probunet_torch.data.pipeline`);
 - the epoch loop: per-step bookkeeping (``--log_every`` cadence,
   ``--watch_every`` wandb.watch parity, ``--checkpoint_every`` step-granular
   checkpoints, ``--max_steps`` stop), seeded stochastic eval at the
@@ -32,9 +37,14 @@ Experiment-specific pieces plug in through :class:`EngineSpec` /
 :class:`EngineFns`. Items flowing through the loop are dicts with keys
 ``hr`` (the batch or the full dataset tensor), ``stats`` (standardization
 statistics or None), ``idx`` (batch gather indices) and, for an experiment
-that asks for them, ``timestamps`` (the batch's float32 ns). Single process,
-data-parallel mode only: the lockstep multi-host plan and the spatial modes
-are not ported yet.
+that asks for them, ``timestamps`` (the batch's float32 ns).
+
+Several processes (one per card, ``torch.distributed``): each reads its
+shard of the train years, the plan keeps them in lockstep on global batches
+with GLOBAL statistics, the steps all-reduce gradients and metrics
+(``EngineCtx.dp``), every rank runs every step, eval and collective, and
+only rank 0 writes metrics, plots and checkpoints. The spatial modes are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -47,9 +57,10 @@ import numpy as np
 import torch
 
 from probunet_torch.config import Config
+from probunet_torch.parallel.mesh import data_parallel, resolve_device
+from probunet_torch.parallel.multihost import make_plan, process_info, shard_years
 from probunet_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from probunet_torch.train.state import TrainState, make_optimizer
-from probunet_torch.utils.device import resolve_device
 from probunet_torch.utils.logging import MetricLogger, StepTimer, progress
 
 
@@ -88,20 +99,29 @@ class EngineSpec:
     desc: str = "Train"          # progress-bar prefix
     rng_offset: int = 1          # train noise stream seed = cfg.seed + rng_offset
     needs_timestamps: bool = False  # items carry float32 ``timestamps`` (B,)
+    build_plan: Optional[Callable] = None   # (cfg, ds_train, device) -> plan | None
     wandb_config: bool = False   # pass vars(cfg) as the wandb run config
     loss_curve: Optional[str] = None  # filename for the train/val loss plot
 
 
 def load_datasets(cfg: Config, device=None) -> Dict[str, Any]:
     """The three split datasets, their device tensors on ``device``
-    (default the CUDA card)."""
+    (default the CUDA card). With several processes each reads only its
+    contiguous shard of the TRAIN years (:func:`shard_years`); val and test
+    stay whole on every process, so every process evaluates the same data."""
     from probunet_torch.data.dataset import ClimexDataset
 
-    return {split: ClimexDataset(
-        cfg.datadir, years=cfg.years(split), variables=cfg.variables, coords=cfg.coords,
-        lowres_scale=cfg.lowres_scale, time_transform=cfg.timetransform,
-        standardization=cfg.standardization, device=device)
-        for split in ("train", "val", "test")}
+    pi, pc = process_info()
+    out = {}
+    for split in ("train", "val", "test"):
+        years = cfg.years(split)
+        if split == "train" and pc > 1:
+            years = shard_years(years, pi, pc)
+        out[split] = ClimexDataset(
+            cfg.datadir, years=years, variables=cfg.variables, coords=cfg.coords,
+            lowres_scale=cfg.lowres_scale, time_transform=cfg.timetransform,
+            standardization=cfg.standardization, device=device)
+    return out
 
 
 def _crps_batches(cfg: Config, n_val_batches: int) -> int:
@@ -122,37 +142,42 @@ def _seeded_generator(seed: int, index: int, device) -> torch.Generator:
     return torch.Generator(device).manual_seed(s)
 
 
-def _require_single_process(cfg: Config) -> None:
+def _require_data_parallel(cfg: Config) -> None:
     if cfg.parallel_mode != "data":
         raise NotImplementedError(f"parallel_mode={cfg.parallel_mode!r} (spatial sharding) is "
                                   "not ported yet: ROADMAP Queue 1 item 8")
-    distributed = (torch.distributed.is_available() and torch.distributed.is_initialized()
-                   and torch.distributed.get_world_size() > 1)
-    if distributed or int(cfg.data_shards) > 1:
-        raise NotImplementedError("multi-process training (the lockstep multi-host batch "
-                                  "plan, data_shards) is not ported yet: ROADMAP Queue 1 "
-                                  "item 7")
 
 
 class EngineCtx:
     """Per-run ingest state shared between the engine loop and the
-    experiment's ``make_fns``: the device, the device-resident tensors or the host-side
-    streaming statistics, and the item builders for train/val batches."""
+    experiment's ``make_fns``: the device, the multi-process ``plan`` (or
+    None) and ``dp`` (the process group's
+    :class:`~probunet_torch.parallel.mesh.DataParallel`, which the steps
+    take, or None), whether this process is the ``primary`` (rank 0), the
+    device-resident tensors or the host-side statistics, and the item
+    builders for train/val batches."""
 
-    def __init__(self, cfg: Config, datasets, device, needs_timestamps: bool = False):
+    def __init__(self, cfg: Config, datasets, device, needs_timestamps: bool = False,
+                 plan=None):
         self.cfg = cfg
         self.datasets = datasets
         self.device = device
         self.needs_timestamps = needs_timestamps
+        self.plan = plan
+        self.dp = data_parallel()
+        self.primary = process_info()[0] == 0
         self.ds_train, self.ds_val = datasets["train"], datasets["val"]
-        self.streaming = not cfg.resident_data
+        self.streaming = not cfg.resident_data and plan is None
 
         self.hr_train = self.stats_train = None
         self.hr_val = self.stats_val = None
         self.ts_train = self.ts_val = None
         self.stats_train_np = self.stats_val_np = None
         self._stats_val_global = None
-        if self.streaming:
+        if plan is not None:
+            # lockstep global batches from this process's rows; val stays whole
+            self.stats_val_np = plan.split_stats(self.ds_val)
+        elif self.streaming:
             # host-resident dataset; batches stream to the card double-buffered
             from probunet_torch.data.pipeline import compute_lr_stats_streaming
             self.stats_train_np = compute_lr_stats_streaming(
@@ -170,6 +195,8 @@ class EngineCtx:
     # ---- epoch geometry ----
     @property
     def steps_per_epoch(self) -> int:
+        if self.plan is not None:
+            return self.plan.steps_per_epoch
         return len(self.ds_train) // self.cfg.batch_size
 
     # ---- train ingest ----
@@ -178,9 +205,13 @@ class EngineCtx:
         ``offset`` (mid-epoch resume). Close the generator to stop its
         ingest early."""
         cfg = self.cfg
+        ts_np = self.ds_train.timestamps_np if self.needs_timestamps else None
+        if self.plan is not None:
+            batches = self.plan.epoch_batches(cfg.seed + epoch)[offset:]
+            return (self.plan.batch_iter(self.ds_train.hr_np, batches, self.plan.stats_np,
+                                         timestamps_np=ts_np), batches.shape[0])
         if self.streaming:
             from probunet_torch.data.pipeline import stream_batches
-            ts_np = self.ds_train.timestamps_np if self.needs_timestamps else None
             it = stream_batches(self.ds_train.hr_np, cfg.batch_size, cfg.seed + epoch,
                                 self.stats_train_np, cfg.standardization, device=self.device,
                                 start_batch=offset, timestamps_np=ts_np)
@@ -209,9 +240,15 @@ class EngineCtx:
 
     # ---- val ingest ----
     def val_batches(self) -> np.ndarray:
+        if self.plan is not None:
+            return self.plan.replicated_batches(len(self.ds_val))
         return self.ds_val.epoch_indices(0, self.cfg.batch_size, shuffle=False)
 
     def val_item(self, gids: np.ndarray) -> Dict:
+        if self.plan is not None:
+            ts_np = self.ds_val.timestamps_np if self.needs_timestamps else None
+            return self.plan.device_batch(self.ds_val.hr_np, gids, self.stats_val_np,
+                                          timestamps_np=ts_np, replicated_source=True)
         idx = np.asarray(gids)
         if not self.streaming:
             item = {"hr": self.hr_val, "stats": self.stats_val,
@@ -239,12 +276,14 @@ class EngineCtx:
 
 def run_training(cfg: Config, spec: EngineSpec, datasets=None, make_plots: bool = True,
                  device=None) -> Dict:
-    """The shared epoch loop on ``device`` (default the CUDA card). Returns
-    {state, tr_losses, val_losses, samples_per_sec} plus whatever the
-    experiment's ``final_fn`` adds."""
-    _require_single_process(cfg)
+    """The shared epoch loop on ``device`` (default the CUDA card, under a
+    process group this rank's). Returns {state, tr_losses, val_losses,
+    samples_per_sec} plus whatever the experiment's ``final_fn`` adds."""
+    _require_data_parallel(cfg)
     device = resolve_device(device)
     datasets = datasets or load_datasets(cfg, device)
+    plan = (spec.build_plan(cfg, datasets["train"], device) if spec.build_plan
+            else make_plan(cfg, datasets["train"], device))
 
     tx = make_optimizer(cfg.lr, cfg.weight_decay, cfg.accum, cfg.optimizer,
                         state_dtype=cfg.opt_state_dtype)
@@ -254,6 +293,9 @@ def run_training(cfg: Config, spec: EngineSpec, datasets=None, make_plots: bool 
         state = restore_checkpoint(cfg.resume, state)
         resume_step = int(state.step)
         print(f"resumed from {cfg.resume} at step {resume_step}")
+    dp = data_parallel()
+    if dp is not None:
+        dp.check_same_params(state.model)
     if cfg.max_steps and resume_step >= cfg.max_steps:
         # finished step-bounded run: resuming must be a pure no-op (no extra
         # step, no new checkpoint) — same semantics as the epoch-bounded case
@@ -261,14 +303,15 @@ def run_training(cfg: Config, spec: EngineSpec, datasets=None, make_plots: bool 
               f"(step {resume_step}); nothing to do")
         return {"state": state, "tr_losses": [], "val_losses": [], "samples_per_sec": 0.0}
 
-    ctx = EngineCtx(cfg, datasets, device, spec.needs_timestamps)
+    ctx = EngineCtx(cfg, datasets, device, spec.needs_timestamps, plan)
     fns = spec.make_fns(ctx)
 
+    primary = ctx.primary
     os.makedirs(cfg.plotdir, exist_ok=True)
     metrics_path = cfg.metrics_path or os.path.join(cfg.plotdir, spec.metrics_filename)
-    logger = MetricLogger(metrics_path, use_wandb=cfg.wandb,
+    logger = MetricLogger(metrics_path if primary else None, use_wandb=cfg.wandb and primary,
                           wandb_config=vars(cfg) if spec.wandb_config else None)
-    timer = StepTimer(cfg.profile_dir, device)
+    timer = StepTimer(cfg.profile_dir if primary else "", device)
     train_seed = cfg.seed + spec.rng_offset
 
     nb_epoch = ctx.steps_per_epoch
@@ -360,18 +403,19 @@ def run_training(cfg: Config, spec: EngineSpec, datasets=None, make_plots: bool 
             crps_metrics["crps_batches_evaluated"] = nb_crps
             logger.log(crps_metrics, step=global_step)
 
-        # ---- sample + plot every 2 epochs (reference main.py:125-134) ----
+        # ---- sample + plot every 2 epochs (reference main.py:125-134); the
+        # sampler runs on every process, the primary draws ----
         if make_plots and fns.plot_fn is not None and epoch % 2 == 0:
             fns.plot_fn(state, epoch)
 
-        save_checkpoint(ckpt_dir, state)
+        save_checkpoint(ckpt_dir, state)   # rank 0 writes, every rank waits for it
     timer.stop_trace()
 
     result = {"state": state, "tr_losses": tr_losses, "val_losses": val_losses,
               "samples_per_sec": timer.rate()}
     if fns.final_fn is not None:
         result.update(fns.final_fn(state, logger, global_step) or {})
-    if make_plots and spec.loss_curve and tr_losses:
+    if make_plots and primary and spec.loss_curve and tr_losses:
         from probunet_torch.viz.plots import plot_loss_curves
         plot_loss_curves(tr_losses, val_losses, os.path.join(cfg.plotdir, spec.loss_curve))
     logger.close()

@@ -13,7 +13,10 @@ day-of-year climatologies), and trains the deterministic U-Net and the
 LinearCNN with per-variable losses and a final physical-unit MAE. The epoch
 loop itself — ingest modes, logging, watch and checkpoint cadences,
 max_steps, exact resume, eval/CRPS/plot scheduling — lives once in
-:mod:`probunet_torch.train.engine`.
+:mod:`probunet_torch.train.engine`. Under a process group each experiment
+runs data parallel: the engine's plan feeds each rank its rows of every
+global batch, the steps take the engine's ``dp``, and only rank 0 draws the
+plots.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from probunet_torch.models.edm import EDMPrecond
 from probunet_torch.models.layers import reset_parameters
 from probunet_torch.models.prob_unet import ProbabilisticUNet
 from probunet_torch.models.unet import UNet
+from probunet_torch.parallel.mesh import resolve_device
 from probunet_torch.train.engine import (
     EngineFns,
     EngineSpec,
@@ -50,7 +54,6 @@ from probunet_torch.train.steps import (
     make_probunet_train_step,
     make_sample_fn,
 )
-from probunet_torch.utils.device import resolve_device
 
 
 def _dtype(cfg: Config) -> torch.dtype:
@@ -156,14 +159,15 @@ def train_probunet(cfg: Config, datasets=None, make_plots: bool = True, device=N
     def make_fns(ctx):
         train_step = make_probunet_train_step(model, cfg.lowres_scale, cfg.standardization,
                                               beta_fn, dtype, accum=cfg.accum,
-                                              watch=cfg.watch_every > 0)
-        eval_step = make_probunet_eval_step(model, cfg.lowres_scale, cfg.standardization, dtype)
+                                              watch=cfg.watch_every > 0, dp=ctx.dp)
+        eval_step = make_probunet_eval_step(model, cfg.lowres_scale, cfg.standardization, dtype,
+                                            dp=ctx.dp)
         sample_fn = make_sample_fn(model, cfg.lowres_scale, cfg.standardization,
                                    cfg.num_samples, dtype)
         crps_fn = None
         if cfg.eval_crps:
             crps_fn = make_crps_eval_fn(model, cfg.lowres_scale, cfg.standardization,
-                                        cfg.variables, cfg.crps_samples, dtype)
+                                        cfg.variables, cfg.crps_samples, dtype, dp=ctx.dp)
 
         def train_call(state, item, seed):
             return train_step(state, item["hr"], item["stats"], item["idx"], seed)
@@ -175,7 +179,8 @@ def train_probunet(cfg: Config, datasets=None, make_plots: bool = True, device=N
             return crps_fn(item["hr"], item["stats"], item["idx"], generator)
 
         def plot_fn(state, epoch):
-            _plot_probunet_samples(cfg, ctx.datasets["test"], sample_fn, epoch, device)
+            _plot_probunet_samples(cfg, ctx.datasets["test"], sample_fn, epoch, device,
+                                   ctx.primary)
 
         return EngineFns(
             train_call=train_call,
@@ -208,16 +213,17 @@ def train_edm(cfg: Config, datasets=None, make_plots: bool = True, device=None) 
 
     def make_fns(ctx):
         train_step = make_edm_train_step(model, cfg.lowres_scale, cfg.standardization,
-                                         compute_dtype=dtype, watch=cfg.watch_every > 0)
+                                         compute_dtype=dtype, watch=cfg.watch_every > 0,
+                                         dp=ctx.dp)
         eval_step = make_edm_eval_step(model, cfg.lowres_scale, cfg.standardization,
-                                       compute_dtype=dtype)
+                                       compute_dtype=dtype, dp=ctx.dp)
         sample_fn = make_edm_sample_fn(model, cfg.lowres_scale, cfg.standardization,
                                        cfg.num_samples, cfg.edm_steps, compute_dtype=dtype)
         crps_fn = None
         if cfg.eval_crps:
             crps_fn = make_edm_crps_eval_fn(model, cfg.lowres_scale, cfg.standardization,
                                             cfg.variables, cfg.crps_samples, cfg.edm_steps,
-                                            compute_dtype=dtype)
+                                            compute_dtype=dtype, dp=ctx.dp)
 
         def train_call(state, item, seed):
             return train_step(state, item["hr"], item["stats"], item["idx"], seed)
@@ -230,7 +236,8 @@ def train_edm(cfg: Config, datasets=None, make_plots: bool = True, device=None) 
 
         def plot_fn(state, epoch):
             # the EDM sampler has make_sample_fn's surface
-            _plot_probunet_samples(cfg, ctx.datasets["test"], sample_fn, epoch, device)
+            _plot_probunet_samples(cfg, ctx.datasets["test"], sample_fn, epoch, device,
+                                   ctx.primary)
 
         return EngineFns(train_call=train_call, eval_call=eval_call,
                          crps_call=crps_call if crps_fn is not None else None,
@@ -299,12 +306,13 @@ def train_baseline(cfg: Config, datasets=None, make_plots: bool = True, device=N
     def make_fns(ctx):
         train_step = make_deterministic_train_step(model, cfg.lowres_scale, cfg.standardization,
                                                    _dtype(cfg), timetransform=cfg.timetransform,
-                                                   watch=cfg.watch_every > 0)
+                                                   watch=cfg.watch_every > 0, dp=ctx.dp)
         eval_step = make_deterministic_eval_step(model, cfg.lowres_scale, cfg.standardization,
-                                                 cfg.variables, timetransform=cfg.timetransform)
+                                                 cfg.variables, timetransform=cfg.timetransform,
+                                                 dp=ctx.dp)
         mae_step = make_deterministic_eval_step(model, cfg.lowres_scale, cfg.standardization,
                                                 cfg.variables, reconstruct=True, loss="mae",
-                                                timetransform=cfg.timetransform)
+                                                timetransform=cfg.timetransform, dp=ctx.dp)
 
         def train_call(state, item, seed):
             return train_step(state, item["hr"], item["stats"], item["idx"],
@@ -323,7 +331,7 @@ def train_baseline(cfg: Config, datasets=None, make_plots: bool = True, device=N
 
         def final_fn(state, logger, global_step):
             # sample + plot_batch (baseline/main.py:88-90, trainmodel.py:204-233)
-            if make_plots:
+            if make_plots and ctx.primary:
                 _plot_baseline_samples(cfg, model, ctx.ds_val)
                 _plot_baseline_losses(cfg, tr_losses, val_losses)
             # final physical-unit MAE (reference baseline/main.py:112-115)
@@ -334,8 +342,9 @@ def train_baseline(cfg: Config, datasets=None, make_plots: bool = True, device=N
                 for v in cfg.variables:
                     mae[v].append(float(m[f"eval_{v}"]))
             mae = {v: float(np.mean(x)) for v, x in mae.items()}
-            for v in cfg.variables:
-                print(f"MAE for {v} on validation data: ", mae[v])
+            if ctx.primary:
+                for v in cfg.variables:
+                    print(f"MAE for {v} on validation data: ", mae[v])
             logger.log({f"mae_{v}": mae[v] for v in cfg.variables}, step=global_step)
             return {"tr_losses": tr_losses, "val_losses": val_losses, "mae": mae}
 
@@ -360,14 +369,15 @@ def run_bcsd(cfg: Config, datasets, chunk: int = 1024, device=None) -> Dict:
     fixed (365, H, W, C) buffers) and the predictions stream chunk by
     chunk, so device memory is O(chunk + 365 tiles), never the full split.
     The tail chunk is padded with zero days in bin 364 so every chunk has
-    one shape, and bin 364's count is corrected after."""
+    one shape, and bin 364's count is corrected after. With several
+    processes (each holding its shard of the train years) the accumulators
+    are partial sums: they are summed across the processes
+    (:func:`~probunet_torch.parallel.multihost.allreduce_sum`, float64), so
+    every process applies the GLOBAL train climatology."""
     from probunet_torch.data import transforms
     from probunet_torch.models.baselines import doy_sums
+    from probunet_torch.parallel.multihost import allreduce_sum, process_info
 
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError("BCSD over several processes (merging the climatologies "
-                                  "across them) is not ported yet: ROADMAP Queue 1 item 7")
     dev = resolve_device(device)
     ds_train = datasets["train"]
     t_all, h, w, c = ds_train.hr_np.shape
@@ -393,6 +403,9 @@ def run_bcsd(cfg: Config, datasets, chunk: int = 1024, device=None) -> Dict:
         cnt += doy_sums(torch.ones(chunk, device=dev), doy_d)
         if pad:
             cnt[364] -= pad   # the padded rows were zero fields; fix the count
+    if process_info()[1] > 1:
+        num, den, cnt = (torch.from_numpy(a).to(dev, torch.float32) for a in allreduce_sum(
+            *(t.cpu().double().numpy() for t in (num, den, cnt))))
     cnt_c = torch.clamp(cnt, min=1.0)[:, None, None, None]
     scale = (num / cnt_c) / (den / cnt_c + 1e-9)
 
@@ -413,9 +426,12 @@ def run_bcsd(cfg: Config, datasets, chunk: int = 1024, device=None) -> Dict:
     return out
 
 
-def _plot_probunet_samples(cfg: Config, ds_test, sample_fn, epoch: int, device) -> None:
+def _plot_probunet_samples(cfg: Config, ds_test, sample_fn, epoch: int, device,
+                           primary: bool = True) -> None:
     """``cfg.num_samples`` ensemble members of two random test days, drawn
-    with a generator seeded by ``epoch``, as ``<plotdir>/epoch<epoch>.png``."""
+    with a generator seeded by ``epoch``, as ``<plotdir>/epoch<epoch>.png``.
+    Every process samples (as the JAX loop runs its sampler on all
+    processes); only the ``primary`` draws the figure."""
     import matplotlib.pyplot as plt
 
     from probunet_torch.viz.plots import plot_sample_batch
@@ -425,6 +441,8 @@ def _plot_probunet_samples(cfg: Config, ds_test, sample_fn, epoch: int, device) 
     hr_preds, pair = sample_fn(ds_test.hr_device(), ds_test.stats,
                                torch.from_numpy(idx).to(ds_test.device),
                                generator=torch.Generator(device).manual_seed(epoch))
+    if not primary:
+        return
     fig, _ = plot_sample_batch(pair["lrinterp"].cpu().numpy(), hr_preds.cpu().numpy(),
                                pair["hr"].cpu().numpy(), ds_test.timestamps_np[idx], epoch,
                                cfg.variables, lat=ds_test.lat, lon=ds_test.lon, N=n,

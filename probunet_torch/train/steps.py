@@ -7,6 +7,16 @@ package compiles each step into one XLA program; here PyTorch runs it
 eagerly, and the training step updates its :class:`TrainState` in place.
 Every step runs under :func:`full_fp32`, so fp32 convolutions and matmuls
 are IEEE fp32 (the JAX package's ``Precision.HIGHEST``), never TF32.
+
+Data parallel: given ``dp`` (a :class:`~probunet_torch.parallel.mesh.
+DataParallel`), a step runs on this rank's rows of the global batch and
+computes what one process computes on the whole of it, as the JAX step does
+on a batch sharded over the mesh: every random draw (dropout, label
+dropout, posterior and prior noise, EDM sigmas and noise) is this rank's
+rows of the global draw, the gradients are all-reduced before the gradient
+norm, the clip and the optimizer, and the metrics are reduced on the device
+(summed where the loss sums over the batch, as the ELBO does, else
+averaged). Without ``dp`` every step is the single-process step.
 """
 
 from __future__ import annotations
@@ -23,6 +33,20 @@ from probunet_torch.train.state import TrainState, global_norm
 from probunet_torch.utils.device import full_fp32
 
 SeedOrGenerator = Union[int, torch.Generator]
+
+
+def _randn(dp, shape, generator, device, dtype=None, axis: int = 0) -> torch.Tensor:
+    """Standard normals of ``shape``; with ``dp``, this rank's rows (along
+    ``axis``) of the draw for the global batch."""
+    if dp is None:
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    return dp.randn(shape, generator, device, dtype, axis)
+
+
+def _shard(dp) -> Tuple[int, int]:
+    """The (rank, world) whose rows of the global batch's dropout draws the
+    model takes: ``dp``'s, else the whole batch."""
+    return (0, 1) if dp is None else (dp.rank, dp.world)
 
 
 def beta_schedule(schedule: str, beta: float, warmup_steps: int = 0) -> Callable[[int], float]:
@@ -72,7 +96,7 @@ def _pair(hr_all, stats, idx, lowres_scale, standardization, compute_dtype):
 def make_probunet_train_step(model, lowres_scale: int, standardization: str,
                              beta_fn: Optional[Callable[[int], float]] = None,
                              compute_dtype: torch.dtype = torch.float32, accum: int = 1,
-                             watch: bool = False):
+                             watch: bool = False, dp=None):
     """Returns step(state, hr_all, stats, idx, seed_or_generator, eps=None)
     -> metrics, for ``state.model is model``.
 
@@ -86,7 +110,9 @@ def make_probunet_train_step(model, lowres_scale: int, standardization: str,
     and ``grad_norm`` (before clipping), plus per-parameter gradient norms
     with ``watch``; tensors stay on the device. The JAX factory's ``tx`` and
     ``donate`` have no counterpart: the optimizer lives in the state, which
-    is updated in place."""
+    is updated in place. ``dp``: data parallel (the module docstring); the
+    ELBO sums over the batch, so the gradients and losses are summed over
+    the ranks."""
     beta_fn = beta_fn or (lambda step: model.beta)
     accum = max(1, int(accum))
 
@@ -100,19 +126,22 @@ def make_probunet_train_step(model, lowres_scale: int, standardization: str,
             beta = beta_fn(state.step // accum)
             g_latent, g_dropout = _step_generators(seed_or_generator, state.step, x.device)
             if eps is None:
-                eps = torch.randn(x.shape[0], model.latent_dim, generator=g_latent,
-                                  device=x.device)
+                eps = _randn(dp, (x.shape[0], model.latent_dim), g_latent, x.device)
             params = state.optimizer.params
             for p in params:
                 p.grad = None
-            total, recon, kl = model.elbo(x, y, beta, generator=g_dropout, eps=eps)
+            total, recon, kl = model.elbo(x, y, beta, generator=g_dropout, eps=eps,
+                                      shard=_shard(dp))
             total.backward()
             for p in params:  # unused parameters (map_layer*) still decay, as in optax
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             metrics = {"train_loss": total.detach(), "recon_loss": recon.detach(),
-                       "kl_div": kl.detach(), "beta": beta,
-                       "grad_norm": global_norm(p.grad for p in params)}
+                       "kl_div": kl.detach()}
+            if dp is not None:
+                dp.allreduce_grads(params, mean=False)
+                metrics = dp.reduce_metrics(metrics, sums=list(metrics))
+            metrics.update(beta=beta, grad_norm=global_norm(p.grad for p in params))
             if watch:
                 metrics.update(_grad_leaf_norms(model))
             state.optimizer.step()
@@ -124,12 +153,13 @@ def make_probunet_train_step(model, lowres_scale: int, standardization: str,
 
 def make_probunet_train_multistep(model, lowres_scale: int, standardization: str,
                                   beta_fn: Optional[Callable[[int], float]] = None,
-                                  compute_dtype: torch.dtype = torch.float32, accum: int = 1):
+                                  compute_dtype: torch.dtype = torch.float32, accum: int = 1,
+                                  dp=None):
     """multi(state, hr_all, stats, idxs, seed_or_generator) runs one training
     step per row of ``idxs`` (K, B) and returns the metrics stacked over K:
     the JAX package's scanned multistep as a plain loop."""
     step = make_probunet_train_step(model, lowres_scale, standardization, beta_fn,
-                                    compute_dtype, accum)
+                                    compute_dtype, accum, dp=dp)
 
     def multi(state, hr_all, stats, idxs, seed_or_generator):
         ms = [step(state, hr_all, stats, idx, seed_or_generator) for idx in idxs]
@@ -139,11 +169,12 @@ def make_probunet_train_multistep(model, lowres_scale: int, standardization: str
 
 
 def make_probunet_eval_step(model, lowres_scale: int, standardization: str,
-                            compute_dtype: torch.dtype = torch.float32):
+                            compute_dtype: torch.dtype = torch.float32, dp=None):
     """Returns step(hr_all, stats, idx, seed_or_generator, beta, eps=None)
     -> {val_loss, val_recon_loss, val_kl_div}: the ELBO with dropout off
     (``model.eval()``) and a seeded posterior draw, as the reference's eval
-    still samples the posterior."""
+    still samples the posterior. With ``dp`` the draw is this rank's rows
+    of the global one and the losses are summed over the ranks."""
 
     @torch.no_grad()
     def step(hr_all, stats, idx, seed_or_generator: SeedOrGenerator, beta,
@@ -153,8 +184,11 @@ def make_probunet_eval_step(model, lowres_scale: int, standardization: str,
             x, y = _pair(hr_all, stats, idx, lowres_scale, standardization, compute_dtype)
             gen = (seed_or_generator if isinstance(seed_or_generator, torch.Generator)
                    else torch.Generator(x.device).manual_seed(int(seed_or_generator)))
+            if eps is None and dp is not None:   # as DiagGaussian draws it: generator's device, x's dtype
+                eps = dp.randn((x.shape[0], model.latent_dim), gen, gen.device, x.dtype)
             total, recon, kl = model.elbo(x, y, beta, generator=gen, eps=eps)
-        return {"val_loss": total, "val_recon_loss": recon, "val_kl_div": kl}
+        out = {"val_loss": total, "val_recon_loss": recon, "val_kl_div": kl}
+        return out if dp is None else dp.reduce_metrics(out, sums=list(out))
 
     return step
 
@@ -205,17 +239,23 @@ def _ensemble_crps_metrics(hr_preds: torch.Tensor, hr: torch.Tensor,
 
 def make_crps_eval_fn(model, lowres_scale: int, standardization: str,
                       variables: Tuple[str, ...], num_samples: int = 16,
-                      compute_dtype: torch.dtype = torch.float32):
+                      compute_dtype: torch.dtype = torch.float32, dp=None):
     """Returns fn(hr_all, stats, idx, generator=None, eps=None) -> metrics:
     K prior draws, residual -> HR, per-variable mean CRPS in physical units
-    and the ensemble-mean MAE."""
+    and the ensemble-mean MAE. With ``dp`` the draws are this rank's rows
+    of the global batch's and the metrics are averaged over the ranks."""
     sample = make_sample_fn(model, lowres_scale, standardization, num_samples, compute_dtype)
 
     def fn(hr_all, stats, idx, generator: Optional[torch.Generator] = None,
            eps: Optional[torch.Tensor] = None):
+        if eps is None and dp is not None:   # as DiagGaussian.sample draws them
+            eps = dp.randn((num_samples, len(idx), model.latent_dim), generator,
+                           generator.device if generator is not None else idx.device,
+                           compute_dtype, axis=1)
         hr_preds, pair = sample(hr_all, stats, idx, generator, eps)
         with torch.inference_mode():
-            return _ensemble_crps_metrics(hr_preds, pair["hr"], variables)
+            out = _ensemble_crps_metrics(hr_preds, pair["hr"], variables)
+        return out if dp is None else dp.reduce_metrics(out, means=list(out))
 
     return fn
 
@@ -232,7 +272,7 @@ def _elementwise_loss(loss: str):
 
 def make_deterministic_train_step(model, lowres_scale: int, standardization: str,
                                   compute_dtype: torch.dtype = torch.float32, loss: str = "mse",
-                                  timetransform: str = "id", watch: bool = False):
+                                  timetransform: str = "id", watch: bool = False, dp=None):
     """Returns step(state, hr_all, stats, idx, timestamps, seed_or_generator)
     -> metrics, for ``state.model is model`` (a deterministic U-Net or a
     :class:`~probunet_torch.models.baselines.LinearCNN`).
@@ -245,7 +285,9 @@ def make_deterministic_train_step(model, lowres_scale: int, standardization: str
     ``compute_dtype``; the layers cast their fp32 weights to x's dtype, as
     the JAX layers do. The dropout draws derive from (seed, micro-step).
     Metrics: ``train_loss``, ``train_loss_var{i}`` per variable, and
-    per-parameter gradient norms with ``watch``; tensors stay on the device."""
+    per-parameter gradient norms with ``watch``; tensors stay on the device.
+    ``dp``: data parallel; the loss is a mean, so the gradients and losses
+    are averaged over the ranks."""
     loss_of = _elementwise_loss(loss)
 
     def step(state: TrainState, hr_all: torch.Tensor, stats, idx: torch.Tensor,
@@ -260,7 +302,7 @@ def make_deterministic_train_step(model, lowres_scale: int, standardization: str
             params = state.optimizer.params
             for p in params:
                 p.grad = None
-            preds = model(x, class_labels=labels, generator=g_dropout)
+            preds = model(x, class_labels=labels, generator=g_dropout, shard=_shard(dp))
             total = loss_of(preds, y)
             total.backward()
             for p in params:  # unused parameters (map_layer*) still decay, as in optax
@@ -270,6 +312,9 @@ def make_deterministic_train_step(model, lowres_scale: int, standardization: str
             metrics = {"train_loss": total.detach()}
             for i in range(y.shape[-1]):
                 metrics[f"train_loss_var{i}"] = loss_of(preds[..., i], y[..., i])
+            if dp is not None:
+                dp.allreduce_grads(params, mean=True)
+                metrics = dp.reduce_metrics(metrics, means=list(metrics))
             if watch:
                 metrics.update(_grad_leaf_norms(model))
             state.optimizer.step()
@@ -282,12 +327,12 @@ def make_deterministic_train_step(model, lowres_scale: int, standardization: str
 def make_deterministic_eval_step(model, lowres_scale: int, standardization: str,
                                  variables: Tuple[str, ...], reconstruct: bool = False,
                                  loss: str = "mse", compute_dtype: torch.dtype = torch.float32,
-                                 timetransform: str = "id"):
+                                 timetransform: str = "id", dp=None):
     """Returns step(hr_all, stats, idx, timestamps) -> {eval_<var>}: the
     per-variable loss of the model's residual (reference
     trainmodel.py:235-304) in eval mode; with ``reconstruct`` on the
     physical HR fields after residual -> HR and unit conversion (mm/day,
-    deg C)."""
+    deg C). With ``dp`` the losses are averaged over the ranks."""
     loss_of = _elementwise_loss(loss)
 
     def to_physical(field, var):
@@ -313,7 +358,7 @@ def make_deterministic_eval_step(model, lowres_scale: int, standardization: str,
                 y = pair["targets"]
                 for i, var in enumerate(variables):
                     out[f"eval_{var}"] = loss_of(preds[..., i], y[..., i])
-        return out
+        return out if dp is None else dp.reduce_metrics(out, means=list(out))
 
     return step
 
@@ -328,29 +373,34 @@ def _edm_pair(hr_all, stats, idx, lowres_scale, standardization, compute_dtype):
     return pair["inputs"].to(compute_dtype), pair["targets"].float(), pair, sl
 
 
-def _dsm_loss(model, x, y, sigma, noise, sigma_data, compute_dtype, generator=None):
+def _dsm_loss(model, x, y, sigma, noise, sigma_data, compute_dtype, generator=None,
+              shard=(0, 1)):
     """The lambda(sigma)-weighted denoising loss of one batch: the residual
-    ``y`` noised by ``noise * sigma``, denoised conditioned on ``x``."""
+    ``y`` noised by ``noise * sigma``, denoised conditioned on ``x``
+    (dropout: ``generator`` and ``shard``, ``UNet.forward``)."""
     weight = (sigma ** 2 + sigma_data ** 2) / (sigma * sigma_data) ** 2
     noisy = (y + noise * sigma[:, None, None, None]).to(compute_dtype)
-    d = model(noisy, sigma, condition_img=x, generator=generator)
+    d = model(noisy, sigma, condition_img=x, generator=generator, shard=shard)
     per = (d.float() - y).square().mean(dim=(1, 2, 3))
     return (weight * per).mean()
 
 
-def _dsm_draws(b, shape, device, g_sigma, g_noise, p_mean, p_std, sigma=None, noise=None):
+def _dsm_draws(b, shape, device, g_sigma, g_noise, p_mean, p_std, sigma=None, noise=None,
+               dp=None):
     """Log-normal sigmas (B,) and standard-normal noise ``shape``, each drawn
-    from its generator unless given."""
+    from its generator unless given (with ``dp``, this rank's rows of the
+    global draws)."""
     if sigma is None:
-        sigma = torch.exp(p_mean + p_std * torch.randn(b, generator=g_sigma, device=device))
+        sigma = torch.exp(p_mean + p_std * _randn(dp, (b,), g_sigma, device))
     if noise is None:
-        noise = torch.randn(shape, generator=g_noise, device=device)
+        noise = _randn(dp, tuple(shape), g_noise, device)
     return sigma.to(device, torch.float32), noise.to(device, torch.float32)
 
 
 def make_edm_train_step(model, lowres_scale: int, standardization: str, p_mean: float = -1.2,
                         p_std: float = 1.2, sigma_data: float = 1.0,
-                        compute_dtype: torch.dtype = torch.float32, watch: bool = False):
+                        compute_dtype: torch.dtype = torch.float32, watch: bool = False,
+                        dp=None):
     """Returns step(state, hr_all, stats, idx, seed_or_generator, sigma=None,
     noise=None) -> metrics, for ``state.model is model`` (an
     :class:`~probunet_torch.models.edm.EDMPrecond`).
@@ -364,7 +414,9 @@ def make_edm_train_step(model, lowres_scale: int, standardization: str, p_mean: 
     fp32. The sigma, noise and dropout draws derive from (seed, micro-step);
     ``sigma`` (B,) and ``noise`` (B, H, W, C) standard normals may be given
     instead. Metrics: ``train_loss`` and ``grad_norm``, plus per-parameter
-    gradient norms with ``watch``; tensors stay on the device."""
+    gradient norms with ``watch``; tensors stay on the device. ``dp``: data
+    parallel; the loss is a mean, so the gradients and the loss are averaged
+    over the ranks."""
 
     def step(state: TrainState, hr_all: torch.Tensor, stats, idx: torch.Tensor,
              seed_or_generator: SeedOrGenerator, sigma: Optional[torch.Tensor] = None,
@@ -378,17 +430,21 @@ def make_edm_train_step(model, lowres_scale: int, standardization: str, p_mean: 
             g_sigma, g_noise, g_dropout = _step_generators(seed_or_generator, state.step,
                                                            x.device, 3)
             sigma, noise = _dsm_draws(y.shape[0], y.shape, x.device, g_sigma, g_noise, p_mean,
-                                      p_std, sigma, noise)
+                                      p_std, sigma, noise, dp)
             params = state.optimizer.params
             for p in params:
                 p.grad = None
-            loss = _dsm_loss(model, x, y, sigma, noise, sigma_data, compute_dtype, g_dropout)
+            loss = _dsm_loss(model, x, y, sigma, noise, sigma_data, compute_dtype, g_dropout,
+                             _shard(dp))
             loss.backward()
             for p in params:  # a parameter outside the graph still decays, as in optax
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            metrics = {"train_loss": loss.detach(),
-                       "grad_norm": global_norm(p.grad for p in params)}
+            metrics = {"train_loss": loss.detach()}
+            if dp is not None:
+                dp.allreduce_grads(params, mean=True)
+                metrics = dp.reduce_metrics(metrics, means=list(metrics))
+            metrics["grad_norm"] = global_norm(p.grad for p in params)
             if watch:
                 metrics.update(_grad_leaf_norms(model))
             state.optimizer.step()
@@ -400,11 +456,13 @@ def make_edm_train_step(model, lowres_scale: int, standardization: str, p_mean: 
 
 def make_edm_eval_step(model, lowres_scale: int, standardization: str, p_mean: float = -1.2,
                        p_std: float = 1.2, sigma_data: float = 1.0,
-                       compute_dtype: torch.dtype = torch.float32):
+                       compute_dtype: torch.dtype = torch.float32, dp=None):
     """Returns step(hr_all, stats, idx, seed_or_generator, sigma=None,
     noise=None) -> {val_loss}: the seeded denoising loss of
     :func:`make_edm_train_step` with dropout off (``model.eval()``); the
-    sigmas, then the noise, are drawn from the one generator unless given."""
+    sigmas, then the noise, are drawn from the one generator unless given.
+    With ``dp`` the draws are this rank's rows of the global ones and the
+    loss is averaged over the ranks."""
 
     @torch.inference_mode()
     def step(hr_all, stats, idx, seed_or_generator: SeedOrGenerator,
@@ -416,9 +474,9 @@ def make_edm_eval_step(model, lowres_scale: int, standardization: str, p_mean: f
             gen = (seed_or_generator if isinstance(seed_or_generator, torch.Generator)
                    else torch.Generator(x.device).manual_seed(int(seed_or_generator)))
             sigma, noise = _dsm_draws(y.shape[0], y.shape, x.device, gen, gen, p_mean, p_std,
-                                      sigma, noise)
-            return {"val_loss": _dsm_loss(model, x, y, sigma, noise, sigma_data,
-                                          compute_dtype)}
+                                      sigma, noise, dp)
+            out = {"val_loss": _dsm_loss(model, x, y, sigma, noise, sigma_data, compute_dtype)}
+            return out if dp is None else dp.reduce_metrics(out, means=list(out))
 
     return step
 
@@ -511,17 +569,24 @@ def make_edm_sample_fn(model, lowres_scale: int, standardization: str, num_sampl
 
 def make_edm_crps_eval_fn(model, lowres_scale: int, standardization: str,
                           variables: Tuple[str, ...], num_samples: int = 16,
-                          num_steps: int = 18, compute_dtype: torch.dtype = torch.float32):
+                          num_steps: int = 18, compute_dtype: torch.dtype = torch.float32,
+                          dp=None):
     """Returns fn(hr_all, stats, idx, generator=None, noise=None) -> metrics:
     the K-member Heun ensemble of :func:`make_edm_sample_fn`, then the
-    per-variable CRPS and ensemble-mean MAE of :func:`make_crps_eval_fn`."""
+    per-variable CRPS and ensemble-mean MAE of :func:`make_crps_eval_fn`
+    (with ``dp``: the chains' noise is this rank's rows of the global
+    batch's, K-major, and the metrics are averaged over the ranks)."""
     sample = make_edm_sample_fn(model, lowres_scale, standardization, num_samples, num_steps,
                                 compute_dtype=compute_dtype)
 
     def fn(hr_all, stats, idx, generator: Optional[torch.Generator] = None,
            noise: Optional[torch.Tensor] = None):
+        if noise is None and dp is not None:   # as edm_heun_chain draws it: (K*B, H, W, C)
+            shape = (num_samples, len(idx), *hr_all.shape[1:])
+            noise = dp.randn(shape, generator, hr_all.device, axis=1).reshape(-1, *shape[2:])
         hr_preds, pair = sample(hr_all, stats, idx, generator, noise)
         with torch.inference_mode():
-            return _ensemble_crps_metrics(hr_preds, pair["hr"], variables)
+            out = _ensemble_crps_metrics(hr_preds, pair["hr"], variables)
+        return out if dp is None else dp.reduce_metrics(out, means=list(out))
 
     return fn

@@ -13,6 +13,9 @@ imported where they are needed.
 
 With wandb importable and ``--agent`` left on, the command registers the
 sweep and runs a real ``wandb.agent``; otherwise it runs the local grid.
+Under a multi-process launch (``torchrun``, as for ``python -m
+probunet_torch.train``) every process runs every grid point data parallel
+and rank 0 writes the results.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import os
 from typing import Dict, List, Optional, Sequence
 
 from probunet_torch.config import Config, get_config
+from probunet_torch.parallel.multihost import maybe_initialize_distributed, process_info
 
 
 def load_sweep(path: str) -> Dict:
@@ -124,7 +128,7 @@ def run_sweep(sweep_path: str, base_cfg: Config, out_path: Optional[str] = None,
 
     best = min(runs, key=lambda r: sign * r["value"])
     out = {"runs": runs, "best": best, "metric": metric, "goal": goal}
-    if out_path:
+    if out_path and process_info()[0] == 0:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         with open(out_path, "w") as f:
             json.dump(out, f, indent=2)
@@ -165,9 +169,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     p.add_argument("--agent", type=lambda s: s.lower() in ("1", "true", "yes"), default=True,
                    help="use a wandb agent when wandb is importable")
     p.add_argument("--count", type=int, default=None, help="max runs for the wandb agent")
-    p.add_argument("--device", default=None, help="default: the CUDA card")
+    p.add_argument("--device", default=None,
+                   help="default: the CUDA card (under a process group cuda:<LOCAL_RANK>)")
     args, rest = p.parse_known_args(argv)
     cfg = get_config(rest)
+    maybe_initialize_distributed(args.device)
     if args.agent:
         try:
             import wandb  # noqa: F401

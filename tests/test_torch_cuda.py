@@ -499,3 +499,75 @@ def test_bcsd_day_of_year_sums_bit_equal_on_card(dev):
     b = doy_sums(vals.to(dev), doy.to(dev))
     assert torch.equal(a, b)
     torch.testing.assert_close(a.cpu(), doy_sums(vals, doy), rtol=1e-6, atol=1e-4)
+
+
+# ---- data parallel on the card ------------------------------------------------------------------
+
+def test_global_draws_are_rows_of_the_global_draw_on_card(dev):
+    """A data-parallel rank's dropout mask, label-dropout draw and posterior
+    eps are its rows of the draw one process makes for the global batch
+    (CUDA Philox, the same generator seed): rank 1 of 2 holds rows 4-7 of
+    the 8-row draw, and at world size 1 the draw is the plain one."""
+    import types
+
+    from probunet_torch.models.layers import dropout, rand_rows
+    from probunet_torch.parallel.mesh import DataParallel
+
+    def gen():
+        return torch.Generator(dev).manual_seed(9)
+
+    full = torch.rand(8, 16, 16, 32, generator=gen(), device=dev)
+    assert torch.equal(rand_rows((4, 16, 16, 32), gen(), dev, (1, 2)), full[4:])
+    assert torch.equal(rand_rows((8, 16, 16, 32), gen(), dev), full)
+    x = torch.ones(4, 32, 16, 16, device=dev).to(memory_format=torch.channels_last)
+    kept = dropout(x, 0.1, True, gen(), (1, 2)) != 0
+    assert torch.equal(kept, (full[4:] < 0.9).permute(0, 3, 1, 2))
+    rank1 = types.SimpleNamespace(rank=1, world=2)
+    eps = DataParallel.randn(rank1, (4, 6), gen(), dev)
+    assert torch.equal(eps, torch.randn(8, 6, generator=gen(), device=dev)[4:])
+    crps = DataParallel.randn(rank1, (3, 4, 6), gen(), dev, axis=1)
+    assert torch.equal(crps, torch.randn(3, 8, 6, generator=gen(), device=dev)[:, 4:])
+
+
+def test_flat_gradient_allreduce_on_one_nccl_rank(dev):
+    """One NCCL rank in this process: the flat all-reduce (one buffer per
+    dtype, channels_last gradients included) and the metric reduction
+    return their inputs bit for bit at world size 1; the ordered float64
+    all-gather keeps values float32 would round; every rank (the one) holds
+    the same parameters."""
+    import socket
+
+    import torch.distributed as dist
+
+    from probunet_torch.parallel import mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mesh.init_process_group({"init_method": f"tcp://localhost:{port}", "world_size": 1,
+                             "rank": 0}, dev)
+    try:
+        assert dist.get_backend() == "nccl"
+        dp = mesh.DataParallel()
+        model = torch.nn.Sequential(torch.nn.Conv2d(8, 16, 3), torch.nn.Linear(5, 7)).to(dev)
+        model[0].to(memory_format=torch.channels_last)
+        params = list(model.parameters())
+        gen = torch.Generator(dev).manual_seed(1)
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=gen, device=dev)
+        model[0].weight.grad = model[0].weight.grad.to(memory_format=torch.channels_last)
+        extra = torch.nn.Parameter(torch.ones(3, device=dev, dtype=torch.bfloat16))
+        extra.grad = torch.randn(3, generator=gen, device=dev).to(torch.bfloat16)
+        before = [p.grad.clone() for p in params + [extra]]
+        dp.allreduce_grads(params + [extra], mean=True)
+        for b, p in zip(before, params + [extra]):
+            assert torch.equal(p.grad, b)
+        metrics = {"train_loss": torch.tensor(3.5, device=dev), "beta": 1.0,
+                   "kl": torch.tensor(0.25, device=dev)}
+        out = dp.reduce_metrics(metrics, sums=["kl"], means=["train_loss"])
+        assert out["train_loss"].item() == 3.5 and out["kl"].item() == 0.25 and out["beta"] == 1.0
+        x = 273.0 + 1e-9 * np.arange(64.0)
+        assert np.array_equal(mesh.allgather_f64_rows(x)[0], x)
+        dp.check_same_params(model)
+    finally:
+        dist.destroy_process_group()

@@ -356,10 +356,15 @@ def test_streaming_ingest_matches_resident(tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
+    """Spatial sharding (item 8) still raises; ``data_shards=2`` (item 7,
+    the lockstep plan on one process) now trains: 12 train days over 3
+    years shard 8 / 4, so 2 lockstep steps in the epoch at batch 4."""
     with pytest.raises(NotImplementedError, match="item 8"):
         t_train(_cfg(tmp_path, "x", parallel_mode="spatial"), _t_datasets(), False, "cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_train(_cfg(tmp_path, "y", data_shards=2), _t_datasets(), False, "cpu")
+    datasets = _t_datasets()
+    datasets["train"].years = [2000, 2001, 2002]
+    res = t_train(_cfg(tmp_path, "y", data_shards=2), datasets, False, "cpu")
+    assert res["state"].step == 2 and len(res["val_losses"]) == 1
 
 
 @pytest.mark.parametrize("x,w", [([], 3), ([1.0, 4.0, 2.0, 8.0], 2), ([5.0, 1.0], 24)])
