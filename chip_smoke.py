@@ -12,7 +12,9 @@ trainer, then the EDM diffusion downscaler (100,349,315 parameters) served,
 stepped and trained, then the baselines (the deterministic U-Net,
 22,792,579 parameters, LinearCNN, BCSD and the conv-VAE) trained and the
 conv-VAE served, then the prob-U-Net trained, served and BCSD run over
-several processes (two ranks sharing the card, one NCCL rank). Phases:
+several processes (two ranks sharing the card, one NCCL rank), then with
+the tile's height sharded over the ranks (``--parallel_mode spatial`` and
+``2d``). Phases:
 
   1. card and build: nvidia-smi name and power limit; nvcc for sm_90a with
      ptxas registers, shared memory and spills; ``cuobjdump -sass`` of the
@@ -142,6 +144,27 @@ several processes (two ranks sharing the card, one NCCL rank). Phases:
      within BCSD_TOL of one process. Each rank's peak memory and ms per
      step beside this process's (the ranks share the card: not a scaling
      figure).
+ 15. spatial (H-axis) model parallelism (``probunet_torch.parallel.spatial*``;
+     K1 does not run there, K2 and K3 run strict on the gathered coarse
+     maps): (a) one rank over NCCL in this process,
+     ``make_spatial_probunet_train_step`` at full width, 128x128, b8,
+     strict, dropout 0, a given z, against the unsharded ``elbo_with_z``
+     and its backward on the same weights and batch (loss, gradient norm,
+     every gradient, phase 9's limits); exactly 0 K1, 11 K2 and 11 K3
+     launches per step and no q/k/v copy; (b) two gloo ranks sharing the
+     card (``--sp-rank`` children): ``train_probunet(parallel_mode=
+     "spatial")`` at full width, b8, 2 epochs of 2 steps with eval and CRPS,
+     against this process's unsharded run (step-1 loss within 1e-5, the run
+     within 5e-3), 0 / 11 / 11 launches per step on each rank (0 / 11 / 0
+     per eval and CRPS batch), one checkpoint; (c) a 256x256 tile of
+     BASELINE's multi-variable configuration (beta annealed) on the two
+     ranks with remat, the largest batch among 4 and 2 whose unsharded step
+     fits: 3 steps strict and fast, finite and falling losses, the K2 and
+     K3 launches per step counted from ``build_unet_plan``, ms per step and
+     peak memory per rank beside one unsharded process at the same size;
+     (d) four gloo ranks, ``--parallel_mode 2d --mesh_shape 2,-1``, b4
+     global, 2 steps against one process with ``data_shards=2``. Ranks
+     sharing one card give no scaling figure.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. The line before the last is the ``kernels`` JSON object, the last
@@ -272,6 +295,19 @@ MP_STRICT_SERVE_TOL = 1e-5
 MP_TRAIN_YEARS = 2          # an even count: equal shards, 2 steps per epoch at b8
 MP_GRAD_STEPS = (1, 2, 3)   # the steps whose gradients phase 14 reads from checkpoints
 MP_SERVE_DAYS = 24          # 3 batches of 8 of phase 4's days: rank 0 serves 2, rank 1 one
+# phase 15, spatial (H-axis) model parallelism. (a) one NCCL rank, the
+# sharded step against the unsharded ELBO with z on the same weights and
+# batch: phase 9's limits (loss and gradient norm relative, each gradient
+# relative to its tensor's largest entry; the sharded path runs plain
+# GroupNorm with one-pass fp32 sums where the unsharded one runs K1, and
+# cuDNN convolves the halo-padded rows with its own algorithms). (b) and (d)
+# hold sharded trainer runs against one process computing the same global
+# batches, with phase 14's limits (MP_STEP1_TOL, MP_TRAJ_TOL). (c) a tile
+# of BASELINE's multi-variable 256x256 configuration on two ranks with remat
+SP_RANKS, SP_2D_RANKS, SP_TILE, SP_TILE_STEPS = 2, 4, 256, 3
+# the largest batch among these whose unsharded strict step (remat) peaks
+# under SP_TILE_PEAK_GIB alone: two ranks each hold about half of it
+SP_TILE_BATCHES, SP_TILE_PEAK_GIB = (4, 2), 36.0
 
 
 def log(msg=""):
@@ -819,6 +855,7 @@ def run_phases(torch, dev, card, sass):
     edm = edm_phase(torch, dev, card, ds, ds_cpu, gen, mark)
     baseline = baseline_phase(torch, dev, card, ds, ds_cpu, gen, mark)
     multi = multiprocess_phase(torch, dev, card, gn_sites, mark)
+    spatial = spatial_phase(torch, dev, card, ds, mark)
 
     def entry(name, source, replaces, n, err, tol, t, extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -831,7 +868,8 @@ def run_phases(torch, dev, card, sass):
                      "trainer": trainer["launches"][key],
                      **{f"edm_{path}": n[key] for path, n in edm["launches"].items()},
                      **{f"baseline_{path}": n[key] for path, n in baseline["launches"].items()},
-                     **{f"multiprocess_{path}": n[key] for path, n in multi["launches"].items()}}
+                     **{f"multiprocess_{path}": n[key] for path, n in multi["launches"].items()},
+                     **{f"spatial_{path}": n[key] for path, n in spatial["launches"].items()}}
                for key in ("gn", "attn", "attn_bwd")}
     launches = {key: sum(by_path[key].values()) for key in by_path}
     return [
@@ -866,7 +904,7 @@ def run_phases(torch, dev, card, sass):
                "launches_by_path": by_path["attn_bwd"],
                "edm_fp32_fast_max_rel_err": edm["k3_rel"],
                "training": train["rates"], "trainer": trainer["report"],
-               "multiprocess": multi["report"],
+               "multiprocess": multi["report"], "spatial": spatial["report"],
                "sass": {n: c for n, c in sass.items() if n.startswith("attention_bwd")}}),
     ]
 
@@ -2555,6 +2593,386 @@ def multiprocess_phase(torch, dev, card, gn_sites, mark):
     return {"launches": launches, "report": report}
 
 
+def sp_configs():
+    """Phase 15's trainer configs, as this process and the rank children
+    build them: (root, 2-rank spatial run of (b), 4-rank 2d run of (d), the
+    256x256 tile's config of (c))."""
+    root, train, _, _, _ = mp_configs()   # phase 11's files, 2 train years, b8, eval, CRPS
+    root = os.path.join(WORK, "p15")
+    spatial = train.replace(parallel_mode="spatial")
+    two_d = train.replace(parallel_mode="2d", mesh_shape=(2, -1), batch_size=BATCH // 2,
+                          max_steps=2, eval_crps=False)
+    # BASELINE.json config 4: multi-variable 256x256 tiles, beta-annealed KL
+    tile = train.replace(datadir=os.path.join(WORK, "p15_tile"), resolution=(SP_TILE, SP_TILE),
+                         coords=(0, SP_TILE, 0, SP_TILE), remat=True, beta_schedule="linear",
+                         beta_warmup_steps=100)
+    return root, spatial, two_d, tile
+
+
+def _tile_data(cfg, dev):
+    """Phase 15's 256x256 days on ``dev``."""
+    from probunet_torch.data.dataset import ClimexDataset
+
+    return ClimexDataset(cfg.datadir, years=[2000], coords=cfg.coords,
+                         standardization=cfg.standardization, device=dev)
+
+
+def _tile_steps(torch, step_fn):
+    """SP_TILE_STEPS calls of ``step_fn`` (one training step on one batch):
+    (losses, ms per step after the first, peak GiB of this process)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, t0 = [], None
+    for i in range(SP_TILE_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(float(step_fn()["train_loss"]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (SP_TILE_STEPS - 1)
+    return losses, ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def sp_rank(spec_path):
+    """One rank of phase 15 (``python3 chip_smoke.py --sp-rank <spec>``):
+    joins the gloo process group from the environment on cuda:0 and runs
+    the spec's jobs: "trainer" (train_probunet, ``--parallel_mode
+    spatial``), "tile" (the sharded step on the 256x256 tile, strict and
+    fast) or "2d" (train_probunet, ``--parallel_mode 2d``); writes what it
+    measured to ``sprank<r>.json`` beside the spec."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from probunet_torch.parallel.mesh import DataParallel, SpatialMesh
+    from probunet_torch.parallel.multihost import maybe_initialize_distributed, process_info
+    from probunet_torch.parallel.spatial_train import (make_spatial_probunet_train_step,
+                                                       put_spatial)
+    from probunet_torch.train.loop import build_probunet, init_probunet_state, train_probunet
+    from probunet_torch.train.state import make_optimizer
+    from probunet_torch.train.steps import beta_schedule
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device("cuda", 0)
+    maybe_initialize_distributed(dev, "gloo")
+    rank = process_info()[0]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root, spatial_cfg, two_d_cfg, tile_cfg = sp_configs()
+    out = {"rank": rank}
+    for job in spec["jobs"]:
+        if job in ("trainer", "2d"):
+            c = spatial_cfg if job == "trainer" else two_d_cfg
+            c = c.replace(plotdir=os.path.join(root, job, "plots"),
+                          checkpoints_dir=os.path.join(root, job, "ckpt"))
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = train_probunet(c, make_plots=False, device=dev)
+            torch.cuda.synchronize()
+            out[job] = {"wall_s": time.perf_counter() - t0, "steps": res["state"].step,
+                        "launches": as_launches(launch_counts()),
+                        "copies": launch_counts()[3],
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            del res
+        else:   # the 256x256 tile
+            mesh = SpatialMesh(1)
+            c = tile_cfg.replace(batch_size=spec["tile_batch"])
+            pair = _tile_data(c, dev).batch(torch.arange(c.batch_size, device=dev))
+            x, y = (put_spatial(pair[k], mesh) for k in ("inputs", "targets"))
+            out["tile"] = {}
+            for mode, dtype in (("strict", torch.float32), ("fast", torch.bfloat16)):
+                state = init_probunet_state(c, build_probunet(c, device="meta"), make_optimizer(),
+                                            device=dev)
+                step = make_spatial_probunet_train_step(
+                    state.model, mesh, beta_schedule(c.beta_schedule, c.beta,
+                                                     c.beta_warmup_steps),
+                    dtype, remat=True, dp=DataParallel())
+                reset_launch_counts()
+                losses, ms, peak = _tile_steps(torch, lambda: step(state, x, y, c.seed))
+                out["tile"][mode] = {"losses": losses, "ms": ms, "peak_gib": peak,
+                                     "launches": as_launches(launch_counts()),
+                                     "copies": launch_counts()[3]}
+                del state, step
+            del pair, x, y
+        torch.cuda.empty_cache()
+    with open(os.path.join(root, f"sprank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _run_ranks(n, spec, root, timeout=600):
+    """Start ``n`` phase-15 rank children on ``spec``, wait for them (kill
+    them at ``timeout``), and return their results in rank order."""
+    path = os.path.join(root, f"spec{n}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    port = _free_port()
+    procs = []
+    for r in range(n):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        env.update(COORDINATOR_ADDRESS=f"localhost:{port}", PROBUNET_NUM_PROCESSES=str(n),
+                   PROBUNET_PROCESS_ID=str(r))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sp-rank",
+                                       path], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            log(text[-6000:])
+            raise AssertionError(f"phase 15 rank {r} of {n} exited with {p.returncode}")
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(root, f"sprank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, wall
+
+
+def spatial_phase(torch, dev, card, ds, mark):
+    """Phase 15 (see the module docstring). Returns the launch counts of
+    its paths and its report."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from probunet_torch.data.synthetic import generate_climex_like
+    from probunet_torch.models.unet import build_unet_plan
+    from probunet_torch.parallel import mesh as M
+    from probunet_torch.parallel.spatial_train import make_spatial_probunet_train_step
+    from probunet_torch.train.loop import build_probunet, init_probunet_state, train_probunet
+    from probunet_torch.train.state import create_train_state, make_optimizer
+    from probunet_torch.train.steps import beta_schedule, make_probunet_train_step
+    from probunet_torch.utils.device import full_fp32
+
+    root, spatial_cfg, two_d_cfg, tile_cfg = sp_configs()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    report, launches, failed = {"card": card}, {}, []
+
+    def check(ok, what):
+        if not ok:
+            failed.append(what)
+
+    # ---- (a) one NCCL rank: the sharded step against the unsharded ELBO ---------------
+    cfg = spatial_cfg.replace(dropout=0.0)
+    model = build_probunet(cfg, device="meta").to_empty(device=dev)
+    fill_weights(torch, model, seed=15)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    pair = ds.batch(torch.arange(BATCH, device=dev))
+    x, y = pair["inputs"], pair["targets"]
+    z = torch.randn(BATCH, cfg.latent_dim, generator=torch.Generator().manual_seed(15)).to(dev)
+    M.init_process_group({"init_method": f"tcp://localhost:{_free_port()}", "world_size": 1,
+                          "rank": 0}, dev)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, expected nccl")
+        state = create_train_state(model, make_optimizer(cfg.lr, cfg.weight_decay))
+        step = make_spatial_probunet_train_step(model, M.SpatialMesh(1), remat=False,
+                                                dp=M.DataParallel())
+        step(state, x, y, 0, z=z)   # warm-up: cuDNN picks its algorithms
+        model.load_state_dict(init)
+        state = create_train_state(model, make_optimizer(cfg.lr, cfg.weight_decay))
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, x, y, 0, z=z)
+        torch.cuda.synchronize()
+        sharded_ms = (time.perf_counter() - t0) * 1e3
+        n_a = launch_counts()
+        got = (float(m["train_loss"]), float(m["grad_norm"]),
+               {k: p.grad.detach().clone() for k, p in model.named_parameters()})
+    finally:
+        dist.destroy_process_group()
+    model.load_state_dict(init)
+    with full_fp32():
+        for p in model.parameters():
+            p.grad = None
+        total, _, _ = model.train().elbo_with_z(x, y, z, cfg.beta)
+        total.backward()
+    ref_g = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach()
+             for k, p in model.named_parameters()}
+    ref_norm = math.sqrt(sum(float(g.double().square().sum()) for g in ref_g.values()))
+    ref_loss = total.item()
+    loss_rel = abs(got[0] - ref_loss) / abs(ref_loss)
+    norm_rel = abs(got[1] - ref_norm) / ref_norm
+    grad_rel, worst = worst_grad(got[2], ref_g)
+    ok = loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_LOSS_TOL and grad_rel <= STEP_GRAD_TOL
+    log(f"[15] (a) one NCCL rank, make_spatial_probunet_train_step at full width, {RES}x{RES}, "
+        f"b{BATCH}, strict, dropout 0, given z, against the unsharded elbo_with_z and its "
+        f"backward on the same weights: loss rel err {loss_rel:.3e}, grad norm rel err "
+        f"{norm_rel:.3e} (tol {STEP_LOSS_TOL}); worst gradient max|err| / max|g| {grad_rel:.3e} "
+        f"({worst}; tol {STEP_GRAD_TOL}) {'ok' if ok else 'FAIL'}; one step {sharded_ms:.1f} ms")
+    check(ok, "(a) the sharded step disagrees with the unsharded ELBO")
+    want = (0, K2_PER_BATCH, K3_PER_STEP, 0)
+    log(f"[15] (a) launches of one sharded step (K1, K2, K3, q/k/v copies): {tuple(n_a)}, "
+        f"expected {want} {'ok' if tuple(n_a) == want else 'FAIL'}")
+    check(tuple(n_a) == want, f"(a) launches {tuple(n_a)}")
+    launches["nccl_step"] = as_launches(n_a)
+    report["nccl_step"] = {"loss_rel": loss_rel, "norm_rel": norm_rel, "grad_rel": grad_rel,
+                           "ms": sharded_ms}
+    del model, state, step, init, got, ref_g, total, x, y, pair
+    torch.cuda.empty_cache()
+    mark(15)
+
+    # ---- this process: the references of (b), (c) and (d) --------------------------------
+    ref_cfg = spatial_cfg.replace(parallel_mode="data", plotdir=os.path.join(root, "ref", "plots"),
+                                  checkpoints_dir=os.path.join(root, "ref", "ckpt"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_probunet(ref_cfg, make_plots=False, device=dev)
+    ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    ref2_cfg = two_d_cfg.replace(parallel_mode="data", data_shards=2,
+                                 plotdir=os.path.join(root, "ref2d", "plots"),
+                                 checkpoints_dir=os.path.join(root, "ref2d", "ckpt"))
+    train_probunet(ref2_cfg, make_plots=False, device=dev)
+    torch.cuda.empty_cache()
+    generate_climex_like(tile_cfg.datadir, years=(2000,), grid=SP_TILE,
+                         days_per_year=max(SP_TILE_BATCHES))
+    enc, dec, _ = build_unet_plan((SP_TILE, SP_TILE), 3, tile_cfg.model_channels,
+                                  tile_cfg.channel_mult, tile_cfg.num_blocks,
+                                  tile_cfg.attn_resolutions)
+    n_attn = sum(1 for s in enc + dec if s.attention and s.out_channels // 64)
+    tile_ds = _tile_data(tile_cfg, dev)
+    tile_one, tile_b = {}, None
+    for b in SP_TILE_BATCHES:
+        c = tile_cfg.replace(batch_size=b)
+        idx = torch.arange(b, device=dev)
+        try:
+            for mode, dtype in (("strict", torch.float32), ("fast", torch.bfloat16)):
+                state = init_probunet_state(c, build_probunet(c, device="meta"), make_optimizer(),
+                                            device=dev)
+                one = make_probunet_train_step(state.model, c.lowres_scale, c.standardization,
+                                               beta_schedule(c.beta_schedule, c.beta,
+                                                             c.beta_warmup_steps), dtype)
+                losses, ms, peak = _tile_steps(torch, lambda: one(
+                    state, tile_ds.hr_device(), tile_ds.stats, idx, c.seed))
+                tile_one[mode] = {"losses": losses, "ms": ms, "peak_gib": peak}
+                del state, one
+                torch.cuda.empty_cache()
+        except torch.cuda.OutOfMemoryError:
+            log(f"[15] (c) one process at {SP_TILE}x{SP_TILE} b{b}: out of memory")
+            tile_one = {}
+            torch.cuda.empty_cache()
+            continue
+        if tile_one["strict"]["peak_gib"] <= SP_TILE_PEAK_GIB:
+            tile_b = b
+            break
+        log(f"[15] (c) one process at b{b}: strict peak {tile_one['strict']['peak_gib']:.2f} "
+            f"GiB over {SP_TILE_PEAK_GIB}: two ranks would not fit")
+    if tile_b is None:
+        raise AssertionError(f"phase 15 (c): no batch of {SP_TILE_BATCHES} fits")
+    del tile_ds
+    torch.cuda.empty_cache()
+    mark(15)
+
+    # ---- (b) and (c): two gloo ranks sharing the card ---------------------------------------
+    ranks, wall = _run_ranks(SP_RANKS, {"jobs": ["trainer", "tile"], "tile_batch": tile_b}, root)
+    log(f"[15] {SP_RANKS} ranks (child processes, gloo on cuda:0) ran the spatial trainer and "
+        f"the {SP_TILE}x{SP_TILE} tile in {wall:.1f} s (process start, init and data included)")
+
+    def records(tag):
+        with open(os.path.join(root, tag, "plots", "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    def compare(tag, ref_tag, n_steps):
+        ref_recs, recs = records(ref_tag), records(tag)
+        check([sorted(r) for r in recs] == [sorted(r) for r in ref_recs],
+              f"({tag}) the ranks' records differ in keys or count from one process's")
+        worst = {}
+        for key in ("train_loss", "recon_loss", "kl_div", "grad_norm", "val_loss"):
+            a = np.asarray([r[key] for r in ref_recs if key in r])
+            b_ = np.asarray([r[key] for r in recs if key in r])
+            if not len(a):
+                continue
+            log(f"[15] ({tag}) {key}: one process {a.tolist()}, ranks {b_.tolist()}")
+            check(len(a) == len(b_) and np.isfinite(b_).all(), f"({tag}) {key}")
+            worst[key] = float(np.max(np.abs(b_ - a) / np.abs(a)))
+        steps = [r for r in recs if "train_loss" in r]
+        step1 = (abs(steps[0]["train_loss"] - ref_recs[0]["train_loss"])
+                 / abs(ref_recs[0]["train_loss"]))
+        ok = (step1 <= MP_STEP1_TOL and max(worst.values()) <= MP_TRAJ_TOL
+              and len(steps) == n_steps)
+        log(f"[15] ({tag}) against one process ({n_steps} steps): step-1 loss rel diff "
+            f"{step1:.3e} (tol {MP_STEP1_TOL}); worst rel diff over the run "
+            + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+            + f" (tol {MP_TRAJ_TOL}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"({tag}) the sharded run differs from one process")
+        ckpt = os.path.join(root, tag, "ckpt", "probunet")
+        files = sorted(os.path.relpath(os.path.join(d, f), ckpt)
+                       for d, _, fs in os.walk(ckpt) for f in fs)
+        check(files == [os.path.join("state", "state.pt")], f"({tag}) checkpoint holds {files}")
+        return {"step1_rel": step1, "worst_rel": worst,
+                "ms_per_step": 1e3 * BATCH / steps[-1]["samples_per_sec"]}
+
+    n_steps = TRAINER_EPOCHS * (2 * TRAINER_DAYS // BATCH)
+    report["trainer"] = compare("trainer", "ref", n_steps)
+    n_evals = TRAINER_EPOCHS * 2     # one val and one CRPS batch per epoch
+    want = {"gn": 0, "attn": (n_steps + n_evals) * K2_PER_BATCH, "attn_bwd": n_steps * K3_PER_STEP}
+    for rk in ranks:
+        got_l = rk["trainer"]["launches"]
+        ok = got_l == want and rk["trainer"]["copies"] == 0
+        log(f"[15] (b) rank {rk['rank']} launches {got_l}, expected {want} (per step 0 / "
+            f"{K2_PER_BATCH} / {K3_PER_STEP}, per eval or CRPS batch 0 / {K2_PER_BATCH} / 0), "
+            f"q/k/v copies {rk['trainer']['copies']}; peak {rk['trainer']['peak_gib']:.2f} GiB, "
+            f"wall {rk['trainer']['wall_s']:.1f} s {'ok' if ok else 'FAIL'}")
+        check(ok, f"(b) rank {rk['rank']} launches {got_l}")
+        launches[f"rank{rk['rank']}_trainer"] = got_l
+    ref_ms = 1e3 * BATCH / [r for r in records("ref") if "train_loss" in r][-1]["samples_per_sec"]
+    log(f"[15] (b) ms per step (epoch {TRAINER_EPOCHS}, b{BATCH}): 2 ranks sharing the card over "
+        f"gloo {report['trainer']['ms_per_step']:.1f}, one process {ref_ms:.1f}"
+        f"; one process's peak {ref_peak:.2f} GiB; the ranks share one card and stage every "
+        f"halo, gather and the gradient through the host: not a scaling figure ({card})")
+
+    per_step = {"gn": 0, "attn": 2 * n_attn, "attn_bwd": n_attn}   # remat: K2 twice
+    report["tile"] = {"batch": tile_b, "one_process": tile_one, "ranks": {}}
+    for mode in ("strict", "fast"):
+        for rk in ranks:
+            t = rk["tile"][mode]
+            want_t = {k: SP_TILE_STEPS * v for k, v in per_step.items()}
+            ok = (np.isfinite(t["losses"]).all() and t["losses"][-1] < t["losses"][0]
+                  and t["launches"] == want_t and t["copies"] == 0)
+            log(f"[15] (c) {SP_TILE}x{SP_TILE} tile, b{tile_b}, {mode}, remat, rank {rk['rank']} "
+                f"of {SP_RANKS}: losses {[round(v, 1) for v in t['losses']]}, {t['ms']:.1f} ms "
+                f"per step, peak {t['peak_gib']:.2f} GiB; launches {t['launches']} = "
+                f"{SP_TILE_STEPS} x {per_step} (from build_unet_plan: {n_attn} attention "
+                f"blocks, K2 twice with remat) {'ok' if ok else 'FAIL'}")
+            check(ok, f"(c) {mode} rank {rk['rank']}")
+            launches[f"rank{rk['rank']}_tile_{mode}"] = t["launches"]
+            report["tile"]["ranks"].setdefault(mode, []).append(
+                {k: t[k] for k in ("ms", "peak_gib", "losses")})
+        o = tile_one[mode]
+        log(f"[15] (c) one process, unsharded, same tile and batch, {mode}, remat: "
+            f"{o['ms']:.1f} ms per step, peak {o['peak_gib']:.2f} GiB, losses "
+            f"{[round(v, 1) for v in o['losses']]} ({card})")
+    mark(15)
+
+    # ---- (d) four gloo ranks, 2d (2 x 2) --------------------------------------------------
+    ranks4, wall4 = _run_ranks(SP_2D_RANKS, {"jobs": ["2d"]}, root)
+    log(f"[15] (d) {SP_2D_RANKS} ranks, --parallel_mode 2d --mesh_shape 2,-1, in {wall4:.1f} s")
+    report["2d"] = compare("2d", "ref2d", two_d_cfg.max_steps)
+    want4 = {"gn": 0, "attn": 2 * K2_PER_BATCH, "attn_bwd": 2 * K3_PER_STEP}
+    for rk in ranks4:
+        got_l = rk["2d"]["launches"]
+        log(f"[15] (d) rank {rk['rank']} launches {got_l}, expected {want4}; peak "
+            f"{rk['2d']['peak_gib']:.2f} GiB {'ok' if got_l == want4 else 'FAIL'}")
+        check(got_l == want4, f"(d) rank {rk['rank']} launches {got_l}")
+        launches[f"rank{rk['rank']}_2d"] = got_l
+    if failed:
+        raise AssertionError("phase 15: " + "; ".join(failed))
+    shutil.rmtree(root, ignore_errors=True)
+    mark(15)
+    return {"launches": launches, "report": report}
+
+
 def launch_counts():
     """(K1, K2, K3 launches, q/k/v copies before an attention launch) so far."""
     from probunet_torch.ops import attention as K2
@@ -2675,4 +3093,6 @@ def profile(torch, fn, name, what, phase=6, top=12):
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--mp-rank":   # a rank child of phase 14
         sys.exit(mp_rank(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--sp-rank":   # a rank child of phase 15
+        sys.exit(sp_rank(sys.argv[2]))
     sys.exit(main())

@@ -92,23 +92,27 @@ class UNetBlock(nn.Module):
         if self.skip is not None:
             orig = self.skip(orig)
         x = x + orig  # skip_scale is 1 in every configuration of the reference
-
         if self.heads:
-            b, c, h, w = x.shape
-            nh = self.heads
-            # The reference's output channels factor as (head, channel, qkv),
-            # qkv last ((B*nh, C/nh, 3, HW) reshape, networks.py:180). The
-            # conv runs with its weight and bias rows reordered to (qkv,
-            # head, channel), the same math, so that q, k and v come out as
-            # views with a unit-stride head dim that the attention kernels
-            # read in place; the parameters keep the reference's layout.
-            y = F.conv2d(self.norm2(x), _qkv_major(self.qkv.weight, nh, x.dtype),
-                         _qkv_major(self.qkv.bias, nh, x.dtype))
-            q, k, v = nhwc(y).reshape(b, h * w, 3, nh, c // nh).unbind(2)
-            a = fused_attention(q, k, v, self.fast_attention)
-            a = nchw(a.reshape(b, h, w, c))
-            x = x + self.proj(a)
+            x = x + self.attend(x, self.fast_attention)
         return x
+
+    def attend(self, x: torch.Tensor, fast: bool) -> torch.Tensor:
+        """The attention layer's residual, ``proj(attention(norm2(x)))``,
+        on NCHW channels_last ``x`` through K2 (K3 in the backward); the
+        spatial forward runs it on the gathered map with ``fast=False``."""
+        b, c, h, w = x.shape
+        nh = self.heads
+        # The reference's output channels factor as (head, channel, qkv),
+        # qkv last ((B*nh, C/nh, 3, HW) reshape, networks.py:180). The conv
+        # runs with its weight and bias rows reordered to (qkv, head,
+        # channel), the same math, so that q, k and v come out as views with
+        # a unit-stride head dim that the attention kernels read in place;
+        # the parameters keep the reference's layout.
+        y = F.conv2d(self.norm2(x), _qkv_major(self.qkv.weight, nh, x.dtype),
+                     _qkv_major(self.qkv.bias, nh, x.dtype))
+        q, k, v = nhwc(y).reshape(b, h * w, 3, nh, c // nh).unbind(2)
+        a = fused_attention(q, k, v, fast)
+        return self.proj(nchw(a.reshape(b, h, w, c)))
 
 
 def _qkv_major(p: torch.Tensor, heads: int, dtype: torch.dtype) -> torch.Tensor:

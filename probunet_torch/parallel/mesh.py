@@ -21,7 +21,9 @@ group up and gives the steps what XLA's collectives gave the JAX step:
   (``reduce_metrics``); ``check_same_params`` is the JAX ``put_state``'s
   guarantee that every rank starts from the same parameters;
 - :func:`allgather_f64_rows`: the bit-exact, ordered all-gather under
-  ``multihost.allreduce_sum``.
+  ``multihost.allreduce_sum``;
+- :class:`SpatialMesh`: the (data, space) grid of ranks of the spatial
+  modes (``parallel/spatial*.py``), one process group per row and column.
 """
 
 from __future__ import annotations
@@ -127,15 +129,26 @@ def barrier() -> None:
         dist.barrier()
 
 
-def allgather_f64_rows(row) -> np.ndarray:
+def allgather_f64_rows(row, group=None) -> np.ndarray:
     """Every rank's float64 vector ``row``, stacked in rank order:
-    (world, k), bit for bit on every rank. Any reduction of the rows then
-    runs on the host in an order the caller fixes; ``all_reduce(SUM)``
-    would leave the order to the backend."""
+    (ranks, k), bit for bit on every rank of ``group`` (default all). Any
+    reduction of the rows then runs on the host in an order the caller
+    fixes; ``all_reduce(SUM)`` would leave the order to the backend."""
     t = torch.from_numpy(np.ascontiguousarray(row, np.float64).ravel()).to(collective_device())
-    rows = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(rows, t)
+    rows = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(rows, t, group=group)
     return torch.stack(rows).cpu().numpy()
+
+
+def randn_rows(shape: Sequence[int], generator: Optional[torch.Generator], device,
+               dtype: Optional[torch.dtype], axis: int, index: int, count: int) -> torch.Tensor:
+    """Shard ``index`` of ``count`` (rows along ``axis``) of the standard
+    normals that ``generator`` gives for the global shape, ``shape[axis] *
+    count`` rows: every shard draws the global numbers and keeps its own."""
+    full = list(shape)
+    full[axis] *= count
+    out = torch.randn(full, generator=generator, device=device, dtype=dtype)
+    return out.narrow(axis, index * shape[axis], shape[axis])
 
 
 class DataParallel:
@@ -154,10 +167,7 @@ class DataParallel:
         """This rank's rows (along ``axis``) of the standard normals that
         ``generator`` gives for the global shape, ``shape[axis] * world``
         rows: one process drawing the global batch draws the same numbers."""
-        full = list(shape)
-        full[axis] *= self.world
-        out = torch.randn(full, generator=generator, device=device, dtype=dtype)
-        return out.narrow(axis, self.rank * shape[axis], shape[axis])
+        return randn_rows(shape, generator, device, dtype, axis, self.rank, self.world)
 
     def allreduce_grads(self, params: Iterable[torch.nn.Parameter], mean: bool) -> None:
         """Replace every ``p.grad`` by the global gradient: summed over the
@@ -206,3 +216,42 @@ def data_parallel() -> Optional[DataParallel]:
     """A :class:`DataParallel` of the default process group when one is
     initialized, else None (a single process: every step as without one)."""
     return DataParallel() if is_initialized() else None
+
+
+class SpatialMesh:
+    """The ranks of the spatial modes as a (data, space) grid — the JAX
+    package's ``make_mesh((dp, -1), ("data", "space"))`` with one rank in
+    place of each device: rank r has data index ``r // sp`` and space index
+    ``r % sp``. The ``sp`` ranks of a data index form its space group (they
+    hold the rows of one batch shard, H split in rank order); the ``dp``
+    ranks of a space index form a data group. ``dp=1`` is the pure spatial
+    mode: one space group of every rank. Without a process group the mesh is
+    one rank (``sp = dp = 1``, no groups), and the spatial collectives are
+    the identity.
+
+    Every rank creates every group, in the same order, including the groups
+    it is not in (``torch.distributed.new_group`` is collective)."""
+
+    def __init__(self, dp: int = 1):
+        rank, world = (dist.get_rank(), dist.get_world_size()) if is_initialized() else (0, 1)
+        if dp < 1 or world % dp:
+            raise ValueError(f"{world} ranks do not split into {dp} data shards")
+        self.dp, self.sp = dp, world // dp
+        self.data_index, self.space_index = divmod(rank, self.sp)
+        #: global ranks of this rank's space group, in space order
+        self.space_ranks = [self.data_index * self.sp + s for s in range(self.sp)]
+        self.space_group = self.data_group = None
+        if is_initialized():
+            spaces = [dist.new_group([d * self.sp + s for s in range(self.sp)])
+                      for d in range(dp)]
+            datas = [dist.new_group([d * self.sp + s for d in range(dp)])
+                     for s in range(self.sp)]
+            self.space_group = spaces[self.data_index]
+            self.data_group = datas[self.space_index]
+
+    def randn(self, shape: Sequence[int], generator: Optional[torch.Generator] = None,
+              device=None, dtype: Optional[torch.dtype] = None, axis: int = 0) -> torch.Tensor:
+        """This data index's rows (along ``axis``) of the standard normals of
+        the global batch: the same numbers on every rank of a space group,
+        and what one process draws for the whole batch."""
+        return randn_rows(shape, generator, device, dtype, axis, self.data_index, self.dp)

@@ -90,17 +90,17 @@ def merge_moment_stats(parts):
     return mean.astype(np.float32), np.sqrt(np.maximum(var, 0.0)).astype(np.float32)
 
 
-def allreduce_sum(*arrays):
-    """Element-wise float64 sum of host arrays across processes, summed on
-    the host in process order from an all-gather of every process's values
-    (:func:`mesh.allgather_f64_rows`), so the result is bit-equal on every
-    process. The arrays, of any shapes, travel as one payload. Without a
-    process group: the arrays as they are."""
+def allreduce_sum(*arrays, group=None):
+    """Element-wise float64 sum of host arrays across the processes of
+    ``group`` (default all), summed on the host in process order from an
+    all-gather of every process's values (:func:`mesh.allgather_f64_rows`),
+    so the result is bit-equal on every process. The arrays, of any shapes,
+    travel as one payload. Without a process group: the arrays as they are."""
     if not mesh.is_initialized():
         return arrays
     shapes = [np.asarray(a).shape for a in arrays]
     payload = np.concatenate([np.asarray(a, np.float64).ravel() for a in arrays])
-    total = mesh.allgather_f64_rows(payload).sum(axis=0, dtype=np.float64)
+    total = mesh.allgather_f64_rows(payload, group).sum(axis=0, dtype=np.float64)
     out, lo = [], 0
     for shp in shapes:
         n = int(np.prod(shp)) if shp else 1
@@ -109,33 +109,35 @@ def allreduce_sum(*arrays):
     return tuple(out)
 
 
-def allreduce_moments(s1: np.ndarray, s2: np.ndarray, count: int):
-    """(s1, s2, count) summed across processes (:func:`allreduce_sum`)."""
+def allreduce_moments(s1: np.ndarray, s2: np.ndarray, count: int, group=None):
+    """(s1, s2, count) summed across the processes of ``group``
+    (:func:`allreduce_sum`)."""
     if not mesh.is_initialized():
         return s1, s2, count
-    s1, s2, cnt = allreduce_sum(s1, s2, np.float64(count))
+    s1, s2, cnt = allreduce_sum(s1, s2, np.float64(count), group=group)
     return s1, s2, int(round(float(cnt)))
 
 
-def allgather_counts(local_n: int) -> np.ndarray:
-    """Every process's ``local_n``, in process order, on every process
-    (float64 transport: exact below 2**53). Without a process group:
-    ``[local_n]``."""
+def allgather_counts(local_n: int, group=None) -> np.ndarray:
+    """Every process's ``local_n`` (of ``group``, default all), in process
+    order, on every process (float64 transport: exact below 2**53). Without
+    a process group: ``[local_n]``."""
     if not mesh.is_initialized():
         return np.asarray([int(local_n)], np.int64)
-    rows = mesh.allgather_f64_rows(np.asarray([np.float64(local_n)]))
+    rows = mesh.allgather_f64_rows(np.asarray([np.float64(local_n)]), group)
     return np.asarray(np.round(rows[:, 0]), np.int64)
 
 
-def global_perpixel_stats(hr_np: np.ndarray, lowres_scale: int, device=None):
+def global_perpixel_stats(hr_np: np.ndarray, lowres_scale: int, device=None, group=None):
     """Per-pixel standardization statistics over the GLOBAL train split:
-    local float64 LR moments (pooled on ``device``) -> cross-process sum ->
+    local float64 LR moments (pooled on ``device``) -> sum across the
+    processes of ``group`` (default all; each must hold another shard) ->
     (mean, std) repeated to the HR grid. Without a process group: the
     streaming statistics of ``hr_np``."""
     from probunet_torch.data.pipeline import lr_moments_streaming
 
     s1, s2, n = lr_moments_streaming(hr_np, lowres_scale, device=device)
-    s1, s2, n = allreduce_moments(s1, s2, n)
+    s1, s2, n = allreduce_moments(s1, s2, n, group)
     mean, std = merge_moment_stats([(s1, s2, n)])
     mean_hr = np.repeat(np.repeat(mean, lowres_scale, axis=0), lowres_scale, axis=1)
     std_hr = np.repeat(np.repeat(std, lowres_scale, axis=0), lowres_scale, axis=1)
@@ -190,12 +192,18 @@ class MultihostPlan:
     batches of the multi-process run: the run a multi-process run is held
     against. The plan gives the lockstep epoch plans (from the gathered
     shard sizes), the GLOBAL perpixel statistics, and each step's rows of
-    this process on its device (:meth:`device_batch`)."""
+    this process on its device (:meth:`device_batch`).
 
-    def __init__(self, cfg, ds_train, device):
+    ``shard`` = (index, count) and ``group`` key the plan by a data shard
+    other than the process (default: this process of all): the spatial 2d
+    mode's data index of ``dp``, whose ranks in the data ``group`` hold
+    distinct shards while the ranks of one space group hold the same."""
+
+    def __init__(self, cfg, ds_train, device, shard: Optional[tuple] = None, group=None):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.pi, self.pc = process_info()
+        self.pi, self.pc = shard or process_info()
+        self.group = group
         self.num_shards = int(cfg.data_shards) or self.pc
         if self.pc > 1 and self.num_shards != self.pc:
             raise ValueError(f"data_shards={self.num_shards} must equal the process count "
@@ -204,7 +212,7 @@ class MultihostPlan:
             raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
                              f"{self.num_shards} shards")
         if self.pc > 1:
-            self.shard_sizes = [int(s) for s in allgather_counts(len(ds_train))]
+            self.shard_sizes = [int(s) for s in allgather_counts(len(ds_train), group)]
             self.offset = int(sum(self.shard_sizes[:self.pi]))
         else:
             # one process holds every shard: global ids are its ids
@@ -225,7 +233,8 @@ class MultihostPlan:
         if std == "none":
             return None
         if std == "perpixel" and merged:
-            return global_perpixel_stats(ds.hr_np, self.cfg.lowres_scale, self.device)
+            return global_perpixel_stats(ds.hr_np, self.cfg.lowres_scale, self.device,
+                                         self.group)
         return compute_lr_stats_streaming(ds.hr_np, self.cfg.lowres_scale, std,
                                           device=self.device)
 
@@ -316,12 +325,14 @@ class MultihostPlan:
         return self.pi == 0
 
 
-def make_plan(cfg, ds_train, device) -> Optional[MultihostPlan]:
-    """A :class:`MultihostPlan` when several processes run or
+def make_plan(cfg, ds_train, device, shard: Optional[tuple] = None,
+              group=None) -> Optional[MultihostPlan]:
+    """A :class:`MultihostPlan` when several processes (or data shards
+    ``shard`` = (index, count), with their ``group``) run or
     ``--data_shards`` > 1, else None (the single-process path)."""
-    _, pc = process_info()
+    _, pc = shard or process_info()
     if pc > 1 or int(cfg.data_shards) > 1:
-        return MultihostPlan(cfg, ds_train, device)
+        return MultihostPlan(cfg, ds_train, device, shard, group)
     return None
 
 

@@ -23,6 +23,11 @@ or with the JAX package's names (``COORDINATOR_ADDRESS=host:port``,
 ``PROBUNET_NUM_PROCESSES``, ``PROBUNET_PROCESS_ID``). The process group comes
 up before any device work: NCCL on the cards, gloo on the CPU.
 ``--data_shards N`` on one process computes what N processes compute.
+``--parallel_mode spatial`` shards the tile's height over the ranks
+instead, and ``--parallel_mode 2d --mesh_shape dp,-1`` makes dp groups of
+world/dp ranks, each group holding its rows of the batch:
+
+    torchrun --nproc_per_node 4 -m probunet_torch.train --parallel_mode 2d --mesh_shape 2,-1 ...
 """
 
 from __future__ import annotations

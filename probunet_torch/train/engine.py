@@ -43,8 +43,9 @@ Several processes (one per card, ``torch.distributed``): each reads its
 shard of the train years, the plan keeps them in lockstep on global batches
 with GLOBAL statistics, the steps all-reduce gradients and metrics
 (``EngineCtx.dp``), every rank runs every step, eval and collective, and
-only rank 0 writes metrics, plots and checkpoints. The spatial modes are not
-ported yet.
+only rank 0 writes metrics, plots and checkpoints. The spatial modes
+(``parallel/spatial_train.py``) plug in their own plan (``EngineSpec.
+build_plan``) and steps.
 """
 
 from __future__ import annotations
@@ -104,14 +105,16 @@ class EngineSpec:
     loss_curve: Optional[str] = None  # filename for the train/val loss plot
 
 
-def load_datasets(cfg: Config, device=None) -> Dict[str, Any]:
+def load_datasets(cfg: Config, device=None, shard: Optional[tuple] = None) -> Dict[str, Any]:
     """The three split datasets, their device tensors on ``device``
     (default the CUDA card). With several processes each reads only its
-    contiguous shard of the TRAIN years (:func:`shard_years`); val and test
-    stay whole on every process, so every process evaluates the same data."""
+    contiguous shard of the TRAIN years (:func:`shard_years`; ``shard`` =
+    (index, count) names another shard than the process's, as the spatial
+    modes key it by the data index); val and test stay whole on every
+    process, so every process evaluates the same data."""
     from probunet_torch.data.dataset import ClimexDataset
 
-    pi, pc = process_info()
+    pi, pc = shard or process_info()
     out = {}
     for split in ("train", "val", "test"):
         years = cfg.years(split)
@@ -140,12 +143,6 @@ def _seeded_generator(seed: int, index: int, device) -> torch.Generator:
     its (seed, micro-step) streams."""
     s = int(np.random.SeedSequence([int(seed), int(index)]).generate_state(1)[0])
     return torch.Generator(device).manual_seed(s)
-
-
-def _require_data_parallel(cfg: Config) -> None:
-    if cfg.parallel_mode != "data":
-        raise NotImplementedError(f"parallel_mode={cfg.parallel_mode!r} (spatial sharding) is "
-                                  "not ported yet: ROADMAP Queue 1 item 8")
 
 
 class EngineCtx:
@@ -279,7 +276,6 @@ def run_training(cfg: Config, spec: EngineSpec, datasets=None, make_plots: bool 
     """The shared epoch loop on ``device`` (default the CUDA card, under a
     process group this rank's). Returns {state, tr_losses, val_losses,
     samples_per_sec} plus whatever the experiment's ``final_fn`` adds."""
-    _require_data_parallel(cfg)
     device = resolve_device(device)
     datasets = datasets or load_datasets(cfg, device)
     plan = (spec.build_plan(cfg, datasets["train"], device) if spec.build_plan

@@ -16,7 +16,8 @@ max_steps, exact resume, eval/CRPS/plot scheduling — lives once in
 :mod:`probunet_torch.train.engine`. Under a process group each experiment
 runs data parallel: the engine's plan feeds each rank its rows of every
 global batch, the steps take the engine's ``dp``, and only rank 0 draws the
-plots.
+plots. ``parallel_mode`` "spatial" / "2d" trains the prob-U-Net with the
+tile's height sharded over the ranks (``parallel/spatial_train.py``).
 """
 
 from __future__ import annotations
@@ -146,10 +147,15 @@ def train_probunet(cfg: Config, datasets=None, make_plots: bool = True, device=N
     card; raises without one unless ``device="cpu"``), for the Probabilistic
     U-Net or (``ds_model="vae"``) the conv-VAE, checkpointed under
     ``<checkpoints_dir>/probunet`` or ``/vae``. Returns {state, tr_losses,
-    val_losses, samples_per_sec}."""
+    val_losses, samples_per_sec}. ``parallel_mode`` "spatial" or "2d" shards
+    the tile's height over the ranks
+    (:func:`~probunet_torch.parallel.spatial_train.train_probunet_spatial`)."""
     if cfg.parallel_mode in ("spatial", "2d"):
-        raise NotImplementedError(f"parallel_mode={cfg.parallel_mode!r} (spatial sharding) is "
-                                  "not ported yet: ROADMAP Queue 1 item 8")
+        if cfg.ds_model == "vae":
+            raise ValueError("ds_model=vae has no spatially-sharded kernels; "
+                             "use parallel_mode=data")
+        from probunet_torch.parallel.spatial_train import train_probunet_spatial
+        return train_probunet_spatial(cfg, datasets, make_plots, device)
     device = resolve_device(device)
     model = build_probunet(cfg, device="meta")
     dtype = _dtype(cfg)

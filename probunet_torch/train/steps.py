@@ -184,8 +184,8 @@ def make_probunet_eval_step(model, lowres_scale: int, standardization: str,
             x, y = _pair(hr_all, stats, idx, lowres_scale, standardization, compute_dtype)
             gen = (seed_or_generator if isinstance(seed_or_generator, torch.Generator)
                    else torch.Generator(x.device).manual_seed(int(seed_or_generator)))
-            if eps is None and dp is not None:   # as DiagGaussian draws it: generator's device, x's dtype
-                eps = dp.randn((x.shape[0], model.latent_dim), gen, gen.device, x.dtype)
+            if eps is None and dp is not None:   # as DiagGaussian draws it: generator's device, fp32
+                eps = dp.randn((x.shape[0], model.latent_dim), gen, gen.device, torch.float32)
             total, recon, kl = model.elbo(x, y, beta, generator=gen, eps=eps)
         out = {"val_loss": total, "val_recon_loss": recon, "val_kl_div": kl}
         return out if dp is None else dp.reduce_metrics(out, sums=list(out))
@@ -248,10 +248,10 @@ def make_crps_eval_fn(model, lowres_scale: int, standardization: str,
 
     def fn(hr_all, stats, idx, generator: Optional[torch.Generator] = None,
            eps: Optional[torch.Tensor] = None):
-        if eps is None and dp is not None:   # as DiagGaussian.sample draws them
+        if eps is None and dp is not None:   # as DiagGaussian.sample draws them: fp32
             eps = dp.randn((num_samples, len(idx), model.latent_dim), generator,
                            generator.device if generator is not None else idx.device,
-                           compute_dtype, axis=1)
+                           torch.float32, axis=1)
         hr_preds, pair = sample(hr_all, stats, idx, generator, eps)
         with torch.inference_mode():
             out = _ensemble_crps_metrics(hr_preds, pair["hr"], variables)

@@ -310,6 +310,33 @@ def test_world_one_training_step_equals_no_group(one_rank_group):
     one_rank_group.check_same_params(state.model)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_world_one_eval_and_crps_draws_equal_no_group(one_rank_group, dtype):
+    """The eval's posterior draw and the CRPS's K prior draws of one rank
+    are the draws with no process group, in both compute dtypes: fp32
+    standard normals, as the distributions (fp32 in the port and in JAX)
+    draw them, whatever the activations' dtype."""
+    from test_torch_trainer import TINY, _t_datasets
+
+    from probunet_torch.train import steps as tsteps
+    from probunet_torch.train.loop import build_probunet, init_probunet_state
+    from probunet_torch.train.state import make_optimizer
+
+    cfg = TConfig(**TINY)
+    model = init_probunet_state(cfg, build_probunet(cfg, device="meta"), make_optimizer(),
+                                device="cpu").model
+    ds = _t_datasets()["val"]
+    idx, dt = torch.arange(4), getattr(torch, dtype)
+    runs = []
+    for dp in (None, one_rank_group):
+        ev = tsteps.make_probunet_eval_step(model, 4, "pertimestep", dt, dp=dp)
+        crps = tsteps.make_crps_eval_fn(model, 4, "pertimestep", cfg.variables, 3, dt, dp=dp)
+        m = {**ev(ds.hr_device(), ds.stats, idx, torch.Generator().manual_seed(3), 1.0),
+             **crps(ds.hr_device(), ds.stats, idx, torch.Generator().manual_seed(4))}
+        runs.append({k: float(v) for k, v in m.items()})
+    assert runs[1] == runs[0]
+
+
 # ---- the serving merge ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("fmt", ["netcdf4", "classic"])

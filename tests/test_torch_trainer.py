@@ -356,11 +356,20 @@ def test_streaming_ingest_matches_resident(tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
-    """Spatial sharding (item 8) still raises; ``data_shards=2`` (item 7,
-    the lockstep plan on one process) now trains: 12 train days over 3
-    years shard 8 / 4, so 2 lockstep steps in the epoch at batch 4."""
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_train(_cfg(tmp_path, "x", parallel_mode="spatial"), _t_datasets(), False, "cpu")
+    """Every mode runs now. Spatial sharding on one process, a
+    space group of one rank: the same losses as the data-parallel run
+    (streaming against resident ingest, 1e-5), and the conv-VAE refused
+    there as JAX refuses it; ``data_shards=2`` (item 7, the lockstep plan
+    on one process) trains: 12 train days over 3 years shard 8 / 4, so 2
+    lockstep steps in the epoch at batch 4."""
+    ref = t_train(_cfg(tmp_path, "d"), _t_datasets(), False, "cpu")
+    res = t_train(_cfg(tmp_path, "x", parallel_mode="spatial"), _t_datasets(), False, "cpu")
+    assert res["state"].step == ref["state"].step == 3
+    np.testing.assert_allclose(res["tr_losses"], ref["tr_losses"], rtol=1e-5)
+    np.testing.assert_allclose(res["val_losses"], ref["val_losses"], rtol=1e-5)
+    with pytest.raises(ValueError, match="ds_model=vae"):
+        t_train(_cfg(tmp_path, "v", parallel_mode="2d", ds_model="vae"), _t_datasets(), False,
+                "cpu")
     datasets = _t_datasets()
     datasets["train"].years = [2000, 2001, 2002]
     res = t_train(_cfg(tmp_path, "y", data_shards=2), datasets, False, "cpu")
