@@ -18,19 +18,24 @@ the tile's height sharded over the ranks (``--parallel_mode spatial`` and
 
   1. card and build: nvidia-smi name and power limit; nvcc for sm_90a with
      ptxas registers, shared memory and spills; ``cuobjdump -sass`` of the
-     library: the tensor-core instructions (HMMA, HGMMA) of every attention
-     kernel, each of which must have some; K1's plan at the path's largest
-     site, its threads, shared memory, registers, spills and cluster
-     residency (cudaOccupancyMaxActiveClusters);
+     library: the tensor-core and TMA instructions of every attention
+     kernel, HMMA (mma.sync) in each fp32 kernel and HGMMA (wgmma) and
+     UTMALDG (TMA loads) in each bf16 kernel that does products, or it
+     fails; K1's plan at the path's largest site, its threads, shared
+     memory, registers, spills and cluster residency
+     (cudaOccupancyMaxActiveClusters); the bf16 attention kernels of the
+     plan at each attention site, their threads, shared memory (held
+     against the plan's), registers and spills (none allowed);
   2. K1 GroupNorm+SiLU against its plain version, output and (B, G) mean
      and rstd, at every (H, W, C) of the path at batch 8 and at edge shapes
      (C = 6 without vectors, H*W = 1, B = 1, a view off a 16-byte boundary,
      one shape streamed through shared memory), fp32 and bf16; two calls
      bit-equal; every site of the path planned on chip;
   3. K2 attention against its plain version at the path's (B, L, heads)
-     and at L = 100, 1 and 65, strict, fast and strict with bf16
-     activations, on the U-Net block's views (read in place), on stride-3
-     views (copied first) and on contiguous tensors;
+     and at L = 100, 1, 65, 2048 and 4096, strict, fast and strict with
+     bf16 activations, on the U-Net block's views (read in place), on
+     stride-3 views (copied first) and on contiguous tensors; a second call
+     bit-equal to the first;
   4. the main path: a checkpoint, then ``downscale`` of synthetic 128x128
      days with 16 members in both modes; files read back and checked;
      launch counters must show 29 K1 and 11 K2 launches per batch, and
@@ -46,8 +51,9 @@ the tile's height sharded over the ranks (``--parallel_mode spatial`` and
      and the 3xTF32 tensor-core bound); the serving rate; a profile of one
      batch;
   7. K3 attention backward against its plain version, and K2's row
-     log-sum-exp against logsumexp, in the cases of phase 3; strict mode
-     with bf16 activations also against rounded dS (DS_SPLIT_TOL);
+     log-sum-exp against logsumexp, in the cases of phase 3, a second K3
+     call bit-equal to the first; strict mode with bf16 activations also
+     against rounded dS (DS_SPLIT_TOL);
   8. the training path: the model with its own init, 10 AdamW steps at b8
      in each mode on a fixed batch and eps with dropout 0.1; launch
      counters must show 29 K1, 11 K2 and 11 K3 launches per step and no
@@ -207,7 +213,8 @@ ATTN_MODES = {"strict": ("float32", False), "fast": ("bfloat16", True),
 # the U-Net block's (qkv, head, channel) views (read in place), stride-3
 # views of an interleaved qkv tensor (copied first), contiguous tensors
 LAYOUTS = ("block", "stride3", "contiguous")
-EDGE_SHAPES = [(2, (100, 2)), (2, (1, 2)), (2, (65, 3))]   # (B, (L, heads)) off the path
+# (B, (L, heads)) off the path: ragged, single-row and long sequences
+EDGE_SHAPES = [(2, (100, 2)), (2, (1, 2)), (2, (65, 3)), (1, (2048, 2)), (1, (4096, 2))]
 # (B, H, W, C, what) of K1 off the path; "unaligned" views x 4 bytes past a
 # 16-byte boundary (the scalar kernel), "streamed" plans off chip (x read twice)
 K1_EDGE = [(3, 5, 7, 6, "C=6, no vectors"), (4, 1, 1, 128, "H*W=1"), (1, 32, 32, 384, "B=1"),
@@ -356,35 +363,44 @@ def main() -> int:
 
 
 def sass_census(_build):
-    """Tensor-core instructions (HMMA: mma.sync, HGMMA: wgmma) per attention
-    kernel function in the built library, by ``cuobjdump -sass``. Raises if
-    a function is missing or has none: every mode of K2 and K3 runs on the
-    tensor cores."""
+    """Tensor-core and TMA instructions per attention kernel function in the
+    built library, by ``cuobjdump -sass``: HMMA (mma.sync), HGMMA (wgmma),
+    UTMALDG (a TMA tensor load). Raises unless every fp32 kernel has HMMA
+    and every bf16 kernel that does products (the ``_sm90`` forward, dK/dV
+    and dQ kernels of each plan) has HGMMA and UTMALDG; the bf16 row pass
+    (``attention_bwd_prep_sm90``) does no product."""
     import re
 
     dump = subprocess.run([_build.find_tool("cuobjdump"), "-sass", str(_build.LIB_PATH)],
                           capture_output=True, text=True, check=True).stdout
-    types = {"f": "fp32", "13__nv_bfloat16": "bf16"}
+    arg = {"f": "fp32", "Lb0E": "false", "Lb1E": "true"}
     counts, cur = {}, None
     for line in dump.splitlines():
         if "Function :" in line:
-            m = re.search(r"(attention_(?:fwd|bwd_dkdv|bwd_dq|bwd_rowdot))I(f|13__nv_bfloat16)"
-                          r"(?:Lb([01]))?E", line)
+            m = re.search(r"\d(attention_[a-z0-9_]+?)(?:I((?:f|Li\d+E|Lb[01]E)+)E)?E", line)
             cur = None
             if m:
-                mode = {None: "", "0": ", strict", "1": ", fast"}[m.group(3)]
-                cur = f"{m.group(1)}<{types[m.group(2)]}{mode}>"
-                counts[cur] = {"HMMA": 0, "HGMMA": 0}
+                args = re.findall(r"f|Li\d+E|Lb[01]E", m.group(2) or "")
+                cur = m.group(1) + (f"<{', '.join(arg.get(a, a[2:-1]) for a in args)}>"
+                                    if args else "")
+                counts[cur] = {"HMMA": 0, "HGMMA": 0, "UTMALDG": 0}
         elif cur is not None:
-            op = re.search(r"\b(HGMMA|HMMA)\.", line)
+            op = re.search(r"\b(HGMMA|HMMA|UTMALDG)\.", line)
             if op:
                 counts[cur][op.group(1)] += 1
     for name, c in sorted(counts.items()):
-        log(f"[1] SASS {name}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA")
-    want = 2 + 3 + 3 + 2   # fwd x2 dtypes; dkdv, dq x (fp32, bf16 strict, bf16 fast); rowdot x2
-    if len(counts) != want or any(c["HMMA"] + c["HGMMA"] == 0 for c in counts.values()):
-        raise AssertionError(f"expected {want} attention kernels, each with tensor-core "
-                             f"instructions; found {counts}")
+        log(f"[1] SASS {name}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG")
+    fp32 = [n for n in counts if n.endswith("<fp32>")]
+    sm90 = [n for n in counts if "_sm90<" in n]
+    # fp32: fwd, rowdot, dkdv, dq; bf16: fwd x 3 block shapes, dkdv and dq x
+    # (fast at 64 rows, split dS at 64 and 128), and the row pass
+    want = {"fp32": 4, "sm90": 3 + 2 * 3, "all": 4 + 9 + 1}
+    bad = [n for n in fp32 if not counts[n]["HMMA"]] + \
+          [n for n in sm90 if not (counts[n]["HGMMA"] and counts[n]["UTMALDG"])]
+    if (len(fp32), len(sm90), len(counts)) != (want["fp32"], want["sm90"], want["all"]) or bad:
+        raise AssertionError(f"expected {want} attention kernels, the fp32 ones with HMMA and "
+                             f"the bf16 ones with HGMMA and UTMALDG; found {counts}, lacking: "
+                             f"{bad}")
     return counts
 
 
@@ -421,6 +437,40 @@ def k1_kernel_info(torch, K1, site, num_sms):
     return info
 
 
+def attn_kernel_info(torch, K2, sites, num_sms):
+    """The bf16 attention kernels of the plan at each (L, heads) site at
+    batch BATCH: block sizes, threads, dynamic shared bytes (checked against
+    the plan's own figure), registers and spilled bytes, as the built
+    library reports them (cudaFuncGetAttributes). Raises if a kernel spills
+    or the plan's shared memory disagrees with the kernel's."""
+    from probunet_torch.ops import _build
+
+    lib, out, info = _build.lib(), (ctypes.c_int * 5)(), []
+    keys = ("threads", "dynamic_smem", "registers", "local_bytes", "static_smem")
+
+    def query(fn, *args):
+        _build.check(fn(*args, out), "attention query")
+        return dict(zip(keys, out))
+
+    for L, nh in sites:
+        p = K2.plan(BATCH, nh, L, num_sms)
+        kernels = {"fwd": (query(lib.probunet_attention_fwd_query, p.fwd_rows, p.fwd_tile),
+                           p.fwd_smem)}
+        for split, rows in ((0, p.bwd_rows), (1, p.bwd_split_rows)):
+            for k, name in ((0, "dkdv"), (1, "dq")):
+                d = query(lib.probunet_attention_bwd_query, k, rows, split)
+                kernels[f"{name}{'_split' if split else ''}"] = (d, K2._bwd_smem(rows, k == 0))
+        for name, (d, planned) in kernels.items():
+            log(f"[1] attention {name} at {BATCH}x{L}x{nh} (plan {p[:4]}): {d['threads']} "
+                f"threads, {d['dynamic_smem']} B dynamic shared (plan {planned}), "
+                f"{d['registers']} registers, {d['local_bytes']} B spilled")
+            if d["dynamic_smem"] != planned or d["local_bytes"]:
+                raise AssertionError(f"attention {name}: {d}, plan's shared bytes {planned}")
+        info.append({"site": [BATCH, L, nh], "plan": p._asdict(),
+                     **{name: d for name, (d, _) in kernels.items()}})
+    return info
+
+
 def qkv_views(torch, layout, b, L, nh, dtype, dev, gen):
     """q, k, v of shape (b, L, nh, 64) in ``layout`` (see LAYOUTS)."""
     if layout == "block":
@@ -432,30 +482,49 @@ def qkv_views(torch, layout, b, L, nh, dtype, dev, gen):
                  for _ in range(3))
 
 
-def device_ms(torch, fn, reps=50, traces=5, warm=True):
+def device_ms(torch, fn, reps=50, traces=5, warm=True, whole=False):
     """Mean device time per call of ``fn`` in ms: the kernels' own time from
     torch.profiler, free of the host's launch pace. A trace that comes back
     with no device activity (the profiler now and then loses the records of
     a window of short kernels) is logged and taken again, up to ``traces``
-    times. ``warm=False`` skips the warm-up call (``fn`` ran just before)."""
+    times. With ``whole`` (for the port's own kernels, which launch a fixed
+    number of times per call; a library call may not), so is a trace in
+    which a kernel's count is more than one short of a multiple of ``reps``
+    (records lost: the sum would read low); the window's first launch, often
+    missed, is made up from that kernel's mean. When no trace comes back
+    whole, the largest sum is returned (and logged as such). ``warm=False``
+    skips the warm-up call (``fn`` ran just before)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     if warm:
         fn()
     torch.cuda.synchronize()
+    best = 0.0
     for _ in range(traces):
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False))
-        if total:
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False) and e.count]
+        total = sum(e.self_device_time_total for e in events)
+        lost = []
+        if whole:
+            lost = [e.key for e in events if e.count % reps not in (0, reps - 1)]
+            total = sum(e.self_device_time_total / e.count * reps * math.ceil(e.count / reps)
+                        for e in events)
+        if total and not lost:
             return total / 1e3 / reps
-        log("    torch.profiler saw no device time in this trace; tracing again")
-    raise AssertionError(f"torch.profiler saw no device time in {traces} traces")
+        best = max(best, total)
+        log(f"    torch.profiler lost records in this trace ({lost[:3] if lost else 'no device '
+            f'time'}); tracing again")
+    if not best:
+        raise AssertionError(f"torch.profiler saw no device time in {traces} traces")
+    # lost records only lower a sum: the largest is the nearest reading
+    log(f"    no whole trace in {traces}: the largest of them, which may read low")
+    return best / 1e3 / reps
 
 
 def attn_bound(flops, nbytes, mode):
@@ -480,6 +549,7 @@ def attn_totals(tot, flops):
         tot["bound_rule"] = "3xtf32" if tot["bound_3xtf32_ms"] <= tot["bound_fp32_ms"] else "fp32"
     tot["tflops"] = flops / tot["ms"] / 1e9
     tot["device_tflops"] = flops / tot["device_ms"] / 1e9
+    tot["bound_share_device"] = tot["bound_ms"] / tot["device_ms"]
     return tot
 
 
@@ -524,7 +594,7 @@ def time_k1(torch, sites, dtype, dev, gen, phase):
             return F.silu(F.group_norm(xc, g, gl, bl, 1e-5))
 
         with torch.inference_mode():
-            t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run),
+            t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run, whole=True),
                  "plain_ms": cuda_ms(torch, lambda: K1._plain_gn_silu(x, gamma, beta, g)),
                  "library_ms": cuda_ms(torch, lib), "library_device_ms": device_ms(torch, lib)}
         t["bound_ms"] = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
@@ -626,6 +696,7 @@ def run_phases(torch, dev, card, sass):
         raise AssertionError("the hooks' K1 sites differ from models.unet.gn_silu_sites")
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     k1_info = k1_kernel_info(torch, K1, max(gn_sites, key=math.prod), num_sms)
+    attn_info = attn_kernel_info(torch, K2, sorted(set(attn_sites)), num_sms)
 
     # ---- 2. K1 against its plain version -------------------------------------
     for dtype in (torch.float32, torch.bfloat16):
@@ -682,15 +753,18 @@ def run_phases(torch, dev, card, sass):
                 q, k, v = qkv_views(torch, layout, b, L, nh, dtype, dev, gen)
                 with torch.inference_mode():
                     out = K2.fused_attention(q, k, v, fast)
+                    again = K2.fused_attention(q, k, v, fast)
                     ref = K2._plain_attention(q, k, v, fast)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
-                ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+                same = torch.equal(out, again)
+                ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol) and same
                 worst = max(worst, err)
                 log(f"[3] K2 {mode:11s} {layout:10s} B={b} L={L} heads={nh}: max abs err "
-                    f"{err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+                    f"{err:.3e} (tol {tol}), two calls bit-equal {same} {'ok' if ok else 'FAIL'}")
                 if not ok:
-                    raise AssertionError("K2 disagrees with its plain version")
+                    raise AssertionError("K2 disagrees with its plain version, or two calls "
+                                         "differ")
         k2_err[mode] = worst
 
     mark(3)
@@ -787,7 +861,7 @@ def run_phases(torch, dev, card, sass):
             with torch.inference_mode():
                 K2.kernel_layout.copies = 0
                 # copy_ms: what the wrapper's layout step costs on these views
-                t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run),
+                t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run, whole=True),
                      "copy_ms": cuda_ms(torch, lambda: [K2.kernel_layout(a) for a in (q, k, v)])}
                 if K2.kernel_layout.copies:
                     raise AssertionError("the block's q/k/v views were copied")
@@ -892,7 +966,7 @@ def run_phases(torch, dev, card, sass):
                "strict": k2_t["strict"], "fast": k2_t["fast"],
                "max_abs_err_by_mode": k2_err, "launches_by_path": by_path["attn"],
                "edm_fp32_fast_max_abs_err": edm["k2_err"], "edm": edm["report"],
-               "with_lse": train["k2_lse"],
+               "with_lse": train["k2_lse"], "bf16_kernels_by_site": attn_info,
                "sass": {n: c for n, c in sass.items() if n.startswith("attention_fwd")}}),
         entry("attention_bwd", "probunet_torch/csrc/attention_bwd.cu",
               "probunet_tpu/ops/pallas_attn.py:91", launches["attn_bwd"],
@@ -938,6 +1012,7 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
                 with torch.no_grad():
                     out, lse = K2._launch(*map(K2.kernel_layout, (q, k, v)), with_lse=True)
                     got = K2.attention_bwd(q, k, v, out, lse, do, fast)
+                    again = K2.attention_bwd(q, k, v, out, lse, do, fast)
                     ref = K2._plain_attention_bwd(q, k, v, do, fast)
                     k2 = (k / 8).to(dtype) if fast else k.float() / 8
                     ref_lse = torch.logsumexp(torch.einsum("bqhc,bkhc->bhqk", q.float(),
@@ -946,15 +1021,18 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
                 errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(got, ref)]
                 rels = [e / max(1e-3, r.float().abs().max().item()) for e, r in zip(errs, ref)]
                 lse_err = (lse - ref_lse).abs().max().item()
+                same = all(torch.equal(g, a) for g, a in zip(got, again))
                 ok = max(rels) <= tol and lse_err <= 1e-4 and all(g.dtype == dtype for g in got)
+                ok &= same
                 k3_abs[mode] = max(k3_abs.get(mode, 0.0), max(errs))
                 k3_rel[mode] = max(k3_rel.get(mode, 0.0), max(rels))
                 log(f"[7] K3 {mode:11s} {layout:10s} B={b} L={L} heads={nh}: max abs err "
                     f"dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, / max|ref| "
-                    f"{max(rels):.3e} (tol {tol}); K2 lse max abs err {lse_err:.3e} (tol 1e-4) "
-                    f"{'ok' if ok else 'FAIL'}")
+                    f"{max(rels):.3e} (tol {tol}); K2 lse max abs err {lse_err:.3e} (tol 1e-4); "
+                    f"two calls bit-equal {same} {'ok' if ok else 'FAIL'}")
                 if not ok:
-                    raise AssertionError("K3 or K2's lse disagrees with its plain version")
+                    raise AssertionError("K3 or K2's lse disagrees with its plain version, "
+                                         "or two K3 calls differ")
                 if mode == "strict_bf16" and L > 1:   # at L=1 dS is exactly 0
                     split_ds_check(torch, K2, q, k, v, out, lse, do, got, ref, ds_seen,
                                    f"{layout:10s} B={b} L={L} heads={nh}")
@@ -1084,7 +1162,7 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
                 return torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True)
 
             with torch.no_grad():
-                t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run),
+                t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run, whole=True),
                      "plain_ms": cuda_ms(torch, lambda: K2._plain_attention_bwd(q, k, v, do, fast),
                                          reps=5)}
             t["library_ms"] = cuda_ms(torch, lib)

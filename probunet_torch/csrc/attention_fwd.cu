@@ -1,26 +1,46 @@
-// Fused self-attention forward, softmax(Q (K s)^T) V with s = 1/sqrt(64),
-// for Hopper (sm_90a), in the FlashAttention-2 style on the tensor cores.
+// Fused self-attention forward, softmax(Q (K s)^T) V with s = 1/sqrt(64):
+// kernel K2 of the port, for Hopper (sm_90a).
 //
 // Replaces probunet_tpu/ops/pallas_attn.py::_fwd_kernel (launched by
 // _fwd_pallas). The TPU kernel holds the whole of K and V in VMEM and skips
 // the online softmax; at L=1024 fp32 K plus V is 512 KB, beyond an SM's
 // 227 KB of shared memory, so here K/V stream through shared memory in
-// 64-row tiles with a running max and sum, and the (L, L) weights never
-// reach device memory.
+// tiles with a running max and sum, and the (L, L) weights never reach
+// device memory.
 //
 // Bound: operations, 4 * B * heads * L^2 * 64 FLOP (QK^T and PV), against
-// the bf16 tensor-core rate in fast mode and, in strict mode, the smaller
-// of the fp32 CUDA-core time and three TF32 tensor-core products.
+// the H100's 989 TFLOP/s of bf16 tensor-core products (fast mode, and
+// strict mode with bf16 activations) and, for fp32, the smaller of the fp32
+// CUDA-core time (67 TFLOP/s) and three TF32 products (495 TFLOP/s). At the
+// U-Net's sites (b8: L=1024 with 6 heads, L=256 with 8) the bf16 bound is
+// 0.080 ms per pass of 11 sites; the bytes (q, k, v read and o written
+// once) take a quarter of that.
 //
-// Design (tile machinery in attention_tiles.cuh): one block of four warps
-// per (batch * head, 64 query rows); each warp owns 16 rows. The block's Q
-// tile and a 2-stage ring of 64-row K/V tiles are copied into shared memory
-// by cp.async, the next K/V tile in flight while the current one is used.
-// S = Q K^T and O += P V run on mma.sync (bf16 m16n8k16, or 3xTF32
-// m16n8k8 for fp32) with fp32 accumulators in registers; the online
-// softmax stays in fp32 registers, and P goes from its accumulator
-// registers straight into the A operand of PV, never through shared memory.
-// A ragged last tile is zero-filled and masked, so any L works.
+// bf16: attention_fwd_sm90 (machinery in attention_hopper.cuh), the
+// FlashAttention-3 shape. One block per (batch * head, 64 NWG query rows):
+// NWG consumer warpgroups of 64 query rows each and a producer warp, whose
+// one thread loads the block's Q and then keeps TMA loads of BN-row K and V
+// tiles in flight through a ring of kFwdStages stages under mbarriers. A
+// consumer runs S = Q K^T on wgmma from the two shared tiles (m64nBNk16,
+// K-major), the online softmax in fp32 registers, and O += P V on wgmma
+// with P in registers as the A operand and V read MN-major (m64n64k16).
+// The two products overlap across tiles (FlashAttention-3's intra-
+// warpgroup pipelining): S of tile j + 1 is issued together with PV of
+// tile j, and the softmax of tile j + 1 runs on the CUDA cores while PV
+// is on the tensor cores; no register an issued product reads is written
+// before it retires, so ptxas keeps both in flight. The block sizes come
+// from ops/attention.py::plan. Rows past L arrive as zeros (the TMA box is
+// clipped by the map); the ragged last tile's columns are masked. What
+// holds it back: at head dim 64 the softmax's ex2 (16 a clock per SM)
+// takes about as long as the tile's products at the tensor cores' peak,
+// and one or two consumer warpgroups per SM hide only part of it.
+//
+// fp32: attention_fwd, FlashAttention-2 style on mma.sync (tile machinery
+// in attention_tiles.cuh): one block of four warps per (batch * head, 64
+// query rows), 16 rows a warp; the Q tile and a 2-stage ring of 64-row
+// K/V tiles are copied by cp.async; S = Q K^T and O += P V in 3xTF32 with
+// fp32 accumulators; P goes from its accumulator registers straight into
+// the A operand of PV. A ragged last tile is zero-filled and masked.
 //
 // Layout: q, k, v are (B, L, heads, 64) with any element strides (sb, sl,
 // sh) and a unit-stride head dim, each row 16-byte aligned: the U-Net
@@ -30,23 +50,27 @@
 // (B*heads, L), which the backward kernel (attention_bwd.cu) uses to
 // recompute the weights; serving passes null and writes nothing more.
 //
-// Numerics by storage type T:
+// Numerics by storage type:
 //   fp32 (strict): 3xTF32 products, within a few fp32 ulps of the fp32
 //     products of Precision.HIGHEST, with fp32 sums in another order.
 //   bf16 (fast): products of bf16 operands accumulate in fp32; the
 //     probabilities are rounded to bf16 before PV (as p.astype(v.dtype)
 //     does). The logits are scaled by s after the product: s = 1/8 is a
-//     power of two, so that equals the product with K * s rounded to T (as
-//     _prep does), bit for bit, barring underflow.
+//     power of two, so that equals the product with K * s rounded to bf16
+//     (as _prep does), bit for bit, barring underflow.
 //   Both: the softmax is fp32, in base 2 (p = 2^(S s log2(e) - m)) by the
 //     SFU's ex2, about 2 ulp from expf; the lse comes back in natural log.
+//   Every sum runs in a fixed order: two calls give the same bits.
 
 #include <math.h>
 
+#include "attention_hopper.cuh"
 #include "attention_tiles.cuh"
 
 namespace probunet {
 namespace {
+
+namespace fp32 {
 
 using namespace tiles;
 
@@ -126,26 +150,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
 
-    // O += P V, P rounded to T as p.astype(v.dtype) rounds it
-    if constexpr (sizeof(T) == 4) {
-      // fp32: the tensor cores' fp32 accumulation truncates, so a running
-      // sum over 16 tiles (L=1024) drifts by ~1e-5 against the strict
-      // tolerance of 2e-5; each tile's PV goes into a zeroed accumulator
-      // and joins the sum by a rounded fp32 FMA instead
-      float pv[8][4];
-      zero(pv);
-      mma_nn<false>(pv, s, Vs + st * kTile<T>, lane);
+    // O += P V: the tensor cores' fp32 accumulation truncates, so a running
+    // sum over 16 tiles (L=1024) drifts by ~1e-5 against the strict
+    // tolerance of 2e-5; each tile's PV goes into a zeroed accumulator and
+    // joins the sum by a rounded fp32 FMA instead
+    float pv[8][4];
+    zero(pv);
+    mma_nn<false>(pv, s, Vs + st * kTile<T>, lane);
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], alpha[e / 2], pv[n][e]);
-    } else {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e / 2];
-      mma_nn<false>(acc, s, Vs + st * kTile<T>, lane);
-    }
+      for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], alpha[e / 2], pv[n][e]);
     __syncthreads();  // this stage is free for the load two tiles on
   }
 
@@ -176,24 +191,245 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaGetLastError();
 }
 
+}  // namespace fp32
+
+namespace sm90 {
+
+using namespace hopper;
+
+constexpr int kFwdStages = 3;
+
+// Shared memory of attention_fwd_sm90: byte offsets from a 1024-byte
+// boundary, and the bytes to ask for (1024 to spare for the alignment).
+template <int NWG, int BN> struct FwdSmem {
+  static constexpr int q = 0;                                    // NWG boxes
+  static constexpr int k = q + NWG * kBoxBytes;                  // kFwdStages tiles
+  static constexpr int v = k + kFwdStages * BN * kRowBytes;      // kFwdStages tiles
+  static constexpr int bars = v + kFwdStages * BN * kRowBytes;   // q_full, k_full, v_full, empty
+  static constexpr int bytes = bars + 8 * (1 + 3 * kFwdStages) + 1024;
+};
+
+// The online softmax of one tile's logits sc, columns col0 .. col0 + BN - 1
+// (those at or past L drop out), in place, in base 2 on the raw logits: p =
+// 2^(s c - m), c = scale * log2(e), m the running max of s c (tile 0
+// always holds column 0, so m is finite from the first tile on). Updates m
+// and the running sum l and gives alpha, the factor of the output so far.
+template <int BN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], int col0, int L, int t, float c,
+                                             float (&m)[2], float (&l)[2], float (&alpha)[2]) {
+  if (col0 + BN > L) {  // the ragged last tile
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i)
+      if (col0 + 8 * (i / 4) + 2 * t + (i % 2) >= L) sc[i] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY}, rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]) * c);
+    alpha[r] = exp2_fast(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    sc[i] = exp2_fast(fmaf(sc[i], c, -m[(i / 2) % 2]));
+    rs[(i / 2) % 2] += sc[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
+}
+
+template <int NWG, int BN>
+__global__ void __launch_bounds__(kBlockThreads<NWG>, 1)
+    attention_fwd_sm90(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int H, int L, float scale) {
+  using Smem = FwdSmem<NWG, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Smem::bars);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kFwdStages;
+  uint64_t* empty = v_full + kFwdStages;
+  auto Ks = [&](int s) { return smem + Smem::k + s * BN * kRowBytes; };
+  auto Vs = [&](int s) { return smem + Smem::v + s * BN * kRowBytes; };
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * 64 * NWG;
+  const int n_tiles = (L + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], kWarpgroup * NWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWarpgroup * NWG) {  // the producer warp
+    if (threadIdx.x == kWarpgroup * NWG) {
+      mbar_expect_tx(q_full, NWG * kBoxBytes);
+      for (int w = 0; w < NWG; ++w)
+        tma_load(smem + Smem::q + w * kBoxBytes, &tq, q_full, h, q0 + 64 * w, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kFwdStages;
+        mbar_wait(&empty[s], ((j / kFwdStages) & 1) ^ 1);
+        mbar_expect_tx(&k_full[s], BN * kRowBytes);
+        for (int i = 0; i < BN / kBoxRows; ++i)
+          tma_load(Ks(s) + kBoxBytes * i, &tk, &k_full[s], h, j * BN + kBoxRows * i, b);
+        mbar_expect_tx(&v_full[s], BN * kRowBytes);
+        for (int i = 0; i < BN / kBoxRows; ++i)
+          tma_load(Vs(s) + kBoxBytes * i, &tv, &v_full[s], h, j * BN + kBoxRows * i, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup w: query rows q0 + 64 w .. q0 + 64 w + 63
+  const int w = threadIdx.x / kWarpgroup, tid = threadIdx.x % kWarpgroup;
+  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const int row0 = q0 + 64 * w + 16 * warp;  // this thread's rows: row0 + g, row0 + g + 8
+  const unsigned char* Qw = smem + Smem::q + w * kBoxBytes;
+  const float c = scale * kLog2e;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2], acc[32], sc[BN / 2];
+  uint32_t pa[BN / 16][4];  // P rounded to bf16 (as p.astype(v.dtype) rounds it)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  uint64_t dq[4], dk[4], dv[BN / 16];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) dq[k] = desc_k(Qw) + k * kDescK16;
+  mbar_wait(q_full, 0);
+  mbar_wait(&k_full[0], 0);
+  wgmma_fence();
+  mma_ss<BN>(sc, Qw, Ks(0));
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(sc);
+  softmax_tile<BN>(sc, 0, L, t, c, m, l, alpha);
+  to_a<BN>(sc, pa);
+  // Tile j: S of tile j + 1 is issued, then O += P V of tile j; the softmax
+  // of tile j + 1 runs on the CUDA cores while PV is on the tensor cores.
+  // As in FlashAttention-3, no operand of a product in flight is written:
+  // the descriptors are set before the fence, the softmax works on S in
+  // place, and P joins the A registers only once PV has retired.
+  int j = 0;
+  for (; j + 1 < n_tiles; ++j) {
+    const int s = j % kFwdStages, s1 = (j + 1) % kFwdStages;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dk[k] = desc_k(Ks(s1)) + k * kDescK16;
+#pragma unroll
+    for (int k = 0; k < BN / 16; ++k) dv[k] = desc_mn(Vs(s)) + k * kDescMN16;
+    pin(dq);
+    pin(dk);
+    pin(dv);
+    mbar_wait(&k_full[s1], ((j + 1) / kFwdStages) & 1);
+    mbar_wait(&v_full[s], (j / kFwdStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) Wgmma<BN>::ss(sc, dq[k], dk[k], k);
+    wgmma_commit();
+#pragma unroll
+    for (int k = 0; k < BN / 16; ++k) Wgmma<64>::rs_t(acc, pa[k], dv[k]);  // O += P V
+    wgmma_commit();
+    wgmma_wait<1>();  // S of tile j + 1; PV may still run
+    reg_fence(sc);
+    softmax_tile<BN>(sc, (j + 1) * BN, L, t, c, m, l, alpha);
+    wgmma_wait<0>();
+    reg_fence(acc);
+    mbar_arrive(&empty[s]);  // this stage is free for the load kFwdStages tiles on
+    to_a<BN>(sc, pa);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i / 2) % 2];
+  }
+  mbar_wait(&v_full[j % kFwdStages], (j / kFwdStages) & 1);
+  wgmma_fence();
+  mma_rs<BN>(acc, pa, Vs(j % kFwdStages));
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(acc);
+
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  store_rows(o, acc, b, h, H, L, row0, lane, inv);
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + lane / 4 + 8 * r;
+      if (row < L) lse[(size_t)bh * L + row] = (m[r] + log2f(l[r])) / kLog2e;
+    }
+  }
+}
+
+template <int NWG, int BN> struct Fwd {
+  static constexpr int threads = kBlockThreads<NWG>, smem = FwdSmem<NWG, BN>::bytes;
+
+  static cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                            void* o, float* lse, int B, int H, int L, float scale,
+                            cudaStream_t stream) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_fwd_sm90<NWG, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((L + 64 * NWG - 1) / (64 * NWG), B * H);
+    attention_fwd_sm90<NWG, BN><<<grid, threads, smem, stream>>>(
+        tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, L, scale);
+    return cudaGetLastError();
+  }
+
+  static cudaError_t query(int* out) {
+    return hopper::query(attention_fwd_sm90<NWG, BN>, threads, smem, out);
+  }
+};
+
+// Op<NWG, BN> of a plan: block_rows = 64 NWG query rows, tile_rows = BN
+// (128-row blocks only with 128-row tiles: at L <= 64 the second consumer
+// would have no rows).
+template <template <int, int> class Op, typename F>
+cudaError_t with_plan(int block_rows, int tile_rows, F&& f) {
+  if (block_rows == 128 && tile_rows == 128) return f(Op<2, 128>());
+  if (block_rows == 64 && tile_rows == 128) return f(Op<1, 128>());
+  if (block_rows == 64 && tile_rows == 64) return f(Op<1, 64>());
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace sm90
+
 }  // namespace
 }  // namespace probunet
 
 // q, k, v: (B, L, H, 64) of one dtype, element strides (*_sb, *_sl, *_sh),
 // unit-stride head dim, 16-byte-aligned rows; o: (B, L, H, 64) contiguous,
-// same dtype; lse: null or (B*H, L) fp32. Returns a cudaError_t code; 0 on
-// success.
+// same dtype; lse: null or (B*H, L) fp32. block_rows and tile_rows are the
+// bf16 kernel's plan (ops/attention.py::plan; 64 or 128 each); fp32 ignores
+// them. Returns a cudaError_t code; 0 on success.
 extern "C" int probunet_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int B, int H, int L, long long q_sb,
                                       long long q_sl, long long q_sh, long long k_sb,
                                       long long k_sl, long long k_sh, long long v_sb,
                                       long long v_sl, long long v_sh, float scale, int is_bf16,
-                                      void* stream) {
+                                      int block_rows, int tile_rows, void* stream) {
   using probunet::tiles::Strides;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  const Strides sq{q_sb, q_sl, q_sh}, sk{k_sb, k_sl, k_sh}, sv{v_sb, v_sl, v_sh};
-  if (is_bf16)
-    return probunet::launch<__nv_bfloat16>(q, k, v, o, l, B, H, L, sq, sk, sv, scale, st);
-  return probunet::launch<float>(q, k, v, o, l, B, H, L, sq, sk, sv, scale, st);
+  if (!is_bf16) {
+    const Strides sq{q_sb, q_sl, q_sh}, sk{k_sb, k_sl, k_sh}, sv{v_sb, v_sl, v_sh};
+    return probunet::fp32::launch<float>(q, k, v, o, l, B, H, L, sq, sk, sv, scale, st);
+  }
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = probunet::hopper::make_map(&tq, q, B, H, L, q_sb, q_sl, q_sh);
+  if (err == cudaSuccess) err = probunet::hopper::make_map(&tk, k, B, H, L, k_sb, k_sl, k_sh);
+  if (err == cudaSuccess) err = probunet::hopper::make_map(&tv, v, B, H, L, v_sb, v_sl, v_sh);
+  if (err != cudaSuccess) return err;
+  return probunet::sm90::with_plan<probunet::sm90::Fwd>(block_rows, tile_rows, [&](auto plan) {
+    return plan.launch(tq, tk, tv, o, l, B, H, L, scale, st);
+  });
+}
+
+// What the bf16 kernel of a plan is on this card: out = {threads, dynamic
+// shared bytes, registers, local (spilled) bytes per thread, static shared
+// bytes}. Returns a cudaError_t code; 0 on success.
+extern "C" int probunet_attention_fwd_query(int block_rows, int tile_rows, int* out) {
+  return probunet::sm90::with_plan<probunet::sm90::Fwd>(
+      block_rows, tile_rows, [&](auto plan) { return plan.query(out); });
 }

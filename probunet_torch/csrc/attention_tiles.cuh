@@ -1,7 +1,8 @@
-// Tile machinery shared by the attention kernels K2 (attention_fwd.cu) and
-// K3 (attention_bwd.cu): 64 x 64 tiles of a (B, L, heads, 64) tensor copied
-// into shared memory by cp.async, and warp-level 16 x 64 x 64 products on
-// the tensor cores through mma.sync.
+// Tile machinery of the fp32 (strict) attention kernels K2
+// (attention_fwd.cu) and K3 (attention_bwd.cu): 64 x 64 tiles of a (B, L,
+// heads, 64) fp32 tensor copied into shared memory by cp.async, and
+// warp-level 16 x 64 x 64 products on the tensor cores through mma.sync in
+// 3xTF32. (The bf16 kernels run on wgmma and TMA: attention_hopper.cuh.)
 //
 // A warp owns 16 rows of a 64-row tile. Its 16 x 64 fp32 results live in
 // registers in the mma "C" layout: acc[n][e] is row g + 8 * (e / 2), column
@@ -14,24 +15,14 @@
 //   mma_nn: acc += A B, A = a warp's 16 x 64 result still in registers (P,
 //           P^T, dS, dS^T), B = a 64-row shared tile read down its rows
 //           (PV, dV, dK, dQ).
-// Numerics by storage type:
-//   bf16: mma.sync.m16n8k16 with fp32 accumulators. Shared operands come
-//         through ldmatrix (ldmatrix.trans for mma_nn's B); register
-//         operands are rounded to bf16, or with SPLIT carried as the two
-//         bf16 terms hi + lo of each fp32 value (two products);
-//   fp32: 3xTF32 on mma.sync.m16n8k8: each operand x splits into
-//         hi = tf32(x) and lo = tf32(x - hi), and the product sums
-//         lo*hi + hi*lo + hi*hi in fp32, close to an fp32 product (the
-//         dropped lo*lo term is ~2^-22 relative). The split is explicit
-//         here, so PyTorch's TF32 switches play no part.
-// mma.sync rather than wgmma: wgmma wants its shared operands in the
-// canonical swizzled layouts behind 64-bit matrix descriptors, and takes
-// the MN-major (transposed) B of PV/dV/dK/dQ only for 16-bit types, so
-// strict mode would need mma.sync regardless; one machinery serves every
-// mode. wgmma and TMA are the next step for the bf16 products.
+// Numerics: 3xTF32 on mma.sync.m16n8k8: each operand x splits into
+// hi = tf32(x) and lo = tf32(x - hi), and the product sums lo*hi + hi*lo +
+// hi*hi in fp32, close to an fp32 product (the dropped lo*lo term is
+// ~2^-22 relative). The split is explicit here, so PyTorch's TF32 switches
+// play no part. tf32 wgmma reads only K-major B operands, so PV, dV, dK
+// and dQ would need transposed tiles; this path stays on mma.sync.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,11 +40,9 @@ struct Strides {
   long long b, l, h;
 };
 
-// Shared row pitch in elements. bf16: 144-byte rows put ldmatrix's eight
-// 16-byte row reads on eight distinct bank groups; fp32: 68 floats make the
-// scalar fragment reads (4 g + t and 8 t + g banks) conflict-free.
+// Shared row pitch in elements: 68 floats make the scalar fragment reads
+// (4 g + t and 8 t + g banks) conflict-free.
 template <typename T> struct Pitch;
-template <> struct Pitch<__nv_bfloat16> { static constexpr int value = kD + 8; };
 template <> struct Pitch<float> { static constexpr int value = kD + 4; };
 template <typename T> constexpr int kPitch = Pitch<T>::value;
 template <typename T> constexpr int kTile = kRows * kPitch<T>;  // elements per shared tile
@@ -72,26 +61,6 @@ __device__ __forceinline__ void load_tile_async(T* dst, const T* __restrict__ sr
     const bool ok = row0 + r < L;
     cp_async16(dst + r * kPitch<T> + c * kVec, ok ? src + (row0 + r) * ld + c * kVec : src, ok);
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -131,30 +100,16 @@ __device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&ah)[4
   mma_tf32(c, ah, bh0, bh1);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // ---- acc += A B^T: A = 16 rows at sA, B = 64 rows at sB, 64 deep ----------
-// SWAP (fp32 only) orders the 3xTF32 terms as the product with A and B in
-// each other's roles would: S^T = K Q^T then adds up exactly as S = Q K^T.
-// (A bf16 product is one exact product per element; SWAP changes nothing.)
+// SWAP orders the 3xTF32 terms as the product with A and B in each other's
+// roles would: S^T = K Q^T then adds up exactly as S = Q K^T.
 
 // A's fragments for all of the 64-wide depth, for a warp that multiplies
 // the same 16 rows by many B tiles (the forward kernel's Q).
 template <typename T> struct AFrags;
-template <> struct AFrags<__nv_bfloat16> {
-  uint32_t a[4][4];  // k steps of 16
-};
 template <> struct AFrags<float> {
   uint32_t hi[8][4], lo[8][4];  // k steps of 8, split for 3xTF32
 };
-
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* sA, int k,
-                                       int lane) {
-  ldmatrix_x4(a, sA + (lane % 16) * kPitch<__nv_bfloat16> + k + (lane / 16) * 8);
-}
 
 __device__ __forceinline__ void load_a(uint32_t (&ah)[4], uint32_t (&al)[4], const float* sA,
                                        int k, int lane) {
@@ -166,30 +121,12 @@ __device__ __forceinline__ void load_a(uint32_t (&ah)[4], uint32_t (&al)[4], con
   split_tf32(sA[(g + 8) * P + k + t + 4], ah[3], al[3]);
 }
 
-__device__ __forceinline__ void load_a(AFrags<__nv_bfloat16>& f, const __nv_bfloat16* sA,
-                                       int lane) {
-#pragma unroll
-  for (int k = 0; k < kD; k += 16) load_a(f.a[k / 16], sA, k, lane);
-}
-
 __device__ __forceinline__ void load_a(AFrags<float>& f, const float* sA, int lane) {
 #pragma unroll
   for (int k = 0; k < kD; k += 8) load_a(f.hi[k / 8], f.lo[k / 8], sA, k, lane);
 }
 
 // One k step of acc += A B^T against all 64 rows of B.
-__device__ __forceinline__ void mma_nt_step(float (&acc)[8][4], const uint32_t (&a)[4],
-                                            const __nv_bfloat16* sB, int k, int lane) {
-  constexpr int P = kPitch<__nv_bfloat16>;
-#pragma unroll
-  for (int n = 0; n < kRows; n += 16) {
-    uint32_t b[4];  // b0, b1 of column tile n, then of column tile n + 8
-    ldmatrix_x4(b, sB + (n + lane % 8 + (lane / 16) * 8) * P + k + ((lane / 8) % 2) * 8);
-    mma_bf16(acc[n / 8], a, b[0], b[1]);
-    mma_bf16(acc[n / 8 + 1], a, b[2], b[3]);
-  }
-}
-
 template <bool SWAP>
 __device__ __forceinline__ void mma_nt_step(float (&acc)[8][4], const uint32_t (&ah)[4],
                                             const uint32_t (&al)[4], const float* sB, int k,
@@ -207,17 +144,6 @@ __device__ __forceinline__ void mma_nt_step(float (&acc)[8][4], const uint32_t (
 
 // A from shared memory, one k step's fragments at a time.
 template <bool SWAP = false>
-__device__ __forceinline__ void mma_nt(float (&acc)[8][4], const __nv_bfloat16* sA,
-                                       const __nv_bfloat16* sB, int lane) {
-#pragma unroll
-  for (int k = 0; k < kD; k += 16) {
-    uint32_t a[4];
-    load_a(a, sA, k, lane);
-    mma_nt_step(acc, a, sB, k, lane);
-  }
-}
-
-template <bool SWAP = false>
 __device__ __forceinline__ void mma_nt(float (&acc)[8][4], const float* sA, const float* sB,
                                        int lane) {
 #pragma unroll
@@ -229,12 +155,6 @@ __device__ __forceinline__ void mma_nt(float (&acc)[8][4], const float* sA, cons
 }
 
 // A from registers (load_a).
-__device__ __forceinline__ void mma_nt(float (&acc)[8][4], const AFrags<__nv_bfloat16>& f,
-                                       const __nv_bfloat16* sB, int lane) {
-#pragma unroll
-  for (int k = 0; k < kD; k += 16) mma_nt_step(acc, f.a[k / 16], sB, k, lane);
-}
-
 __device__ __forceinline__ void mma_nt(float (&acc)[8][4], const AFrags<float>& f,
                                        const float* sB, int lane) {
 #pragma unroll
@@ -242,39 +162,6 @@ __device__ __forceinline__ void mma_nt(float (&acc)[8][4], const AFrags<float>& 
 }
 
 // ---- acc += A B: A = a warp's 16 x 64 result in the C layout, B = 64 rows --
-
-// C layout -> A fragments of m16n8k16: k step j takes column tiles 2j, 2j+1.
-template <bool SPLIT>
-__device__ __forceinline__ void mma_nn(float (&acc)[8][4], const float (&a)[8][4],
-                                       const __nv_bfloat16* sB, int lane) {
-  constexpr int P = kPitch<__nv_bfloat16>;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t ah[4], al[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      // i = 0, 1: rows g, g + 8 of column tile 2j; i = 2, 3: of tile 2j + 1
-      const float x = a[2 * j + i / 2][2 * (i % 2)], y = a[2 * j + i / 2][2 * (i % 2) + 1];
-      ah[i] = pack_bf16(x, y);
-      if constexpr (SPLIT) {
-        const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&ah[i]);
-        al[i] = pack_bf16(x - __low2float(h), y - __high2float(h));
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kD; n += 16) {
-      uint32_t b[4];  // b0, b1 of column tile n, then of column tile n + 8
-      ldmatrix_x4_trans(b, sB + (16 * j + lane % 8 + ((lane / 8) % 2) * 8) * P + n +
-                               (lane / 16) * 8);
-      if constexpr (SPLIT) {
-        mma_bf16(acc[n / 8], al, b[0], b[1]);
-        mma_bf16(acc[n / 8 + 1], al, b[2], b[3]);
-      }
-      mma_bf16(acc[n / 8], ah, b[0], b[1]);
-      mma_bf16(acc[n / 8 + 1], ah, b[2], b[3]);
-    }
-  }
-}
 
 // 3xTF32; SPLIT has no meaning for fp32. The k order within each 8-wide step
 // is permuted so that the C layout is the A fragment as it stands: k
@@ -309,9 +196,6 @@ __device__ __forceinline__ void mma_nn(float (&acc)[8][4], const float (&a)[8][4
 __device__ __forceinline__ void store_pair(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
 
 // A warp's 16 x 64 result, rows row0 + g and row0 + g + 8 scaled by mul[0]
 // and mul[1], into row (b, row, h) of a contiguous (B, L, H, 64) tensor;
@@ -330,25 +214,6 @@ __device__ __forceinline__ void store_rows(T* __restrict__ out, const float (&ac
     for (int n = 0; n < 8; ++n)
       store_pair(p + 8 * n, acc[n][2 * r] * mul[r], acc[n][2 * r + 1] * mul[r]);
   }
-}
-
-// 2^x by the SFU's ex2 (about 2 ulp; 0 for -inf). The softmax runs in base
-// 2 with the scale and log2(e) folded into one FMA per logit.
-constexpr float kLog2e = 1.4426950408889634f;
-__device__ __forceinline__ float exp2_fast(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Quad reductions: the four lanes t = 0..3 of a row hold its 64 columns.
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 __device__ __forceinline__ void zero(float (&acc)[8][4]) {

@@ -1,5 +1,6 @@
 // Helpers shared by the port's hand-written kernels: fp32 <-> storage-type
-// conversion, 16-byte vector loads/stores and cp.async copies.
+// conversion, 16-byte vector loads/stores, cp.async copies, and the base-2
+// exponential and quad reductions of the attention kernels' softmax.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,6 +60,26 @@ __device__ __forceinline__ void cp_async16_l2_256(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 2^x by the SFU's ex2 (about 2 ulp; 0 for -inf). The attention kernels
+// take their softmax in base 2, the scale and log2(e) folded into one FMA
+// per logit.
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Quad reductions: the four lanes t = 0..3 of an mma row hold its columns.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 }  // namespace probunet

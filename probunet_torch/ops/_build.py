@@ -11,6 +11,7 @@ triggers a rebuild. Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -33,11 +34,16 @@ _SIGNATURES = {
     # is_bf16, vec, C, G, cb, cluster, chunk_rows, out (int[6])
     "probunet_gn_silu_query": [_int] * 7 + [_vp],
     # q, k, v, o, lse, B, H, L, (b, l, h) element strides of q, k and v,
-    # scale, is_bf16, stream
-    "probunet_attention_fwd": [_vp] * 5 + [_int] * 3 + [_i64] * 9 + [_float, _int, _vp],
-    # q, k, v, o, dout, lse, D, dq, dk, dv, B, H, L, (b, l, h) element strides
-    # of q, k, v, o and dout, scale, is_bf16, fast, stream
-    "probunet_attention_bwd": [_vp] * 10 + [_int] * 3 + [_i64] * 15 + [_float, _int, _int, _vp],
+    # scale, is_bf16, block_rows, tile_rows, stream
+    "probunet_attention_fwd": [_vp] * 5 + [_int] * 3 + [_i64] * 9 + [_float] + [_int] * 3 + [_vp],
+    # block_rows, tile_rows, out (int[5])
+    "probunet_attention_fwd_query": [_int] * 2 + [_vp],
+    # q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, L, (b, l, h) element
+    # strides of q, k, v, o and dout, scale, is_bf16, fast, block_rows, stream
+    "probunet_attention_bwd": [_vp] * 10 + [_int] * 3 + [_i64] * 15 + [_float] + [_int] * 3
+                              + [_vp],
+    # kernel (0 dK/dV, 1 dQ), block_rows, split, out (int[5])
+    "probunet_attention_bwd_query": [_int] * 3 + [_vp],
 }
 
 
@@ -109,6 +115,14 @@ def lib() -> ctypes.CDLL:
         handle.probunet_error_string.restype = ctypes.c_char_p
         _lib = handle
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(index: int) -> int:
+    """SM count of CUDA device ``index``, asked once per device."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(code: int, what: str) -> None:

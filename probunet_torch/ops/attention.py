@@ -8,19 +8,80 @@ tensors. When an input requires a gradient it goes through an
 kernel ``csrc/attention_bwd.cu`` for CUDA tensors, :func:`_plain_attention_bwd`
 (the unchunked math of ``pallas_attn.py::_bwd_kernel``) for CPU tensors. K2
 replaces ``pallas_attn.py::_fwd_kernel``, K3 ``pallas_attn.py::_bwd_kernel``;
-the source note in each ``.cu`` file gives its bound and design.
+the source note in each ``.cu`` file gives its bound and design. The bf16
+kernels (warp-specialised, TMA and wgmma) take their block sizes from
+:func:`plan`; the fp32 kernels have one shape.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from probunet_torch.ops import _build
 
 HEAD_DIM = 64
+#: shared memory one block may use on the H100 (227 KB)
+SMEM_LIMIT = 232_448
+_BOX = 64 * HEAD_DIM * 2   # one TMA box: 64 bf16 rows
+_FWD_STAGES = _BWD_STAGES = 3
+
+
+class Plan(NamedTuple):
+    """How a bf16 call is cut. K2: blocks of ``fwd_rows`` query rows (64
+    per consumer warpgroup) against K/V tiles of ``fwd_tile`` rows. K3: the
+    dK/dV kernel's blocks of key rows and the dQ kernel's of query rows,
+    against streamed 64-row tiles: ``bwd_rows`` in fast mode,
+    ``bwd_split_rows`` in strict mode (dS carried as two bf16 terms). The
+    ``*_smem`` fields are each kernel's dynamic shared bytes at those block
+    sizes, as csrc/attention_fwd.cu (FwdSmem) and csrc/attention_bwd.cu
+    (BwdSmem) lay them out."""
+
+    fwd_rows: int
+    fwd_tile: int
+    bwd_rows: int
+    bwd_split_rows: int
+    fwd_smem: int
+    dkdv_smem: int
+    dq_smem: int
+
+
+def _bwd_smem(rows: int, stats: bool) -> int:
+    return (2 * rows // 64 * _BOX + _BWD_STAGES * (2 * _BOX + (512 if stats else 0))
+            + 8 * (1 + 2 * _BWD_STAGES) + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, heads: int, L: int, num_sms: int) -> Plan:
+    """The bf16 kernels' block sizes for one shape; pure and cached.
+
+    Measured on the H100 (scripts/torch_attn_timing.py --plans): K2 takes
+    128-row blocks (two consumer warpgroups) where they give every SM a
+    block, else 64-row blocks (one consumer), which double the blocks (at
+    b8, L=256, 8 heads, 128 rows give 128 blocks for 132 SMs); it streams
+    128-row K/V tiles unless L fits one 64-row tile, and then takes 64-row
+    blocks (a second consumer would have no rows). K3 in fast mode takes
+    64-row blocks, two of which share an SM; with dS split, whose consumers
+    hold more registers and fit one block per SM either way, the rule of
+    K2's blocks. These are the shapes the kernels are built for."""
+    tile = 128 if L > 64 else 64
+    rows = 128 if tile == 128 and b * heads * math.ceil(L / 128) >= num_sms else 64
+    return Plan(rows, tile, 64, rows,
+                fwd_smem=rows // 64 * _BOX + 2 * _FWD_STAGES * tile * 128
+                + 8 * (1 + 3 * _FWD_STAGES) + 1024,
+                dkdv_smem=max(_bwd_smem(64, True), _bwd_smem(rows, True)),
+                dq_smem=max(_bwd_smem(64, False), _bwd_smem(rows, False)))
+
+
+def bwd_scratch_shape(b: int, heads: int, L: int, dtype: torch.dtype):
+    """The fp32 scratch K3 takes: D per row for fp32 inputs; for bf16, per
+    64-row tile, the forward's lse in base 2 and D, padded to whole tiles."""
+    if dtype == torch.float32:
+        return (b * heads, L)
+    return (b * heads, math.ceil(L / 64), 2, 64)
 
 
 def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, fast: bool) -> torch.Tensor:
@@ -101,6 +162,12 @@ def _check_cuda(q, k, v):
                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
 
 
+def _plan(q: torch.Tensor) -> Plan:
+    """The plan of a launch on q (B, L, heads, 64); fp32 kernels ignore it."""
+    b, L, h, _ = q.shape
+    return plan(b, h, L, _build.num_sms(q.device.index))
+
+
 @torch.no_grad()
 def _launch(q, k, v, with_lse: bool):
     """K2 on q/k/v as they lie (see :func:`kernel_layout`): (out, lse), lse
@@ -110,10 +177,12 @@ def _launch(q, k, v, with_lse: bool):
     strides = _strides(q, k, v)
     out = torch.empty(b, L, h, c, device=q.device, dtype=q.dtype)
     lse = torch.empty(b * h, L, device=q.device, dtype=torch.float32) if with_lse else None
+    p = _plan(q)
     code = _build.lib().probunet_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if with_lse else None, b, h, L, *strides,
-        1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
+        1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), p.fwd_rows, p.fwd_tile,
+        _build.stream_handle(q.device))
     _build.check(code, "attention kernel")
     fused_attention.launches += 1
     return out, lse
@@ -126,13 +195,15 @@ def _launch_bwd(q, k, v, out, lse, do, fast: bool):
     b, L, h, c = q.shape
     strides = _strides(q, k, v, out, do)
     lse = lse.contiguous()
-    rowdot = torch.empty(b * h, L, device=q.device, dtype=torch.float32)
+    scratch = torch.empty(bwd_scratch_shape(b, h, L, q.dtype), device=q.device,
+                          dtype=torch.float32)
     dq, dk, dv = (torch.empty(b, L, h, c, device=q.device, dtype=q.dtype) for _ in range(3))
+    p = _plan(q)
     code = _build.lib().probunet_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), rowdot.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, h, L, *strides, 1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), int(fast),
-        _build.stream_handle(q.device))
+        p.bwd_rows if fast else p.bwd_split_rows, _build.stream_handle(q.device))
     _build.check(code, "attention backward kernel")
     attention_bwd.launches += 1
     return dq, dk, dv

@@ -139,10 +139,7 @@ def plan(b: int, h: int, w: int, c: int, groups: int, itemsize: int, num_sms: in
     return Plan(cb, n, rows, on_chip, chunk)
 
 
-@functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    """SM count of CUDA device ``index``, asked once per device."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
+_num_sms = _build.num_sms
 
 
 def _launch(x, weight, bias, groups, eps):

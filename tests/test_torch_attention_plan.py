@@ -1,0 +1,93 @@
+"""The bf16 attention kernels' launch plan (``ops/attention.py::plan``) on
+the CPU, without a card: at every attention site of the U-Net's paths and
+at edge lengths, each kernel's shared memory fits a block on the H100
+(227 KB), the blocks and tiles take values the kernels are built for, and
+their grids cover every row. The plan's shared-memory figures mirror the
+kernels' own layouts (FwdSmem, BwdSmem); chip_smoke.py phase 1 holds them
+against what the built kernels report on the card."""
+
+import math
+
+import pytest
+import torch
+
+from probunet_torch.config import Config
+from probunet_torch.models.unet import build_unet_plan
+from probunet_torch.ops import attention as tatt
+
+NUM_SMS = 132
+
+
+def _attention_sites(res):
+    """{(L, heads)} of the default U-Net's attention blocks at res x res."""
+    cfg = Config()
+    enc, dec, _ = build_unet_plan((res, res), 4, cfg.model_channels, cfg.channel_mult,
+                                  cfg.num_blocks, cfg.attn_resolutions)
+    return sorted({(int(s.name.split("x")[0]) ** 2, s.out_channels // 64)
+                   for s in enc + dec if s.attention})
+
+
+# (B, L, heads): the 128x128 path at b8 (serving, training), the 256x256
+# tile of the spatial path at b4, the 64x64 U-Net's sites down to L=64
+PATH = ([(8, L, h) for L, h in _attention_sites(128)]
+        + [(4, L, h) for L, h in _attention_sites(256)]
+        + [(8, L, h) for L, h in _attention_sites(64)])
+EDGE = [(1, 1, 1), (2, 65, 3), (2, 100, 2), (1, 4096, 2), (8, 4096, 8), (1, 127, 2),
+        (64, 64, 8)]
+
+
+def test_path_sites():
+    assert _attention_sites(128) == [(256, 8), (1024, 6)]
+    assert (4, 1024, 8) in PATH and any(L == 64 for _, L, _ in PATH)
+
+
+def _check(b, L, heads):
+    p = tatt.plan(b, heads, L, NUM_SMS)
+    # the block shapes the kernels are built for (with_plan in the sources)
+    assert (p.fwd_rows, p.fwd_tile) in {(64, 64), (64, 128), (128, 128)}
+    assert p.bwd_rows == 64 and p.bwd_split_rows in (64, 128)
+    assert max(p.fwd_smem, p.dkdv_smem, p.dq_smem) <= tatt.SMEM_LIMIT
+    # K2: ceil(L / rows) blocks of query rows cover rows 0 .. L-1, each row
+    # once; ceil(L / tile) K/V tiles cover every key
+    for rows in (p.fwd_rows, p.bwd_rows, p.bwd_split_rows):
+        blocks = math.ceil(L / rows)
+        covered = [r for blk in range(blocks) for r in range(blk * rows, (blk + 1) * rows) if r < L]
+        assert covered == list(range(L))
+    tiles = math.ceil(L / p.fwd_tile)
+    assert tiles * p.fwd_tile >= L > (tiles - 1) * p.fwd_tile
+    # K3's bf16 scratch holds every row's lse and D, by 64-row tiles
+    shape = tatt.bwd_scratch_shape(b, heads, L, torch.bfloat16)
+    assert shape == (b * heads, math.ceil(L / 64), 2, 64) and shape[1] * 64 >= L
+    assert tatt.bwd_scratch_shape(b, heads, L, torch.float32) == (b * heads, L)
+    return p
+
+
+@pytest.mark.parametrize("b,L,heads", PATH, ids=lambda x: str(x))
+def test_plan_fits_every_path_site(b, L, heads):
+    p = _check(b, L, heads)
+    # 128-row blocks (two consumer warpgroups) where they fill the card
+    assert (p.fwd_rows == 128) == (L > 64 and b * heads * math.ceil(L / 128) >= NUM_SMS)
+    assert p.bwd_split_rows == p.fwd_rows
+
+
+@pytest.mark.parametrize("b,L,heads", EDGE, ids=lambda x: str(x))
+def test_plan_at_edge_lengths(b, L, heads):
+    p = _check(b, L, heads)
+    assert p.fwd_tile == (64 if L <= 64 else 128)
+    if L <= 64:
+        assert p.fwd_rows == p.bwd_split_rows == 64
+
+
+def test_plan_at_the_u_net_sites():
+    """b8, 128x128: K2 takes 128-row blocks at the L=1024, 6-head sites (384
+    per call) and 64-row blocks at the L=256, 8-head sites (256 per call,
+    where 128 rows would leave 4 of 132 SMs idle); K3 takes 64-row blocks in
+    fast mode, and K2's rule with dS split."""
+    assert tatt.plan(8, 6, 1024, NUM_SMS)[:4] == (128, 128, 64, 128)
+    assert tatt.plan(8, 8, 256, NUM_SMS)[:4] == (64, 128, 64, 64)
+    assert tatt.plan(8, 8, 64, NUM_SMS).fwd_tile == 64
+
+
+def test_plan_is_pure_and_cached():
+    assert tatt.plan(8, 6, 1024, NUM_SMS) is tatt.plan(8, 6, 1024, NUM_SMS)
+    assert tatt.plan(8, 6, 1024, 16).fwd_rows == 128 and tatt.plan(1, 1, 1024, 16).fwd_rows == 64

@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain versions on the card, at the
 edge shapes chip_smoke.py does not reach: scalar (unvectorized) paths,
 unaligned views, single rows, a GroupNorm+SiLU slice streamed through
-shared memory, bit-equal reruns, ragged attention lengths, the attention
-forward (K2) and backward (K3) in every mode on the U-Net block's
-row-strided views, stride-3 views and contiguous tensors (and on fp32
-operands with fast=True, as the EDM path runs them), the baselines' paths
+shared memory, bit-equal reruns (K1, and K2/K3 in bf16), ragged attention
+lengths and L = 4096, the attention forward (K2) and backward (K3) in
+every mode on the U-Net block's row-strided views, stride-3 views and
+contiguous tensors (and on fp32 operands with fast=True, as the EDM path
+runs them), the baselines' paths
 (K1 at the deterministic U-Net's 10 and 14 channels per group, the
 deterministic step's launches, BCSD's day-of-year sums bit-equal), and the
 wrappers' and kernels' refusals. Marked ``cuda``: they skip without a
@@ -123,7 +124,8 @@ def _qkv(layout, b, L, nh, dtype, dev, gen, grad=False):
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("mode", list(ATTN_MODES))
-@pytest.mark.parametrize("b,L,nh", [(1, 1, 1), (2, 65, 3), (1, 127, 2), (2, 64, 1), (1, 300, 4)])
+@pytest.mark.parametrize("b,L,nh", [(1, 1, 1), (2, 65, 3), (1, 127, 2), (2, 64, 1), (1, 300, 4),
+                                    (1, 4096, 2)])
 def test_attention_kernel_matches_plain(dev, mode, layout, b, L, nh):
     dtype, fast = ATTN_MODES[mode]
     gen = torch.Generator(device=dev).manual_seed(L)
@@ -178,7 +180,8 @@ def test_attention_kernels_refuse_strided_head_dim(dev):
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("mode", list(ATTN_MODES))
-@pytest.mark.parametrize("b,L,nh", [(1, 1, 1), (2, 64, 1), (2, 65, 3), (1, 127, 2), (1, 300, 4)])
+@pytest.mark.parametrize("b,L,nh", [(1, 1, 1), (2, 64, 1), (2, 65, 3), (1, 127, 2), (1, 300, 4),
+                                    (1, 4096, 2)])
 def test_attention_bwd_kernel_matches_plain(dev, mode, layout, b, L, nh):
     """K2 with its lse and K3 through autograd, against the plain backward
     on the same inputs."""
@@ -200,6 +203,24 @@ def test_attention_bwd_kernel_matches_plain(dev, mode, layout, b, L, nh):
         assert got.dtype == dtype
         scale = max(1e-3, r.float().abs().max().item())
         assert (got.float() - r.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("fast", [True, False], ids=["fast", "strict_bf16"])
+@pytest.mark.parametrize("b,L,nh", [(8, 1024, 6), (8, 256, 8), (2, 65, 3), (1, 4096, 2)])
+def test_attention_bf16_kernels_rerun_bit_equal(dev, fast, b, L, nh):
+    """K2 (output and lse) and K3 (dq, dk, dv) on bf16 give the same bits
+    on a second call: every sum runs in a fixed order, no atomics. The
+    shapes take both block sizes of the plan (128 rows at the U-Net's
+    L=1024 sites, 64 at its L=256 sites and below)."""
+    gen = torch.Generator(device=dev).manual_seed(L + nh)
+    (q, k, v), _ = _qkv("block", b, L, nh, torch.bfloat16, dev, gen)
+    do = torch.randn(b, L, nh, 64, device=dev, generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        first = K2._launch(q, k, v, with_lse=True)
+        second = K2._launch(q, k, v, with_lse=True)
+        grads = [K2.attention_bwd(q, k, v, first[0], first[1], do, fast) for _ in range(2)]
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+    assert all(torch.equal(a, b_) for a, b_ in zip(*grads))
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)

@@ -201,33 +201,61 @@ def fake_lib(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(_build, "lib", lambda: lib)
     monkeypatch.setattr(_build, "stream_handle", lambda device: ctypes.c_void_p(0))
+    monkeypatch.setattr(_build, "num_sms", lambda index: 132)
     monkeypatch.setattr(tatt.fused_attention, "launches", 0)
     monkeypatch.setattr(tatt.attention_bwd, "launches", 0)
     return lib
 
 
-def test_attention_wrappers_pass_the_declared_arguments(fake_lib):
+def test_attention_wrappers_pass_the_declared_arguments(fake_lib, monkeypatch):
     """What _launch and _launch_bwd hand the C entry points (here a recorder,
-    with CPU tensors standing in) matches the declared arity and types, and
-    the stride arguments are the tensors' own (b, l, h) strides: the block's
-    views go in place."""
-    y, views = _qkv_leaf("block")
-    q, k, v = views(y)
-    out, lse = tatt._launch(q, k, v, with_lse=True)
-    do = torch.zeros_like(out)
-    tatt._launch_bwd(q, k, v, out, lse, do, fast=False)
-    (fwd, fargs), (bwd, bargs) = fake_lib.calls
-    assert (fwd, bwd) == ("probunet_attention_fwd", "probunet_attention_bwd")
-    for args, tensors, first in ((fargs, (q, k, v), 8), (bargs, (q, k, v, out, do), 13)):
-        name = fwd if args is fargs else bwd
-        argtypes = _build._SIGNATURES[name]
-        assert len(args) == len(argtypes), name
-        for a, t in zip(args, argtypes):
-            t.from_param(a)  # raises on an argument ctypes would not pass as declared
-        strides = [s for a in tensors for s in a.stride()[:3]]
-        assert list(args[first:first + len(strides)]) == strides
-    assert args[first + len(strides)] == 1 / 8  # the scale follows the strides
-    assert fargs[0] == q.data_ptr() and fargs[1] == k.data_ptr() and fargs[2] == v.data_ptr()
+    with CPU tensors standing in), fp32 and bf16: the declared arity and
+    types; the stride arguments are the tensors' own (b, l, h) strides (the
+    block's views go in place); then the scale, the dtype flag and the
+    plan's block sizes; K3's scratch is an fp32 tensor of
+    bwd_scratch_shape (D per row for fp32, lse and D per 64-row tile for
+    bf16)."""
+    made = []
+    empty = torch.empty
+
+    def recording_empty(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    for dtype in (torch.float32, torch.bfloat16):
+        fake_lib.calls.clear()
+        y, views = _qkv_leaf("block")
+        y = y.to(dtype)
+        q, k, v = views(y)
+        b, L, h, _ = q.shape
+        out, lse = tatt._launch(q, k, v, with_lse=True)
+        do = torch.zeros_like(out)
+        tatt._launch_bwd(q, k, v, out, lse, do, fast=True)
+        tatt._launch_bwd(q, k, v, out, lse, do, fast=False)
+        (fwd, fargs), (bwd, bargs), (_, strict_args) = fake_lib.calls
+        assert (fwd, bwd) == ("probunet_attention_fwd", "probunet_attention_bwd")
+        for args, tensors, first in ((fargs, (q, k, v), 8), (bargs, (q, k, v, out, do), 13)):
+            name = fwd if args is fargs else bwd
+            argtypes = _build._SIGNATURES[name]
+            assert len(args) == len(argtypes), name
+            for a, t in zip(args, argtypes):
+                t.from_param(a)  # raises on an argument ctypes would not pass as declared
+            strides = [s for a in tensors for s in a.stride()[:3]]
+            assert list(args[first:first + len(strides)]) == strides
+            assert args[first + len(strides)] == 1 / 8  # the scale follows the strides
+        assert fargs[0] == q.data_ptr() and fargs[1] == k.data_ptr() and fargs[2] == v.data_ptr()
+        p = tatt.plan(b, h, L, 132)
+        bf16 = int(dtype == torch.bfloat16)
+        assert fargs[-4:-1] == (bf16, p.fwd_rows, p.fwd_tile)
+        assert bargs[-4:-1] == (bf16, 1, p.bwd_rows)
+        assert strict_args[-4:-1] == (bf16, 0, p.bwd_split_rows)
+        scratch = next(t for t in made if t.data_ptr() == bargs[6])
+        assert scratch.dtype == torch.float32
+        assert tuple(scratch.shape) == tatt.bwd_scratch_shape(b, h, L, dtype)
+        assert tuple(scratch.shape) == ((b * h, L) if dtype == torch.float32
+                                        else (b * h, -(-L // 64), 2, 64))
 
 
 def test_attention_launch_refuses_strided_head_dim(fake_lib):
