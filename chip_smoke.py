@@ -14,7 +14,8 @@ stepped and trained, then the baselines (the deterministic U-Net,
 conv-VAE served, then the prob-U-Net trained, served and BCSD run over
 several processes (two ranks sharing the card, one NCCL rank), then with
 the tile's height sharded over the ranks (``--parallel_mode spatial`` and
-``2d``). Phases:
+``2d``), then the prob-U-Net at ``--model_channels 96``, whose attention
+heads of 72 run the kernels' kD = 128 instantiation. Phases:
 
   1. card and build: nvidia-smi name and power limit; nvcc for sm_90a with
      ptxas registers, shared memory and spills; ``cuobjdump -sass`` of the
@@ -171,6 +172,23 @@ the tile's height sharded over the ranks (``--parallel_mode spatial`` and
      (d) four gloo ranks, ``--parallel_mode 2d --mesh_shape 2,-1``, b4
      global, 2 steps against one process with ``data_shards=2``. Ranks
      sharing one card give no scaling figure.
+ 16. the prob-U-Net at ``model_channels=96`` (59,645,627 parameters, full
+     depth, phase 4's data): its 32x32 level is 288 wide, 4 heads of 72,
+     which run the kernels' kD = 128 instantiation (5 of the 11 attention
+     sites; the 16x16 level's 6 run 6 heads of 64). The kD = 128 kernels'
+     threads, shared memory, registers and spills (none allowed in bf16);
+     (a) the sampler and one strict training step card against CPU, phase
+     5's and phase 9's limits; (b) the sampler at b8, K=16 and 5 training
+     steps at b8, dropout 0.1, in strict and fast mode, with counts set to
+     0 before each and exactly 29 K1 + 11 K2 per pass, 29 / 11 / 11 per
+     step, no copy, finite output; ms per batch and step, device time,
+     peak memory; (c) K2 and K3 (and K2's lse) against their plain versions
+     at head dims 72, 80, 96, 100, 120 and 127 (kD = 128; 100 and 127
+     copied zero-padded), L = 64, 256, 1024 and 100, every layout and mode
+     (phase 3's and 7's limits, two calls bit-equal, the copies counted,
+     the strict_bf16 dS check), and at the path's own site; (d) K2 and K3
+     per U-Net pass over the path's sites, strict and fast, beside SDPA and
+     its backward on the same tensors, and the bound at the real head dim.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. The line before the last is the ``kernels`` JSON object, the last
@@ -315,6 +333,19 @@ SP_RANKS, SP_2D_RANKS, SP_TILE, SP_TILE_STEPS = 2, 4, 256, 3
 # the largest batch among these whose unsharded strict step (remat) peaks
 # under SP_TILE_PEAK_GIB alone: two ranks each hold about half of it
 SP_TILE_BATCHES, SP_TILE_PEAK_GIB = (4, 2), 36.0
+# phase 16, the prob-U-Net at --model_channels 96 (full depth, phase 4's
+# data): the 288-wide 32x32 level's 5 attention blocks run 4 heads of 72
+# (the kernels' kD = 128 instantiation), the 384-wide 16x16 level's 6 run
+# 6 heads of 64; (L, heads, c) -> blocks per U-Net pass
+MC96, MC96_PARAMS = 96, 59_645_627
+MC96_SITES = {(1024, 4, 72): 5, (256, 6, 64): 6}
+MC96_STEPS, MC96_BATCHES, MC96_WARMUP = 5, 4, 2
+# (c) head dims past 64 (kD = 128): 72 (this path), 80, 96 and 120 (heads
+# of other widths: rows of whole 16-byte bf16 chunks, read in place), 100
+# and 127 (copied, zero-padded to 104 and 128), at these lengths (100
+# ragged), b2 with 2 heads, and the path's site itself
+MC96_HEAD_DIMS = (72, 80, 96, 100, 120, 127)
+MC96_LENGTHS = (64, 256, 1024, 100)
 
 
 def log(msg=""):
@@ -390,11 +421,14 @@ def sass_census(_build):
                 counts[cur][op.group(1)] += 1
     for name, c in sorted(counts.items()):
         log(f"[1] SASS {name}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG")
-    fp32 = [n for n in counts if n.endswith("<fp32>")]
-    sm90 = [n for n in counts if "_sm90<" in n]
-    # fp32: fwd, rowdot, dkdv, dq; bf16: fwd x 3 block shapes, dkdv and dq x
-    # (fast at 64 rows, split dS at 64 and 128), and the row pass
-    want = {"fp32": 4, "sm90": 3 + 2 * 3, "all": 4 + 9 + 1}
+    fp32 = [n for n in counts if "<fp32" in n]
+    sm90 = [n for n in counts if "_sm90<" in n and "_prep_" not in n]
+    # each at head widths kD = 64 and 128. fp32: fwd, rowdot, dkdv, dq x 2;
+    # bf16: fwd x (3 block shapes at 64, 1 at 128); dkdv x (fast at 64 rows,
+    # split dS at 64 and 128 rows at kD = 64; at kD = 128 a dV pass and a
+    # dK pass fast and split); dq x (3 at 64, fast and split at 128); the
+    # row pass x 2
+    want = {"fp32": 4 * 2, "sm90": 4 + 6 + 5, "all": 8 + 15 + 2}
     bad = [n for n in fp32 if not counts[n]["HMMA"]] + \
           [n for n in sm90 if not (counts[n]["HGMMA"] and counts[n]["UTMALDG"])]
     if (len(fp32), len(sm90), len(counts)) != (want["fp32"], want["sm90"], want["all"]) or bad:
@@ -437,12 +471,13 @@ def k1_kernel_info(torch, K1, site, num_sms):
     return info
 
 
-def attn_kernel_info(torch, K2, sites, num_sms):
+def attn_kernel_info(torch, K2, sites, num_sms, kd=64, phase=1):
     """The bf16 attention kernels of the plan at each (L, heads) site at
-    batch BATCH: block sizes, threads, dynamic shared bytes (checked against
-    the plan's own figure), registers and spilled bytes, as the built
-    library reports them (cudaFuncGetAttributes). Raises if a kernel spills
-    or the plan's shared memory disagrees with the kernel's."""
+    batch BATCH and head width ``kd``: block sizes, threads, dynamic shared
+    bytes (checked against the plan's own figure), registers and spilled
+    bytes, as the built library reports them (cudaFuncGetAttributes).
+    Raises if a kernel spills or the plan's shared memory disagrees with the
+    kernel's."""
     from probunet_torch.ops import _build
 
     lib, out, info = _build.lib(), (ctypes.c_int * 5)(), []
@@ -452,16 +487,19 @@ def attn_kernel_info(torch, K2, sites, num_sms):
         _build.check(fn(*args, out), "attention query")
         return dict(zip(keys, out))
 
+    # K3's kernels: dK/dV and dQ; at kD = 128 the dK/dV kernel's dV and dK passes
+    bwd = ((0, "dkdv"), (1, "dq")) if kd == 64 else ((0, "dv"), (2, "dk"), (1, "dq"))
     for L, nh in sites:
-        p = K2.plan(BATCH, nh, L, num_sms)
-        kernels = {"fwd": (query(lib.probunet_attention_fwd_query, p.fwd_rows, p.fwd_tile),
+        p = K2.plan(BATCH, nh, L, num_sms, kd)
+        kernels = {"fwd": (query(lib.probunet_attention_fwd_query, p.fwd_rows, p.fwd_tile, kd),
                            p.fwd_smem)}
         for split, rows in ((0, p.bwd_rows), (1, p.bwd_split_rows)):
-            for k, name in ((0, "dkdv"), (1, "dq")):
-                d = query(lib.probunet_attention_bwd_query, k, rows, split)
-                kernels[f"{name}{'_split' if split else ''}"] = (d, K2._bwd_smem(rows, k == 0))
+            for k, name in bwd:
+                d = query(lib.probunet_attention_bwd_query, k, rows, split, kd)
+                kernels[f"{name}{'_split' if split else ''}"] = (d, K2._bwd_smem(rows, k != 1, kd))
         for name, (d, planned) in kernels.items():
-            log(f"[1] attention {name} at {BATCH}x{L}x{nh} (plan {p[:4]}): {d['threads']} "
+            log(f"[{phase}] attention {name} at {BATCH}x{L}x{nh} (plan {p[:4]}"
+                f"{'' if kd == 64 else f', kD {kd}'}): {d['threads']} "
                 f"threads, {d['dynamic_smem']} B dynamic shared (plan {planned}), "
                 f"{d['registers']} registers, {d['local_bytes']} B spilled")
             if d["dynamic_smem"] != planned or d["local_bytes"]:
@@ -471,14 +509,14 @@ def attn_kernel_info(torch, K2, sites, num_sms):
     return info
 
 
-def qkv_views(torch, layout, b, L, nh, dtype, dev, gen):
-    """q, k, v of shape (b, L, nh, 64) in ``layout`` (see LAYOUTS)."""
+def qkv_views(torch, layout, b, L, nh, dtype, dev, gen, c=64):
+    """q, k, v of shape (b, L, nh, c) in ``layout`` (see LAYOUTS)."""
     if layout == "block":
-        return torch.randn(b, L, 3, nh, 64, device=dev, generator=gen).to(dtype).unbind(2)
+        return torch.randn(b, L, 3, nh, c, device=dev, generator=gen).to(dtype).unbind(2)
     if layout == "stride3":
-        y = torch.randn(b, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
+        y = torch.randn(b, L, nh, c, 3, device=dev, generator=gen).to(dtype)
         return y[..., 0], y[..., 1], y[..., 2]
-    return tuple(torch.randn(b, L, nh, 64, device=dev, generator=gen).to(dtype)
+    return tuple(torch.randn(b, L, nh, c, device=dev, generator=gen).to(dtype)
                  for _ in range(3))
 
 
@@ -822,22 +860,7 @@ def run_phases(torch, dev, card, sass):
                        standardization=cfg.standardization, device=dev)
     ds_cpu = ClimexDataset(hr=ds.hr_np, timestamps=ds.timestamps_np,
                            standardization=cfg.standardization, device="cpu")
-    cpu_model = build_probunet(cfg, device="meta").to_empty(device="cpu").eval()
-    cpu_model.load_state_dict(model.state_dict())
-    eps = torch.randn(2, 1, cfg.latent_dim, generator=torch.Generator().manual_seed(5))
-    idx = torch.tensor([3])
-    with full_fp32():
-        got = make_sample_fn(model, 4, cfg.standardization, 2)(
-            ds.hr_device(), ds.stats, idx.to(dev), eps=eps)[0].cpu()
-    t0 = time.perf_counter()
-    ref = make_sample_fn(cpu_model, 4, cfg.standardization, 2)(
-        ds_cpu.hr_device(), ds_cpu.stats, idx, eps=eps)[0]
-    rel = ((got - ref).abs().max() / ref.abs().max()).item()
-    log(f"[5] path on the card vs plain path on the CPU (b=1, K=2, {time.perf_counter() - t0:.1f}"
-        f" s on the CPU): max abs err / max |ref| = {rel:.3e} (tol {PATH_TOL})")
-    if not rel <= PATH_TOL:
-        raise AssertionError("the path on the card disagrees with the plain path")
-    del cpu_model
+    sample_card_vs_cpu(torch, model, cfg, ds, ds_cpu, dev, 5)
     mark(5)
 
     # ---- 6. timings ----------------------------------------------------------
@@ -930,6 +953,7 @@ def run_phases(torch, dev, card, sass):
     baseline = baseline_phase(torch, dev, card, ds, ds_cpu, gen, mark)
     multi = multiprocess_phase(torch, dev, card, gn_sites, mark)
     spatial = spatial_phase(torch, dev, card, ds, mark)
+    mc96 = mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark)
 
     def entry(name, source, replaces, n, err, tol, t, extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -943,7 +967,8 @@ def run_phases(torch, dev, card, sass):
                      **{f"edm_{path}": n[key] for path, n in edm["launches"].items()},
                      **{f"baseline_{path}": n[key] for path, n in baseline["launches"].items()},
                      **{f"multiprocess_{path}": n[key] for path, n in multi["launches"].items()},
-                     **{f"spatial_{path}": n[key] for path, n in spatial["launches"].items()}}
+                     **{f"spatial_{path}": n[key] for path, n in spatial["launches"].items()},
+                     **{path: n[key] for path, n in mc96["launches"].items()}}
                for key in ("gn", "attn", "attn_bwd")}
     launches = {key: sum(by_path[key].values()) for key in by_path}
     return [
@@ -967,6 +992,12 @@ def run_phases(torch, dev, card, sass):
                "max_abs_err_by_mode": k2_err, "launches_by_path": by_path["attn"],
                "edm_fp32_fast_max_abs_err": edm["k2_err"], "edm": edm["report"],
                "with_lse": train["k2_lse"], "bf16_kernels_by_site": attn_info,
+               "mc96": {"timed": f"sum over the {sum(MC96_SITES.values())} sites of one "
+                                 f"model_channels {MC96} U-Net forward at b{BATCH}",
+                        "strict": mc96["report"]["timings"]["k2_strict"],
+                        "fast": mc96["report"]["timings"]["k2_fast"],
+                        "kd128_kernels": mc96["report"]["kd128_kernels"],
+                        "max_err": mc96["report"]["max_err"]},
                "sass": {n: c for n, c in sass.items() if n.startswith("attention_fwd")}}),
         entry("attention_bwd", "probunet_torch/csrc/attention_bwd.cu",
               "probunet_tpu/ops/pallas_attn.py:91", launches["attn_bwd"],
@@ -979,8 +1010,97 @@ def run_phases(torch, dev, card, sass):
                "edm_fp32_fast_max_rel_err": edm["k3_rel"],
                "training": train["rates"], "trainer": trainer["report"],
                "multiprocess": multi["report"], "spatial": spatial["report"],
+               "mc96": {"timed": f"sum over the {sum(MC96_SITES.values())} sites of one "
+                                 f"model_channels {MC96} U-Net backward at b{BATCH}",
+                        "strict": mc96["report"]["timings"]["k3_strict"],
+                        "fast": mc96["report"]["timings"]["k3_fast"],
+                        **{k: v for k, v in mc96["report"].items() if k != "timings"}},
                "sass": {n: c for n, c in sass.items() if n.startswith("attention_bwd")}}),
     ]
+
+
+def sample_card_vs_cpu(torch, model, cfg, ds, ds_cpu, dev, phase):
+    """The sampler on the card (``model``) against the plain path on the
+    CPU (a copy of its weights): one input, two members, the same eps,
+    strict fp32; returns max abs err / max |ref|, raises past PATH_TOL."""
+    from probunet_torch.train.loop import build_probunet
+    from probunet_torch.train.steps import make_sample_fn
+    from probunet_torch.utils.device import full_fp32
+
+    cpu_model = build_probunet(cfg, device="meta").to_empty(device="cpu").eval()
+    cpu_model.load_state_dict(model.state_dict())
+    eps = torch.randn(2, 1, cfg.latent_dim, generator=torch.Generator().manual_seed(5))
+    idx = torch.tensor([3])
+    with full_fp32():
+        got = make_sample_fn(model, 4, cfg.standardization, 2)(
+            ds.hr_device(), ds.stats, idx.to(dev), eps=eps)[0].cpu()
+    t0 = time.perf_counter()
+    ref = make_sample_fn(cpu_model, 4, cfg.standardization, 2)(
+        ds_cpu.hr_device(), ds_cpu.stats, idx, eps=eps)[0]
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    log(f"[{phase}] path on the card vs plain path on the CPU (b=1, K=2, "
+        f"{time.perf_counter() - t0:.1f} s on the CPU): max abs err / max |ref| = {rel:.3e} "
+        f"(tol {PATH_TOL})")
+    if not rel <= PATH_TOL:
+        raise AssertionError("the path on the card disagrees with the plain path")
+    return rel
+
+
+def step_card_vs_cpu(torch, dev, cfg, ds, ds_cpu, phase):
+    """One strict training step (b=1, dropout 0, filled weights, the same
+    eps) on the card against the plain step on the CPU, with phase 9's
+    limits (STEP_*_TOL); returns the readings, raises past a limit."""
+    from probunet_torch.train.loop import build_probunet
+    from probunet_torch.train.state import create_train_state, make_optimizer
+    from probunet_torch.train.steps import make_probunet_train_step
+
+    c9 = cfg.replace(dropout=0.0)
+    card_model = build_probunet(c9, device="meta").to_empty(device=dev)
+    fill_weights(torch, card_model, seed=9)
+    cpu_model = build_probunet(c9, device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict(card_model.state_dict())
+    eps1 = torch.randn(1, cfg.latent_dim, generator=torch.Generator().manual_seed(4))
+    res = {}
+    for where, m, d in (("card", card_model, ds), ("cpu", cpu_model, ds_cpu)):
+        state = create_train_state(m, make_optimizer(c9.lr, c9.weight_decay))
+        idx = torch.tensor([3], device=d.device)
+        t0 = time.perf_counter()
+        metrics = make_probunet_train_step(m, c9.lowres_scale, c9.standardization)(
+            state, d.hr_device(), d.stats, idx, 0, eps=eps1)
+        loss = metrics["train_loss"].item()
+        res[where] = (loss, metrics["grad_norm"].item(),
+                      {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+                      {k: p.detach().cpu() for k, p in m.named_parameters()})
+        log(f"[{phase}] one step on the {where}: {time.perf_counter() - t0:.1f} s, loss "
+            f"{loss:.6g}, grad norm {res[where][1]:.6g}")
+    (l_c, n_c, g_c, p_c), (l_r, n_r, g_r, p_r) = res["card"], res["cpu"]
+    loss_rel, norm_rel = abs(l_c - l_r) / abs(l_r), abs(n_c - n_r) / n_r
+    grad_rel, worst, param_err, compared = 0.0, "", 0.0, 0
+    for k in g_r:
+        scale = g_r[k].abs().max().item()
+        if scale == 0.0:   # map_layer* and the emb-fed affine weights: zero on both sides
+            if g_c[k].abs().max().item() != 0.0:
+                raise AssertionError(f"{k}: gradient should be zero")
+            continue
+        rel = (g_c[k] - g_r[k]).abs().max().item() / scale
+        if rel > grad_rel:
+            grad_rel, worst = rel, k
+        clear = g_r[k].abs() > 10 * STEP_GRAD_TOL * scale
+        compared += int(clear.sum())
+        if clear.any():
+            param_err = max(param_err, (p_c[k] - p_r[k])[clear].abs().max().item())
+    total = sum(p.numel() for p in p_r.values())
+    ok = (loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_LOSS_TOL
+          and grad_rel <= STEP_GRAD_TOL and param_err <= STEP_PARAM_TOL)
+    log(f"[{phase}] card vs CPU (b=1, {RES}x{RES}, strict fp32): loss rel err {loss_rel:.3e}, "
+        f"grad norm rel err {norm_rel:.3e} (tol {STEP_LOSS_TOL}); worst gradient max|err| / "
+        f"max|g| {grad_rel:.3e} ({worst}; tol {STEP_GRAD_TOL}); parameters after AdamW max abs "
+        f"err {param_err:.3e} (tol {STEP_PARAM_TOL}) over the {compared:,} of {total:,} elements"
+        f" whose gradient is clear of the error {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the training step on the card disagrees with the plain step")
+    return {"loss_rel": loss_rel, "norm_rel": norm_rel, "grad_rel": grad_rel,
+            "worst_grad": worst, "param_err": param_err}
 
 
 def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
@@ -993,7 +1113,7 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
     from probunet_torch.ops import attention as K2
     from probunet_torch.ops import gn_silu as K1
     from probunet_torch.train.loop import build_probunet, init_probunet_state
-    from probunet_torch.train.state import create_train_state, make_optimizer
+    from probunet_torch.train.state import make_optimizer
     from probunet_torch.train.steps import beta_schedule, make_probunet_train_step
     from probunet_torch.utils.device import full_fp32
 
@@ -1092,52 +1212,7 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
     mark(8)
 
     # ---- 9. one step on the card against the plain step on the CPU ---------------
-    c9 = cfg.replace(dropout=0.0)
-    card_model = build_probunet(c9, device="meta").to_empty(device=dev)
-    fill_weights(torch, card_model, seed=9)
-    cpu_model = build_probunet(c9, device="meta").to_empty(device="cpu")
-    cpu_model.load_state_dict(card_model.state_dict())
-    eps1 = torch.randn(1, cfg.latent_dim, generator=torch.Generator().manual_seed(4))
-    res = {}
-    for where, m, d in (("card", card_model, ds), ("cpu", cpu_model, ds_cpu)):
-        state = create_train_state(m, make_optimizer(c9.lr, c9.weight_decay))
-        idx = torch.tensor([3], device=d.device)
-        t0 = time.perf_counter()
-        metrics = make_probunet_train_step(m, c9.lowres_scale, c9.standardization)(
-            state, d.hr_device(), d.stats, idx, 0, eps=eps1)
-        loss = metrics["train_loss"].item()
-        res[where] = (loss, metrics["grad_norm"].item(),
-                      {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
-                      {k: p.detach().cpu() for k, p in m.named_parameters()})
-        log(f"[9] one step on the {where}: {time.perf_counter() - t0:.1f} s, loss {loss:.6g}, "
-            f"grad norm {res[where][1]:.6g}")
-    (l_c, n_c, g_c, p_c), (l_r, n_r, g_r, p_r) = res["card"], res["cpu"]
-    loss_rel, norm_rel = abs(l_c - l_r) / abs(l_r), abs(n_c - n_r) / n_r
-    grad_rel, worst, param_err, compared = 0.0, "", 0.0, 0
-    for k in g_r:
-        scale = g_r[k].abs().max().item()
-        if scale == 0.0:   # map_layer* and the emb-fed affine weights: zero on both sides
-            if g_c[k].abs().max().item() != 0.0:
-                raise AssertionError(f"{k}: gradient should be zero")
-            continue
-        rel = (g_c[k] - g_r[k]).abs().max().item() / scale
-        if rel > grad_rel:
-            grad_rel, worst = rel, k
-        clear = g_r[k].abs() > 10 * STEP_GRAD_TOL * scale
-        compared += int(clear.sum())
-        if clear.any():
-            param_err = max(param_err, (p_c[k] - p_r[k])[clear].abs().max().item())
-    total = sum(p.numel() for p in p_r.values())
-    ok = (loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_LOSS_TOL
-          and grad_rel <= STEP_GRAD_TOL and param_err <= STEP_PARAM_TOL)
-    log(f"[9] card vs CPU (b=1, {RES}x{RES}, strict fp32): loss rel err {loss_rel:.3e}, grad "
-        f"norm rel err {norm_rel:.3e} (tol {STEP_LOSS_TOL}); worst gradient max|err| / max|g| "
-        f"{grad_rel:.3e} ({worst}; tol {STEP_GRAD_TOL}); parameters after AdamW max abs err "
-        f"{param_err:.3e} (tol {STEP_PARAM_TOL}) over the {compared:,} of {total:,} elements "
-        f"whose gradient is clear of the error {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("the training step on the card disagrees with the plain step")
-    del card_model, cpu_model, res
+    step_card_vs_cpu(torch, dev, cfg, ds, ds_cpu, 9)
     mark(9)
 
     # ---- 10. timings -------------------------------------------------------------
@@ -3051,6 +3126,258 @@ def spatial_phase(torch, dev, card, ds, mark):
     return {"launches": launches, "report": report}
 
 
+def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
+    """Phase 16: the prob-U-Net at model_channels 96 (see MC96_*): the
+    kD = 128 kernels' registers and spills, (a) one strict step and the
+    sampler card against CPU, (b) the sampler at b8 K=16 and training steps
+    at b8, strict and fast, with exact launch counts, (c) K2 and K3 against
+    their plain versions at every MC96_HEAD_DIMS, (d) K2 and K3 per U-Net
+    pass over this path's sites beside SDPA and the bound. Returns the
+    launch counts of (b) by path, the errors and the report."""
+    import torch.nn.functional as F
+
+    from probunet_torch.config import Config
+    from probunet_torch.ops import attention as K2
+    from probunet_torch.train.loop import build_probunet, init_probunet_state
+    from probunet_torch.train.state import make_optimizer
+    from probunet_torch.train.steps import (beta_schedule, make_probunet_train_step,
+                                            make_sample_fn)
+    from probunet_torch.utils.device import full_fp32
+
+    cfg = Config(datadir=os.path.join(WORK, "data"), years_test=(2000, 2001),
+                 coords=(0, RES, 0, RES), resolution=(RES, RES), standardization="pertimestep",
+                 batch_size=BATCH, num_samples=MEMBERS, model_channels=MC96)
+    modes = {"strict": cfg, "fast": cfg.replace(compute_dtype="bfloat16", fast_attention=True,
+                                                opt_state_dtype="bfloat16")}
+    model = build_probunet(cfg, device="meta").to_empty(device=dev).eval()
+    fill_weights(torch, model, seed=16)
+    nparams = sum(p.numel() for p in model.parameters())
+    gn_sites, attn_sites = census(torch, model, lambda: model.unet(
+        torch.randn(BATCH, RES, RES, 3, device=dev)))
+    dims = sorted({(m.qkv.weight.shape[0] // 3 // m.heads, m.heads) for m in model.modules()
+                   if getattr(m, "heads", 0)})
+    sites = {(L, nh, c): n for (L, nh), n in _counts(attn_sites).items()
+             for c, h in dims if h == nh}
+    log(f"[16] model_channels {MC96}: {RES}x{RES} Probabilistic U-Net, {nparams:,} parameters; "
+        f"{len(gn_sites)} K1 sites, attention sites (L, heads, head dim) x blocks: {sites}")
+    if nparams != MC96_PARAMS or sites != MC96_SITES or len(gn_sites) != K1_PER_BATCH:
+        raise AssertionError(f"expected {MC96_PARAMS:,} parameters, {K1_PER_BATCH} K1 sites "
+                             f"and attention at {MC96_SITES}")
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kd128 = attn_kernel_info(torch, K2, [(L, nh) for L, nh, c in MC96_SITES if c > 64],
+                             num_sms, kd=128, phase=16)
+    report = {"card": card, "params": nparams, "sites": {str(k): v for k, v in sites.items()},
+              "kd128_kernels": kd128}
+    mark(16)
+
+    # ---- (a) the sampler and one strict step, card against CPU ----------------------
+    report["sample_card_vs_cpu"] = sample_card_vs_cpu(torch, model, cfg, ds, ds_cpu, dev, 16)
+    report["step_card_vs_cpu"] = step_card_vs_cpu(torch, dev, cfg, ds, ds_cpu, 16)
+    mark(16)
+
+    # ---- (b) the path: the sampler at b8 K=16, training steps at b8 ------------------
+    hr_all = ds.hr_device()
+    batches = [torch.arange(i * BATCH, (i + 1) * BATCH, device=dev)
+               for i in range(DAYS // BATCH)]
+    by_path, rates = {}, {}
+    for name, c in modes.items():
+        dtype = torch.bfloat16 if name == "fast" else torch.float32
+        m = build_probunet(c, device="meta").to_empty(device=dev).eval()
+        m.load_state_dict(model.state_dict())
+        fn = make_sample_fn(m, 4, cfg.standardization, MEMBERS, dtype)
+        e = torch.randn(MEMBERS, BATCH, cfg.latent_dim)
+        with full_fp32():
+            for i in range(MC96_WARMUP):
+                fn(hr_all, ds.stats, batches[i], eps=e)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            outs = [fn(hr_all, ds.stats, batches[i], eps=e) for i in range(MC96_BATCHES)]
+            torch.cuda.synchronize()
+            per = (time.perf_counter() - t0) / MC96_BATCHES
+            n = launch_counts()
+            device = profile(torch, lambda: fn(hr_all, ds.stats, batches[0], eps=e),
+                             f"mc96 sampler {name}", "one batch", phase=16, top=8)
+        by_path[f"mc96_serve_{name}"] = as_launches(n)
+        want = (MC96_BATCHES * K1_PER_BATCH, MC96_BATCHES * K2_PER_BATCH, 0, 0)
+        finite = all(bool(torch.isfinite(o[0]).all()) for o in outs)
+        shape = tuple(outs[0][0].shape)
+        rates[f"sampler_{name}"] = {"ms_per_batch": per * 1e3, "device_ms": device,
+                                    "inputs_per_s": BATCH / per}
+        log(f"[16] sampler {name}: {per * 1e3:.2f} ms per batch of {BATCH} inputs x {MEMBERS} "
+            f"members (device {device} ms), output {shape}, finite {finite}; launches K1 "
+            f"{n[0]}, K2 {n[1]}, K3 {n[2]}, copies {n[3]} (expected {want}) ({card})")
+        if n != want or not finite or shape != (BATCH, MEMBERS, RES, RES, 3):
+            raise AssertionError("the mc96 sampler's launches or output are off")
+        del m, outs
+    for name, c in modes.items():
+        dtype = torch.bfloat16 if name == "fast" else torch.float32
+        c = c.replace(dropout=0.1)
+        tx = make_optimizer(c.lr, c.weight_decay, c.accum, c.optimizer, None, c.opt_state_dtype)
+        state = init_probunet_state(c, build_probunet(c, device="meta"), tx, device=dev)
+        step = make_probunet_train_step(
+            state.model, c.lowres_scale, c.standardization,
+            beta_schedule(c.beta_schedule, c.beta, c.beta_warmup_steps), dtype, c.accum)
+        for i in range(MC96_WARMUP):
+            step(state, hr_all, ds.stats, batches[i], c.seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ms = [step(state, hr_all, ds.stats, batches[i % len(batches)], c.seed)
+              for i in range(MC96_STEPS)]
+        torch.cuda.synchronize()
+        per = (time.perf_counter() - t0) / MC96_STEPS
+        n = launch_counts()
+        losses = [x["train_loss"].item() for x in ms]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        device = profile(torch, lambda: step(state, hr_all, ds.stats, batches[0], c.seed),
+                         f"mc96 train step {name}", "one step", phase=16, top=8)
+        by_path[f"mc96_train_{name}"] = as_launches(n)
+        want = (MC96_STEPS * K1_PER_BATCH, MC96_STEPS * K2_PER_BATCH, MC96_STEPS * K3_PER_STEP, 0)
+        rates[f"train_{name}"] = {"ms_per_step": per * 1e3, "device_ms": device,
+                                  "samples_per_s": BATCH / per, "peak_gib": peak,
+                                  "losses": losses}
+        log(f"[16] train {name}: {per * 1e3:.2f} ms per step of {BATCH} samples (device "
+            f"{device} ms), peak {peak:.2f} GiB, loss {[round(x, 1) for x in losses]}; launches "
+            f"K1 {n[0]}, K2 {n[1]}, K3 {n[2]}, copies {n[3]} (expected {want}) ({card})")
+        if n != want or not all(math.isfinite(x) for x in losses):
+            raise AssertionError("the mc96 training step's launches or losses are off")
+        del state, step, ms
+    report["rates"] = rates
+    mark(16)
+
+    # ---- (c) K2 and K3 against their plain versions at head dims past 64 -----------------
+    cases = [(2, L, 2, c) for c in MC96_HEAD_DIMS for L in MC96_LENGTHS]
+    cases += [(BATCH, L, nh, c) for L, nh, c in MC96_SITES if c > 64]
+    worst = {}
+    ds_seen = {"kernel": 0.0, "kernel_rounded": math.inf, "plain_rounded": math.inf,
+               "kernel_vs_plain_version": 0.0}
+    for mode, (dname, fast) in ATTN_MODES.items():
+        dtype = getattr(torch, dname)
+        for b, L, nh, c in cases:
+            errs = {"fwd": 0.0, "bwd": 0.0, "lse": 0.0}
+            for layout in LAYOUTS if b == 2 else ("block",):
+                q, k, v = qkv_views(torch, layout, b, L, nh, dtype, dev, gen, c)
+                do = torch.randn(b, L, nh, c, device=dev, generator=gen).to(dtype)
+                with torch.no_grad():
+                    K2.kernel_layout.copies = 0
+                    out = K2.fused_attention(q, k, v, fast)
+                    again = K2.fused_attention(q, k, v, fast)
+                    copies = K2.kernel_layout.copies
+                    ref = K2._plain_attention(q, k, v, fast)
+                    lo, lse = K2._launch(*map(K2.kernel_layout, (q, k, v)), with_lse=True, c=c)
+                    got = K2.attention_bwd(q, k, v, lo, lse, do, fast)
+                    got2 = K2.attention_bwd(q, k, v, lo, lse, do, fast)
+                    ref_b = K2._plain_attention_bwd(q, k, v, do, fast)
+                    # the kernels scale the fp32 logits of the bf16 operands in every
+                    # mode (fast mode's plain version rounds K / sqrt(c) to bf16 first,
+                    # which moves the lse by ~1e-3 where 1 / sqrt(c) is no power of 2)
+                    ref_lse = torch.logsumexp(torch.einsum(
+                        "bqhc,bkhc->bhqk", q.float(), k.float() / math.sqrt(c)),
+                        dim=-1).reshape(b * nh, L)
+                torch.cuda.synchronize()
+                e_f = (out.float() - ref.float()).abs().max().item()
+                e_b = max((g.float() - r.float()).abs().max().item()
+                          / max(1e-3, r.float().abs().max().item()) for g, r in zip(got, ref_b))
+                e_l = (lse - ref_lse).abs().max().item()
+                same = torch.equal(out, again) and all(
+                    torch.equal(x, y) for x, y in zip(got, got2))
+                in_place = c == K2.kernel_width(c) and layout != "stride3"
+                ok = (e_f <= ATTN_TOL[mode] and torch.allclose(
+                          out.float(), ref.float(), atol=ATTN_TOL[mode], rtol=ATTN_TOL[mode])
+                      and e_b <= ATTN_BWD_TOL[dname] and e_l <= 1e-4 and same
+                      and out.shape == q.shape and all(g.shape == q.shape for g in got)
+                      and copies == (0 if in_place else 6))
+                if not ok:
+                    raise AssertionError(
+                        f"[16] K2/K3 {mode} {layout} B={b} L={L} heads={nh} c={c}: fwd err "
+                        f"{e_f:.3e} (tol {ATTN_TOL[mode]}), bwd {e_b:.3e} (tol "
+                        f"{ATTN_BWD_TOL[dname]}), lse {e_l:.3e}, bit-equal {same}, copies "
+                        f"{copies}")
+                if mode == "strict_bf16" and L > 1:
+                    split_ds_check(torch, K2, q, k, v, lo, lse, do, got, ref_b, ds_seen,
+                                   f"{layout:10s} B={b} L={L} heads={nh} c={c}", 16)
+                errs = {"fwd": max(errs["fwd"], e_f), "bwd": max(errs["bwd"], e_b),
+                        "lse": max(errs["lse"], e_l)}
+            log(f"[16] K2/K3 {mode:11s} B={b} L={L:4d} heads={nh} c={c:3d} (kD "
+                f"{64 if c <= 64 else 128}; {'every layout' if b == 2 else 'block views'}): "
+                f"max abs err fwd {errs['fwd']:.3e} (tol {ATTN_TOL[mode]}), dq/dk/dv / max|ref|"
+                f" {errs['bwd']:.3e} (tol {ATTN_BWD_TOL[dname]}), lse {errs['lse']:.3e}; two "
+                f"calls bit-equal ok")
+            for key, val in errs.items():
+                worst[f"{mode}_{key}"] = max(worst.get(f"{mode}_{key}", 0.0), val)
+    log(f"[16] strict_bf16 dS check over (c): the kernel at most {ds_seen['kernel']:.3e}, dS "
+        f"rounded at least {ds_seen['kernel_rounded']:.3e} (kernel) / "
+        f"{ds_seen['plain_rounded']:.3e} (plain); limit {DS_SPLIT_TOL}")
+    report["max_err"], report["ds_check"] = worst, {**ds_seen, "limit": DS_SPLIT_TOL}
+    mark(16)
+
+    # ---- (d) K2 and K3 per U-Net pass over this path's sites ------------------------------
+    def time_sites(mode, backward):
+        dname, fast = ATTN_MODES[mode]
+        dtype, tot = getattr(torch, dname), {}
+        for (L, nh, c), mult in MC96_SITES.items():
+            q, k, v = qkv_views(torch, "block", BATCH, L, nh, dtype, dev, gen, c)
+            qs, ks, vs = (a.permute(0, 2, 1, 3).contiguous() for a in (q, k, v))
+            if backward:
+                do = torch.randn(BATCH, L, nh, c, device=dev, generator=gen).to(dtype)
+                with torch.no_grad():
+                    out, lse = K2._launch(q, k, v, with_lse=True)
+                qs, ks, vs = (a.requires_grad_() for a in (qs, ks, vs))
+                os_ = F.scaled_dot_product_attention(qs, ks, vs)
+                dos = do.permute(0, 2, 1, 3).contiguous()
+
+                def run():
+                    return K2.attention_bwd(q, k, v, out, lse, do, fast)
+
+                def plain():
+                    return K2._plain_attention_bwd(q, k, v, do, fast)
+
+                def lib():
+                    return torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True)
+                flops, tensors = 10.0 * BATCH * nh * L * L * c, 8
+            else:
+                def run():
+                    return K2.fused_attention(q, k, v, fast)
+
+                def plain():
+                    return K2._plain_attention(q, k, v, fast)
+
+                def lib():
+                    return F.scaled_dot_product_attention(qs, ks, vs)
+                flops, tensors = 4.0 * BATCH * nh * L * L * c, 4
+            with torch.no_grad():
+                t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run, whole=True),
+                     "plain_ms": cuda_ms(torch, plain, reps=5)}
+            t["library_ms"] = cuda_ms(torch, lib)
+            t["library_device_ms"] = device_ms(torch, lib)
+            # q, k, v (and o, dO; dq, dk, dv) read or written once at the real c, and
+            # K3's fp32 lse
+            nbytes = tensors * BATCH * L * nh * c * q.element_size() + (
+                4.0 * BATCH * nh * L if backward else 0.0)
+            t.update(attn_bound(flops, nbytes, mode))
+            t["flops"] = flops
+            log(f"[16] {'K3' if backward else 'K2'} {mode:6s} B={BATCH} L={L} heads={nh} c={c} "
+                f"x{mult}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}), plain "
+                f"{t['plain_ms']:.4f}, SDPA{' backward' if backward else ''} "
+                f"{t['library_ms']:.4f} (device {t['library_device_ms']:.4f}), bound "
+                f"{t['bound_ms']:.4f}; {flops / t['device_ms'] / 1e9:.1f} TFLOP/s by device time")
+            for key, val in t.items():
+                tot[key] = tot.get(key, 0.0) + mult * val
+        return attn_totals(tot, tot.pop("flops"))
+
+    with full_fp32():
+        timings = {f"{'k3' if bwd else 'k2'}_{mode}": time_sites(mode, bwd)
+                   for bwd in (False, True) for mode in ("strict", "fast")}
+    for name, tt in timings.items():
+        log(f"[16] per U-Net pass at b{BATCH}, mc {MC96} ({name}): " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in tt.items()))
+    report["timings"] = timings
+    mark(16)
+    return {"launches": by_path, "report": report}
+
+
 def launch_counts():
     """(K1, K2, K3 launches, q/k/v copies before an attention launch) so far."""
     from probunet_torch.ops import attention as K2
@@ -3101,16 +3428,18 @@ def plain_dq_dk(torch, q, k, v, out, do, fast):
     output ``out`` as K3 takes it: the plain version's D, rowsum(dP o P) in
     fp32, parts from it by ~1e-3 in these legs, as much as rounding dS."""
     qf, kf, vf, dof = (a.float() for a in (q, k, v, do))
-    p = torch.softmax(torch.einsum("bqhc,bkhc->bhqk", qf, kf / 8), dim=-1)
+    c = q.shape[-1]
+    r = math.sqrt(c)   # 8 at c = 64
+    p = torch.softmax(torch.einsum("bqhc,bkhc->bhqk", qf, kf / r), dim=-1)
     dp = torch.einsum("bqhc,bkhc->bhqk", dof, vf)
-    ds = p * (dp - (dof * out.float()).sum(-1).transpose(1, 2)[..., None])
+    ds = p * (dp - (dof * out.float()[..., :c]).sum(-1).transpose(1, 2)[..., None])
     if fast:
         ds = ds.to(q.dtype).float()
-    return (torch.einsum("bhqk,bkhc->bqhc", ds, kf).div(8).to(q.dtype),
-            torch.einsum("bhqk,bqhc->bkhc", ds, qf).div(8).to(q.dtype))
+    return (torch.einsum("bhqk,bkhc->bqhc", ds, kf).div(r).to(q.dtype),
+            torch.einsum("bhqk,bqhc->bkhc", ds, qf).div(r).to(q.dtype))
 
 
-def split_ds_check(torch, K2, q, k, v, out, lse, do, got, ref, seen, case):
+def split_ds_check(torch, K2, q, k, v, out, lse, do, got, ref, seen, case, phase=7):
     """K3 strict with bf16 activations (``got``) keeps dS in fp32: its dq
     and dk lie within DS_SPLIT_TOL of the plain strict backward with K3's D
     (:func:`plain_dq_dk`), and rounding dS to bf16 (the kernel in fast mode,
@@ -3131,7 +3460,7 @@ def split_ds_check(torch, K2, q, k, v, out, lse, do, got, ref, seen, case):
     seen["plain_rounded"] = min(seen["plain_rounded"], gap)
     seen["kernel_vs_plain_version"] = max(seen["kernel_vs_plain_version"], err_plain)
     ok = err <= DS_SPLIT_TOL < min(err_rounded, gap)
-    log(f"[7] K3 strict_bf16 {case}: dq/dk ||err|| / ||ref|| against the plain strict "
+    log(f"[{phase}] K3 strict_bf16 {case}: dq/dk ||err|| / ||ref|| against the plain strict "
         f"backward with K3's D {err:.3e} (limit {DS_SPLIT_TOL}); with dS rounded to bf16 "
         f"{err_rounded:.3e} (kernel, fast mode), {gap:.3e} (plain); the kernel against "
         f"_plain_attention_bwd {err_plain:.3e} {'ok' if ok else 'FAIL'}")
@@ -3147,7 +3476,8 @@ def _counts(sites):
 
 
 def profile(torch, fn, name, what, phase=6, top=12):
-    """Device time of one call of ``fn`` by kernel name (torch.profiler).
+    """Device time of one call of ``fn`` by kernel name (torch.profiler),
+    logged; returns the total in ms (None if the trace holds none).
     User-annotated ranges (an optimizer's step) span kernels and gaps on
     the device timeline; they are left out of the kernel sum."""
     from torch.profiler import ProfilerActivity
@@ -3162,10 +3492,11 @@ def profile(torch, fn, name, what, phase=6, top=12):
     total = sum(getattr(e, "self_device_time_total", 0) for e in events)
     if not total:
         log(f"[{phase}] profile {name}: the profiler saw no device time")
-        return
+        return None
     log(f"[{phase}] profile {name}: device time {total / 1e3:.2f} ms in {what}; top kernels:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"      {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}")
+    return total / 1e3
 
 
 if __name__ == "__main__":

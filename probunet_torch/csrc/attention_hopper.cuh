@@ -3,29 +3,42 @@
 // rings and warpgroup products (wgmma). The fp32 (3xTF32) kernels keep
 // mma.sync and cp.async (attention_tiles.cuh).
 //
-// Tensors. A (B, L, heads, 64) bf16 tensor with element strides (sb, sl,
-// sh) and a unit-stride head dim is described to the TMA unit as a 4-D map
-// (64, heads, L, B) with byte strides (2 sh, 2 sl, 2 sb), all multiples of
-// 16 as attention.py::kernel_layout guarantees: the U-Net block's q/k/v
-// views (row stride 3 heads 64 elements) are read where the conv wrote
-// them. One box is 64 rows of one (batch, head): 64 x 128 bytes. Rows at or
-// past L lie outside the map and arrive as zeros, so no kernel has a
-// ragged-tile load path. The maps are encoded on the host by the CUDA driver's
+// Tensors. A (B, L, heads, W) bf16 tensor with element strides (sb, sl,
+// sh) and a unit-stride head dim of W columns (the head dim c, or the
+// zero-padded width attention.py::kernel_layout copied it to: W = 64, or a
+// multiple of 8 in 72..128) is described to the TMA unit as a 4-D map (W,
+// heads, L, B) with byte strides (2 sh, 2 sl, 2 sb), all multiples of 16
+// as kernel_layout guarantees: the U-Net block's q/k/v views (row stride
+// 3 heads c elements) are read where the conv wrote them. One box is 64
+// rows by 64 columns of one (batch, head): 64 x 128 bytes. Rows at or past
+// L, and columns at or past W, lie outside the map and arrive as zeros, so
+// no kernel has a ragged-tile load path.
+// The maps are encoded on the host by the CUDA driver's
 // cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint (the
 // library links no -lcuda), and reach the kernels as __grid_constant__
 // parameters.
 //
-// Shared layout. CU_TENSOR_MAP_SWIZZLE_128B: a 64-wide bf16 row is 128
-// bytes, and within each group of 8 rows (1024 bytes) the 16-byte chunk c
-// of row r lands at chunk c ^ (r % 8). That is the canonical 128-byte
-// swizzled layout of wgmma, in both readings:
+// Head width. The kernels are instantiated for a head KD = 64 or 128
+// columns wide in shared memory. A tile of R rows is KD / 64 column blocks
+// ("atoms") of R x 128 bytes, atom a (columns 64 a .. 64 a + 63) at byte
+// a R 128: each TMA box lands in one atom. At W < KD the columns from W on
+// are the map's zeros: zero columns of Q and K leave QK^T unchanged, zero
+// columns of V and dO give zero columns of O, dQ, dK and dV, which are not
+// stored.
+//
+// Shared layout. CU_TENSOR_MAP_SWIZZLE_128B: an atom's row is 128 bytes,
+// and within each group of 8 rows (1024 bytes) the 16-byte chunk c of row r
+// lands at chunk c ^ (r % 8). That is the canonical 128-byte swizzled
+// layout of wgmma, in both readings:
 //   K-major (a tile read along its rows: Q, K, V, dO as A or as B of
 //     S = Q K^T, dP = dO V^T and their transposes): 8-row groups 1024
-//     bytes apart (SBO); the next 16 columns start 32 bytes on;
+//     bytes apart (SBO); the next 16 columns start 32 bytes on, and the
+//     fifth k16 step of KD = 128 starts at the second atom;
 //   MN-major (a tile read down its rows: V in O += P V, dO in dV += P^T dO,
-//     Q in dK += dS^T Q, K in dQ += dS K; the transpose bit set): the
-//     head dim is one 64-wide swizzle atom, 8-row groups along the
-//     contraction 1024 bytes apart; the next 16 rows start 2048 bytes on.
+//     Q in dK += dS^T Q, K in dQ += dS K; the transpose bit set): one
+//     64-wide atom is the N of one m64n64k16 product, so KD = 128 runs two,
+//     one per atom; 8-row groups along the contraction 1024 bytes apart,
+//     the next 16 rows 2048 bytes on.
 // Tiles start on 1024-byte boundaries, so the descriptors' base offset is 0.
 //
 // Products. wgmma.mma_async m64nNk16 with bf16 operands and fp32
@@ -54,11 +67,17 @@
 namespace probunet {
 namespace hopper {
 
-constexpr int kD = 64;                        // head dim
 constexpr int kBoxRows = 64;                  // rows per TMA box
-constexpr int kRowBytes = kD * 2;             // one bf16 row: 128 bytes
-constexpr int kBoxBytes = kBoxRows * kRowBytes;
+constexpr int kAtomBytes = 128;               // a box row: 64 bf16 columns, one swizzle atom
+constexpr int kBoxBytes = kBoxRows * kAtomBytes;
 constexpr int kWarpgroup = 128;
+
+// A tile of R rows at head width KD, in bytes.
+template <int KD> __host__ __device__ constexpr int tile_bytes(int rows) { return rows * KD * 2; }
+// Atom a (columns 64 a ..) of a tile of R rows.
+__device__ __forceinline__ const unsigned char* atom(const unsigned char* tile, int a, int rows) {
+  return tile + a * rows * kAtomBytes;
+}
 
 // ---- host: tensor maps --------------------------------------------------------
 
@@ -82,21 +101,22 @@ inline cudaError_t encode_tiled(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// The 4-D map of a (B, L, H, 64) bf16 tensor at ptr with element strides
-// (sb, sl, sh); boxes of 64 rows of one (batch, head), 128-byte swizzle,
-// zeros outside. A dimension of extent 1 is given a packed stride (its
-// stride is never used, and a view may carry any value there).
-inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int H, int L,
+// The 4-D map of a (B, L, H, W) bf16 tensor at ptr with element strides
+// (sb, sl, sh); boxes of 64 rows by 64 columns of one (batch, head),
+// 128-byte swizzle, zeros outside. A dimension of extent 1 is given a
+// packed stride (its stride is never used, and a view may carry any value
+// there).
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int W,
                             long long sb, long long sl, long long sh) {
   EncodeTiled encode;
   cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
-  const long long bh = H > 1 ? sh * 2 : kRowBytes;
+  const long long bh = H > 1 ? sh * 2 : W * 2;
   const long long bl = L > 1 ? sl * 2 : bh * H;
   const long long bb = B > 1 ? sb * 2 : bl * L;
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)bh, (cuuint64_t)bl, (cuuint64_t)bb};
-  const cuuint32_t box[4] = {kD, 1, kBoxRows, 1};
+  const cuuint32_t box[4] = {kAtomBytes / 2, 1, kBoxRows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -169,16 +189,29 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   }
 }
 
-// One box (64 rows of head h of batch b from row0 on) into dst, its bytes
-// counted on bar.
+// One box (64 rows of head h of batch b from row0 on, 64 columns from col0
+// on) into dst, its bytes counted on bar.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int h,
-                                         int row0, int b) {
+                                         int row0, int b, int col0 = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(h), "r"(row0),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col0), "r"(h), "r"(row0),
       "r"(b)
       : "memory");
+}
+
+// A tile of R rows (R / 64 boxes down, KD / 64 atoms across) of head h of
+// batch b from row0 on into dst, its tile_bytes<KD>(R) bytes counted on bar.
+template <int KD, int R>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int h, int row0, int b) {
+#pragma unroll
+  for (int a = 0; a < KD / 64; ++a)
+#pragma unroll
+    for (int i = 0; i < R / kBoxRows; ++i)
+      tma_load(dst + a * R * kAtomBytes + i * kBoxBytes, map, bar, h, row0 + kBoxRows * i, b,
+               64 * a);
 }
 
 // bytes (a multiple of 16) from 16-byte-aligned src into dst, counted on bar
@@ -206,6 +239,10 @@ __device__ __forceinline__ uint64_t desc_mn(const void* tile) {
 }
 constexpr uint64_t kDescK16 = 32 >> 4;     // next 16 columns, K-major
 constexpr uint64_t kDescMN16 = 2048 >> 4;  // next 16 rows, MN-major
+// k16 step k of a K-major tile of R rows: four steps per atom.
+template <int R> __device__ __forceinline__ constexpr uint64_t desc_k_step(int k) {
+  return (uint64_t)(k / 4) * (R * kAtomBytes >> 4) + (uint64_t)(k % 4) * kDescK16;
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -287,17 +324,18 @@ template <> struct Wgmma<128> {
   }
 };
 
-// d (+)= A B^T over the 64-wide head dim: A (64 rows) and B (N rows) both
+// d (+)= A B^T over the KD-wide head dim: A (64 rows) and B (N rows) both
 // K-major tiles in shared memory; acc 0 overwrites d.
-template <int N>
+template <int N, int KD>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], const void* a, const void* b) {
   const uint64_t da = desc_k(a), db = desc_k(b);
 #pragma unroll
-  for (int k = 0; k < kD / 16; ++k) Wgmma<N>::ss(d, da + k * kDescK16, db + k * kDescK16, k);
+  for (int k = 0; k < KD / 16; ++k)
+    Wgmma<N>::ss(d, da + desc_k_step<64>(k), db + desc_k_step<N>(k), k);
 }
 
-// d += A B: A (64 x K) in registers as to_a gives it, B a (K x 64) tile of
-// K rows read MN-major.
+// d += A B: A (64 x K) in registers as to_a gives it, B one 64-column atom
+// of a tile of K rows, read MN-major.
 template <int K>
 __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[K / 16][4],
                                        const void* b) {
@@ -343,22 +381,26 @@ __device__ __forceinline__ void to_a(const float (&d)[N / 2], uint32_t (&hi)[N /
     }
 }
 
-// Rows row0 + g and row0 + g + 8 of a warp's 64-column accumulator, scaled
-// by mul, into a contiguous (B, L, H, 64) bf16 tensor; rows at or past L
+// Rows row0 + g and row0 + g + 8 of a warp's accumulator of atom a
+// (columns 64 a ..), scaled by mul, into a contiguous (B, L, H, W) bf16
+// tensor (W = 64 at KD = 64); rows at or past L and columns at or past W
 // are not written.
+template <int KD>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out, const float (&d)[32],
-                                           int b, int h, int H, int L, int row0, int lane,
-                                           const float (&mul)[2]) {
+                                           int b, int h, int H, int L, int W, int a, int row0,
+                                           int lane, const float (&mul)[2]) {
   const int g = lane / 4, t = lane % 4;
+  const int pitch = KD == 64 ? 64 : W, col0 = 64 * a + 2 * t;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     if (row >= L) continue;
-    __nv_bfloat16* p = out + (((size_t)b * L + row) * H + h) * kD + 2 * t;
+    __nv_bfloat16* p = out + (((size_t)b * L + row) * H + h) * pitch + col0;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(p + 8 * j) =
-          pack_bf16(d[4 * j + 2 * r] * mul[r], d[4 * j + 2 * r + 1] * mul[r]);
+      if (KD == 64 || col0 + 8 * j < W)
+        *reinterpret_cast<uint32_t*>(p + 8 * j) =
+            pack_bf16(d[4 * j + 2 * r] * mul[r], d[4 * j + 2 * r + 1] * mul[r]);
   }
 }
 

@@ -43,8 +43,12 @@ from probunet_torch.models.layers import (
     rand_rows,
     silu,
 )
-from probunet_torch.ops.attention import HEAD_DIM, fused_attention
+from probunet_torch.ops.attention import fused_attention
 from probunet_torch.utils.device import resolve_device
+
+#: an attention block of C channels has C // 64 heads of C // (C // 64)
+#: channels each, 64 to 127 (probunet_tpu/models/unet.py:65-70, :234)
+CHANNELS_PER_HEAD = 64
 
 
 class UNetBlock(nn.Module):
@@ -60,7 +64,7 @@ class UNetBlock(nn.Module):
         f = dict(device=device, generator=generator)
         self.fast_attention = fast_attention
         self.dropout = dropout
-        self.heads = out_channels // HEAD_DIM if attention else 0
+        self.heads = out_channels // CHANNELS_PER_HEAD if attention else 0
         self.norm0 = GroupNormSiLU(in_channels, **f)
         self.conv0 = Conv2d(in_channels, out_channels, 3, up=up, down=down, init=init, **f)
         # adaptive scale: the affine map gives a (scale, shift) pair per channel

@@ -33,17 +33,20 @@ _SIGNATURES = {
     "probunet_gn_silu_fwd": [_vp] * 6 + [_int] * 8 + [_float, _int, _int, _vp],
     # is_bf16, vec, C, G, cb, cluster, chunk_rows, out (int[6])
     "probunet_gn_silu_query": [_int] * 7 + [_vp],
-    # q, k, v, o, lse, B, H, L, (b, l, h) element strides of q, k and v,
-    # scale, is_bf16, block_rows, tile_rows, stream
-    "probunet_attention_fwd": [_vp] * 5 + [_int] * 3 + [_i64] * 9 + [_float] + [_int] * 3 + [_vp],
-    # block_rows, tile_rows, out (int[5])
-    "probunet_attention_fwd_query": [_int] * 2 + [_vp],
-    # q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, L, (b, l, h) element
-    # strides of q, k, v, o and dout, scale, is_bf16, fast, block_rows, stream
-    "probunet_attention_bwd": [_vp] * 10 + [_int] * 3 + [_i64] * 15 + [_float] + [_int] * 3
+    # q, k, v, o, lse, B, H, L, head_dim (the row width the kernels read),
+    # (b, l, h) element strides of q, k and v, scale, is_bf16, block_rows,
+    # tile_rows, stream
+    "probunet_attention_fwd": [_vp] * 5 + [_int] * 4 + [_i64] * 9 + [_float] + [_int] * 3 + [_vp],
+    # block_rows, tile_rows, kd (64 or 128), out (int[5])
+    "probunet_attention_fwd_query": [_int] * 3 + [_vp],
+    # q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, L, head_dim, (b, l, h)
+    # element strides of q, k, v, o and dout, scale, is_bf16, fast,
+    # block_rows, stream
+    "probunet_attention_bwd": [_vp] * 10 + [_int] * 4 + [_i64] * 15 + [_float] + [_int] * 3
                               + [_vp],
-    # kernel (0 dK/dV, 1 dQ), block_rows, split, out (int[5])
-    "probunet_attention_bwd_query": [_int] * 3 + [_vp],
+    # kernel (0 dK/dV or, at kd 128, its dV pass; 1 dQ; 2 the dK pass at kd
+    # 128), block_rows, split, kd (64 or 128), out (int[5])
+    "probunet_attention_bwd_query": [_int] * 4 + [_vp],
 }
 
 

@@ -11,6 +11,16 @@ replaces ``pallas_attn.py::_fwd_kernel``, K3 ``pallas_attn.py::_bwd_kernel``;
 the source note in each ``.cu`` file gives its bound and design. The bf16
 kernels (warp-specialised, TMA and wgmma) take their block sizes from
 :func:`plan`; the fp32 kernels have one shape.
+
+Head dims: the kernels hold a head in shared memory 64 or 128 columns wide
+(``kD``), so they take any head dim c up to 128, every one the U-Net
+builds (a width C gives C // 64 heads of C // (C // 64) channels, 64..127). c = 64 runs the kD = 64 kernels;
+64 < c <= 128 runs kD = 128 on rows of c columns, the columns from c to
+127 zeros in shared memory, which leave QK^T unchanged and give zero
+columns in O, dQ, dK and dV that are never stored. The kernels read rows
+of whole 16-byte bf16 chunks (:func:`kernel_width`): a view of another
+width is copied, zero-padded, first (:func:`kernel_layout`), and the
+results are its first c columns. The CPU's plain versions take any c.
 """
 
 from __future__ import annotations
@@ -23,11 +33,28 @@ import torch
 
 from probunet_torch.ops import _build
 
-HEAD_DIM = 64
+#: the widest head dim the kernels take (their kD = 128 instantiation)
+MAX_HEAD_DIM = 128
 #: shared memory one block may use on the H100 (227 KB)
 SMEM_LIMIT = 232_448
-_BOX = 64 * HEAD_DIM * 2   # one TMA box: 64 bf16 rows
 _FWD_STAGES = _BWD_STAGES = 3
+
+
+def kernel_width(c: int) -> int:
+    """The columns per row that the kernels read for head dim ``c``: 64 up
+    to 64 (the kD = 64 kernels, narrower heads zero-padded to 64), else
+    ``c`` rounded up to whole 16-byte bf16 chunks, 8 columns (kD = 128)."""
+    return 64 if c <= 64 else -(-c // 8) * 8
+
+
+def _kd(width: int) -> int:
+    """The kernels' shared-memory head width for rows of ``width`` columns."""
+    return 64 if width <= 64 else 128
+
+
+def _tile_bytes(kd: int) -> int:
+    """One 64-row bf16 tile in shared memory: kd / 64 TMA boxes of 64 x 128 bytes."""
+    return 64 * kd * 2
 
 
 class Plan(NamedTuple):
@@ -38,7 +65,8 @@ class Plan(NamedTuple):
     ``bwd_split_rows`` in strict mode (dS carried as two bf16 terms). The
     ``*_smem`` fields are each kernel's dynamic shared bytes at those block
     sizes, as csrc/attention_fwd.cu (FwdSmem) and csrc/attention_bwd.cu
-    (BwdSmem) lay them out."""
+    (BwdSmem) lay them out; ``kd`` is the head width the kernels are
+    instantiated for (64 or 128)."""
 
     fwd_rows: int
     fwd_tile: int
@@ -47,15 +75,22 @@ class Plan(NamedTuple):
     fwd_smem: int
     dkdv_smem: int
     dq_smem: int
+    kd: int = 64
 
 
-def _bwd_smem(rows: int, stats: bool) -> int:
-    return (2 * rows // 64 * _BOX + _BWD_STAGES * (2 * _BOX + (512 if stats else 0))
+def _bwd_smem(rows: int, stats: bool, kd: int = 64) -> int:
+    tile = _tile_bytes(kd)
+    return (2 * rows // 64 * tile + _BWD_STAGES * (2 * tile + (512 if stats else 0))
             + 8 * (1 + 2 * _BWD_STAGES) + 1024)
 
 
+def _fwd_smem(rows: int, tile_rows: int, kd: int = 64) -> int:
+    return (rows // 64 * _tile_bytes(kd) + 2 * _FWD_STAGES * tile_rows * kd * 2
+            + 8 * (1 + 3 * _FWD_STAGES) + 1024)
+
+
 @functools.lru_cache(maxsize=None)
-def plan(b: int, heads: int, L: int, num_sms: int) -> Plan:
+def plan(b: int, heads: int, L: int, num_sms: int, kd: int = 64) -> Plan:
     """The bf16 kernels' block sizes for one shape; pure and cached.
 
     Measured on the H100 (scripts/torch_attn_timing.py --plans): K2 takes
@@ -66,12 +101,22 @@ def plan(b: int, heads: int, L: int, num_sms: int) -> Plan:
     blocks (a second consumer would have no rows). K3 in fast mode takes
     64-row blocks, two of which share an SM; with dS split, whose consumers
     hold more registers and fit one block per SM either way, the rule of
-    K2's blocks. These are the shapes the kernels are built for."""
+    K2's blocks. These are the shapes the kernels are built for.
+
+    At kd = 128 every kernel takes 64-row blocks (one consumer warpgroup)
+    and 64-row tiles, the one shape built: a consumer's fp32 accumulators
+    of 64 x 128 are 64 registers a thread each (K2's O; dK and dV in K3,
+    which runs them in two passes), and K2's consumer holds 155 registers
+    (chip_smoke.py phase 16); 128-row tiles would add 32 for S, past the
+    168 that ptxas leaves each thread of a two-consumer block."""
+    if kd == 128:
+        return Plan(64, 64, 64, 64, fwd_smem=_fwd_smem(64, 64, kd),
+                    dkdv_smem=_bwd_smem(64, True, kd), dq_smem=_bwd_smem(64, False, kd), kd=kd)
+    if kd != 64:
+        raise ValueError(f"the attention kernels are built for kd 64 and 128, not {kd}")
     tile = 128 if L > 64 else 64
     rows = 128 if tile == 128 and b * heads * math.ceil(L / 128) >= num_sms else 64
-    return Plan(rows, tile, 64, rows,
-                fwd_smem=rows // 64 * _BOX + 2 * _FWD_STAGES * tile * 128
-                + 8 * (1 + 3 * _FWD_STAGES) + 1024,
+    return Plan(rows, tile, 64, rows, fwd_smem=_fwd_smem(rows, tile),
                 dkdv_smem=max(_bwd_smem(64, True), _bwd_smem(rows, True)),
                 dq_smem=max(_bwd_smem(64, False), _bwd_smem(rows, False)))
 
@@ -123,34 +168,48 @@ def _plain_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: 
 
 
 def kernel_layout(a: torch.Tensor) -> torch.Tensor:
-    """``a`` as the kernels read it: a (B, L, heads, 64) tensor with a
-    unit-stride head dim and 16-byte-aligned rows, any other strides. The
-    U-Net block's q/k/v views of its qkv conv output already are, and pass
-    as they are; any other view is copied to a new contiguous tensor (not
-    ``contiguous()``, which keeps a contiguous but misaligned view). This is
-    layout normalisation, not a fallback: the kernel runs either way. Each
-    copy adds one to ``kernel_layout.copies``."""
+    """``a`` as the kernels read it: a (B, L, heads, w) tensor with w =
+    :func:`kernel_width` of its head dim, a unit-stride head dim and
+    16-byte-aligned rows, any other strides. The U-Net block's q/k/v views
+    of its qkv conv output already are (at every width the U-Net builds:
+    c = 72 gives bf16 rows of 9 chunks), and pass as they are; any other
+    view is copied to a new contiguous tensor (not ``contiguous()``, which
+    keeps a contiguous but misaligned view), its columns past c zeros where
+    w > c. This is layout normalisation, not a fallback: the kernel runs
+    either way. Each copy adds one to ``kernel_layout.copies``."""
     if _in_place(a):
         return a
     kernel_layout.copies += 1
-    return a.clone(memory_format=torch.contiguous_format)
+    c, w = a.shape[-1], kernel_width(a.shape[-1])
+    if w == c:
+        return a.clone(memory_format=torch.contiguous_format)
+    out = a.new_zeros(*a.shape[:-1], w)
+    out[..., :c] = a
+    return out
 
 
 def _in_place(a: torch.Tensor) -> bool:
     size = a.element_size()
-    return (a.stride(-1) == 1 and a.data_ptr() % 16 == 0
-            and all(s * size % 16 == 0 for s in a.stride()[:-1]))
+    return (a.shape[-1] == kernel_width(a.shape[-1]) and a.stride(-1) == 1
+            and a.data_ptr() % 16 == 0 and all(s * size % 16 == 0 for s in a.stride()[:-1]))
+
+
+def _first_columns(a: torch.Tensor, c: int) -> torch.Tensor:
+    """A kernel result's first ``c`` columns, contiguous (a copy only where
+    the inputs were zero-padded past c)."""
+    return a if a.shape[-1] == c else a[..., :c].contiguous()
 
 
 def _strides(*tensors):
-    """The (b, l, h) element strides of each (B, L, heads, 64) tensor, in
+    """The (b, l, h) element strides of each (B, L, heads, w) tensor, in
     order, as the kernels' C entry points take them; raises on a tensor the
     kernels cannot read in place (see :func:`kernel_layout`)."""
     out = []
     for a in tensors:
         if not _in_place(a):
-            raise ValueError(f"the attention kernels read (B, L, heads, 64) tensors with a "
-                             f"unit-stride head dim and 16-byte-aligned rows, got strides "
+            raise ValueError(f"the attention kernels read (B, L, heads, w) tensors with a "
+                             f"unit-stride head dim of kernel_width(c) columns and 16-byte-"
+                             f"aligned rows, got shape {tuple(a.shape)}, strides "
                              f"{tuple(a.stride())}; pass it through kernel_layout first")
         out.extend(a.stride()[:3])
     return out
@@ -160,27 +219,35 @@ def _check_cuda(q, k, v):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attention kernels take fp32 or bf16 q/k/v of one dtype, "
                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"the attention kernels take head dims up to {MAX_HEAD_DIM}, got q of "
+                         f"shape {tuple(q.shape)}")
 
 
 def _plan(q: torch.Tensor) -> Plan:
-    """The plan of a launch on q (B, L, heads, 64); fp32 kernels ignore it."""
-    b, L, h, _ = q.shape
-    return plan(b, h, L, _build.num_sms(q.device.index))
+    """The plan of a launch on q (B, L, heads, w); fp32 kernels ignore it."""
+    b, L, h, w = q.shape
+    return plan(b, h, L, _build.num_sms(q.device.index), _kd(w))
 
 
 @torch.no_grad()
-def _launch(q, k, v, with_lse: bool):
-    """K2 on q/k/v as they lie (see :func:`kernel_layout`): (out, lse), lse
-    the (B*H, L) fp32 row log-sum-exp of the logits when ``with_lse``, else
-    None (the kernel then writes no more than out)."""
-    b, L, h, c = q.shape
+def _launch(q, k, v, with_lse: bool, c: Optional[int] = None):
+    """K2 on q/k/v as they lie (see :func:`kernel_layout`), rows of w
+    columns of which the first ``c`` (default w) are the head dim, the
+    rest zeros: (out, lse), out (B, L, heads, w), lse the (B*H, L) fp32 row
+    log-sum-exp of the logits when ``with_lse``, else None (the kernel then
+    writes no more than out)."""
+    b, L, h, w = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("q, k and v must have the same shape")
     strides = _strides(q, k, v)
-    out = torch.empty(b, L, h, c, device=q.device, dtype=q.dtype)
+    c = w if c is None else c
+    out = torch.empty(b, L, h, w, device=q.device, dtype=q.dtype)
     lse = torch.empty(b * h, L, device=q.device, dtype=torch.float32) if with_lse else None
     p = _plan(q)
     code = _build.lib().probunet_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if with_lse else None, b, h, L, *strides,
+        lse.data_ptr() if with_lse else None, b, h, L, w, *strides,
         1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), p.fwd_rows, p.fwd_tile,
         _build.stream_handle(q.device))
     _build.check(code, "attention kernel")
@@ -189,20 +256,24 @@ def _launch(q, k, v, with_lse: bool):
 
 
 @torch.no_grad()
-def _launch_bwd(q, k, v, out, lse, do, fast: bool):
-    """K3 on q/k/v/out/do as they lie (see :func:`kernel_layout`): (dq, dk,
-    dv), contiguous (B, L, heads, 64)."""
-    b, L, h, c = q.shape
+def _launch_bwd(q, k, v, out, lse, do, fast: bool, c: Optional[int] = None):
+    """K3 on q/k/v/out/do as they lie (see :func:`kernel_layout`), rows of w
+    columns of which the first ``c`` (default w) are the head dim: (dq, dk,
+    dv), contiguous (B, L, heads, w)."""
+    b, L, h, w = q.shape
+    if any(a.shape != q.shape for a in (k, v, out, do)):
+        raise ValueError("q, k, v, out and do must have the same shape")
     strides = _strides(q, k, v, out, do)
+    c = w if c is None else c
     lse = lse.contiguous()
     scratch = torch.empty(bwd_scratch_shape(b, h, L, q.dtype), device=q.device,
                           dtype=torch.float32)
-    dq, dk, dv = (torch.empty(b, L, h, c, device=q.device, dtype=q.dtype) for _ in range(3))
+    dq, dk, dv = (torch.empty(b, L, h, w, device=q.device, dtype=q.dtype) for _ in range(3))
     p = _plan(q)
     code = _build.lib().probunet_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
         lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, L, *strides, 1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), int(fast),
+        b, h, L, w, *strides, 1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), int(fast),
         p.bwd_rows if fast else p.bwd_split_rows, _build.stream_handle(q.device))
     _build.check(code, "attention backward kernel")
     attention_bwd.launches += 1
@@ -210,24 +281,35 @@ def _launch_bwd(q, k, v, out, lse, do, fast: bool):
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: Optional[torch.Tensor],
-                  lse: Optional[torch.Tensor], do: torch.Tensor, fast: bool = False):
+                  lse: Optional[torch.Tensor], do: torch.Tensor, fast: bool = False,
+                  c: Optional[int] = None):
     """(dq, dk, dv) of ``fused_attention(q, k, v, fast)`` for the output
-    gradient ``do``, each (B, L, heads, 64) in its input's dtype. CPU
+    gradient ``do``, each (B, L, heads, c) in its input's dtype. CPU
     tensors take :func:`_plain_attention_bwd` (``out`` and ``lse`` unused);
-    CUDA tensors launch kernel K3 on ``out`` and the forward kernel's
-    ``lse``, or raise."""
+    CUDA tensors launch kernel K3 on ``out`` (the forward kernel's output,
+    c or kernel_width(c) columns) and the forward kernel's ``lse``, or
+    raise. ``c`` is the head dim where q/k/v are already the kernels'
+    zero-padded copies (default: their width)."""
     if q.device.type == "cpu":
         return _plain_attention_bwd(q, k, v, do, fast)
     if q.device.type != "cuda":
         raise RuntimeError(f"attention_bwd has no path for device {q.device}")
     _check_cuda(q, k, v)
-    b, L, h, c = q.shape
-    if out is None or lse is None or out.shape != q.shape or out.dtype != q.dtype \
+    return _kernel_bwd(q, k, v, out, lse, do, fast, c)
+
+
+def _kernel_bwd(q, k, v, out, lse, do, fast: bool, c: Optional[int] = None):
+    """:func:`attention_bwd`'s CUDA path on tensors of any layout: each
+    through :func:`kernel_layout`, K3, then the results' first ``c``
+    columns."""
+    b, L, h, w = q.shape
+    c = w if c is None else c
+    if out is None or lse is None or out.shape[:3] != q.shape[:3] or out.dtype != q.dtype \
             or lse.shape != (b * h, L) or lse.dtype != torch.float32:
         raise ValueError("attention_bwd needs the forward kernel's output "
                          "and its (B*heads, L) fp32 lse")
     q, k, v, out, do = map(kernel_layout, (q, k, v, out, do.to(q.dtype)))
-    return _launch_bwd(q, k, v, out, lse, do, fast)
+    return tuple(_first_columns(g, c) for g in _launch_bwd(q, k, v, out, lse, do, fast, c))
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -235,36 +317,39 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, fast):
+        ctx.c = c = q.shape[-1]
         if q.device.type == "cpu":
             out, lse = _plain_attention(q, k, v, fast), None
         else:
             q, k, v = map(kernel_layout, (q, k, v))
-            out, lse = _launch(q, k, v, with_lse=True)
+            out, lse = _launch(q, k, v, with_lse=True, c=c)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.fast = fast
-        return out
+        return _first_columns(out, c)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        return (*attention_bwd(q, k, v, out, lse, do, ctx.fast), None)
+        return (*attention_bwd(q, k, v, out, lse, do, ctx.fast, ctx.c), None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     fast: bool = False) -> torch.Tensor:
-    """softmax(Q K^T / sqrt(64)) V without materializing the weights.
+    """softmax(Q K^T / sqrt(c)) V without materializing the weights.
 
-    q, k, v: (B, L, heads, 64). The kernels read them where they lie when
-    the head dim is unit-stride and rows are 16-byte aligned, as in the
-    U-Net block's views of its qkv conv output; other views (the stride-3
-    views of an interleaved qkv tensor, say) are copied first
-    (:func:`kernel_layout`). Returns a contiguous (B, L, heads, 64) tensor
-    in q's dtype: fp32 in strict mode, bf16 with ``fast``. Differentiable:
-    the backward is :func:`attention_bwd`, whose gradients come back in the
-    inputs' dtypes. CPU tensors take the plain versions; CUDA tensors launch
-    the kernels or raise."""
-    if q.shape[-1] != HEAD_DIM or q.ndim != 4:
-        raise ValueError(f"fused_attention takes (B, L, heads, {HEAD_DIM}), got {tuple(q.shape)}")
+    q, k, v: (B, L, heads, c); CUDA tensors take c up to 128 (every head
+    dim the U-Net builds). The kernels read them where they lie when the
+    head dim is unit-stride and rows are whole, 16-byte-aligned bf16 chunks,
+    as in the U-Net block's views of its qkv conv output; other views (the
+    stride-3 views of an interleaved qkv tensor, say, or a width that is
+    not a multiple of 8) are copied first (:func:`kernel_layout`). Returns
+    a contiguous (B, L, heads, c) tensor in q's dtype: fp32 in strict mode,
+    bf16 with ``fast``. Differentiable: the backward is
+    :func:`attention_bwd`, whose gradients come back in the inputs' dtypes.
+    CPU tensors take the plain versions; CUDA tensors launch the kernels or
+    raise."""
+    if q.ndim != 4:
+        raise ValueError(f"fused_attention takes (B, L, heads, c), got {tuple(q.shape)}")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q, k and v must have the same shape")
     if q.device.type not in ("cpu", "cuda"):
@@ -272,13 +357,15 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cuda":
         # The forward kernel's numerics follow the dtype: fp32 operands give
         # the strict math, bf16 operands the fast math (in strict mode with
-        # bf16 activations both agree, since K * 1/8 is exact in bf16).
+        # bf16 activations both agree where K / sqrt(c) is exact in bf16, as
+        # at c = 64).
         _check_cuda(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FusedAttention.apply(q, k, v, fast)
     if q.device.type == "cpu":
         return _plain_attention(q, k, v, fast)
-    return _launch(*map(kernel_layout, (q, k, v)), with_lse=False)[0]
+    c = q.shape[-1]
+    return _first_columns(_launch(*map(kernel_layout, (q, k, v)), with_lse=False, c=c)[0], c)
 
 
 fused_attention.launches = 0  # K2 launches; CPU calls of the plain version do not count

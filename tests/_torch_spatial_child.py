@@ -161,6 +161,20 @@ def _forwards(spec, mesh):
     return out
 
 
+def _unet_forward(spec, mesh):
+    """spatial_unet_forward of a bare U-Net built from the spec's own
+    arguments (``unet_kw``), for widths the forwards case does not reach."""
+    from probunet_torch.models.unet import UNet
+    from probunet_torch.parallel import spatial_unet as SU
+    from probunet_torch.parallel.spatial_train import put_spatial
+
+    unet = _load(UNet(device="meta", **spec["unet_kw"]).to_empty(device="cpu"),
+                 spec["unet"]).eval()
+    with torch.no_grad():
+        return {"unet": _np(SU.spatial_unet_forward(unet, put_spatial(_t(spec["x_unet"]), mesh),
+                                                    mesh))}
+
+
 def _elbo(spec, mesh, remat=False, z=None):
     """The sharded ELBO with an explicit z and every gradient (summed over
     the ranks), on this rank's rows of the batch (2d: and its batch rows)."""
@@ -235,7 +249,8 @@ def _train(spec, mesh):
     return out
 
 
-CASES = {"primitives": _primitives, "forwards": _forwards, "train": _train}
+CASES = {"primitives": _primitives, "forwards": _forwards, "unet_forward": _unet_forward,
+         "train": _train}
 
 
 def main():

@@ -4,7 +4,9 @@ at edge lengths, each kernel's shared memory fits a block on the H100
 (227 KB), the blocks and tiles take values the kernels are built for, and
 their grids cover every row. The plan's shared-memory figures mirror the
 kernels' own layouts (FwdSmem, BwdSmem); chip_smoke.py phase 1 holds them
-against what the built kernels report on the card."""
+against what the built kernels report on the card. Past head dim 64 the
+kernels hold 128 columns a head (kD = 128), at every site of the
+model_channels 96 path too."""
 
 import math
 
@@ -91,3 +93,54 @@ def test_plan_at_the_u_net_sites():
 def test_plan_is_pure_and_cached():
     assert tatt.plan(8, 6, 1024, NUM_SMS) is tatt.plan(8, 6, 1024, NUM_SMS)
     assert tatt.plan(8, 6, 1024, 16).fwd_rows == 128 and tatt.plan(1, 1, 1024, 16).fwd_rows == 64
+
+
+def _head_dim_sites(res, mc):
+    """{(L, heads, c)} of the U-Net's attention blocks at res x res with
+    ``model_channels`` mc: heads = width // 64 of c = width // heads."""
+    cfg = Config()
+    enc, dec, _ = build_unet_plan((res, res), 4, mc, cfg.channel_mult, cfg.num_blocks,
+                                  cfg.attn_resolutions)
+    return sorted({(int(s.name.split("x")[0]) ** 2, s.out_channels // 64,
+                    s.out_channels // (s.out_channels // 64)) for s in enc + dec if s.attention})
+
+
+def test_mc96_sites():
+    """model_channels 96 at 128x128: 4 heads of 72 at the 288-wide 32x32
+    level, 6 of 64 at the 384-wide 16x16 level."""
+    assert _head_dim_sites(128, 96) == [(256, 6, 64), (1024, 4, 72)]
+    assert _head_dim_sites(128, 128) == [(256, 8, 64), (1024, 6, 64)]
+
+
+# (B, L, heads, c): the model_channels 96 path at b8 and its 256x256 tile
+# at b4, then head dims past 64 at edge lengths
+KD128 = ([(8, L, h, c) for L, h, c in _head_dim_sites(128, 96)]
+         + [(4, L, h, c) for L, h, c in _head_dim_sites(256, 96)]
+         + [(1, 1, 1, 72), (2, 65, 3, 100), (1, 4096, 2, 127), (8, 1024, 1, 96)])
+
+
+@pytest.mark.parametrize("b,L,heads,c", KD128, ids=lambda x: str(x))
+def test_plan_fits_head_dims_past_64(b, L, heads, c):
+    """kD = 128 at every head dim past 64: 64-row blocks and tiles (one
+    consumer warpgroup: O, dK and dV of 64 x 128 fp32 are 64 registers a
+    thread each), every kernel's shared memory under SMEM_LIMIT; at head
+    dim 64 the plan of the kD = 64 kernels, unchanged."""
+    kd = 64 if tatt.kernel_width(c) == 64 else 128
+    p = tatt.plan(b, heads, L, NUM_SMS, kd)
+    assert p.kd == kd
+    if kd == 64:
+        assert p == tatt.plan(b, heads, L, NUM_SMS) == _check(b, L, heads)
+        return
+    assert (p.fwd_rows, p.fwd_tile, p.bwd_rows, p.bwd_split_rows) == (64, 64, 64, 64)
+    assert max(p.fwd_smem, p.dkdv_smem, p.dq_smem) <= tatt.SMEM_LIMIT
+    # the kernels' layouts: Q, three stages of K and V; K and V (Q and dO),
+    # three stages of two streamed tiles (+ lse and D), the barriers, 1024
+    # bytes to align: 64 x 128 bf16 tiles of 16 KB
+    assert p.fwd_smem == 16384 * 7 + 8 * 10 + 1024 == 115_792
+    assert p.dkdv_smem == 16384 * 8 + 3 * 512 + 8 * 7 + 1024 == 133_688
+    assert p.dq_smem == 16384 * 8 + 8 * 7 + 1024 == 132_152
+
+
+def test_plan_refuses_other_head_widths():
+    with pytest.raises(ValueError, match="kd 64 and 128"):
+        tatt.plan(8, 4, 1024, NUM_SMS, 96)

@@ -14,6 +14,8 @@ card. On the card, without JAX (this file imports none):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -106,18 +108,19 @@ ATTN_MODES = {"strict": (torch.float32, False), "fast": (torch.bfloat16, True),
 LAYOUTS = ("block", "stride3", "contiguous")
 
 
-def _qkv(layout, b, L, nh, dtype, dev, gen, grad=False):
-    """((q, k, v), grad): q/k/v in ``layout``, views of one leaf tensor (or
-    three leaves), and a function giving the gradient of the i-th."""
+def _qkv(layout, b, L, nh, dtype, dev, gen, grad=False, c=64):
+    """((q, k, v), grad): q/k/v of head dim ``c`` in ``layout``, views of
+    one leaf tensor (or three leaves), and a function giving the gradient of
+    the i-th."""
     if layout == "block":
-        leaf = torch.randn(b, L, 3, nh, 64, device=dev, generator=gen).to(dtype)
+        leaf = torch.randn(b, L, 3, nh, c, device=dev, generator=gen).to(dtype)
         leaf.requires_grad_(grad)
         return leaf.unbind(2), lambda i: leaf.grad[:, :, i]
     if layout == "stride3":
-        leaf = torch.randn(b, L, nh, 64, 3, device=dev, generator=gen).to(dtype)
+        leaf = torch.randn(b, L, nh, c, 3, device=dev, generator=gen).to(dtype)
         leaf.requires_grad_(grad)
         return tuple(leaf[..., i] for i in range(3)), lambda i: leaf.grad[..., i]
-    leaves = [torch.randn(b, L, nh, 64, device=dev, generator=gen).to(dtype).requires_grad_(grad)
+    leaves = [torch.randn(b, L, nh, c, device=dev, generator=gen).to(dtype).requires_grad_(grad)
               for _ in range(3)]
     return tuple(leaves), lambda i: leaves[i].grad
 
@@ -147,8 +150,9 @@ def test_attention_kernel_refusals(dev):
     q = torch.randn(1, 8, 2, 64, device=dev)
     with pytest.raises(TypeError):
         K2.fused_attention(q.half(), q.half(), q.half())
-    with pytest.raises(ValueError):
-        K2.fused_attention(q[..., :32], q[..., :32], q[..., :32])
+    wide = torch.randn(1, 8, 2, 136, device=dev)  # past the widest head the kernels hold
+    with pytest.raises(ValueError, match=r"\(1, 8, 2, 136\)"):
+        K2.fused_attention(wide, wide, wide)
     with pytest.raises(TypeError):
         K2.fused_attention(q.half().requires_grad_(), q.half(), q.half())
     with pytest.raises(TypeError):
@@ -249,6 +253,77 @@ def test_attention_fp32_with_fast_runs_the_strict_kernels(dev, layout, b, L, nh)
         assert (g - r).abs().max().item() <= 1e-4 * max(1e-3, r.abs().max().item())
 
 
+# head dims past 64, which run the kernels' kD = 128 instantiation: 72 (the
+# 288-wide level of model_channels 96: 4 heads), 96 (one head of a 96-wide
+# level) and 100 (bf16 rows of 200 bytes, not whole 16-byte chunks: copied
+# zero-padded to 104 columns first); 32 runs kD = 64 on a zero-padded copy
+HEAD_DIMS = (32, 72, 96, 100)
+
+
+def _head_dim_copies(layout, c):
+    """kernel_layout's copies in one forward and backward at head dim c: the
+    block's views and contiguous tensors of whole 16-byte bf16 chunks are
+    read in place; otherwise q, k and v are copied once (the backward reuses
+    the forward's), and dO too where its rows must be padded."""
+    if c == K2.kernel_width(c):
+        return 0 if layout != "stride3" else 3
+    return 4
+
+
+@pytest.mark.parametrize("c", HEAD_DIMS)
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("mode", list(ATTN_MODES))
+@pytest.mark.parametrize("b,L,nh", [(1, 1, 1), (2, 65, 3), (1, 300, 4), (2, 1024, 1)])
+def test_attention_head_dims_match_plain(dev, mode, layout, b, L, nh, c):
+    """K2 and K3 at head dims other than 64, through autograd, against the
+    plain versions on the same inputs, with the tolerances of the head dim
+    64 tests; one launch of each, the copies kernel_layout must make and no
+    other, results of c columns."""
+    dtype, fast = ATTN_MODES[mode]
+    gen = torch.Generator(device=dev).manual_seed(L * nh + c)
+    (q, k, v), grad = _qkv(layout, b, L, nh, dtype, dev, gen, grad=True, c=c)
+    do = torch.randn(b, L, nh, c, device=dev, generator=gen).to(dtype)
+    counts = (K2.fused_attention.launches, K2.attention_bwd.launches)
+    K2.kernel_layout.copies = 0
+    out = K2.fused_attention(q, k, v, fast)
+    out.backward(do)
+    assert (K2.fused_attention.launches - counts[0], K2.attention_bwd.launches - counts[1]) == \
+        (1, 1)
+    assert K2.kernel_layout.copies == _head_dim_copies(layout, c)
+    assert out.shape == (b, L, nh, c) and out.dtype == dtype and out.is_contiguous()
+    with torch.no_grad():
+        ref = K2._plain_attention(q, k, v, fast)
+        ref_b = K2._plain_attention_bwd(q.detach(), k.detach(), v.detach(), do, fast)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.detach().float(), ref.float(), atol=tol, rtol=tol)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for i, r in enumerate(ref_b):
+        got = grad(i)
+        assert got.shape == r.shape and got.dtype == dtype
+        assert (got.float() - r.float()).abs().max().item() <= \
+            tol * max(1e-3, r.float().abs().max().item())
+
+
+@pytest.mark.parametrize("c", HEAD_DIMS)
+@pytest.mark.parametrize("fast", [True, False], ids=["fast", "strict_bf16"])
+@pytest.mark.parametrize("b,L,nh", [(8, 1024, 4), (2, 65, 3)])
+def test_attention_head_dims_rerun_bit_equal(dev, fast, b, L, nh, c):
+    """K2 (output and lse) and K3 on bf16 at head dims past 64 give the
+    same bits on a second call; (8, 1024, 4) at c = 72 is the
+    model_channels 96 path's 32x32 site."""
+    gen = torch.Generator(device=dev).manual_seed(L + nh + c)
+    (q, k, v), _ = _qkv("block", b, L, nh, torch.bfloat16, dev, gen, c=c)
+    do = torch.randn(b, L, nh, c, device=dev, generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        q, k, v = map(K2.kernel_layout, (q, k, v))
+        first = K2._launch(q, k, v, with_lse=True, c=c)
+        second = K2._launch(q, k, v, with_lse=True, c=c)
+        grads = [K2.attention_bwd(q, k, v, first[0], first[1], do, fast, c) for _ in range(2)]
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+    assert all(torch.equal(a, b_) for a, b_ in zip(*grads))
+    assert all(g.shape == (b, L, nh, c) for g in grads[0])
+
+
 def _rms_rel(got, ref):
     return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
 
@@ -262,13 +337,14 @@ def _plain_dq_dk(q, k, v, out, do, fast):
     """chip_smoke.py's plain_dq_dk: dq, dk with fp32 dS (rounded to bf16
     when ``fast``) and D = rowsum(dO o O) from K2's output, as K3 takes it."""
     qf, kf, vf, dof = (a.float() for a in (q, k, v, do))
-    p = torch.softmax(torch.einsum("bqhc,bkhc->bhqk", qf, kf / 8), dim=-1)
+    r = math.sqrt(q.shape[-1])
+    p = torch.softmax(torch.einsum("bqhc,bkhc->bhqk", qf, kf / r), dim=-1)
     dp = torch.einsum("bqhc,bkhc->bhqk", dof, vf)
-    ds = p * (dp - (dof * out.float()).sum(-1).transpose(1, 2)[..., None])
+    ds = p * (dp - (dof * out.float()[..., :q.shape[-1]]).sum(-1).transpose(1, 2)[..., None])
     if fast:
         ds = ds.to(q.dtype).float()
-    return (torch.einsum("bhqk,bkhc->bqhc", ds, kf).div(8).to(q.dtype),
-            torch.einsum("bhqk,bqhc->bkhc", ds, qf).div(8).to(q.dtype))
+    return (torch.einsum("bhqk,bkhc->bqhc", ds, kf).div(r).to(q.dtype),
+            torch.einsum("bhqk,bqhc->bkhc", ds, qf).div(r).to(q.dtype))
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -293,17 +369,21 @@ def test_attention_bwd_strict_bf16_keeps_ds_unrounded(dev, layout, b, L, nh):
         assert _rms_rel(plain_rounded[i], exact[i]) > DS_SPLIT_TOL
 
 
+@pytest.mark.parametrize("mc", [64, 96])
 @pytest.mark.parametrize("fast", [False, True])
-def test_unet_block_copies_nothing_before_attention(dev, fast):
+def test_unet_block_copies_nothing_before_attention(dev, fast, mc):
     """Forward and backward of a small U-Net with attention on the card:
     the block's q/k/v, K2's output and the incoming dO reach the kernels
-    without a copy (kernel_layout counts none)."""
+    without a copy (kernel_layout counts none), at head dim 64 and, with
+    model_channels 96, at the 288-wide level's 4 heads of 72."""
     from probunet_torch.models import UNet
 
-    kw = dict(img_resolution=(16, 16), in_channels=3, out_channels=3, model_channels=64,
-              channel_mult=(1, 2), num_blocks=1, attn_resolutions=(16,), dropout=0.0,
-              fast_attention=fast)
+    kw = dict(img_resolution=(16, 16), in_channels=3, out_channels=3, model_channels=mc,
+              channel_mult=(1, 2) if mc == 64 else (1, 3), num_blocks=1,
+              attn_resolutions=(16,) if mc == 64 else (8,), dropout=0.0, fast_attention=fast)
     net = UNet(device="cpu", generator=torch.Generator().manual_seed(0), **kw).to(dev)
+    assert {b.qkv.weight.shape[0] // 3 // b.heads for b in net.modules()
+            if getattr(b, "heads", 0)} == ({64} if mc == 64 else {72})
     x = torch.randn(2, 16, 16, 3, device=dev).to(torch.bfloat16 if fast else torch.float32)
     K2.kernel_layout.copies = 0
     launches = (K2.fused_attention.launches, K2.attention_bwd.launches)
@@ -326,14 +406,17 @@ def test_attention_lse_matches_logsumexp(dev, mode, layout):
     torch.testing.assert_close(out, K2._launch(q, k, v, with_lse=False)[0], atol=0, rtol=0)
 
 
-def test_unet_on_card_matches_cpu(dev):
+@pytest.mark.parametrize("mc", [64, 96])
+def test_unet_on_card_matches_cpu(dev, mc):
     """A small U-Net with attention: the card's kernels and cuDNN against the
-    CPU's plain versions, same weights, strict fp32."""
+    CPU's plain versions, same weights, strict fp32; at model_channels 96
+    the 288-wide level runs 4 heads of 72."""
     from probunet_torch.models import UNet
     from probunet_torch.utils.device import full_fp32
 
-    kw = dict(img_resolution=(16, 16), in_channels=3, out_channels=3, model_channels=64,
-              channel_mult=(1, 2), num_blocks=1, attn_resolutions=(16,), dropout=0.0)
+    kw = dict(img_resolution=(16, 16), in_channels=3, out_channels=3, model_channels=mc,
+              channel_mult=(1, 2) if mc == 64 else (1, 3), num_blocks=1,
+              attn_resolutions=(16,) if mc == 64 else (8,), dropout=0.0)
     cpu = UNet(device="cpu", generator=torch.Generator().manual_seed(0), **kw).eval()
     with torch.no_grad():
         for p in cpu.parameters():  # zero-init convs would hide most of each block

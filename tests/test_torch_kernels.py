@@ -6,6 +6,7 @@ against these plain versions on the card by chip_smoke.py."""
 
 import ctypes
 import importlib
+import math
 import re
 import subprocess
 import sys
@@ -118,8 +119,10 @@ def test_attention_takes_strided_qkv_views(layout):
     tatt.fused_attention(*parts).backward(g)
     for got, part in zip(views(yg.grad), parts):
         np.testing.assert_array_equal(got.numpy(), part.grad.numpy())
-    with pytest.raises(ValueError):
-        tatt.fused_attention(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="same shape"):
+        tatt.fused_attention(q, k[..., :32], v)
+    with pytest.raises(ValueError, match=r"\(B, L, heads, c\)"):
+        tatt.fused_attention(q[0], k[0], v[0])
 
 
 def test_kernel_layout_reads_block_views_in_place():
@@ -184,6 +187,13 @@ def test_kernel_signatures_match_c_declarations():
     assert set(_build._SIGNATURES) == set(decls) - {"probunet_error_string"}
     for name, argtypes in _build._SIGNATURES.items():
         assert argtypes == decls[name], name
+    # the attention entry points take the head dim after (B, H, L), and
+    # the queries the head width kd after the block sizes
+    i = ctypes.c_int
+    assert decls["probunet_attention_fwd"][5:10] == [i, i, i, i, ctypes.c_longlong]
+    assert decls["probunet_attention_bwd"][10:15] == [i, i, i, i, ctypes.c_longlong]
+    assert decls["probunet_attention_fwd_query"] == [i, i, i, ctypes.c_void_p]
+    assert decls["probunet_attention_bwd_query"] == [i, i, i, i, ctypes.c_void_p]
 
 
 class _FakeLib:
@@ -236,7 +246,8 @@ def test_attention_wrappers_pass_the_declared_arguments(fake_lib, monkeypatch):
         tatt._launch_bwd(q, k, v, out, lse, do, fast=False)
         (fwd, fargs), (bwd, bargs), (_, strict_args) = fake_lib.calls
         assert (fwd, bwd) == ("probunet_attention_fwd", "probunet_attention_bwd")
-        for args, tensors, first in ((fargs, (q, k, v), 8), (bargs, (q, k, v, out, do), 13)):
+        assert fargs[5:9] == bargs[10:14] == (b, h, L, 64)  # B, H, L, the head dim
+        for args, tensors, first in ((fargs, (q, k, v), 9), (bargs, (q, k, v, out, do), 14)):
             name = fwd if args is fargs else bwd
             argtypes = _build._SIGNATURES[name]
             assert len(args) == len(argtypes), name
@@ -256,6 +267,55 @@ def test_attention_wrappers_pass_the_declared_arguments(fake_lib, monkeypatch):
         assert tuple(scratch.shape) == tatt.bwd_scratch_shape(b, h, L, dtype)
         assert tuple(scratch.shape) == ((b * h, L) if dtype == torch.float32
                                         else (b * h, -(-L // 64), 2, 64))
+
+
+@pytest.mark.parametrize("c,width", [(72, 72), (96, 96), (100, 104), (127, 128), (32, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_wrappers_at_other_head_dims(fake_lib, monkeypatch, dtype, c, width):
+    """At head dim c the entry points get rows of kernel_width(c) columns:
+    the block's views of whole 16-byte bf16 chunks go in place (c = 72, 96:
+    no copy), any other width is copied zero-padded to that width (each
+    copy counted; the backward reuses the forward's copies of q/k/v and
+    pads dO), the scale is 1/sqrt(c) of the real c, kD = 128 past 64 picks
+    the plan's 64-row blocks, and the results are the first c columns.
+    (fake_lib: the outputs' bits are whatever torch.empty left.)"""
+    assert tatt.kernel_width(c) == width
+    monkeypatch.setattr(tatt.kernel_layout, "copies", 0)
+    rng = np.random.default_rng(c)
+    y = torch.from_numpy(rng.standard_normal((2, 64, 3, 2, c)).astype(np.float32)).to(dtype)
+    q, k, v = y.unbind(2)
+    in_place = width == c
+    kq, kk, kv = map(tatt.kernel_layout, (q, k, v))
+    assert tatt.kernel_layout.copies == (0 if in_place else 3)
+    assert (kq is q) == in_place and kq.shape == (2, 64, 2, width)
+    if not in_place:  # zero-padded copies: the first c columns, then zeros
+        assert torch.equal(kq[..., :c], q) and not kq[..., c:].any() and kq.is_contiguous()
+    out, lse = tatt._launch(kq, kk, kv, with_lse=True, c=c)
+    assert out.shape == (2, 64, 2, width)
+    do = torch.zeros(2, 64, 2, c, dtype=dtype)
+    grads = tatt._kernel_bwd(kq, kk, kv, out, lse, do, True, c)  # attention_bwd's CUDA path
+    assert tatt.kernel_layout.copies == (0 if in_place else 4)   # + dO padded
+    assert [g.shape for g in grads] == [(2, 64, 2, c)] * 3
+    assert all(g.is_contiguous() for g in grads)
+    (fwd, fargs), (bwd, bargs) = fake_lib.calls
+    assert fargs[5:9] == bargs[10:14] == (2, 2, 64, width)
+    assert fargs[18] == bargs[29] == pytest.approx(1 / math.sqrt(c), rel=1e-7)
+    assert fargs[0] == kq.data_ptr() and bargs[0] == kq.data_ptr()
+    kd = 128 if c > 64 else 64
+    p = tatt.plan(2, 2, 64, 132, kd)
+    assert p.kd == kd and fargs[-3:-1] == (p.fwd_rows, p.fwd_tile) and bargs[-2] == p.bwd_rows
+    if kd == 128:
+        assert (p.fwd_rows, p.fwd_tile, p.bwd_rows, p.bwd_split_rows) == (64, 64, 64, 64)
+
+
+def test_attention_refuses_heads_past_128():
+    """The kernels hold at most 128 columns a head: a wider head is refused
+    before any launch, naming its shape (the U-Net builds at most 127)."""
+    q = torch.zeros(1, 8, 2, 136)
+    with pytest.raises(ValueError, match=r"\(1, 8, 2, 136\)"):
+        tatt._check_cuda(q, q, q)
+    tatt._check_cuda(q[..., :128], q[..., :128], q[..., :128])
+    assert tatt.kernel_width(128) == tatt.MAX_HEAD_DIM == 128
 
 
 def test_attention_launch_refuses_strided_head_dim(fake_lib):
