@@ -20,13 +20,14 @@ heads of 72 run the kernels' kD = 128 instantiation. Phases:
   1. card and build: nvidia-smi name and power limit; nvcc for sm_90a with
      ptxas registers, shared memory and spills; ``cuobjdump -sass`` of the
      library: the tensor-core and TMA instructions of every attention
-     kernel, HMMA (mma.sync) in each fp32 kernel and HGMMA (wgmma) and
-     UTMALDG (TMA loads) in each bf16 kernel that does products, or it
+     kernel, HGMMA (wgmma) and UTMALDG (TMA loads) in each kernel that does
+     products, fp32 (3xTF32) and bf16, and HMMA (mma.sync) in none, or it
      fails; K1's plan at the path's largest site, its threads, shared
      memory, registers, spills and cluster residency
      (cudaOccupancyMaxActiveClusters); the bf16 attention kernels of the
-     plan at each attention site, their threads, shared memory (held
-     against the plan's), registers and spills (none allowed);
+     plan at each attention site and the fp32 kernels of ``fp32_plan`` at
+     kD = 64 and 128, their threads, shared memory (held against the
+     plan's), registers and spills (none allowed);
   2. K1 GroupNorm+SiLU against its plain version, output and (B, G) mean
      and rstd, at every (H, W, C) of the path at batch 8 and at edge shapes
      (C = 6 without vectors, H*W = 1, B = 1, a view off a 16-byte boundary,
@@ -63,9 +64,10 @@ heads of 72 run the kernels' kD = 128 instantiation. Phases:
   9. one training step on the card against the plain step on the CPU: b=1,
      dropout 0, the same filled weights and eps; loss, gradient norm, every
      gradient and the parameters after the AdamW step;
- 10. timings: K3 per U-Net backward on the block's views (kernel, plain,
-     bound, the backward of scaled_dot_product_attention as yardstick, by
-     events and by device time), K2 with its lse, the
+ 10. timings: K3 per U-Net backward on the block's views (kernel, its
+     device time split by kernel: row pass, dK/dV, dQ; plain, bound, the
+     backward of scaled_dot_product_attention as yardstick, by events and
+     by device time), K2 with its lse, the
      training rate over 10 steps after 3 warm-up steps, a profile of one
      step;
  11. the trainer (``probunet_torch.train.loop.train_probunet``, the model
@@ -176,7 +178,7 @@ heads of 72 run the kernels' kD = 128 instantiation. Phases:
      depth, phase 4's data): its 32x32 level is 288 wide, 4 heads of 72,
      which run the kernels' kD = 128 instantiation (5 of the 11 attention
      sites; the 16x16 level's 6 run 6 heads of 64). The kD = 128 kernels'
-     threads, shared memory, registers and spills (none allowed in bf16);
+     threads, shared memory, registers and spills (none allowed);
      (a) the sampler and one strict training step card against CPU, phase
      5's and phase 9's limits; (b) the sampler at b8, K=16 and 5 training
      steps at b8, dropout 0.1, in strict and fast mode, with counts set to
@@ -187,11 +189,15 @@ heads of 72 run the kernels' kD = 128 instantiation. Phases:
      copied zero-padded), L = 64, 256, 1024 and 100, every layout and mode
      (phase 3's and 7's limits, two calls bit-equal, the copies counted,
      the strict_bf16 dS check), and at the path's own site; (d) K2 and K3
-     per U-Net pass over the path's sites, strict and fast, beside SDPA and
-     its backward on the same tensors, and the bound at the real head dim.
+     per U-Net pass over the path's sites, strict and fast (K3 split by
+     kernel), beside SDPA and its backward on the same tensors, and the
+     bound at the real head dim.
 
-Any failed phase raises, so the script exits non-zero and prints no
-result. The line before the last is the ``kernels`` JSON object, the last
+Every device time of a kernel or of SDPA (phases 6, 10, 16) comes from one
+estimator, ``device_ms(whole=True)``: each kernel's mean launch pooled over
+five traces times its launches per call, which records the profiler loses
+late in a long run do not bias. Any failed phase
+raises, so the script exits non-zero and prints no result. The line before the last is the ``kernels`` JSON object, the last
 line ``{"ok": true, "device": {...}}``.
 """
 
@@ -396,22 +402,23 @@ def main() -> int:
 def sass_census(_build):
     """Tensor-core and TMA instructions per attention kernel function in the
     built library, by ``cuobjdump -sass``: HMMA (mma.sync), HGMMA (wgmma),
-    UTMALDG (a TMA tensor load). Raises unless every fp32 kernel has HMMA
-    and every bf16 kernel that does products (the ``_sm90`` forward, dK/dV
-    and dQ kernels of each plan) has HGMMA and UTMALDG; the bf16 row pass
-    (``attention_bwd_prep_sm90``) does no product."""
+    UTMALDG (a TMA tensor load). Raises unless every kernel that does
+    products has HGMMA and UTMALDG and none has HMMA: the fp32 ``_f32``
+    kernels (forward, row pass, dK/dV and dQ at each head width) and the
+    bf16 ``_sm90`` forward, dK/dV and dQ kernels of each plan; the bf16 row
+    pass (``attention_bwd_prep_sm90``) does no product."""
     import re
 
     dump = subprocess.run([_build.find_tool("cuobjdump"), "-sass", str(_build.LIB_PATH)],
                           capture_output=True, text=True, check=True).stdout
-    arg = {"f": "fp32", "Lb0E": "false", "Lb1E": "true"}
+    arg = {"Lb0E": "false", "Lb1E": "true"}
     counts, cur = {}, None
     for line in dump.splitlines():
         if "Function :" in line:
-            m = re.search(r"\d(attention_[a-z0-9_]+?)(?:I((?:f|Li\d+E|Lb[01]E)+)E)?E", line)
+            m = re.search(r"\d(attention_[a-z0-9_]+?)(?:I((?:Li\d+E|Lb[01]E)+)E)?E", line)
             cur = None
             if m:
-                args = re.findall(r"f|Li\d+E|Lb[01]E", m.group(2) or "")
+                args = re.findall(r"Li\d+E|Lb[01]E", m.group(2) or "")
                 cur = m.group(1) + (f"<{', '.join(arg.get(a, a[2:-1]) for a in args)}>"
                                     if args else "")
                 counts[cur] = {"HMMA": 0, "HGMMA": 0, "UTMALDG": 0}
@@ -421,19 +428,19 @@ def sass_census(_build):
                 counts[cur][op.group(1)] += 1
     for name, c in sorted(counts.items()):
         log(f"[1] SASS {name}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG")
-    fp32 = [n for n in counts if "<fp32" in n]
+    fp32 = [n for n in counts if "_f32<" in n]
     sm90 = [n for n in counts if "_sm90<" in n and "_prep_" not in n]
-    # each at head widths kD = 64 and 128. fp32: fwd, rowdot, dkdv, dq x 2;
-    # bf16: fwd x (3 block shapes at 64, 1 at 128); dkdv x (fast at 64 rows,
-    # split dS at 64 and 128 rows at kD = 64; at kD = 128 a dV pass and a
-    # dK pass fast and split); dq x (3 at 64, fast and split at 128); the
-    # row pass x 2
-    want = {"fp32": 4 * 2, "sm90": 4 + 6 + 5, "all": 8 + 15 + 2}
-    bad = [n for n in fp32 if not counts[n]["HMMA"]] + \
-          [n for n in sm90 if not (counts[n]["HGMMA"] and counts[n]["UTMALDG"])]
+    # each at head widths kD = 64 and 128. fp32: fwd, the row pass, dq x 2,
+    # dkdv x (one kernel at 64; a dV and a dK pass at 128); bf16: fwd x (3
+    # block shapes at 64, 1 at 128); dkdv x (fast at 64 rows, split dS at 64
+    # and 128 rows at kD = 64; at kD = 128 a dV pass and a dK pass fast and
+    # split); dq x (3 at 64, fast and split at 128); the row pass x 2
+    want = {"fp32": 3 * 2 + 3, "sm90": 4 + 6 + 5, "all": 9 + 15 + 2}
+    bad = [n for n in fp32 + sm90 if not (counts[n]["HGMMA"] and counts[n]["UTMALDG"])]
+    bad += [n for n, c in counts.items() if c["HMMA"]]
     if (len(fp32), len(sm90), len(counts)) != (want["fp32"], want["sm90"], want["all"]) or bad:
-        raise AssertionError(f"expected {want} attention kernels, the fp32 ones with HMMA and "
-                             f"the bf16 ones with HGMMA and UTMALDG; found {counts}, lacking: "
+        raise AssertionError(f"expected {want} attention kernels, each that multiplies with "
+                             f"HGMMA and UTMALDG and none with HMMA; found {counts}, at fault: "
                              f"{bad}")
     return counts
 
@@ -509,6 +516,51 @@ def attn_kernel_info(torch, K2, sites, num_sms, kd=64, phase=1):
     return info
 
 
+def f32_kernel_info(torch, K2, kd, phase=1):
+    """The fp32 attention kernels of ``fp32_plan(kd)``: threads, dynamic
+    shared bytes (checked against the plan's own figure), registers and
+    spilled bytes, as the built library reports them. Raises if a kernel
+    spills or the plan's shared memory disagrees with the kernel's."""
+    from probunet_torch.ops import _build
+
+    lib, out, p = _build.lib(), (ctypes.c_int * 5)(), K2.fp32_plan(kd)
+    keys = ("threads", "dynamic_smem", "registers", "local_bytes", "static_smem")
+    _build.check(lib.probunet_attention_fwd_f32_query(kd, p.fwd_tile, out), "attention query")
+    kernels = {"fwd": (dict(zip(keys, out)), p.fwd_smem)}
+    bwd = [(3, "row_pass", p.prep_smem), (0, "dkdv" if kd == 64 else "dv", p.dkdv_smem),
+           (1, "dq", p.dq_smem)] + ([(2, "dk", p.dk_smem)] if kd == 128 else [])
+    for k, name, planned in bwd:
+        _build.check(lib.probunet_attention_bwd_f32_query(k, kd, p.bwd_tile, out),
+                     "attention query")
+        kernels[name] = (dict(zip(keys, out)), planned)
+    for name, (d, planned) in kernels.items():
+        log(f"[{phase}] attention fp32 {name} at kD {kd} (K/V tiles {p.fwd_tile} rows, K3 "
+            f"tiles {p.bwd_tile}): {d['threads']} threads, {d['dynamic_smem']} B dynamic shared "
+            f"(plan {planned}), {d['registers']} registers, {d['local_bytes']} B spilled")
+        if d["dynamic_smem"] != planned or d["local_bytes"]:
+            raise AssertionError(f"attention fp32 {name}: {d}, plan's shared bytes {planned}")
+    return {"plan": p._asdict(), **{name: d for name, (d, _) in kernels.items()}}
+
+
+# K3's kernels by name in a profile: the row pass, dK/dV (both passes at
+# kD = 128), dQ
+K3_KERNELS = (("row_pass", r"attention_bwd_(prep|rowdot)"), ("dkdv", r"attention_bwd_dkdv"),
+              ("dq", r"attention_bwd_dq"))
+
+
+def k3_split(split):
+    """K3's device ms per call by kernel (K3_KERNELS) from device_ms's
+    ``split``; anything else under ``other``."""
+    import re
+
+    out = {name: 0.0 for name, _ in K3_KERNELS}
+    out["other"] = 0.0
+    for key, ms in split.items():
+        name = next((n for n, pat in K3_KERNELS if re.search(pat, key)), "other")
+        out[name] += ms
+    return {f"{name}_device_ms": ms for name, ms in out.items()}
+
+
 def qkv_views(torch, layout, b, L, nh, dtype, dev, gen, c=64):
     """q, k, v of shape (b, L, nh, c) in ``layout`` (see LAYOUTS)."""
     if layout == "block":
@@ -520,49 +572,61 @@ def qkv_views(torch, layout, b, L, nh, dtype, dev, gen, c=64):
                  for _ in range(3))
 
 
-def device_ms(torch, fn, reps=50, traces=5, warm=True, whole=False):
+def _device_events(torch, prof):
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.count]
+
+
+def device_ms(torch, fn, reps=50, traces=5, warm=True, whole=False, split=None):
     """Mean device time per call of ``fn`` in ms: the kernels' own time from
-    torch.profiler, free of the host's launch pace. A trace that comes back
-    with no device activity (the profiler now and then loses the records of
-    a window of short kernels) is logged and taken again, up to ``traces``
-    times. With ``whole`` (for the port's own kernels, which launch a fixed
-    number of times per call; a library call may not), so is a trace in
-    which a kernel's count is more than one short of a multiple of ``reps``
-    (records lost: the sum would read low); the window's first launch, often
-    missed, is made up from that kernel's mean. When no trace comes back
-    whole, the largest sum is returned (and logged as such). ``warm=False``
-    skips the warm-up call (``fn`` ran just before)."""
+    torch.profiler over ``traces`` traces of ``reps`` calls, free of the
+    host's launch pace. A trace with no device activity (the profiler now
+    and then loses the records of a window of short kernels) is logged and
+    taken again, up to five times. Without ``whole``, the largest of the
+    traces' sums (lost records only lower a sum). With ``whole`` (for a call
+    that launches a fixed set of kernels: the port's own, SDPA), the sum over
+    the call's kernels of each one's launches per call times its mean launch
+    pooled over the traces: late in a long run the profiler drops a share of
+    a trace's records and delivers a few of earlier work, which thin the
+    mean but do not bias it, and leave the launches per call (each kernel's
+    count over ``reps``, rounded, at its largest in any trace; a kernel of
+    earlier work rounds to 0 and is left out) as they are. ``split``, a
+    dict, gets each kernel's ms per call. ``warm=False`` skips the warm-up
+    call (``fn`` ran just before)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     if warm:
         fn()
     torch.cuda.synchronize()
-    best = 0.0
-    for _ in range(traces):
+    runs, empty = [], 0
+    while len(runs) < traces and empty < 5:
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False) and e.count]
-        total = sum(e.self_device_time_total for e in events)
-        lost = []
-        if whole:
-            lost = [e.key for e in events if e.count % reps not in (0, reps - 1)]
-            total = sum(e.self_device_time_total / e.count * reps * math.ceil(e.count / reps)
-                        for e in events)
-        if total and not lost:
-            return total / 1e3 / reps
-        best = max(best, total)
-        log(f"    torch.profiler lost records in this trace ({lost[:3] if lost else 'no device '
-            f'time'}); tracing again")
-    if not best:
-        raise AssertionError(f"torch.profiler saw no device time in {traces} traces")
-    # lost records only lower a sum: the largest is the nearest reading
-    log(f"    no whole trace in {traces}: the largest of them, which may read low")
-    return best / 1e3 / reps
+        events = _device_events(torch, prof)
+        if events:
+            runs.append({e.key: (e.self_device_time_total, e.count) for e in events})
+        else:
+            empty += 1
+            log(f"    torch.profiler saw no device time in a trace of {reps} calls; tracing again")
+    if not runs:
+        raise AssertionError(f"torch.profiler saw no device time in {empty} traces")
+    if whole:
+        per = {}
+        for key in {k for r in runs for k in r}:
+            seen = [r[key] for r in runs if key in r]
+            n = max(round(count / reps) for _, count in seen)
+            if n:
+                per[key] = sum(t for t, _ in seen) / sum(c for _, c in seen) / 1e3 * n
+    else:
+        per = max(({k: t / 1e3 / reps for k, (t, _) in r.items()} for r in runs),
+                  key=lambda d: sum(d.values()))
+    if split is not None:
+        split.update(per)
+    return sum(per.values())
 
 
 def attn_bound(flops, nbytes, mode):
@@ -634,7 +698,8 @@ def time_k1(torch, sites, dtype, dev, gen, phase):
         with torch.inference_mode():
             t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run, whole=True),
                  "plain_ms": cuda_ms(torch, lambda: K1._plain_gn_silu(x, gamma, beta, g)),
-                 "library_ms": cuda_ms(torch, lib), "library_device_ms": device_ms(torch, lib)}
+                 "library_ms": cuda_ms(torch, lib),
+                 "library_device_ms": device_ms(torch, lib, whole=True)}
         t["bound_ms"] = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
         log(f"[{phase}] K1 {str(dtype)[6:]:8s} {BATCH}x{h}x{w}x{c} x{mult}: kernel "
             f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}: "
@@ -735,6 +800,7 @@ def run_phases(torch, dev, card, sass):
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     k1_info = k1_kernel_info(torch, K1, max(gn_sites, key=math.prod), num_sms)
     attn_info = attn_kernel_info(torch, K2, sorted(set(attn_sites)), num_sms)
+    attn_info_f32 = {f"kd{kd}": f32_kernel_info(torch, K2, kd) for kd in (64, 128)}
 
     # ---- 2. K1 against its plain version -------------------------------------
     for dtype in (torch.float32, torch.bfloat16):
@@ -891,7 +957,7 @@ def run_phases(torch, dev, card, sass):
                 t.update({"plain_ms": cuda_ms(torch, lambda: K2._plain_attention(
                               q, k, v, mode == "fast")),
                           "library_ms": cuda_ms(torch, lib),
-                          "library_device_ms": device_ms(torch, lib),
+                          "library_device_ms": device_ms(torch, lib, whole=True),
                           "stride3_copy_ms": cuda_ms(torch, lambda: [
                               K2.kernel_layout(a) for a in (q3, k3, v3)]),
                           "stride3_ms": cuda_ms(torch, lambda: K2.fused_attention(
@@ -992,6 +1058,7 @@ def run_phases(torch, dev, card, sass):
                "max_abs_err_by_mode": k2_err, "launches_by_path": by_path["attn"],
                "edm_fp32_fast_max_abs_err": edm["k2_err"], "edm": edm["report"],
                "with_lse": train["k2_lse"], "bf16_kernels_by_site": attn_info,
+               "fp32_kernels": attn_info_f32,
                "mc96": {"timed": f"sum over the {sum(MC96_SITES.values())} sites of one "
                                  f"model_channels {MC96} U-Net forward at b{BATCH}",
                         "strict": mc96["report"]["timings"]["k2_strict"],
@@ -1236,19 +1303,24 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
             def lib():
                 return torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True)
 
+            split = {}
             with torch.no_grad():
-                t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run, whole=True),
+                t = {"ms": cuda_ms(torch, run),
+                     "device_ms": device_ms(torch, run, whole=True, split=split),
                      "plain_ms": cuda_ms(torch, lambda: K2._plain_attention_bwd(q, k, v, do, fast),
                                          reps=5)}
+            t.update(k3_split(split))
             t["library_ms"] = cuda_ms(torch, lib)
-            t["library_device_ms"] = device_ms(torch, lib)
+            t["library_device_ms"] = device_ms(torch, lib, whole=True)
             flops = 10.0 * BATCH * nh * L * L * 64
             # q, k, v, o, dO read and dq, dk, dv written once, plus the fp32 lse
             nbytes = 8.0 * BATCH * L * nh * 64 * q.element_size() + 4.0 * BATCH * nh * L
             t.update(attn_bound(flops, nbytes, mode))
             flops_t += mult * flops
             log(f"[10] K3 {mode:6s} B={BATCH} L={L} heads={nh} x{mult}: kernel {t['ms']:.4f} ms "
-                f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f}, SDPA backward "
+                f"(device {t['device_ms']:.4f}: row pass {t['row_pass_device_ms']:.4f}, dK/dV "
+                f"{t['dkdv_device_ms']:.4f}, dQ {t['dq_device_ms']:.4f}), plain "
+                f"{t['plain_ms']:.4f}, SDPA backward "
                 f"{t['library_ms']:.4f} (device {t['library_device_ms']:.4f}), bound "
                 f"{t['bound_ms']:.4f}; kernel {flops / t['ms'] / 1e9:.1f} TFLOP/s by events, "
                 f"{flops / t['device_ms'] / 1e9:.1f} by device time (of the 10 L^2 64 FLOP "
@@ -3167,7 +3239,7 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
     kd128 = attn_kernel_info(torch, K2, [(L, nh) for L, nh, c in MC96_SITES if c > 64],
                              num_sms, kd=128, phase=16)
     report = {"card": card, "params": nparams, "sites": {str(k): v for k, v in sites.items()},
-              "kd128_kernels": kd128}
+              "kd128_kernels": kd128, "kd128_fp32_kernels": f32_kernel_info(torch, K2, 128, 16)}
     mark(16)
 
     # ---- (a) the sampler and one strict step, card against CPU ----------------------
@@ -3347,19 +3419,26 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
                 def lib():
                     return F.scaled_dot_product_attention(qs, ks, vs)
                 flops, tensors = 4.0 * BATCH * nh * L * L * c, 4
+            split = {}
             with torch.no_grad():
-                t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run, whole=True),
+                t = {"ms": cuda_ms(torch, run),
+                     "device_ms": device_ms(torch, run, whole=True, split=split),
                      "plain_ms": cuda_ms(torch, plain, reps=5)}
+            if backward:
+                t.update(k3_split(split))
             t["library_ms"] = cuda_ms(torch, lib)
-            t["library_device_ms"] = device_ms(torch, lib)
+            t["library_device_ms"] = device_ms(torch, lib, whole=True)
             # q, k, v (and o, dO; dq, dk, dv) read or written once at the real c, and
             # K3's fp32 lse
             nbytes = tensors * BATCH * L * nh * c * q.element_size() + (
                 4.0 * BATCH * nh * L if backward else 0.0)
             t.update(attn_bound(flops, nbytes, mode))
             t["flops"] = flops
+            by_kernel = (f": row pass {t['row_pass_device_ms']:.4f}, dK/dV "
+                         f"{t['dkdv_device_ms']:.4f}, dQ {t['dq_device_ms']:.4f}"
+                         if backward else "")
             log(f"[16] {'K3' if backward else 'K2'} {mode:6s} B={BATCH} L={L} heads={nh} c={c} "
-                f"x{mult}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}), plain "
+                f"x{mult}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}{by_kernel}), plain "
                 f"{t['plain_ms']:.4f}, SDPA{' backward' if backward else ''} "
                 f"{t['library_ms']:.4f} (device {t['library_device_ms']:.4f}), bound "
                 f"{t['bound_ms']:.4f}; {flops / t['device_ms'] / 1e9:.1f} TFLOP/s by device time")

@@ -39,14 +39,13 @@
 //
 // Head dims: as in the forward kernel, every kernel is instantiated for a
 // head KD = 64 or 128 columns wide in shared memory, 64 < c <= 128 running
-// KD = 128 with the columns past c zero (attention_hopper.cuh,
-// attention_tiles.cuh). At KD = 128 the bf16 kernels take 64-row blocks of
-// one consumer warpgroup, and (b) runs as two passes over the q tiles, one
-// for dV and one for dK, each recomputing S^T: dK and dV of 64 keys by
-// 128 columns are 128 fp32 registers a thread together, which beside S^T,
-// dP^T and their bf16 A operands would spill. The fp32 kernels at KD = 128
-// hold the same accumulators in one pass and spill (ptxas -v in
-// chip_smoke.py phase 1's build log; PERF.md section 6).
+// KD = 128 with the columns past c zero (attention_hopper.cuh). At KD =
+// 128 the kernels take 64-row blocks of one consumer warpgroup, and (b)
+// runs as two passes over the q tiles, one for dV and one for dK, each
+// recomputing S^T: dK and dV of 64 keys by 128 columns are 128 fp32
+// registers a thread together, which beside S^T, dP^T and their A
+// operands would spill (bf16), and whose operands' hi / lo pairs would not
+// fit the block's shared memory (fp32).
 //
 // bf16 (fast, and strict with bf16 activations): the machinery of
 // attention_hopper.cuh, warp-specialised as the forward kernel:
@@ -74,15 +73,29 @@
 //   consumer warpgroups and left one 64-key block per SM otherwise, both
 //   slower on the H100. What holds it back: that serial order, seven
 //   products where five suffice, and the ex2 of P, recomputed twice.
-// fp32 (strict): attention_bwd_rowdot (D as the diagonal of dO O^T on the
-// tensor cores), attention_bwd_dkdv and attention_bwd_dq on mma.sync in
-// 3xTF32 (tile machinery in attention_tiles.cuh): four warps per block, 16
-// rows each; the block's own tiles are loaded once and the streamed tiles
-// pass through a 2-stage cp.async ring. In (b) each warp owns 16 keys and
-// computes the transposed products S^T = K Q^T and dP^T = V dO^T directly,
-// so P^T and dS^T sit in registers in the C layout and feed dV += P^T dO
-// and dK += dS^T Q as A operands. A ragged last tile is zero-filled and
-// masked (P = 0 there).
+// fp32 (strict): 3xTF32 on tf32 wgmma (attention_hopper.cuh, "fp32
+// (strict) operands"), the three kernels of the bf16 design with a
+// producer warpgroup in place of the producer warp:
+//   (a) attention_bwd_prep_f32: D as the diagonal of dO O^T on the tensor
+//       cores (the form of dP), into the bf16 row pass's stats layout;
+//   (b) attention_bwd_dkdv_f32: the block's K and V are split once; each
+//       R-row q tile lands by TMA, and the producer splits Q and dO in
+//       place and writes Q^T's and dO^T's hi / lo pairs, the B operands of
+//       dK += dS^T Q and dV += P^T dO (tf32 wgmma reads K-major operands
+//       only); the consumer computes S^T = K Q^T and dP^T = V dO^T with
+//       the terms of S = Q K^T and dP = dO V^T, P^T and dS^T in registers
+//       as the A operands;
+//   (c) attention_bwd_dq_f32: the block's Q and dO split once; per R-row
+//       K/V tile the producer splits K and V and writes K^T's pair for dQ
+//       += dS K.
+//   R = 64 at KD = 64 (one stage: 194 KB in (b)); R = 32 at KD = 128, with
+//   the dV pass on two stages and the dK pass and (c) on one, their
+//   blocks' own pairs taking 64 or 128 KB. A stage's K-major pairs are
+//   released once the first products have retired, so the producer loads
+//   and splits the next tile while the consumer finishes this one. Rows
+//   past L are TMA zeros and lse2 = +inf, as in bf16: no mask. What holds
+//   it back: one consumer warpgroup per SM, whose products wait for the
+//   exponentials and the splits of P and dS.
 //
 // Layout: q, k, v, o (the forward output) and dout are (B, L, heads, W)
 // with any element strides and a unit-stride head dim, rows 16-byte
@@ -102,7 +115,8 @@
 //     fast mode; strict mode with bf16 activations keeps dS fp32 by
 //     carrying it as two bf16 terms hi + lo (two products, ~2^-16
 //     relative);
-//   - fp32 (strict) products are 3xTF32;
+//   - fp32 (strict) products are 3xTF32; S^T and dP^T are summed in the
+//     terms of S and dP, in an order wgmma sets per instruction;
 //   - dQ = (dS K) * s with the raw K, dK = (dS^T Q) * s;
 //   - D = rowsum(dO o O) stands for the TPU kernel's rowsum(dP o P). The two
 //     are equal up to rounding in fp32; with bf16 activations (fast mode
@@ -115,248 +129,9 @@
 #include <math.h>
 
 #include "attention_hopper.cuh"
-#include "attention_tiles.cuh"
 
 namespace probunet {
 namespace {
-
-namespace fp32 {
-
-using namespace tiles;
-
-// D = rowsum(dO o O) as the diagonal of the tile product dO O^T, on the
-// tensor cores in the same form as dP = dO V^T in (b) and (c). Where a row's
-// softmax is one-hot (L = 1), O is that row of V as the forward kernel's
-// PV product rounds it, D comes out equal to dP, and dS = P o (dP - D)
-// vanishes as it does in the plain version (an fp32 D from CUDA-core FMAs
-// left ~1e-6 there against 3xTF32's dP).
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_rowdot(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ D,
-                         int H, int L, int W, Strides so, Strides sdo) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int P = kPitch<T, HD>;
-  T* dOs = reinterpret_cast<T*>(smem);
-  T* Os = dOs + kTile<T, HD>;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, r0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane % 4;
-  load_tile_async<T, HD>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, r0, L, W, tid);
-  load_tile_async<T, HD>(Os, o + b * so.b + h * so.h, so.l, r0, L, W, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  float acc[8][4];
-  zero(acc);
-  mma_nt<HD>(acc, dOs + warp * 16 * P, Os, lane);
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = warp * 16 + lane / 4 + 8 * (e / 2);
-      if (8 * n + 2 * t + (e % 2) == row && r0 + row < L)
-        D[(size_t)bh * L + r0 + row] = acc[n][e];
-    }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       const T* __restrict__ dout, const float* __restrict__ lse,
-                       const float* __restrict__ D, T* __restrict__ dk, T* __restrict__ dv, int H,
-                       int L, int W, Strides sq, Strides sk, Strides sv, Strides sdo,
-                       float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int P = kPitch<T, HD>;
-  constexpr int kT = kTile<T, HD>;
-  T* Ks = reinterpret_cast<T*>(smem);   // this block's K tile
-  T* Vs = Ks + kT;                      // this block's V tile
-  T* Qs = Vs + kT;                      // two stages
-  T* dOs = Qs + 2 * kT;                 // two stages
-  float* stats = reinterpret_cast<float*>(dOs + 2 * kT);  // per stage: lse[64], D[64]
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane % 4;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* dob = dout + b * sdo.b + h * sdo.h;
-
-  load_tile_async<T, HD>(Ks, k + b * sk.b + h * sk.h, sk.l, k0, L, W, tid);
-  load_tile_async<T, HD>(Vs, v + b * sv.b + h * sv.h, sv.l, k0, L, W, tid);
-  // q tile j into stage st: Q and dO by cp.async, lse (in base 2) and D
-  // (rows of a (B*H, L) array, not 16-byte aligned for every L) by plain
-  // loads
-  auto load_q_tile = [&](int j, int st) {
-    load_tile_async<T, HD>(Qs + st * kT, qb, sq.l, j * kRows, L, W, tid);
-    load_tile_async<T, HD>(dOs + st * kT, dob, sdo.l, j * kRows, L, W, tid);
-    const int i = j * kRows + tid % kRows;
-    const float* src = (tid < kRows ? lse : D) + (size_t)bh * L;
-    stats[st * 2 * kRows + tid] = i < L ? src[i] * (tid < kRows ? kLog2e : 1.f) : 0.f;
-  };
-  load_q_tile(0, 0);
-  cp_async_commit();
-
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-  const int key0 = k0 + warp * 16 + lane / 4;  // this thread's keys: key0, key0 + 8
-  const float c = scale * kLog2e;
-  const int n_tiles = (L + kRows - 1) / kRows;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {
-      load_q_tile(j + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* Qt = Qs + st * kT;
-    const T* dOt = dOs + st * kT;
-    const float* lse_s = stats + st * 2 * kRows;
-    const float* D_s = lse_s + kRows;
-
-    // P^T: rows are this warp's keys, columns the tile's queries
-    float p[8][4];
-    zero(p);
-    mma_nt<HD, true>(p, Ks + warp * 16 * P, Qt, lane);  // summed as the forward's S = Q K^T
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * n + 2 * t + (e % 2);
-        const bool ok = key0 + 8 * (e / 2) < L && j * kRows + col < L;
-        p[n][e] = ok ? exp2_fast(fmaf(p[n][e], c, -lse_s[col])) : 0.f;
-      }
-    mma_nn<false, HD>(dv_acc, p, dOt, lane);  // dV += P^T dO
-
-    float ds[8][4];  // dP^T, then dS^T
-    zero(ds);
-    mma_nt<HD, true>(ds, Vs + warp * 16 * P, dOt, lane);  // summed as (c)'s dP = dO V^T
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - D_s[8 * n + 2 * t + (e % 2)]);
-    mma_nn<false, HD>(dk_acc, ds, Qt, lane);  // dK += dS^T Q
-    __syncthreads();  // this stage is free for the load two tiles on
-  }
-  const float one[2] = {1.f, 1.f}, s2[2] = {scale, scale};
-  store_rows<T, HD>(dk, dk_acc, b, h, H, L, W, k0 + warp * 16, lane, s2);
-  store_rows<T, HD>(dv, dv_acc, b, h, H, L, W, k0 + warp * 16, lane, one);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ D, T* __restrict__ dq, int H, int L, int W,
-                     Strides sq, Strides sk, Strides sv, Strides sdo, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int P = kPitch<T, HD>;
-  constexpr int kT = kTile<T, HD>;
-  T* Qs = reinterpret_cast<T*>(smem);   // this block's Q tile
-  T* dOs = Qs + kT;                     // this block's dO tile
-  T* Ks = dOs + kT;                     // two stages
-  T* Vs = Ks + 2 * kT;                  // two stages
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane % 4;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-
-  load_tile_async<T, HD>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, L, W, tid);
-  load_tile_async<T, HD>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, q0, L, W, tid);
-  load_tile_async<T, HD>(Ks, kb, sk.l, 0, L, W, tid);
-  load_tile_async<T, HD>(Vs, vb, sv.l, 0, L, W, tid);
-  cp_async_commit();
-
-  const int row0 = q0 + warp * 16 + lane / 4;  // this thread's rows: row0, row0 + 8
-  float lse_r[2], D_r[2], dq_acc[HD / 8][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool ok = row0 + 8 * r < L;
-    lse_r[r] = ok ? lse[(size_t)bh * L + row0 + 8 * r] * kLog2e : 0.f;  // base 2
-    D_r[r] = ok ? D[(size_t)bh * L + row0 + 8 * r] : 0.f;
-  }
-  zero(dq_acc);
-  const float c = scale * kLog2e;
-
-  const int n_tiles = (L + kRows - 1) / kRows;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile_async<T, HD>(Ks + (st ^ 1) * kT, kb, sk.l, (j + 1) * kRows, L, W, tid);
-      load_tile_async<T, HD>(Vs + (st ^ 1) * kT, vb, sv.l, (j + 1) * kRows, L, W, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* Kt = Ks + st * kT;
-
-    float p[8][4], ds[8][4];  // S then P; dP then dS
-    zero(p);
-    zero(ds);
-    mma_nt<HD>(p, Qs + warp * 16 * P, Kt, lane);
-    mma_nt<HD>(ds, dOs + warp * 16 * P, Vs + st * kT, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e / 2;
-        const bool ok = row0 + 8 * r < L && j * kRows + 8 * n + 2 * t + (e % 2) < L;
-        p[n][e] = ok ? exp2_fast(fmaf(p[n][e], c, -lse_r[r])) : 0.f;
-        ds[n][e] = p[n][e] * (ds[n][e] - D_r[r]);
-      }
-    mma_nn<false, HD>(dq_acc, ds, Kt, lane);  // dQ += dS K, the raw K
-    __syncthreads();  // this stage is free for the load two tiles on
-  }
-  const float s2[2] = {scale, scale};
-  store_rows<T, HD>(dq, dq_acc, b, h, H, L, W, q0 + warp * 16, lane, s2);
-}
-
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, float* D, void* dq, void* dk, void* dv, int B, int H, int L,
-                   int W, Strides sq, Strides sk, Strides sv, Strides so, Strides sdo,
-                   float scale, cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  const dim3 grid((L + kRows - 1) / kRows, B * H);
-  constexpr size_t rowdot_smem = 2 * kTile<T, HD> * sizeof(T);  // dO and O
-  cudaError_t err = cudaSuccess;
-  if constexpr (rowdot_smem > 48 * 1024)
-    err = cudaFuncSetAttribute(attention_bwd_rowdot<T, HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rowdot_smem);
-  if (err != cudaSuccess) return err;
-  attention_bwd_rowdot<T, HD><<<grid, kThreads, rowdot_smem, stream>>>(
-      static_cast<const T*>(o), dot, D, H, L, W, so, sdo);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  // K, V, two Q and two dO stages, and two stages of lse and D
-  constexpr size_t dkdv_smem = 6 * kTile<T, HD> * sizeof(T) + 4 * kRows * sizeof(float);
-  err = cudaFuncSetAttribute(attention_bwd_dkdv<T, HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkdv_smem);
-  if (err != cudaSuccess) return err;
-  attention_bwd_dkdv<T, HD><<<grid, kThreads, dkdv_smem, stream>>>(
-      qt, kt, vt, dot, lse, D, static_cast<T*>(dk), static_cast<T*>(dv), H, L, W, sq, sk, sv,
-      sdo, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr size_t dq_smem = 6 * kTile<T, HD> * sizeof(T);  // Q, dO, two K and two V stages
-  err = cudaFuncSetAttribute(attention_bwd_dq<T, HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
-  if (err != cudaSuccess) return err;
-  attention_bwd_dq<T, HD><<<grid, kThreads, dq_smem, stream>>>(
-      qt, kt, vt, dot, lse, D, static_cast<T*>(dq), H, L, W, sq, sk, sv, sdo, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace fp32
 
 namespace sm90 {
 
@@ -374,8 +149,8 @@ template <int KD>
 __global__ void __launch_bounds__(kPrepThreads)
     attention_bwd_prep_sm90(const __nv_bfloat16* __restrict__ o,
                             const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                            float* __restrict__ stats, int H, int L, int W, tiles::Strides so,
-                            tiles::Strides sdo) {
+                            float* __restrict__ stats, int H, int L, int W, Strides so,
+                            Strides sdo) {
   const int bh = blockIdx.y, b = bh / H, h = bh % H, tile = blockIdx.x;
   const int r = threadIdx.x / 4, part = threadIdx.x % 4, row = tile * 64 + r;
   float d = 0.f;
@@ -680,7 +455,7 @@ template <int NWG, bool SPLIT, int KD> struct Bwd {
   static cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                             const CUtensorMap& tdo, const void* o, const void* dout,
                             const float* lse, float* stats, void* dq, void* dk, void* dv, int B,
-                            int H, int L, int W, tiles::Strides so, tiles::Strides sdo,
+                            int H, int L, int W, Strides so, Strides sdo,
                             float scale, cudaStream_t stream) {
     const int n_tiles = (L + 63) / 64;
     attention_bwd_prep_sm90<KD><<<dim3(n_tiles, B * H), kPrepThreads, 0, stream>>>(
@@ -751,6 +526,418 @@ cudaError_t with_plan(int block_rows, bool split, int kd, F&& f) {
 
 }  // namespace sm90
 
+namespace f32 {
+
+using namespace hopper;
+
+// (a) D = rowsum(dO o O) as the diagonal of the tile product dO O^T, in
+// 3xTF32 on tf32 wgmma in the same form as dP = dO V^T in (c) (and, with
+// the terms swapped, dP^T = V dO^T in (b)), per 64-row tile of one (batch *
+// head), into stats[bh][tile] = {lse2[64], D[64]} as the bf16 row pass
+// writes it (lse in base 2; rows past L: lse2 = +inf, so P = 0, and D = 0).
+// Where a row's softmax is one-hot (L = 1), O is that row of V as the
+// forward kernel's P V rounds it, whose tf32 split is V's own, so D equals
+// dP bit for bit and dS = P o (dP - D) vanishes as in the plain version (an
+// fp32 D from CUDA-core FMAs leaves ~1e-6 there). One warpgroup: the TMA
+// unit loads the dO and O tiles, the 128 threads split them and run the
+// product.
+template <int KD> struct PrepSmem32 {
+  static constexpr int kT = f32_tile_bytes<KD>(64);
+  static constexpr int do_hi = 0, do_lo = kT, o_hi = 2 * kT, o_lo = 3 * kT, bar = 4 * kT;
+  static constexpr int bytes = bar + 8 + 1024;
+};
+
+template <int KD>
+__global__ void __launch_bounds__(kWarpgroup)
+    attention_bwd_prep_f32(const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap to, const float* __restrict__ lse,
+                           float* __restrict__ stats, int H, int L, int W) {
+  using Smem = PrepSmem32<KD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + Smem::bar);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, tile = blockIdx.x, r0 = tile * 64;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane % 4;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, 2 * Smem::kT);
+    tma_tile_f32<KD, 64>(smem + Smem::do_hi, &tdo, bar, h, r0, b);
+    tma_tile_f32<KD, 64>(smem + Smem::o_hi, &to, bar, h, r0, b);
+  }
+  mbar_wait(bar, 0);
+  split_tile<Smem::kT>(smem + Smem::do_hi, smem + Smem::do_lo, tid);
+  split_tile<Smem::kT>(smem + Smem::o_hi, smem + Smem::o_lo, tid);
+  fence_async_smem();
+  __syncthreads();
+  float d[32];
+  wgmma_fence();
+  mma3_ss<64, KD / 8>(d, smem + Smem::do_hi, smem + Smem::do_lo, smem + Smem::o_hi,
+                      smem + Smem::o_lo, 0, head_steps<KD>(W));
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(d);
+  float* out = stats + ((size_t)bh * gridDim.x + tile) * 128;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int row = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+    if (8 * (i / 4) + 2 * t + i % 2 == row) out[64 + row] = r0 + row < L ? d[i] : 0.f;
+  }
+  if (tid < 64) out[tid] = r0 + tid < L ? lse[(size_t)bh * L + r0 + tid] * kLog2e : INFINITY;
+}
+
+using sm90::kPassBoth;
+using sm90::kPassDK;
+using sm90::kPassDV;
+
+// Shared memory of (b): byte offsets from a 1024-byte boundary. The
+// block's 64 keys: K's hi / lo pair, and V's for dP^T (the passes with dK);
+// S stages of R-row q tiles: Q's pair (Q lands in q_hi); dO's pair for
+// dP^T, or (the dV pass) dO as it lands; Q^T's pair for dK; dO^T's pair for
+// dV; then each stage's lse2[R] and D[R], and the barriers.
+template <int KD, int R, int S, int PASS> struct DkdvSmem32 {
+  static constexpr bool kDV = PASS & kPassDV, kDK = PASS & kPassDK;
+  static constexpr int kO = f32_tile_bytes<KD>(64), kT = f32_tile_bytes<KD>(R);
+  static constexpr int k_hi = 0, k_lo = kO, v_hi = 2 * kO, v_lo = 3 * kO;
+  static constexpr int stages = (kDK ? 4 : 2) * kO;
+  static constexpr int q_hi = 0, q_lo = kT, do_hi = 2 * kT, do_lo = 3 * kT;
+  static constexpr int qt_hi = (kDK ? 4 : 3) * kT, qt_lo = qt_hi + kT;
+  static constexpr int dot_hi = qt_hi + (kDK ? 2 : 0) * kT, dot_lo = dot_hi + kT;
+  static constexpr int stage = dot_hi + (kDV ? 2 : 0) * kT;
+  static constexpr int stats = stages + S * stage;  // S x (lse2[R], D[R])
+  static constexpr int bars = stats + S * 8 * R;
+  static constexpr int bytes = bars + kRing32Bytes<S> + 1024;
+};
+
+// (b) dK and dV (per PASS) of 64 key rows: S^T = K Q^T and dP^T = V dO^T
+// (B: the q tile's K-major pairs), then dV += P^T dO and dK += dS^T Q
+// (B: dO^T and Q^T), P^T and dS^T split in registers as the A operands.
+template <int KD, int R, int S, int PASS>
+__global__ void __launch_bounds__(2 * kWarpgroup, 1)
+    attention_bwd_dkdv_f32(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ stats, float* __restrict__ dk,
+                           float* __restrict__ dv, int H, int L, int W, float scale) {
+  using Smem = DkdvSmem32<KD, R, S, PASS>;
+  constexpr bool kDV = Smem::kDV, kDK = Smem::kDK;
+  constexpr int kO = Smem::kO, kT = Smem::kT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + Smem::bars);  // K/V loaded, ready
+  Ring32* ring = reinterpret_cast<Ring32*>(own + 2);
+  auto tile = [&](int s, int off) { return smem + Smem::stages + s * Smem::stage + off; };
+  auto stat = [&](int s) { return reinterpret_cast<float*>(smem + Smem::stats + s * 8 * R); };
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * 64;
+  const int n_tiles = (L + R - 1) / R, n64 = (L + 63) / 64;
+  if (threadIdx.x == 0) ring32_init<S>(own, ring);
+  __syncthreads();
+  const int tid = threadIdx.x % kWarpgroup;
+
+  if (threadIdx.x >= kWarpgroup) {  // the producer warpgroup
+    if (tid == 0) {
+      mbar_expect_tx(&own[0], (kDK ? 2 : 1) * kO);
+      tma_tile_f32<KD, 64>(smem + Smem::k_hi, &tk, &own[0], h, k0, b);
+      if constexpr (kDK) tma_tile_f32<KD, 64>(smem + Smem::v_hi, &tv, &own[0], h, k0, b);
+    }
+    mbar_wait(&own[0], 0);
+    split_tile<kO>(smem + Smem::k_hi, smem + Smem::k_lo, tid);
+    if constexpr (kDK) split_tile<kO>(smem + Smem::v_hi, smem + Smem::v_lo, tid);
+    fence_async_smem();
+    mbar_arrive(&own[1]);
+    const float* stats_bh = stats + (size_t)bh * n64 * 128;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % S;
+      const unsigned ph = (j / S) & 1;
+      Ring32& st = ring[s];
+      producer_sync();  // every producer thread is done with this stage's last tile
+      if (tid == 0) {
+        mbar_wait(&st.nat_empty, ph ^ 1);
+        mbar_expect_tx(&st.loaded, 2 * kT + 8 * R);
+        tma_tile_f32<KD, R>(tile(s, Smem::q_hi), &tq, &st.loaded, h, j * R, b);
+        tma_tile_f32<KD, R>(tile(s, Smem::do_hi), &tdo, &st.loaded, h, j * R, b);
+        // rows j R .. of the 64-row tiles' {lse2[64], D[64]}
+        const float* src = stats_bh + (j * R / 64) * 128 + (j * R) % 64;
+        bulk_load(stat(s), src, 4 * R, &st.loaded);
+        bulk_load(stat(s) + R, src + 64, 4 * R, &st.loaded);
+      }
+      mbar_wait(&st.loaded, ph);
+      split_tile<kT>(tile(s, Smem::q_hi), tile(s, Smem::q_lo), tid);
+      if constexpr (kDK) split_tile<kT>(tile(s, Smem::do_hi), tile(s, Smem::do_lo), tid);
+      fence_async_smem();
+      mbar_arrive(&st.nat_full);
+      mbar_wait(&st.t_empty, ph ^ 1);
+      if constexpr (kDK) {
+        producer_sync();  // the pairs split above, by every thread, are read across threads
+        transpose_tile<KD, R, false>(tile(s, Smem::q_hi), tile(s, Smem::q_lo),
+                                     tile(s, Smem::qt_hi), tile(s, Smem::qt_lo), tid);
+      }
+      if constexpr (kDV)  // from dO's pair, or (the dV pass) from dO as it landed
+        transpose_tile<KD, R, !kDK>(tile(s, Smem::do_hi), tile(s, Smem::do_lo),
+                                    tile(s, Smem::dot_hi), tile(s, Smem::dot_lo), tid);
+      fence_async_smem();
+      mbar_arrive(&st.t_full);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: keys k0 .. k0 + 63 as rows; the columns of S^T
+  // and dP^T are the q tile's queries 8 (i / 4) + 2 t + i % 2
+  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const float c = scale * kLog2e;
+  const int steps = head_steps<KD>(W);
+  float dk_acc[KD / 2], dv_acc[KD / 2], p[R / 2], ds[R / 2];  // p: S^T, P^T; ds: dP^T, dS^T
+  uint32_t a_hi[R / 8][4], a_lo[R / 8][4];  // P^T, then dS^T, as the A operand
+  zero(dk_acc);
+  zero(dv_acc);
+  mbar_wait(&own[1], 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % S;
+    const unsigned ph = (j / S) & 1;
+    Ring32& st = ring[s];
+    mbar_wait(&st.loaded, ph);  // the stats, which the consumer reads itself
+    mbar_wait(&st.nat_full, ph);
+    wgmma_fence();
+    mma3_ss<R, KD / 8, true>(p, smem + Smem::k_hi, smem + Smem::k_lo, tile(s, Smem::q_hi),
+                             tile(s, Smem::q_lo), 0, steps);  // S^T = K Q^T, as S = Q K^T
+    if constexpr (kDK)
+      mma3_ss<R, KD / 8, true>(ds, smem + Smem::v_hi, smem + Smem::v_lo, tile(s, Smem::do_hi),
+                               tile(s, Smem::do_lo), 0, steps);  // dP^T = V dO^T, as dP
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(p);
+    if constexpr (kDK) reg_fence(ds);
+    const float* lse2 = stat(s);
+    const float* D = lse2 + R;
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i) {
+      const int col = 8 * (i / 4) + 2 * t + i % 2;
+      p[i] = exp2_fast(fmaf(p[i], c, -lse2[col]));
+      if constexpr (kDK) ds[i] = p[i] * (ds[i] - D[col]);
+    }
+    // the stage's stats lie beside its K-major pairs and are reloaded with
+    // them, so it is released only once this thread has read its lse2 and D
+    mbar_arrive(&st.nat_empty);
+    mbar_wait(&st.t_full, ph);
+    if constexpr (kDV) {  // dV += P^T dO
+      split_a<R>(p, a_hi, a_lo);
+      wgmma_fence();
+      mma3_rs<KD, R / 8>(dv_acc, a_hi, a_lo, tile(s, Smem::dot_hi), tile(s, Smem::dot_lo), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dv_acc);
+    }
+    if constexpr (kDK) {  // dK += dS^T Q
+      split_a<R>(ds, a_hi, a_lo);
+      wgmma_fence();
+      mma3_rs<KD, R / 8>(dk_acc, a_hi, a_lo, tile(s, Smem::qt_hi), tile(s, Smem::qt_lo), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dk_acc);
+    }
+    mbar_arrive(&st.t_empty);
+  }
+  const int row0 = k0 + 16 * warp;
+  const float one[2] = {1.f, 1.f}, s2[2] = {scale, scale};
+  if constexpr (kDK) store_rows_f32<KD>(dk, dk_acc, b, h, H, L, W, row0, lane, s2);
+  if constexpr (kDV) store_rows_f32<KD>(dv, dv_acc, b, h, H, L, W, row0, lane, one);
+}
+
+// Shared memory of (c): the block's 64 queries as Q's and dO's hi / lo
+// pairs; S stages of R-row K/V tiles: K's pair, V's pair and K^T's pair;
+// the barriers.
+template <int KD, int R, int S> struct DqSmem32 {
+  static constexpr int kO = f32_tile_bytes<KD>(64), kT = f32_tile_bytes<KD>(R);
+  static constexpr int q_hi = 0, q_lo = kO, do_hi = 2 * kO, do_lo = 3 * kO, stages = 4 * kO;
+  static constexpr int k_hi = 0, k_lo = kT, v_hi = 2 * kT, v_lo = 3 * kT, kt_hi = 4 * kT,
+                       kt_lo = 5 * kT, stage = 6 * kT;
+  static constexpr int bars = stages + S * stage;
+  static constexpr int bytes = bars + kRing32Bytes<S> + 1024;
+};
+
+// (c) dQ of 64 query rows: S = Q K^T and dP = dO V^T, then dQ += dS K
+// (B: K^T), dS split in registers as the A operand.
+template <int KD, int R, int S>
+__global__ void __launch_bounds__(2 * kWarpgroup, 1)
+    attention_bwd_dq_f32(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ stats, float* __restrict__ dq, int H, int L,
+                         int W, float scale) {
+  using Smem = DqSmem32<KD, R, S>;
+  constexpr int kO = Smem::kO, kT = Smem::kT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + Smem::bars);  // Q/dO loaded, ready
+  Ring32* ring = reinterpret_cast<Ring32*>(own + 2);
+  auto tile = [&](int s, int off) { return smem + Smem::stages + s * Smem::stage + off; };
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * 64;
+  const int n_tiles = (L + R - 1) / R;
+  if (threadIdx.x == 0) ring32_init<S>(own, ring);
+  __syncthreads();
+  const int tid = threadIdx.x % kWarpgroup;
+
+  if (threadIdx.x >= kWarpgroup) {  // the producer warpgroup
+    if (tid == 0) {
+      mbar_expect_tx(&own[0], 2 * kO);
+      tma_tile_f32<KD, 64>(smem + Smem::q_hi, &tq, &own[0], h, q0, b);
+      tma_tile_f32<KD, 64>(smem + Smem::do_hi, &tdo, &own[0], h, q0, b);
+    }
+    mbar_wait(&own[0], 0);
+    split_tile<kO>(smem + Smem::q_hi, smem + Smem::q_lo, tid);
+    split_tile<kO>(smem + Smem::do_hi, smem + Smem::do_lo, tid);
+    fence_async_smem();
+    mbar_arrive(&own[1]);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % S;
+      const unsigned ph = (j / S) & 1;
+      Ring32& st = ring[s];
+      producer_sync();  // every producer thread is done with this stage's last tile
+      if (tid == 0) {
+        mbar_wait(&st.nat_empty, ph ^ 1);
+        mbar_expect_tx(&st.loaded, 2 * kT);
+        tma_tile_f32<KD, R>(tile(s, Smem::k_hi), &tk, &st.loaded, h, j * R, b);
+        tma_tile_f32<KD, R>(tile(s, Smem::v_hi), &tv, &st.loaded, h, j * R, b);
+      }
+      mbar_wait(&st.loaded, ph);
+      split_tile<kT>(tile(s, Smem::k_hi), tile(s, Smem::k_lo), tid);
+      split_tile<kT>(tile(s, Smem::v_hi), tile(s, Smem::v_lo), tid);
+      fence_async_smem();
+      mbar_arrive(&st.nat_full);
+      mbar_wait(&st.t_empty, ph ^ 1);
+      producer_sync();  // K's pair, split above by every thread, is read across threads
+      transpose_tile<KD, R, false>(tile(s, Smem::k_hi), tile(s, Smem::k_lo),
+                                   tile(s, Smem::kt_hi), tile(s, Smem::kt_lo), tid);
+      fence_async_smem();
+      mbar_arrive(&st.t_full);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: query rows q0 .. q0 + 63, this thread's 16
+  // warp + g and + 8 (rows past L have lse2 = +inf in the stats: P = 0)
+  const int warp = tid / 32, lane = tid % 32;
+  const float* st64 = stats + ((size_t)bh * ((L + 63) / 64) + q0 / 64) * 128 + 16 * warp + lane / 4;
+  const float lse2[2] = {st64[0], st64[8]}, D[2] = {st64[64], st64[72]};
+  const float c = scale * kLog2e;
+  const int steps = head_steps<KD>(W);
+  float dq_acc[KD / 2], p[R / 2], ds[R / 2];  // p: S then P; ds: dP then dS
+  uint32_t a_hi[R / 8][4], a_lo[R / 8][4];    // dS as the A operand
+  zero(dq_acc);
+  mbar_wait(&own[1], 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % S;
+    const unsigned ph = (j / S) & 1;
+    Ring32& st = ring[s];
+    mbar_wait(&st.nat_full, ph);
+    wgmma_fence();
+    mma3_ss<R, KD / 8>(p, smem + Smem::q_hi, smem + Smem::q_lo, tile(s, Smem::k_hi),
+                       tile(s, Smem::k_lo), 0, steps);  // S = Q K^T
+    mma3_ss<R, KD / 8>(ds, smem + Smem::do_hi, smem + Smem::do_lo, tile(s, Smem::v_hi),
+                       tile(s, Smem::v_lo), 0, steps);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(p);
+    reg_fence(ds);
+    mbar_arrive(&st.nat_empty);
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i) {
+      const int r = (i / 2) % 2;
+      p[i] = exp2_fast(fmaf(p[i], c, -lse2[r]));
+      ds[i] = p[i] * (ds[i] - D[r]);
+    }
+    split_a<R>(ds, a_hi, a_lo);
+    mbar_wait(&st.t_full, ph);
+    wgmma_fence();
+    mma3_rs<KD, R / 8>(dq_acc, a_hi, a_lo, tile(s, Smem::kt_hi), tile(s, Smem::kt_lo),
+                       1);  // dQ += dS K, the raw K (keys past L are zeros)
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dq_acc);
+    mbar_arrive(&st.t_empty);
+  }
+  const float s2[2] = {scale, scale};
+  store_rows_f32<KD>(dq, dq_acc, b, h, H, L, W, q0 + 16 * warp, lane, s2);
+}
+
+// The kernels of an fp32 plan (ops/attention.py::fp32_plan) at head width
+// KD with R-row streamed tiles: KD = 64, R = 64: one dK/dV kernel and dQ,
+// one stage each; KD = 128, R = 32: a dV pass (two stages), a dK pass and
+// dQ (one stage each), K's, V's, Q's and dO's pairs of 64 x 128 fp32 being
+// 32 KB each.
+template <int KD, int R> struct Bwd32 {
+  static constexpr int threads = 2 * kWarpgroup, kDqStages = 1;
+  static constexpr int kDkdvStages = KD == 64 ? 1 : 2, kDkStages = 1;
+  static constexpr int kFirstPass = KD == 64 ? kPassBoth : kPassDV;
+  static constexpr int prep_smem = PrepSmem32<KD>::bytes;
+  static constexpr int dkdv_smem = DkdvSmem32<KD, R, kDkdvStages, kFirstPass>::bytes;
+  static constexpr int dk_smem = DkdvSmem32<KD, R, kDkStages, kPassDK>::bytes;
+  static constexpr int dq_smem = DqSmem32<KD, R, kDqStages>::bytes;
+
+  template <typename Kernel>
+  static cudaError_t prepare(Kernel kernel, int smem) {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
+
+  static cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                            const CUtensorMap& to, const CUtensorMap& tdo, const float* lse,
+                            float* stats, void* dq, void* dk, void* dv, int B, int H, int L,
+                            int W, float scale, cudaStream_t stream) {
+    const dim3 grid((L + 63) / 64, B * H);
+    float *fdq = static_cast<float*>(dq), *fdk = static_cast<float*>(dk),
+          *fdv = static_cast<float*>(dv);
+    cudaError_t err = prepare(attention_bwd_prep_f32<KD>, prep_smem);
+    if (err != cudaSuccess) return err;
+    attention_bwd_prep_f32<KD><<<grid, kWarpgroup, prep_smem, stream>>>(tdo, to, lse, stats, H, L,
+                                                                        W);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    auto first = attention_bwd_dkdv_f32<KD, R, kDkdvStages, kFirstPass>;
+    if ((err = prepare(first, dkdv_smem)) != cudaSuccess) return err;
+    first<<<grid, threads, dkdv_smem, stream>>>(tq, tk, tv, tdo, stats, fdk, fdv, H, L, W, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if constexpr (KD == 128) {
+      auto second = attention_bwd_dkdv_f32<KD, R, kDkStages, kPassDK>;
+      if ((err = prepare(second, dk_smem)) != cudaSuccess) return err;
+      second<<<grid, threads, dk_smem, stream>>>(tq, tk, tv, tdo, stats, fdk, fdv, H, L, W,
+                                                 scale);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    auto dqk = attention_bwd_dq_f32<KD, R, kDqStages>;
+    if ((err = prepare(dqk, dq_smem)) != cudaSuccess) return err;
+    dqk<<<grid, threads, dq_smem, stream>>>(tq, tk, tv, tdo, stats, fdq, H, L, W, scale);
+    return cudaGetLastError();
+  }
+
+  // kernel 0: (b) (at KD = 128 its dV pass), 1: (c), 2: (b)'s dK pass (KD =
+  // 128), 3: the row pass (a)
+  static cudaError_t query(int kernel, int* out) {
+    if (kernel == 0)
+      return hopper::query(attention_bwd_dkdv_f32<KD, R, kDkdvStages, kFirstPass>, threads,
+                           dkdv_smem, out);
+    if (kernel == 1)
+      return hopper::query(attention_bwd_dq_f32<KD, R, kDqStages>, threads, dq_smem, out);
+    if (kernel == 3) return hopper::query(attention_bwd_prep_f32<KD>, kWarpgroup, prep_smem, out);
+    if constexpr (KD == 128)
+      if (kernel == 2)
+        return hopper::query(attention_bwd_dkdv_f32<KD, R, kDkStages, kPassDK>, threads, dk_smem,
+                             out);
+    return cudaErrorInvalidValue;
+  }
+};
+
+template <typename F> cudaError_t with_plan(int kd, int rows, F&& f) {
+  if (kd == 64 && rows == 64) return f(Bwd32<64, 64>());
+  if (kd == 128 && rows == 32) return f(Bwd32<128, 32>());
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace f32
+
 }  // namespace
 }  // namespace probunet
 
@@ -758,43 +945,45 @@ cudaError_t with_plan(int block_rows, bool split, int kd, F&& f) {
 // element strides (*_sb, *_sl, *_sh), unit-stride head dim, 16-byte-aligned
 // rows; head_dim 64, or a multiple of 8 in 72..128 (the head dim c, or the
 // zero-padded width that ops/attention.py::kernel_width gives c). lse:
-// (B*H, L) fp32 from the forward kernel. scratch: fp32, (B*H, L) for fp32
-// inputs (D), (B*H, ceil(L / 64), 2, 64) for bf16 (lse in base 2 and D per
-// 64-row tile). dq, dk, dv: (B, L, H, head_dim) contiguous, q's dtype.
-// scale is 1/sqrt(c). fast rounds dS to bf16 (bf16 only; fp32 ignores it).
-// block_rows is the bf16 kernels' plan (ops/attention.py::plan; 64 or
-// 128). Returns a cudaError_t code; 0 on success.
+// (B*H, L) fp32 from the forward kernel. scratch: fp32 (B*H, ceil(L / 64),
+// 2, 64): lse in base 2 and D per 64-row tile. dq, dk, dv: (B, L, H,
+// head_dim) contiguous, q's dtype. scale is 1/sqrt(c). fast rounds dS to
+// bf16 (bf16 only; fp32 ignores it). rows is the plan's: bf16, the block
+// rows of ops/attention.py::plan (64 or 128); fp32, the streamed tile rows
+// of fp32_plan. Returns a cudaError_t code; 0 on success.
 extern "C" int probunet_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
     void* scratch, void* dq, void* dk, void* dv, int B, int H, int L, int head_dim,
     long long q_sb, long long q_sl, long long q_sh, long long k_sb, long long k_sl,
     long long k_sh, long long v_sb, long long v_sl, long long v_sh, long long o_sb,
     long long o_sl, long long o_sh, long long do_sb, long long do_sl, long long do_sh,
-    float scale, int is_bf16, int fast, int block_rows, void* stream) {
-  using probunet::tiles::Strides;
-  const int W = head_dim;
+    float scale, int is_bf16, int fast, int rows, void* stream) {
+  using probunet::Strides;
+  using probunet::hopper::make_map;
+  const int W = head_dim, kd = W == 64 ? 64 : 128;
   if (W != 64 && (W <= 64 || W > 128 || W % 8)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(scratch);
-  const Strides so{o_sb, o_sl, o_sh}, sdo{do_sb, do_sl, do_sh};
-  if (!is_bf16) {
-    const Strides sq{q_sb, q_sl, q_sh}, sk{k_sb, k_sl, k_sh}, sv{v_sb, v_sl, v_sh};
-    if (W == 64)
-      return probunet::fp32::launch<float, 64>(q, k, v, o, dout, l, d, dq, dk, dv, B, H, L, W,
-                                               sq, sk, sv, so, sdo, scale, st);
-    return probunet::fp32::launch<float, 128>(q, k, v, o, dout, l, d, dq, dk, dv, B, H, L, W, sq,
-                                              sk, sv, so, sdo, scale, st);
-  }
+  const int esize = is_bf16 ? 2 : 4, box = is_bf16 ? probunet::hopper::kBoxRows
+                                                   : probunet::hopper::kF32BoxRows;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = probunet::hopper::make_map(&tq, q, B, H, L, W, q_sb, q_sl, q_sh);
-  if (err == cudaSuccess) err = probunet::hopper::make_map(&tk, k, B, H, L, W, k_sb, k_sl, k_sh);
-  if (err == cudaSuccess) err = probunet::hopper::make_map(&tv, v, B, H, L, W, v_sb, v_sl, v_sh);
-  if (err == cudaSuccess)
-    err = probunet::hopper::make_map(&tdo, dout, B, H, L, W, do_sb, do_sl, do_sh);
+  cudaError_t err = make_map(&tq, q, B, H, L, W, q_sb, q_sl, q_sh, esize, box);
+  if (err == cudaSuccess) err = make_map(&tk, k, B, H, L, W, k_sb, k_sl, k_sh, esize, box);
+  if (err == cudaSuccess) err = make_map(&tv, v, B, H, L, W, v_sb, v_sl, v_sh, esize, box);
+  if (err == cudaSuccess) err = make_map(&tdo, dout, B, H, L, W, do_sb, do_sl, do_sh, esize, box);
   if (err != cudaSuccess) return err;
+  if (!is_bf16) {
+    CUtensorMap to;
+    err = make_map(&to, o, B, H, L, W, o_sb, o_sl, o_sh, esize, box);
+    if (err != cudaSuccess) return err;
+    return probunet::f32::with_plan(kd, rows, [&](auto plan) {
+      return plan.launch(tq, tk, tv, to, tdo, l, d, dq, dk, dv, B, H, L, W, scale, st);
+    });
+  }
+  const Strides so{o_sb, o_sl, o_sh}, sdo{do_sb, do_sl, do_sh};
   return probunet::sm90::with_plan<probunet::sm90::Bwd>(
-      block_rows, !fast, W == 64 ? 64 : 128, [&](auto plan) {
+      rows, !fast, kd, [&](auto plan) {
         return plan.launch(tq, tk, tv, tdo, o, dout, l, d, dq, dk, dv, B, H, L, W, so, sdo, scale,
                            st);
       });
@@ -809,4 +998,10 @@ extern "C" int probunet_attention_bwd_query(int kernel, int block_rows, int spli
                                             int* out) {
   return probunet::sm90::with_plan<probunet::sm90::Bwd>(
       block_rows, split != 0, kd, [&](auto plan) { return plan.query(kernel, out); });
+}
+
+// The same for an fp32 backward kernel of the fp32 plan at head width kd
+// with streamed tiles of rows rows (kernels 0-2 as above, 3: the row pass).
+extern "C" int probunet_attention_bwd_f32_query(int kernel, int kd, int rows, int* out) {
+  return probunet::f32::with_plan(kd, rows, [&](auto plan) { return plan.query(kernel, out); });
 }

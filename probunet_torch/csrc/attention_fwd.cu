@@ -17,7 +17,7 @@
 // once) take a quarter of that.
 //
 // Head dims: every kernel is instantiated for a head KD = 64 or 128 columns
-// wide in shared memory (attention_hopper.cuh, attention_tiles.cuh): c = 64
+// wide in shared memory (attention_hopper.cuh): c = 64
 // runs KD = 64, 64 < c <= 128 (72 at the U-Net's 288-wide level with
 // model_channels 96) runs KD = 128 with the columns past c zero, and so
 // does (128 / c) times the products of an exact-width kernel. At KD = 128
@@ -46,12 +46,23 @@
 // takes about as long as the tile's products at the tensor cores' peak,
 // and one or two consumer warpgroups per SM hide only part of it.
 //
-// fp32: attention_fwd, FlashAttention-2 style on mma.sync (tile machinery
-// in attention_tiles.cuh): one block of four warps per (batch * head, 64
-// query rows), 16 rows a warp; the Q tile and a 2-stage ring of 64-row
-// K/V tiles are copied by cp.async; S = Q K^T and O += P V in 3xTF32 with
-// fp32 accumulators; P goes from its accumulator registers straight into
-// the A operand of PV. A ragged last tile is zero-filled and masked.
+// fp32: attention_fwd_f32, 3xTF32 on tf32 wgmma (attention_hopper.cuh,
+// "fp32 (strict) operands"). One block per (batch * head, 64 query rows):
+// a consumer warpgroup and a producer warpgroup. The producer's first
+// thread loads Q once and each BN-row K/V tile by TMA into a ring of
+// kFwdStages32 stages; its 128 threads split Q and each K tile into tf32 hi
+// and lo in place, once per block (not once per warp per product), and
+// write V's transpose as a hi / lo pair, since tf32 wgmma reads K-major
+// operands only (FlashAttention-3's fp8 forward transposes V in its
+// producer for the same reason). The consumer runs S = Q K^T (m64nBNk8, A
+// and B from shared memory), the online softmax, and P V (m64nKDk8, P
+// split in registers as the A operand), three products per k8 step; each
+// tile's P V goes into a fresh accumulator and joins O by an fp32 FMA. BN =
+// 64 at KD = 64; 32 at KD = 128, where O and P V are 64 registers a thread
+// each (ops/attention.py::fp32_plan). A ragged last tile is masked. What
+// holds it back: one consumer warpgroup per SM (the ring takes 193 KB at
+// KD = 64, 225 KB at KD = 128), whose products wait for the softmax and
+// the split of P.
 //
 // Layout: q, k, v are (B, L, heads, W) with any element strides (sb, sl,
 // sh) and a unit-stride head dim, each row 16-byte aligned, W = 64 or a
@@ -80,138 +91,9 @@
 #include <math.h>
 
 #include "attention_hopper.cuh"
-#include "attention_tiles.cuh"
 
 namespace probunet {
 namespace {
-
-namespace fp32 {
-
-using namespace tiles;
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ o, float* __restrict__ lse, int H, int L, int W, Strides sq,
-                  Strides sk, Strides sv, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int P = kPitch<T, D>;
-  constexpr int kT = kTile<T, D>;
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + kT;       // two stages
-  T* Vs = Ks + 2 * kT;   // two stages
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane % 4;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-
-  load_tile_async<T, D>(Qs, qb, sq.l, q0, L, W, tid);
-  load_tile_async<T, D>(Ks, kb, sk.l, 0, L, W, tid);
-  load_tile_async<T, D>(Vs, vb, sv.l, 0, L, W, tid);
-  cp_async_commit();
-
-  // the softmax runs in base 2 on the raw logits: p = 2^(s c - m), c = scale
-  // * log2(e), m the running max of s c; tile 0 always holds column 0, so m
-  // is finite from the first tile on
-  const float c = scale * kLog2e;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[D / 8][4];
-  zero(acc);
-  // this warp's 16 Q rows, loaded once at D = 64 (at D = 128 the fragments
-  // would take 128 registers: they are read from shared memory per tile)
-  AFrags<T> qf;
-  const int n_tiles = (L + kRows - 1) / kRows;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {  // the next K/V tile into the other stage
-      load_tile_async<T, D>(Ks + (st ^ 1) * kT, kb, sk.l, (j + 1) * kRows, L, W, tid);
-      load_tile_async<T, D>(Vs + (st ^ 1) * kT, vb, sv.l, (j + 1) * kRows, L, W, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if constexpr (D == 64)
-      if (j == 0) load_a(qf, Qs + warp * 16 * P, lane);
-
-    float s[8][4];
-    zero(s);
-    if constexpr (D == 64) mma_nt(s, qf, Ks + st * kT, lane);
-    else mma_nt<D>(s, Qs + warp * 16 * P, Ks + st * kT, lane);
-
-    if ((j + 1) * kRows > L) {  // the ragged last tile: columns past L drop out
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (j * kRows + 8 * n + 2 * t + (e % 2) >= L) s[n][e] = -INFINITY;
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]) * c);
-      alpha[r] = exp2_fast(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2_fast(fmaf(s[n][e], c, -m[e / 2]));
-        rs[e / 2] += s[n][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
-
-    // O += P V: the tensor cores' fp32 accumulation truncates, so a running
-    // sum over 16 tiles (L=1024) drifts by ~1e-5 against the strict
-    // tolerance of 2e-5; each tile's PV goes into a zeroed accumulator and
-    // joins the sum by a rounded fp32 FMA instead
-    float pv[D / 8][4];
-    zero(pv);
-    mma_nn<false, D>(pv, s, Vs + st * kT, lane);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], alpha[e / 2], pv[n][e]);
-    __syncthreads();  // this stage is free for the load two tiles on
-  }
-
-  const float inv[2] = {1.f / l[0], 1.f / l[1]};
-  const int row0 = q0 + warp * 16;
-  store_rows<T, D>(o, acc, b, h, H, L, W, row0, lane, inv);
-  if (lse != nullptr && t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + lane / 4 + 8 * r;
-      if (row < L) lse[(size_t)bh * L + row] = (m[r] + log2f(l[r])) / kLog2e;
-    }
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                   int H, int L, int W, Strides sq, Strides sk, Strides sv, float scale,
-                   cudaStream_t stream) {
-  constexpr size_t smem = 5 * kTile<T, D> * sizeof(T);  // Q, two K and two V stages
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + kRows - 1) / kRows, B * H);
-  attention_fwd<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, H, L, W, sq, sk, sv, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace fp32
 
 namespace sm90 {
 
@@ -435,6 +317,161 @@ cudaError_t with_plan(int block_rows, int tile_rows, int kd, F&& f) {
 
 }  // namespace sm90
 
+namespace f32 {
+
+using namespace hopper;
+
+constexpr int kFwdStages32 = 2;
+
+// Shared memory of attention_fwd_f32: byte offsets from a 1024-byte
+// boundary. The block's Q as a hi / lo pair (Q lands in q_hi), then
+// kFwdStages32 stages of BN-row tiles: K's pair (K lands in k_hi), V as it
+// lands and V^T's pair; then the barriers.
+template <int KD, int BN> struct FwdSmem32 {
+  static constexpr int kQ = f32_tile_bytes<KD>(64), kT = f32_tile_bytes<KD>(BN);
+  static constexpr int q_hi = 0, q_lo = kQ, stages = 2 * kQ;
+  static constexpr int k_hi = 0, k_lo = kT, v_raw = 2 * kT, vt_hi = 3 * kT, vt_lo = 4 * kT,
+                       stage = 5 * kT;
+  static constexpr int bars = stages + kFwdStages32 * stage;
+  static constexpr int bytes = bars + kRing32Bytes<kFwdStages32> + 1024;
+};
+
+// One block per (batch * head, 64 query rows): a consumer warpgroup runs S =
+// Q K^T and O += P V, a producer warpgroup loads and splits Q once and each
+// BN-row K/V tile (attention_hopper.cuh, "fp32 (strict) operands").
+template <int KD, int BN>
+__global__ void __launch_bounds__(2 * kWarpgroup, 1)
+    attention_fwd_f32(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
+                      float* __restrict__ lse, int H, int L, int W, float scale) {
+  using Smem = FwdSmem32<KD, BN>;
+  constexpr int S = kFwdStages32, kQ = Smem::kQ, kT = Smem::kT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + Smem::bars);  // Q loaded, Q ready
+  Ring32* ring = reinterpret_cast<Ring32*>(own + 2);
+  auto tile = [&](int s, int off) { return smem + Smem::stages + s * Smem::stage + off; };
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * 64;
+  const int n_tiles = (L + BN - 1) / BN;
+  if (threadIdx.x == 0) ring32_init<S>(own, ring);
+  __syncthreads();
+  const int tid = threadIdx.x % kWarpgroup;
+
+  if (threadIdx.x >= kWarpgroup) {  // the producer warpgroup
+    if (tid == 0) {
+      mbar_expect_tx(&own[0], kQ);
+      tma_tile_f32<KD, 64>(smem + Smem::q_hi, &tq, &own[0], h, q0, b);
+    }
+    mbar_wait(&own[0], 0);
+    split_tile<kQ>(smem + Smem::q_hi, smem + Smem::q_lo, tid);
+    fence_async_smem();
+    mbar_arrive(&own[1]);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % S;
+      const unsigned ph = (j / S) & 1;
+      Ring32& st = ring[s];
+      producer_sync();  // every producer thread is done with this stage's last tile
+      if (tid == 0) {
+        mbar_wait(&st.nat_empty, ph ^ 1);
+        mbar_expect_tx(&st.loaded, 2 * kT);
+        tma_tile_f32<KD, BN>(tile(s, Smem::k_hi), &tk, &st.loaded, h, j * BN, b);
+        tma_tile_f32<KD, BN>(tile(s, Smem::v_raw), &tv, &st.loaded, h, j * BN, b);
+      }
+      mbar_wait(&st.loaded, ph);
+      split_tile<kT>(tile(s, Smem::k_hi), tile(s, Smem::k_lo), tid);
+      fence_async_smem();
+      mbar_arrive(&st.nat_full);
+      mbar_wait(&st.t_empty, ph ^ 1);
+      transpose_tile<KD, BN, true>(tile(s, Smem::v_raw), nullptr, tile(s, Smem::vt_hi),
+                                   tile(s, Smem::vt_lo), tid);
+      fence_async_smem();
+      mbar_arrive(&st.t_full);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: query rows q0 .. q0 + 63, this thread's row0 +
+  // g and row0 + g + 8
+  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const int row0 = q0 + 16 * warp;
+  const float c = scale * kLog2e;
+  const int steps = head_steps<KD>(W);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2], sc[BN / 2], acc[KD / 2],
+        pv[KD / 2];
+  uint32_t pa_hi[BN / 8][4], pa_lo[BN / 8][4];  // P as the A operand of P V
+  zero(acc);
+  mbar_wait(&own[1], 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % S;
+    const unsigned ph = (j / S) & 1;
+    Ring32& st = ring[s];
+    mbar_wait(&st.nat_full, ph);
+    wgmma_fence();
+    mma3_ss<BN, KD / 8>(sc, smem + Smem::q_hi, smem + Smem::q_lo, tile(s, Smem::k_hi),
+                        tile(s, Smem::k_lo), 0, steps);  // S = Q K^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sc);
+    mbar_arrive(&st.nat_empty);
+    sm90::softmax_tile<BN>(sc, j * BN, L, t, c, m, l, alpha);
+    split_a<BN>(sc, pa_hi, pa_lo);
+    mbar_wait(&st.t_full, ph);
+    // this tile's P V into a fresh accumulator, joined to O by a rounded fp32
+    // FMA: the tensor cores' fp32 accumulation truncates, and a running sum
+    // over the tiles of L = 1024 would drift towards the strict tolerance
+    wgmma_fence();
+    mma3_rs<KD, BN / 8>(pv, pa_hi, pa_lo, tile(s, Smem::vt_hi), tile(s, Smem::vt_lo), 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(pv);
+    mbar_arrive(&st.t_empty);
+#pragma unroll
+    for (int i = 0; i < KD / 2; ++i) acc[i] = fmaf(acc[i], alpha[(i / 2) % 2], pv[i]);
+  }
+
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  store_rows_f32<KD>(o, acc, b, h, H, L, W, row0, lane, inv);
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + lane / 4 + 8 * r;
+      if (row < L) lse[(size_t)bh * L + row] = (m[r] + log2f(l[r])) / kLog2e;
+    }
+  }
+}
+
+template <int KD, int BN> struct Fwd32 {
+  static constexpr int threads = 2 * kWarpgroup, smem = FwdSmem32<KD, BN>::bytes;
+
+  static cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                            void* o, float* lse, int B, int H, int L, int W, float scale,
+                            cudaStream_t stream) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_fwd_f32<KD, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((L + 63) / 64, B * H);
+    attention_fwd_f32<KD, BN><<<grid, threads, smem, stream>>>(
+        tq, tk, tv, static_cast<float*>(o), lse, H, L, W, scale);
+    return cudaGetLastError();
+  }
+
+  static cudaError_t query(int* out) {
+    return hopper::query(attention_fwd_f32<KD, BN>, threads, smem, out);
+  }
+};
+
+// The kernel of an fp32 plan (ops/attention.py::fp32_plan): head width kd,
+// BN = tile_rows K/V rows per tile: 64 at kd 64; 32 at kd 128, where O and
+// this tile's P V are 64 registers a thread each.
+template <typename F> cudaError_t with_plan(int kd, int tile_rows, F&& f) {
+  if (kd == 64 && tile_rows == 64) return f(Fwd32<64, 64>());
+  if (kd == 128 && tile_rows == 32) return f(Fwd32<128, 32>());
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace f32
+
 }  // namespace
 }  // namespace probunet
 
@@ -443,33 +480,35 @@ cudaError_t with_plan(int block_rows, int tile_rows, int kd, F&& f) {
 // multiple of 8 in 72..128 (the head dim c, or the zero-padded width that
 // ops/attention.py::kernel_width gives c); o: (B, L, H, head_dim)
 // contiguous, same dtype; lse: null or (B*H, L) fp32. scale is 1/sqrt(c).
-// block_rows and tile_rows are the bf16 kernel's plan (ops/attention.py::
-// plan; 64 or 128 each); fp32 ignores them. Returns a cudaError_t code; 0
-// on success.
+// block_rows and tile_rows are the plan's (ops/attention.py::plan for bf16,
+// 64 or 128 each; fp32_plan for fp32: 64 and its K/V tile rows). Returns a
+// cudaError_t code; 0 on success.
 extern "C" int probunet_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int B, int H, int L, int head_dim,
                                       long long q_sb, long long q_sl, long long q_sh,
                                       long long k_sb, long long k_sl, long long k_sh,
                                       long long v_sb, long long v_sl, long long v_sh, float scale,
                                       int is_bf16, int block_rows, int tile_rows, void* stream) {
-  using probunet::tiles::Strides;
-  const int W = head_dim;
+  const int W = head_dim, kd = W == 64 ? 64 : 128;
   if (W != 64 && (W <= 64 || W > 128 || W % 8)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (!is_bf16) {
-    const Strides sq{q_sb, q_sl, q_sh}, sk{k_sb, k_sl, k_sh}, sv{v_sb, v_sl, v_sh};
-    if (W == 64)
-      return probunet::fp32::launch<float, 64>(q, k, v, o, l, B, H, L, W, sq, sk, sv, scale, st);
-    return probunet::fp32::launch<float, 128>(q, k, v, o, l, B, H, L, W, sq, sk, sv, scale, st);
-  }
+  const int esize = is_bf16 ? 2 : 4, box = is_bf16 ? probunet::hopper::kBoxRows
+                                                   : probunet::hopper::kF32BoxRows;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = probunet::hopper::make_map(&tq, q, B, H, L, W, q_sb, q_sl, q_sh);
-  if (err == cudaSuccess) err = probunet::hopper::make_map(&tk, k, B, H, L, W, k_sb, k_sl, k_sh);
-  if (err == cudaSuccess) err = probunet::hopper::make_map(&tv, v, B, H, L, W, v_sb, v_sl, v_sh);
+  cudaError_t err = probunet::hopper::make_map(&tq, q, B, H, L, W, q_sb, q_sl, q_sh, esize, box);
+  if (err == cudaSuccess)
+    err = probunet::hopper::make_map(&tk, k, B, H, L, W, k_sb, k_sl, k_sh, esize, box);
+  if (err == cudaSuccess)
+    err = probunet::hopper::make_map(&tv, v, B, H, L, W, v_sb, v_sl, v_sh, esize, box);
   if (err != cudaSuccess) return err;
+  if (!is_bf16) {
+    if (block_rows != 64) return cudaErrorInvalidValue;
+    return probunet::f32::with_plan(
+        kd, tile_rows, [&](auto plan) { return plan.launch(tq, tk, tv, o, l, B, H, L, W, scale, st); });
+  }
   return probunet::sm90::with_plan<probunet::sm90::Fwd>(
-      block_rows, tile_rows, W == 64 ? 64 : 128,
+      block_rows, tile_rows, kd,
       [&](auto plan) { return plan.launch(tq, tk, tv, o, l, B, H, L, W, scale, st); });
 }
 
@@ -480,4 +519,10 @@ extern "C" int probunet_attention_fwd(const void* q, const void* k, const void* 
 extern "C" int probunet_attention_fwd_query(int block_rows, int tile_rows, int kd, int* out) {
   return probunet::sm90::with_plan<probunet::sm90::Fwd>(
       block_rows, tile_rows, kd, [&](auto plan) { return plan.query(out); });
+}
+
+// The same for the fp32 kernel of the fp32 plan at head width kd with K/V
+// tiles of tile_rows rows.
+extern "C" int probunet_attention_fwd_f32_query(int kd, int tile_rows, int* out) {
+  return probunet::f32::with_plan(kd, tile_rows, [&](auto plan) { return plan.query(out); });
 }

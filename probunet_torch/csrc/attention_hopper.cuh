@@ -1,7 +1,7 @@
-// Hopper (sm_90a) machinery of the bf16 attention kernels K2
-// (attention_fwd.cu) and K3 (attention_bwd.cu): TMA tensor maps, mbarrier
-// rings and warpgroup products (wgmma). The fp32 (3xTF32) kernels keep
-// mma.sync and cp.async (attention_tiles.cuh).
+// Hopper (sm_90a) machinery of the attention kernels K2 (attention_fwd.cu)
+// and K3 (attention_bwd.cu): TMA tensor maps, mbarrier rings and warpgroup
+// products (wgmma), for bf16 operands and, in the section "fp32 (strict)
+// operands" below, for fp32 operands multiplied in 3xTF32.
 //
 // Tensors. A (B, L, heads, W) bf16 tensor with element strides (sb, sl,
 // sh) and a unit-stride head dim of W columns (the head dim c, or the
@@ -101,24 +101,28 @@ inline cudaError_t encode_tiled(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// The 4-D map of a (B, L, H, W) bf16 tensor at ptr with element strides
-// (sb, sl, sh); boxes of 64 rows by 64 columns of one (batch, head),
-// 128-byte swizzle, zeros outside. A dimension of extent 1 is given a
-// packed stride (its stride is never used, and a view may carry any value
-// there).
+// The 4-D map of a (B, L, H, W) tensor at ptr with element strides (sb,
+// sl, sh) and elements of esize bytes (2: bf16, 4: fp32); boxes of
+// box_rows rows by one 128-byte swizzle atom of columns (64 bf16, 32 fp32)
+// of one (batch, head), 128-byte swizzle, zeros outside. A dimension of
+// extent 1 is given a packed stride (its stride is never used, and a view
+// may carry any value there).
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int W,
-                            long long sb, long long sl, long long sh) {
+                            long long sb, long long sl, long long sh, int esize = 2,
+                            int box_rows = kBoxRows) {
   EncodeTiled encode;
   cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
-  const long long bh = H > 1 ? sh * 2 : W * 2;
-  const long long bl = L > 1 ? sl * 2 : bh * H;
-  const long long bb = B > 1 ? sb * 2 : bl * L;
+  const long long bh = H > 1 ? sh * esize : W * esize;
+  const long long bl = L > 1 ? sl * esize : bh * H;
+  const long long bb = B > 1 ? sb * esize : bl * L;
   const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)bh, (cuuint64_t)bl, (cuuint64_t)bb};
-  const cuuint32_t box[4] = {kAtomBytes / 2, 1, kBoxRows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(kAtomBytes / esize), 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+  const CUresult r = encode(map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            4, const_cast<void*>(ptr),
                             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -402,6 +406,341 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out, cons
         *reinterpret_cast<uint32_t*>(p + 8 * j) =
             pack_bf16(d[4 * j + 2 * r] * mul[r], d[4 * j + 2 * r + 1] * mul[r]);
   }
+}
+
+// ---- fp32 (strict) operands: 3xTF32 on tf32 wgmma ----------------------------
+//
+// Numerics. Each fp32 operand x is carried as hi = tf32(x) (cvt.rna: round
+// to nearest, ties away, 10 mantissa bits) and lo = tf32(x - hi), and a
+// product sums lo*hi + hi*lo + hi*hi per k8 step with fp32 accumulators,
+// within a few fp32 ulps of the fp32 product (the dropped lo*lo is ~2^-22
+// relative). The split is explicit, so PyTorch's TF32 switches play no part.
+//
+// Tiles. An fp32 tile of R rows and KD columns is KD / 32 atoms of R x 128
+// bytes (32 columns), the layout a TMA box of R rows by 32 columns with the
+// 128-byte swizzle lands; a k8 step of a K-major read is 32 bytes, four per
+// atom, so desc_k and desc_k_step serve fp32 tiles as they serve bf16 ones.
+// tf32 wgmma reads K-major operands only (it has no transpose bit). Where a
+// product contracts over a tile's rows (O += P V, dV += P^T dO, dK += dS^T
+// Q, dQ += dS K), the operand is the tile's transpose: KD rows of R columns,
+// R / 32 atoms of KD x 128 bytes, written by the block's producer
+// warpgroup (transpose_tile). Its k order is permuted within each 8-column
+// step: position p holds source row 2 p (p < 4) or 2 (p - 4) + 1, so that
+// an accumulator in the C layout is the A fragment of the next product as
+// it stands (split_a), with no shuffle.
+//
+// Block. A consumer warpgroup (threads 0-127) runs the products and a
+// producer warpgroup (128-255) loads and prepares the operands: its first
+// thread issues the TMA loads; all 128 threads split each landed tile into
+// hi (in place) and lo once (split_tile), write the transposed pairs
+// (transpose_tile), fence the writes for the async proxy that wgmma reads
+// through, and arrive on the stage's barriers. 256 threads leave every
+// thread up to 255 registers.
+//
+// Stages. Each stage of a ring has five barriers (Ring32): loaded (the TMA
+// unit's byte count), nat_full / nat_empty (the K-major operands, ready for
+// and released by the consumer) and t_full / t_empty (the transposed ones).
+// The consumer releases the K-major operands as soon as their products have
+// retired (and, in K3's dK/dV kernel, the stage's lse2 / D, loaded with them,
+// have been read), so with one stage the producer loads and splits the next
+// tile while the consumer finishes this one.
+
+constexpr int kF32Cols = kAtomBytes / 4;   // fp32 columns per swizzle atom (one TMA box)
+constexpr int kF32BoxRows = 32;            // rows per fp32 TMA box
+
+// An fp32 tile of R rows at head width KD, in bytes (also its transpose's).
+template <int KD> __host__ __device__ constexpr int f32_tile_bytes(int rows) {
+  return rows * KD * 4;
+}
+
+struct Ring32 {
+  uint64_t loaded, nat_full, nat_empty, t_full, t_empty;
+};
+
+// Thread 0 initialises own (loaded, ready) and S stages of a ring.
+template <int S> __device__ __forceinline__ void ring32_init(uint64_t* own, Ring32* ring) {
+  mbar_init(&own[0], 1);
+  mbar_init(&own[1], kWarpgroup);
+  for (int s = 0; s < S; ++s) {
+    mbar_init(&ring[s].loaded, 1);
+    mbar_init(&ring[s].nat_full, kWarpgroup);
+    mbar_init(&ring[s].nat_empty, kWarpgroup);
+    mbar_init(&ring[s].t_full, kWarpgroup);
+    mbar_init(&ring[s].t_empty, kWarpgroup);
+  }
+  mbar_fence_init();
+}
+// bytes of the barriers of own and S stages
+template <int S> constexpr int kRing32Bytes = 16 + S * (int)sizeof(Ring32);
+
+// Generic-proxy writes to shared memory made visible to wgmma's (async
+// proxy) reads that the next barrier orders after them.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// The producer warpgroup's 128 threads, and only they (named barrier 1).
+__device__ __forceinline__ void producer_sync() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); }
+
+// A tile of R rows (R / 32 boxes down, KD / 32 atoms across) of head h of
+// batch b from row0 on into dst, its f32_tile_bytes<KD>(R) bytes counted
+// on bar; the map's boxes are kF32BoxRows x kF32Cols.
+template <int KD, int R>
+__device__ __forceinline__ void tma_tile_f32(unsigned char* dst, const CUtensorMap* map,
+                                             uint64_t* bar, int h, int row0, int b) {
+#pragma unroll
+  for (int a = 0; a < KD / kF32Cols; ++a)
+#pragma unroll
+    for (int i = 0; i < R / kF32BoxRows; ++i)
+      tma_load(dst + a * R * kAtomBytes + i * kF32BoxRows * kAtomBytes, map, bar, h,
+               row0 + kF32BoxRows * i, b, kF32Cols * a);
+}
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
+}
+
+// hi = tf32(x) in place and lo = tf32(x - hi) at the same offset, over a
+// tile of BYTES bytes; by the 128 threads (tid) of a warpgroup, 16 bytes a
+// thread at a time (the layout does not matter: each element keeps its place).
+template <int BYTES>
+__device__ __forceinline__ void split_tile(unsigned char* hi, unsigned char* lo, int tid) {
+  float4* h = reinterpret_cast<float4*>(hi);
+  float4* l = reinterpret_cast<float4*>(lo);
+#pragma unroll 4
+  for (int i = tid; i < BYTES / 16; i += kWarpgroup) {
+    const float4 x = h[i];
+    float4 a, c;
+    split_tf32(x.x, a.x, c.x);
+    split_tf32(x.y, a.y, c.y);
+    split_tf32(x.z, a.z, c.z);
+    split_tf32(x.w, a.w, c.w);
+    h[i] = a;
+    l[i] = c;
+  }
+}
+
+// The transposed hi / lo pair of a tile of R rows at head width KD into
+// dst_hi / dst_lo (KD rows of R columns, k order permuted as above): from
+// the tile's hi / lo pair, or with RAW from the raw tile src_hi, split
+// here. By the 128 threads (tid) of a warpgroup: a thread takes one column
+// d and one 8-row chunk of the source, lanes on consecutive columns (the
+// swizzle puts 32 consecutive columns of a row in 32 banks), and writes two
+// 16-byte pieces of row d of each destination (the 8 threads of a
+// quarter-warp on 8 rows, 8 different chunks).
+template <int KD, int R, bool RAW>
+__device__ __forceinline__ void transpose_tile(const unsigned char* src_hi,
+                                               const unsigned char* src_lo, unsigned char* dst_hi,
+                                               unsigned char* dst_lo, int tid) {
+  constexpr int kColAtoms = KD / kF32Cols;
+#pragma unroll 2
+  for (int i = tid; i < KD * R / 8; i += kWarpgroup) {
+    const int dl = i % kF32Cols, da = (i / kF32Cols) % kColAtoms, c8 = i / kF32Cols / kColAtoms;
+    const int src = da * R * kAtomBytes + 8 * c8 * kAtomBytes + (dl % 4) * 4;
+    float hi[8], lo[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {  // source row 8 c8 + k: its swizzle phase is k
+      const int off = src + k * kAtomBytes + (((dl / 4) ^ k) << 4);
+      if constexpr (RAW) {
+        split_tf32(*reinterpret_cast<const float*>(src_hi + off), hi[k], lo[k]);
+      } else {
+        hi[k] = *reinterpret_cast<const float*>(src_hi + off);
+        lo[k] = *reinterpret_cast<const float*>(src_lo + off);
+      }
+    }
+    // row d = 32 da + dl of atom c8 / 4, 16-byte chunks 2 (c8 % 4) and + 1
+    const int d = kF32Cols * da + dl, chunk = 2 * (c8 % 4);
+    const int row = (c8 / 4) * KD * kAtomBytes + d * kAtomBytes;
+    const int o0 = row + ((chunk ^ (d % 8)) << 4), o1 = row + (((chunk + 1) ^ (d % 8)) << 4);
+    *reinterpret_cast<float4*>(dst_hi + o0) = make_float4(hi[0], hi[2], hi[4], hi[6]);
+    *reinterpret_cast<float4*>(dst_hi + o1) = make_float4(hi[1], hi[3], hi[5], hi[7]);
+    *reinterpret_cast<float4*>(dst_lo + o0) = make_float4(lo[0], lo[2], lo[4], lo[6]);
+    *reinterpret_cast<float4*>(dst_lo + o1) = make_float4(lo[1], lo[3], lo[5], lo[7]);
+  }
+}
+
+template <int N> struct WgmmaTf32;
+template <> struct WgmmaTf32<32> {
+  // d (+)= A B^T: A 64 x 8 and B 32 x 8, K-major tf32 tiles in shared memory
+  __device__ __forceinline__ static void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <> struct WgmmaTf32<64> {
+  // d (+)= A B^T: A 64 x 8 and B 64 x 8, K-major tf32 tiles in shared memory
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  // d (+)= A B^T: A 64 x 8 in registers (tf32, split_a's fragments), B 64 x 8
+  // K-major in shared memory
+  __device__ __forceinline__ static void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <> struct WgmmaTf32<128> {
+  // d (+)= A B^T: A 64 x 8 in registers (tf32, split_a's fragments), B 128 x 8
+  // K-major in shared memory
+  __device__ __forceinline__ static void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+// The k8 steps of a product over the head dim that hold its W columns: all
+// KD / 8 at KD = 64; at KD = 128 ceil(W / 8), the columns from W on being
+// zeros (at c = 72, 9 of 16).
+template <int KD> __device__ __forceinline__ int head_steps(int W) {
+  return KD == 64 ? KD / 8 : (W + 7) / 8;
+}
+
+// d (+)= A B^T over the first 8 ksteps of 8 KSTEPS columns in 3xTF32: A (64
+// rows) and B (N rows) hi / lo pairs of K-major tiles in shared memory; each
+// k8 step adds lo*hi, hi*lo, hi*hi, or with SWAP hi*lo, lo*hi, hi*hi, so
+// that B^T's transpose computed as B A^T sums as A B^T does (S^T = K Q^T in
+// the order of S = Q K^T). acc 0 starts d afresh.
+template <int N, int KSTEPS, bool SWAP = false>
+__device__ __forceinline__ void mma3_ss(float (&d)[N / 2], const void* a_hi, const void* a_lo,
+                                        const void* b_hi, const void* b_lo, int acc,
+                                        int ksteps) {
+  const uint64_t ah = desc_k(a_hi), al = desc_k(a_lo), bh = desc_k(b_hi), bl = desc_k(b_lo);
+#pragma unroll
+  for (int k = 0; k < KSTEPS; ++k) {
+    if (k >= ksteps) break;
+    const uint64_t sa = desc_k_step<64>(k), sb = desc_k_step<N>(k);
+    if constexpr (SWAP) {
+      WgmmaTf32<N>::ss(d, ah + sa, bl + sb, k > 0 || acc);
+      WgmmaTf32<N>::ss(d, al + sa, bh + sb, 1);
+    } else {
+      WgmmaTf32<N>::ss(d, al + sa, bh + sb, k > 0 || acc);
+      WgmmaTf32<N>::ss(d, ah + sa, bl + sb, 1);
+    }
+    WgmmaTf32<N>::ss(d, ah + sa, bh + sb, 1);
+  }
+}
+
+// d (+)= A B^T over 8 KSTEPS columns in 3xTF32: A in registers as split_a
+// gives it, B (N rows) the hi / lo pair of a K-major tile (a transposed
+// tile: N = KD rows); lo*hi, hi*lo, hi*hi per k8 step.
+template <int N, int KSTEPS>
+__device__ __forceinline__ void mma3_rs(float (&d)[N / 2], const uint32_t (&a_hi)[KSTEPS][4],
+                                        const uint32_t (&a_lo)[KSTEPS][4], const void* b_hi,
+                                        const void* b_lo, int acc) {
+  const uint64_t bh = desc_k(b_hi), bl = desc_k(b_lo);
+#pragma unroll
+  for (int k = 0; k < KSTEPS; ++k) {
+    const uint64_t sb = desc_k_step<N>(k);
+    WgmmaTf32<N>::rs(d, a_lo[k], bh + sb, k > 0 || acc);
+    WgmmaTf32<N>::rs(d, a_hi[k], bl + sb, 1);
+    WgmmaTf32<N>::rs(d, a_hi[k], bh + sb, 1);
+  }
+}
+
+// An accumulator of N columns as the tf32 A operand (hi and lo) of a
+// product over those columns: k8 step j takes columns 8 j .. 8 j + 7, its k
+// position t (t + 4) holding column 8 j + 2 t (+ 1), the order of the
+// transposed tiles' permuted columns; a0..a3 are rows (g, g + 8) x
+// positions (t, t + 4) as the tf32 A fragment orders them.
+template <int N>
+__device__ __forceinline__ void split_a(const float (&d)[N / 2], uint32_t (&hi)[N / 8][4],
+                                        uint32_t (&lo)[N / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float x[4] = {d[4 * j], d[4 * j + 2], d[4 * j + 1], d[4 * j + 3]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float h, l;
+      split_tf32(x[i], h, l);
+      hi[j][i] = __float_as_uint(h);
+      lo[j][i] = __float_as_uint(l);
+    }
+  }
+}
+
+// Rows row0 + g and row0 + g + 8 of a warp's accumulator of KD columns
+// (mma.sync's C layout: d[4 j + e] is column 8 j + 2 t + e % 2), scaled by
+// mul, into a contiguous (B, L, H, W) fp32 tensor (W = 64 at KD = 64); rows
+// at or past L and columns at or past W are not written.
+template <int KD>
+__device__ __forceinline__ void store_rows_f32(float* __restrict__ out, const float (&d)[KD / 2],
+                                               int b, int h, int H, int L, int W, int row0,
+                                               int lane, const float (&mul)[2]) {
+  const int g = lane / 4, t = lane % 4;
+  const int pitch = KD == 64 ? 64 : W;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= L) continue;
+    float* p = out + (((size_t)b * L + row) * H + h) * pitch + 2 * t;
+#pragma unroll
+    for (int j = 0; j < KD / 8; ++j)
+      if (KD == 64 || 8 * j + 2 * t < W)
+        *reinterpret_cast<float2*>(p + 8 * j) =
+            make_float2(d[4 * j + 2 * r] * mul[r], d[4 * j + 2 * r + 1] * mul[r]);
+  }
+}
+
+template <int N> __device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
 }
 
 }  // namespace hopper

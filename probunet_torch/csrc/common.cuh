@@ -1,12 +1,18 @@
-// Helpers shared by the port's hand-written kernels: fp32 <-> storage-type
-// conversion, 16-byte vector loads/stores, cp.async copies, and the base-2
-// exponential and quad reductions of the attention kernels' softmax.
+// Helpers shared by the port's hand-written kernels: the (b, l, h) strides
+// of an attention tensor, fp32 <-> storage-type conversion, 16-byte vector
+// loads/stores, cp.async copies, and the base-2 exponential and quad
+// reductions of the attention kernels' softmax.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace probunet {
+
+// Element strides of a (B, L, heads, W) tensor whose head dim is unit-stride.
+struct Strides {
+  long long b, l, h;
+};
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -15,11 +21,6 @@ template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-// Round an fp32 value through the storage type T (a no-op for fp32).
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
 }
 
 // VEC elements of T loaded or stored as one access (16 bytes when
@@ -47,11 +48,6 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared; with valid false, 16 zero bytes (src unread).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
 // 16 bytes global -> shared, with L2 fetching the aligned 256 bytes around src.
 __device__ __forceinline__ void cp_async16_l2_256(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),

@@ -8,9 +8,12 @@ tensors. When an input requires a gradient it goes through an
 kernel ``csrc/attention_bwd.cu`` for CUDA tensors, :func:`_plain_attention_bwd`
 (the unchunked math of ``pallas_attn.py::_bwd_kernel``) for CPU tensors. K2
 replaces ``pallas_attn.py::_fwd_kernel``, K3 ``pallas_attn.py::_bwd_kernel``;
-the source note in each ``.cu`` file gives its bound and design. The bf16
-kernels (warp-specialised, TMA and wgmma) take their block sizes from
-:func:`plan`; the fp32 kernels have one shape.
+the source note in each ``.cu`` file gives its bound and design. Both run
+on Hopper's TMA and wgmma, warp-specialised: bf16 operands directly, fp32
+operands in 3xTF32 (each split once per block into tf32 hi and lo, and
+transposed where a product contracts over a tile's rows, by a producer
+warpgroup). The bf16 kernels take their block sizes from :func:`plan`, the
+fp32 kernels from :func:`fp32_plan`.
 
 Head dims: the kernels hold a head in shared memory 64 or 128 columns wide
 (``kD``), so they take any head dim c up to 128, every one the U-Net
@@ -52,9 +55,10 @@ def _kd(width: int) -> int:
     return 64 if width <= 64 else 128
 
 
-def _tile_bytes(kd: int) -> int:
-    """One 64-row bf16 tile in shared memory: kd / 64 TMA boxes of 64 x 128 bytes."""
-    return 64 * kd * 2
+def _tile_bytes(kd: int, rows: int = 64, itemsize: int = 2) -> int:
+    """A tile of ``rows`` rows at head width kd in shared memory: bf16, kd / 64
+    atoms of rows x 128 bytes; fp32 (itemsize 4), kd / 32 atoms."""
+    return rows * kd * itemsize
 
 
 class Plan(NamedTuple):
@@ -121,11 +125,82 @@ def plan(b: int, heads: int, L: int, num_sms: int, kd: int = 64) -> Plan:
                 dq_smem=max(_bwd_smem(64, False), _bwd_smem(rows, False)))
 
 
-def bwd_scratch_shape(b: int, heads: int, L: int, dtype: torch.dtype):
-    """The fp32 scratch K3 takes: D per row for fp32 inputs; for bf16, per
-    64-row tile, the forward's lse in base 2 and D, padded to whole tiles."""
-    if dtype == torch.float32:
-        return (b * heads, L)
+class Fp32Plan(NamedTuple):
+    """How an fp32 call is cut, at head width ``kd``: K2 streams K/V tiles of
+    ``fwd_tile`` rows, K3's dK/dV and dQ kernels tiles of ``bwd_tile`` rows
+    (q tiles, K/V tiles). Every block holds 64 rows of its own and runs one
+    consumer and one producer warpgroup. The ``*_smem`` fields are each
+    kernel's dynamic shared bytes, as csrc/attention_fwd.cu (FwdSmem32) and
+    csrc/attention_bwd.cu (PrepSmem32, DkdvSmem32, DqSmem32) lay them out
+    (chip_smoke.py phase 1 holds them against the built kernels); ``dk_smem``
+    is 0 where there is no dK pass. The tile rows go to the C entry points,
+    which refuse any but the ones built."""
+
+    fwd_tile: int
+    bwd_tile: int
+    fwd_smem: int
+    prep_smem: int
+    dkdv_smem: int
+    dk_smem: int
+    dq_smem: int
+    kd: int
+
+
+def _ring32_bytes(stages: int) -> int:
+    """The barriers of an fp32 kernel: two for its own tiles, five a stage."""
+    return 16 + 40 * stages
+
+
+def _f32_fwd_smem(kd: int, tile: int, stages: int) -> int:
+    # Q's hi / lo pair; per stage K's pair, V as it lands, V^T's pair
+    return (2 * _tile_bytes(kd, 64, 4) + stages * 5 * _tile_bytes(kd, tile, 4)
+            + _ring32_bytes(stages) + 1024)
+
+
+def _f32_dkdv_smem(kd: int, tile: int, stages: int, dv: bool, dk: bool) -> int:
+    # K's pair (and V's with dK); per stage Q's pair, dO's pair (dK) or dO as
+    # it lands, Q^T's pair (dK), dO^T's pair (dV); per stage lse2 and D
+    tiles = 2 + (2 if dk else 1) + (2 if dk else 0) + (2 if dv else 0)
+    return ((4 if dk else 2) * _tile_bytes(kd, 64, 4) + stages * tiles * _tile_bytes(kd, tile, 4)
+            + stages * 8 * tile + _ring32_bytes(stages) + 1024)
+
+
+def _f32_dq_smem(kd: int, tile: int, stages: int) -> int:
+    # Q's and dO's pairs; per stage K's, V's and K^T's pairs
+    return (4 * _tile_bytes(kd, 64, 4) + stages * 6 * _tile_bytes(kd, tile, 4)
+            + _ring32_bytes(stages) + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def fp32_plan(kd: int) -> Fp32Plan:
+    """The fp32 kernels' tiles at head width ``kd``; pure and cached. One
+    shape per width, the one built (with_plan in the sources).
+
+    kd = 64: 64-row K/V tiles in two stages for K2 (193 KB); one stage of
+    64-row tiles for K3's dK/dV kernel (each q tile's Q and dO as hi / lo
+    pairs, K-major and transposed: 128 KB) and its dQ kernel. kd = 128: a
+    64 x 128 fp32 tile's pair is 32 KB, so K2 streams 32-row tiles in two
+    stages (its consumer holds O and a tile's P V, 64 registers a thread
+    each), and K3 32-row tiles, dK and dV in two passes over them: the dV
+    pass in two stages; the dK pass, whose block holds K's and V's pairs,
+    and dQ in one."""
+    if kd == 64:
+        return Fp32Plan(64, 64, fwd_smem=_f32_fwd_smem(64, 64, 2),
+                        prep_smem=4 * _tile_bytes(64, 64, 4) + 8 + 1024,
+                        dkdv_smem=_f32_dkdv_smem(64, 64, 1, True, True), dk_smem=0,
+                        dq_smem=_f32_dq_smem(64, 64, 1), kd=64)
+    if kd == 128:
+        return Fp32Plan(32, 32, fwd_smem=_f32_fwd_smem(128, 32, 2),
+                        prep_smem=4 * _tile_bytes(128, 64, 4) + 8 + 1024,
+                        dkdv_smem=_f32_dkdv_smem(128, 32, 2, True, False),
+                        dk_smem=_f32_dkdv_smem(128, 32, 1, False, True),
+                        dq_smem=_f32_dq_smem(128, 32, 1), kd=128)
+    raise ValueError(f"the attention kernels are built for kd 64 and 128, not {kd}")
+
+
+def bwd_scratch_shape(b: int, heads: int, L: int):
+    """The fp32 scratch K3 takes (either dtype): per 64-row tile, the
+    forward's lse in base 2 and D, padded to whole tiles."""
     return (b * heads, math.ceil(L / 64), 2, 64)
 
 
@@ -224,10 +299,17 @@ def _check_cuda(q, k, v):
                          f"shape {tuple(q.shape)}")
 
 
-def _plan(q: torch.Tensor) -> Plan:
-    """The plan of a launch on q (B, L, heads, w); fp32 kernels ignore it."""
+def _rows(q: torch.Tensor, fast: bool = False):
+    """(K2's block rows, its K/V tile rows, K3's rows) of a launch on q (B,
+    L, heads, w), as the C entry points take them: for bf16 from
+    :func:`plan` (K3's block rows in fast or strict mode), for fp32 from
+    :func:`fp32_plan` (64-row blocks; K3's streamed tile rows)."""
     b, L, h, w = q.shape
-    return plan(b, h, L, _build.num_sms(q.device.index), _kd(w))
+    if q.dtype == torch.float32:
+        p = fp32_plan(_kd(w))
+        return 64, p.fwd_tile, p.bwd_tile
+    p = plan(b, h, L, _build.num_sms(q.device.index), _kd(w))
+    return p.fwd_rows, p.fwd_tile, p.bwd_rows if fast else p.bwd_split_rows
 
 
 @torch.no_grad()
@@ -244,11 +326,11 @@ def _launch(q, k, v, with_lse: bool, c: Optional[int] = None):
     c = w if c is None else c
     out = torch.empty(b, L, h, w, device=q.device, dtype=q.dtype)
     lse = torch.empty(b * h, L, device=q.device, dtype=torch.float32) if with_lse else None
-    p = _plan(q)
+    rows, tile, _ = _rows(q)
     code = _build.lib().probunet_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if with_lse else None, b, h, L, w, *strides,
-        1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), p.fwd_rows, p.fwd_tile,
+        1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), rows, tile,
         _build.stream_handle(q.device))
     _build.check(code, "attention kernel")
     fused_attention.launches += 1
@@ -266,15 +348,13 @@ def _launch_bwd(q, k, v, out, lse, do, fast: bool, c: Optional[int] = None):
     strides = _strides(q, k, v, out, do)
     c = w if c is None else c
     lse = lse.contiguous()
-    scratch = torch.empty(bwd_scratch_shape(b, h, L, q.dtype), device=q.device,
-                          dtype=torch.float32)
+    scratch = torch.empty(bwd_scratch_shape(b, h, L), device=q.device, dtype=torch.float32)
     dq, dk, dv = (torch.empty(b, L, h, w, device=q.device, dtype=q.dtype) for _ in range(3))
-    p = _plan(q)
     code = _build.lib().probunet_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
         lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, h, L, w, *strides, 1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), int(fast),
-        p.bwd_rows if fast else p.bwd_split_rows, _build.stream_handle(q.device))
+        _rows(q, fast)[2], _build.stream_handle(q.device))
     _build.check(code, "attention backward kernel")
     attention_bwd.launches += 1
     return dq, dk, dv

@@ -3,22 +3,28 @@
 backward) at every attention site of one U-Net pass, on one CUDA card, by
 device time and by CUDA events, beside scaled_dot_product_attention.
 
-    python3 scripts/torch_attn_timing.py [--tree DIR] [--modes fast,strict_bf16] [--plans]
+    python3 scripts/torch_attn_timing.py [--tree DIR] [--modes fast,strict_bf16,strict]
+        [--sites mc128,mc96] [--plans]
 
-The 11 attention sites of the default U-Net at batch 8, 128x128 (L=1024
-with 6 heads x5, L=256 with 8 heads x6) run on the U-Net block's q/k/v
-views, each checked against its plain version first, then timed: K2
-(``fused_attention`` without gradient, as serving calls it) and K3
-(``attention_bwd`` on K2's output and lse), device time from
+The 11 attention sites of one U-Net pass at batch 8, 128x128: ``mc128``,
+the default width (L=1024 with 6 heads of 64 x5, L=256 with 8 heads of 64
+x6), ``mc96``, ``--model_channels 96`` (L=1024 with 4 heads of 72 x5, on
+the kernels' kD = 128 instantiation, L=256 with 6 heads of 64 x6). Each
+runs on the U-Net block's q/k/v views, is checked against its plain
+version first, then timed: K2 (``fused_attention`` without gradient, as
+serving calls it) and K3 (``attention_bwd`` on K2's output and lse, its
+device time also split by kernel: row pass, dK/dV, dQ), device time from
 torch.profiler over 50 calls, CUDA events over 20, beside SDPA's forward
-and backward on contiguous copies and the bound (4 and 10 L^2 64 FLOP per
-head against the bf16 tensor-core rate; for strict_bf16's K3 too, whose dS
-products run twice). ``--tree`` imports ``probunet_torch`` from another
-checkout of the repository (an earlier commit unpacked with ``git
-archive``), so that two versions of the kernels are timed on one card.
-``--plans`` also times every block size the bf16 kernels are built for at
-each site (``ops/attention.py::plan`` overridden). The last line is a JSON
-object of the timings.
+and backward on contiguous copies (read as the kernels are: each kernel's
+mean launch over the traces times its launches per call) and the bound (4 and 10 L^2 c
+FLOP per head against the bf16 tensor-core rate, for strict_bf16's K3 too,
+whose dS products run twice; strict (fp32) against three TF32 products).
+``--tree`` imports ``probunet_torch`` from another checkout of the
+repository (an earlier commit unpacked with ``git archive``), so that two
+versions of the kernels are timed on one card. ``--plans`` also times
+every block size the bf16 kernels are built for at each site
+(``ops/attention.py::plan`` overridden). The last line is a JSON object of
+the timings.
 """
 
 import argparse
@@ -29,13 +35,16 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SITES = [(1024, 6)] * 5 + [(256, 8)] * 6   # (L, heads) of the 11 attention blocks
+# (L, heads, head dim) of the 11 attention blocks of one U-Net pass, by width
+SITES = {"mc128": [(1024, 6, 64)] * 5 + [(256, 8, 64)] * 6,
+         "mc96": [(1024, 4, 72)] * 5 + [(256, 6, 64)] * 6}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=ROOT, help="checkout whose probunet_torch is timed")
     ap.add_argument("--modes", default="fast,strict_bf16", help="attention modes to time")
+    ap.add_argument("--sites", default="mc128", help="U-Net widths whose sites are timed")
     ap.add_argument("--plans", action="store_true", help="also time every bf16 block size")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
@@ -64,15 +73,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     run = {"card": card, "tree": tree}
-    for mode in args.modes.split(","):
+    for width, mode in ((w, m) for w in args.sites.split(",") for m in args.modes.split(",")):
         dname, fast = cs.ATTN_MODES[mode]
         dtype = getattr(torch, dname)
         tot = {"fwd": {}, "bwd": {}}
         per_site = []
-        for (L, nh), mult in cs._counts(SITES).items():
-            y = torch.randn(cs.BATCH, L, 3, nh, 64, device=dev, generator=gen).to(dtype)
-            q, k, v = y.unbind(2)   # the block's views: row stride 3 heads 64
-            do = torch.randn(cs.BATCH, L, nh, 64, device=dev, generator=gen).to(dtype)
+        for (L, nh, c), mult in cs._counts(SITES[width]).items():
+            y = torch.randn(cs.BATCH, L, 3, nh, c, device=dev, generator=gen).to(dtype)
+            q, k, v = y.unbind(2)   # the block's views: row stride 3 heads c
+            do = torch.randn(cs.BATCH, L, nh, c, device=dev, generator=gen).to(dtype)
             with torch.no_grad():
                 out, lse = K2._launch(q, k, v, with_lse=True)
                 got = K2.attention_bwd(q, k, v, out, lse, do, fast)
@@ -99,23 +108,31 @@ def main() -> int:
             def sdpa_bwd():
                 return torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True)
 
-            site = {"site": [cs.BATCH, L, nh], "count": mult, "k2_max_abs_err": err,
+            site = {"site": [cs.BATCH, L, nh, c], "count": mult, "k2_max_abs_err": err,
                     "k3_max_rel_err": rel}
             for leg, fn, lib, flops_per in (("fwd", fwd, sdpa, 4), ("bwd", bwd, sdpa_bwd, 10)):
-                flops = flops_per * cs.BATCH * nh * L * L * 64.0
-                nbytes = (4 if leg == "fwd" else 8) * cs.BATCH * L * nh * 64.0 * q.element_size()
+                flops = flops_per * cs.BATCH * nh * L * L * float(c)
+                nbytes = (4 if leg == "fwd" else 8) * cs.BATCH * L * nh * float(c) * q.element_size()
+                split = {}
                 with torch.inference_mode() if leg == "fwd" else torch.no_grad():
                     t = {"ms": cs.cuda_ms(torch, fn),
-                         "device_ms": cs.device_ms(torch, fn, whole=True)}
+                         "device_ms": cs.device_ms(torch, fn, whole=True, split=split)}
+                if leg == "bwd":
+                    t.update(cs.k3_split(split))
                 t["library_ms"] = cs.cuda_ms(torch, lib)
-                t["library_device_ms"] = cs.device_ms(torch, lib)
-                t["bound_ms"] = cs.attn_bound(flops, nbytes, "fast")["bound_ms"]
+                t["library_device_ms"] = cs.device_ms(torch, lib, whole=True)
+                t["bound_ms"] = cs.attn_bound(flops, nbytes,
+                                              "strict" if mode == "strict" else "fast")["bound_ms"]
                 t["flops"] = flops
                 site[leg] = t
                 for key, val in t.items():
                     tot[leg][key] = tot[leg].get(key, 0.0) + mult * val
-                print(f"  {mode:11s} {leg} B={cs.BATCH} L={L} heads={nh} x{mult}: device "
-                      f"{t['device_ms'] * 1e3:.1f} us ({flops / t['device_ms'] / 1e9:.0f} TFLOP/s, "
+                by_kernel = (f" (row pass {t['row_pass_device_ms'] * 1e3:.1f}, dK/dV "
+                             f"{t['dkdv_device_ms'] * 1e3:.1f}, dQ {t['dq_device_ms'] * 1e3:.1f})"
+                             if leg == "bwd" else "")
+                print(f"  {width} {mode:11s} {leg} B={cs.BATCH} L={L} heads={nh} c={c} x{mult}: "
+                      f"device {t['device_ms'] * 1e3:.1f} us{by_kernel} "
+                      f"({flops / t['device_ms'] / 1e9:.0f} TFLOP/s, "
                       f"{t['bound_ms'] / t['device_ms']:.0%} of the bound "
                       f"{t['bound_ms'] * 1e3:.1f}), events {t['ms'] * 1e3:.1f} us; SDPA device "
                       f"{t['library_device_ms'] * 1e3:.1f} us, events {t['library_ms'] * 1e3:.1f}",
@@ -127,13 +144,15 @@ def main() -> int:
         for leg, t in tot.items():
             t["tflops"] = t["flops"] / t["device_ms"] / 1e9
             t["bound_share_device"] = t["bound_ms"] / t["device_ms"]
-            print(f"{mode} {leg} per pass: device {t['device_ms']:.4f} ms ({t['tflops']:.0f} "
-                  f"TFLOP/s of {cs.BF16_FLOPS / 1e12:.0f}; {t['bound_share_device']:.0%} of the "
-                  f"bound "
+            by_kernel = (f" (row pass {t['row_pass_device_ms']:.4f}, dK/dV "
+                         f"{t['dkdv_device_ms']:.4f}, dQ {t['dq_device_ms']:.4f})"
+                         if leg == "bwd" else "")
+            print(f"{width} {mode} {leg} per pass: device {t['device_ms']:.4f} ms{by_kernel} "
+                  f"({t['tflops']:.0f} TFLOP/s; {t['bound_share_device']:.0%} of the bound "
                   f"{t['bound_ms']:.4f}), events {t['ms']:.4f}; SDPA device "
                   f"{t['library_device_ms']:.4f}, events {t['library_ms']:.4f} ({card})",
                   flush=True)
-        run[mode] = {**tot, "sites": per_site}
+        run[f"{width}_{mode}"] = {**tot, "sites": per_site}
     print(json.dumps(run), flush=True)
     return 0
 

@@ -1,17 +1,17 @@
-"""The bf16 attention kernels' launch plan (``ops/attention.py::plan``) on
-the CPU, without a card: at every attention site of the U-Net's paths and
-at edge lengths, each kernel's shared memory fits a block on the H100
-(227 KB), the blocks and tiles take values the kernels are built for, and
-their grids cover every row. The plan's shared-memory figures mirror the
-kernels' own layouts (FwdSmem, BwdSmem); chip_smoke.py phase 1 holds them
-against what the built kernels report on the card. Past head dim 64 the
-kernels hold 128 columns a head (kD = 128), at every site of the
-model_channels 96 path too."""
+"""The attention kernels' launch plans on the CPU, without a card: the bf16
+kernels' (``ops/attention.py::plan``) and the fp32 kernels'
+(``fp32_plan``). At every attention site of the U-Net's paths and at edge
+lengths, each kernel's shared memory fits a block on the H100 (227 KB),
+the blocks and tiles take values the kernels are built for, and their
+grids cover every row. The plans' shared-memory figures mirror the
+kernels' own layouts (FwdSmem, BwdSmem; FwdSmem32, PrepSmem32, DkdvSmem32,
+DqSmem32); chip_smoke.py phase 1 holds them against what the built kernels
+report on the card. Past head dim 64 the kernels hold 128 columns a head
+(kD = 128), at every site of the model_channels 96 path too."""
 
 import math
 
 import pytest
-import torch
 
 from probunet_torch.config import Config
 from probunet_torch.models.unet import build_unet_plan
@@ -57,10 +57,9 @@ def _check(b, L, heads):
         assert covered == list(range(L))
     tiles = math.ceil(L / p.fwd_tile)
     assert tiles * p.fwd_tile >= L > (tiles - 1) * p.fwd_tile
-    # K3's bf16 scratch holds every row's lse and D, by 64-row tiles
-    shape = tatt.bwd_scratch_shape(b, heads, L, torch.bfloat16)
+    # K3's scratch holds every row's lse and D, by 64-row tiles (both dtypes)
+    shape = tatt.bwd_scratch_shape(b, heads, L)
     assert shape == (b * heads, math.ceil(L / 64), 2, 64) and shape[1] * 64 >= L
-    assert tatt.bwd_scratch_shape(b, heads, L, torch.float32) == (b * heads, L)
     return p
 
 
@@ -144,3 +143,70 @@ def test_plan_fits_head_dims_past_64(b, L, heads, c):
 def test_plan_refuses_other_head_widths():
     with pytest.raises(ValueError, match="kd 64 and 128"):
         tatt.plan(8, 4, 1024, NUM_SMS, 96)
+
+
+# ---- the fp32 (3xTF32) kernels' plan ------------------------------------------------------
+
+# (B, L, heads, c): every site above, at both head widths, and edge lengths
+FP32_SITES = ([(b, L, h, 64) for b, L, h in PATH + EDGE] + KD128
+              + [(1, 1, 1, 127), (2, 100, 2, 80), (1, 2048, 2, 120)])
+
+
+@pytest.mark.parametrize("b,L,heads,c", FP32_SITES, ids=lambda x: str(x))
+def test_fp32_plan_fits_every_site(b, L, heads, c):
+    """The fp32 kernels at every site: the plan of their head width (kD 64
+    at c <= 64, else 128), every kernel's shared memory under SMEM_LIMIT;
+    64-row blocks whose grid covers the rows; streamed tiles that cover L
+    and divide the 64-row tiles of K3's lse/D scratch (a q tile's stats are
+    one bulk copy from one 64-row tile)."""
+    kd = 64 if tatt.kernel_width(c) == 64 else 128
+    p = tatt.fp32_plan(kd)
+    assert p.kd == kd
+    assert max(p.fwd_smem, p.prep_smem, p.dkdv_smem, p.dk_smem, p.dq_smem) <= tatt.SMEM_LIMIT
+    assert (p.dk_smem == 0) == (kd == 64)
+    blocks = math.ceil(L / 64)
+    assert blocks * 64 >= L > (blocks - 1) * 64
+    for tile in (p.fwd_tile, p.bwd_tile):
+        assert tile in (32, 64) and 64 % tile == 0
+        tiles = math.ceil(L / tile)
+        assert tiles * tile >= L > (tiles - 1) * tile
+        assert tiles * tile <= tatt.bwd_scratch_shape(b, heads, L)[1] * 64
+
+
+def test_fp32_plan_layouts():
+    """The fp32 kernels' layouts (64 x kd fp32 tiles: 16 KB at kd 64, 32 KB
+    at kd 128; 1024 bytes to align; two barriers for the block's own tiles
+    and five a stage): K2 holds Q's hi / lo pair and per stage K's pair, V
+    as it lands and V^T's pair; the row pass dO's and O's pairs; K3's dK/dV
+    kernel K's and V's pairs and per stage Q's, dO's, Q^T's and dO^T's
+    pairs (the dV pass at kd 128: K's pair; Q's pair, dO as it lands, dO^T's
+    pair; the dK pass: no dO^T) and the stage's lse2 and D; dQ Q's and dO's
+    pairs and per stage K's, V's and K^T's pairs. Stages: at kd 64, two for
+    K2 and one for K3's kernels; at kd 128, two for K2 and the dV pass, one
+    for the dK pass and dQ."""
+    t64, t128 = 64 * 64 * 4, 64 * 128 * 4
+    p = tatt.fp32_plan(64)
+    assert (p.fwd_tile, p.bwd_tile) == (64, 64)
+    assert p.fwd_smem == 2 * t64 + 2 * 5 * t64 + 16 + 2 * 40 + 1024 == 197_728
+    assert p.prep_smem == 4 * t64 + 8 + 1024 == 66_568
+    assert p.dkdv_smem == 4 * t64 + 8 * t64 + 8 * 64 + 16 + 40 + 1024 == 198_200
+    assert p.dq_smem == 4 * t64 + 6 * t64 + 16 + 40 + 1024 == 164_920
+    p = tatt.fp32_plan(128)
+    half = t128 // 2   # a 32-row tile at kd 128
+    assert (p.fwd_tile, p.bwd_tile) == (32, 32)
+    assert p.fwd_smem == 2 * t128 + 2 * 5 * half + 16 + 2 * 40 + 1024 == 230_496
+    assert p.prep_smem == 4 * t128 + 8 + 1024 == 132_104
+    assert p.dkdv_smem == 2 * t128 + 2 * 5 * half + 2 * 8 * 32 + 16 + 2 * 40 + 1024 == 231_008
+    assert p.dk_smem == 4 * t128 + 6 * half + 8 * 32 + 16 + 40 + 1024 == 230_712
+    assert p.dq_smem == 4 * t128 + 6 * half + 16 + 40 + 1024 == 230_456
+
+
+def test_fp32_plan_is_pure_and_cached():
+    assert tatt.fp32_plan(64) is tatt.fp32_plan(64)
+    assert tatt.fp32_plan(128) is tatt.fp32_plan(128) and tatt.fp32_plan(128).kd == 128
+
+
+@pytest.mark.parametrize("kd", [32, 72, 96, 256])
+def test_fp32_plan_refuses_other_head_widths(kd):
+    with pytest.raises(ValueError, match="kd 64 and 128"):
+        tatt.fp32_plan(kd)

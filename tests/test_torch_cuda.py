@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at the
 edge shapes chip_smoke.py does not reach: scalar (unvectorized) paths,
 unaligned views, single rows, a GroupNorm+SiLU slice streamed through
-shared memory, bit-equal reruns (K1, and K2/K3 in bf16), ragged attention
+shared memory, bit-equal reruns (K1, and K2/K3 in bf16 and fp32), the fp32
+kernels at every head width and length with dS = 0 on one-hot rows, ragged attention
 lengths and L = 4096, the attention forward (K2) and backward (K3) in
 every mode on the U-Net block's row-strided views, stride-3 views and
 contiguous tensors (and on fp32 operands with fast=True, as the EDM path
@@ -322,6 +323,109 @@ def test_attention_head_dims_rerun_bit_equal(dev, fast, b, L, nh, c):
     assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
     assert all(torch.equal(a, b_) for a, b_ in zip(*grads))
     assert all(g.shape == (b, L, nh, c) for g in grads[0])
+
+
+# ---- the fp32 (strict, 3xTF32 on tf32 wgmma) kernels -------------------------------------
+
+# every head width the kernels hold: 64 (kD = 64), 72 (the model_channels 96
+# path), 80, 96 (read in place), 100 and 127 (copied zero-padded to 104 and
+# 128), at lengths that take one row, a ragged tile of each tile size (32
+# and 64 rows), the path's lengths and beyond
+FP32_HEAD_DIMS = (64, 72, 80, 96, 100, 127)
+FP32_LENGTHS = (1, 65, 100, 256, 1024, 2048)
+
+
+@pytest.mark.parametrize("c", FP32_HEAD_DIMS)
+@pytest.mark.parametrize("L", FP32_LENGTHS)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_attention_fp32_kernels_match_plain(dev, layout, L, c):
+    """K2 and K3 on fp32 through autograd against the plain versions on
+    the same inputs: O within 2e-5 (ATTN_TOL strict), dq, dk, dv within
+    1e-4 of the largest reference entry; one launch of each, only the
+    copies kernel_layout must make (none on the block's views and
+    contiguous tensors of whole 16-byte chunks), results of c columns."""
+    b, nh = (2, 3) if L <= 256 else (1, 2)
+    gen = torch.Generator(device=dev).manual_seed(L + c)
+    (q, k, v), grad = _qkv(layout, b, L, nh, torch.float32, dev, gen, grad=True, c=c)
+    do = torch.randn(b, L, nh, c, device=dev, generator=gen)
+    counts = (K2.fused_attention.launches, K2.attention_bwd.launches)
+    K2.kernel_layout.copies = 0
+    out = K2.fused_attention(q, k, v)
+    out.backward(do)
+    assert (K2.fused_attention.launches - counts[0], K2.attention_bwd.launches - counts[1]) == \
+        (1, 1)
+    assert K2.kernel_layout.copies == _head_dim_copies(layout, c)
+    assert out.shape == (b, L, nh, c) and out.dtype == torch.float32 and out.is_contiguous()
+    with torch.no_grad():
+        ref = K2._plain_attention(q, k, v, False)
+        ref_b = K2._plain_attention_bwd(q.detach(), k.detach(), v.detach(), do, False)
+    torch.testing.assert_close(out.detach(), ref, atol=2e-5, rtol=2e-5)
+    for i, r in enumerate(ref_b):
+        got = grad(i)
+        assert got.shape == r.shape and got.dtype == torch.float32
+        assert (got - r).abs().max().item() <= 1e-4 * max(1e-3, r.abs().max().item())
+
+
+@pytest.mark.parametrize("c", [64, 72, 100])
+@pytest.mark.parametrize("b,L,nh", [(8, 1024, 6), (8, 256, 8), (2, 65, 3), (1, 2048, 2)])
+def test_attention_fp32_kernels_rerun_bit_equal(dev, b, L, nh, c):
+    """K2 (output and lse) and K3 on fp32 give the same bits on a second
+    call: every sum runs in a fixed order, no atomics."""
+    gen = torch.Generator(device=dev).manual_seed(L + nh + c)
+    (q, k, v), _ = _qkv("block", b, L, nh, torch.float32, dev, gen, c=c)
+    do = torch.randn(b, L, nh, c, device=dev, generator=gen)
+    with torch.no_grad():
+        q, k, v = map(K2.kernel_layout, (q, k, v))
+        first = K2._launch(q, k, v, with_lse=True, c=c)
+        second = K2._launch(q, k, v, with_lse=True, c=c)
+        grads = [K2.attention_bwd(q, k, v, first[0], first[1], do, False, c) for _ in range(2)]
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+    assert all(torch.equal(a, b_) for a, b_ in zip(*grads))
+
+
+@pytest.mark.parametrize("c", FP32_HEAD_DIMS)
+def test_attention_fp32_one_hot_rows_give_zero_ds(dev, c):
+    """At L = 1 every softmax row is one-hot, so dS = P o (dP - D) is 0 and
+    with it dq and dk, exactly, as in the plain version: the row pass takes
+    D on the tensor cores in the form of dP, from O, whose split is V's."""
+    gen = torch.Generator(device=dev).manual_seed(c)
+    (q, k, v), _ = _qkv("block", 4, 1, 3, torch.float32, dev, gen, c=c)
+    do = torch.randn(4, 1, 3, c, device=dev, generator=gen)
+    with torch.no_grad():
+        q, k, v = map(K2.kernel_layout, (q, k, v))
+        out, lse = K2._launch(q, k, v, with_lse=True, c=c)
+        dq, dk, dv = K2.attention_bwd(q, k, v, out, lse, do, False, c)
+    assert not dq.any() and not dk.any()
+    torch.testing.assert_close(dv, do, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("c", [64, 72])
+@pytest.mark.parametrize("L", [256, 1024])
+def test_attention_fp32_kernels_match_the_tf32x3_emulation(dev, L, c):
+    """K2 and K3 on fp32 against tests/_tf32x3.py, the emulation of their
+    arithmetic that test_torch_tf32x3.py holds against JAX, on the same
+    inputs (K3 on both sides from K2's O and lse): O and lse within 5e-6,
+    dq, dk, dv within 2.5e-5 of the largest entry, a quarter of the strict
+    limits. They agree to these limits, not bit for bit: wgmma sums each k8
+    step of a product in its own order."""
+    from _tf32x3 import _bh, emulated_bwd, emulated_fwd
+
+    b, nh = (2, 2) if L == 256 else (1, 2)
+    rng = np.random.default_rng(L + c)
+    host = [torch.from_numpy(rng.standard_normal((b, L, nh, c)).astype(np.float32))
+            for _ in range(4)]
+    q, k, v, do = (a.to(dev) for a in host)
+    with torch.no_grad():
+        out, lse = K2._launch(q, k, v, with_lse=True, c=c)
+        grads = K2.attention_bwd(q, k, v, out, lse, do, False, c)
+    out, lse = _bh(out.cpu()), lse.cpu()
+    emu_o, emu_lse = emulated_fwd(*map(_bh, host[:3]))
+    assert (out - emu_o).abs().max().item() <= 5e-6
+    assert (lse - emu_lse).abs().max().item() <= 5e-6
+    emu = emulated_bwd(*map(_bh, host[:3]), out, lse, _bh(host[3]))
+    for got, ref in zip(grads, emu):
+        got = _bh(got.cpu())
+        assert (got - ref).abs().max().item() <= 2.5e-5 * ref.abs().max().item()
 
 
 def _rms_rel(got, ref):

@@ -187,13 +187,16 @@ def test_kernel_signatures_match_c_declarations():
     assert set(_build._SIGNATURES) == set(decls) - {"probunet_error_string"}
     for name, argtypes in _build._SIGNATURES.items():
         assert argtypes == decls[name], name
-    # the attention entry points take the head dim after (B, H, L), and
-    # the queries the head width kd after the block sizes
+    # the attention entry points take the head dim after (B, H, L), the
+    # bf16 queries the head width kd after the block sizes, the fp32
+    # queries kd before the tile rows
     i = ctypes.c_int
     assert decls["probunet_attention_fwd"][5:10] == [i, i, i, i, ctypes.c_longlong]
     assert decls["probunet_attention_bwd"][10:15] == [i, i, i, i, ctypes.c_longlong]
     assert decls["probunet_attention_fwd_query"] == [i, i, i, ctypes.c_void_p]
     assert decls["probunet_attention_bwd_query"] == [i, i, i, i, ctypes.c_void_p]
+    assert decls["probunet_attention_fwd_f32_query"] == [i, i, ctypes.c_void_p]
+    assert decls["probunet_attention_bwd_f32_query"] == [i, i, i, ctypes.c_void_p]
 
 
 class _FakeLib:
@@ -222,9 +225,9 @@ def test_attention_wrappers_pass_the_declared_arguments(fake_lib, monkeypatch):
     with CPU tensors standing in), fp32 and bf16: the declared arity and
     types; the stride arguments are the tensors' own (b, l, h) strides (the
     block's views go in place); then the scale, the dtype flag and the
-    plan's block sizes; K3's scratch is an fp32 tensor of
-    bwd_scratch_shape (D per row for fp32, lse and D per 64-row tile for
-    bf16)."""
+    plan's sizes (bf16: plan's block and tile rows; fp32: 64-row blocks and
+    fp32_plan's tile rows); K3's scratch is an fp32 tensor of
+    bwd_scratch_shape (lse and D per 64-row tile, both dtypes)."""
     made = []
     empty = torch.empty
 
@@ -257,16 +260,19 @@ def test_attention_wrappers_pass_the_declared_arguments(fake_lib, monkeypatch):
             assert list(args[first:first + len(strides)]) == strides
             assert args[first + len(strides)] == 1 / 8  # the scale follows the strides
         assert fargs[0] == q.data_ptr() and fargs[1] == k.data_ptr() and fargs[2] == v.data_ptr()
-        p = tatt.plan(b, h, L, 132)
         bf16 = int(dtype == torch.bfloat16)
-        assert fargs[-4:-1] == (bf16, p.fwd_rows, p.fwd_tile)
-        assert bargs[-4:-1] == (bf16, 1, p.bwd_rows)
-        assert strict_args[-4:-1] == (bf16, 0, p.bwd_split_rows)
+        if bf16:
+            p = tatt.plan(b, h, L, 132)
+            assert fargs[-4:-1] == (bf16, p.fwd_rows, p.fwd_tile)
+            assert bargs[-4:-1] == (bf16, 1, p.bwd_rows)
+            assert strict_args[-4:-1] == (bf16, 0, p.bwd_split_rows)
+        else:
+            p = tatt.fp32_plan(64)
+            assert fargs[-4:-1] == (0, 64, p.fwd_tile) == (0, 64, 64)
+            assert bargs[-4:-1] == (0, 1, p.bwd_tile) and strict_args[-4:-1] == (0, 0, 64)
         scratch = next(t for t in made if t.data_ptr() == bargs[6])
         assert scratch.dtype == torch.float32
-        assert tuple(scratch.shape) == tatt.bwd_scratch_shape(b, h, L, dtype)
-        assert tuple(scratch.shape) == ((b * h, L) if dtype == torch.float32
-                                        else (b * h, -(-L // 64), 2, 64))
+        assert tuple(scratch.shape) == tatt.bwd_scratch_shape(b, h, L) == (b * h, -(-L // 64), 2, 64)
 
 
 @pytest.mark.parametrize("c,width", [(72, 72), (96, 96), (100, 104), (127, 128), (32, 64)])
@@ -302,10 +308,15 @@ def test_attention_wrappers_at_other_head_dims(fake_lib, monkeypatch, dtype, c, 
     assert fargs[18] == bargs[29] == pytest.approx(1 / math.sqrt(c), rel=1e-7)
     assert fargs[0] == kq.data_ptr() and bargs[0] == kq.data_ptr()
     kd = 128 if c > 64 else 64
-    p = tatt.plan(2, 2, 64, 132, kd)
-    assert p.kd == kd and fargs[-3:-1] == (p.fwd_rows, p.fwd_tile) and bargs[-2] == p.bwd_rows
-    if kd == 128:
-        assert (p.fwd_rows, p.fwd_tile, p.bwd_rows, p.bwd_split_rows) == (64, 64, 64, 64)
+    if dtype == torch.bfloat16:
+        p = tatt.plan(2, 2, 64, 132, kd)
+        assert p.kd == kd and fargs[-3:-1] == (p.fwd_rows, p.fwd_tile) and bargs[-2] == p.bwd_rows
+        if kd == 128:
+            assert (p.fwd_rows, p.fwd_tile, p.bwd_rows, p.bwd_split_rows) == (64, 64, 64, 64)
+    else:  # fp32: 64-row blocks, the fp32 plan's tiles (32 rows at kD = 128)
+        p = tatt.fp32_plan(kd)
+        assert fargs[-3:-1] == (64, p.fwd_tile) and bargs[-2] == p.bwd_tile
+        assert (p.fwd_tile, p.bwd_tile) == ((32, 32) if kd == 128 else (64, 64))
 
 
 def test_attention_refuses_heads_past_128():
