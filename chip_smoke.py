@@ -15,7 +15,8 @@ conv-VAE served, then the prob-U-Net trained, served and BCSD run over
 several processes (two ranks sharing the card, one NCCL rank), then with
 the tile's height sharded over the ranks (``--parallel_mode spatial`` and
 ``2d``), then the prob-U-Net at ``--model_channels 96``, whose attention
-heads of 72 run the kernels' kD = 128 instantiation. Phases:
+heads of 72 run the bf16 kernels' exact-width kD = 80 instantiation (the
+fp32 kernels' kD = 128). Phases:
 
   1. card and build: nvidia-smi name and power limit; nvcc for sm_90a with
      ptxas registers, shared memory and spills; ``cuobjdump -sass`` of the
@@ -25,9 +26,11 @@ heads of 72 run the kernels' kD = 128 instantiation. Phases:
      fails; K1's plan at the path's largest site, its threads, shared
      memory, registers, spills and cluster residency
      (cudaOccupancyMaxActiveClusters); the bf16 attention kernels of the
-     plan at each attention site and the fp32 kernels of ``fp32_plan`` at
-     kD = 64 and 128, their threads, shared memory (held against the
-     plan's), registers and spills (none allowed);
+     plan at each attention site, at the exact widths kD = 80 and 96
+     (EXACT_SITES: every block shape built there), the row pass with each,
+     and the fp32 kernels of ``fp32_plan`` at kD = 64 and 128, their
+     threads, shared memory (held against the plan's), registers and
+     spills (none allowed);
   2. K1 GroupNorm+SiLU against its plain version, output and (B, G) mean
      and rstd, at every (H, W, C) of the path at batch 8 and at edge shapes
      (C = 6 without vectors, H*W = 1, B = 1, a view off a 16-byte boundary,
@@ -176,22 +179,29 @@ heads of 72 run the kernels' kD = 128 instantiation. Phases:
      sharing one card give no scaling figure.
  16. the prob-U-Net at ``model_channels=96`` (59,645,627 parameters, full
      depth, phase 4's data): its 32x32 level is 288 wide, 4 heads of 72,
-     which run the kernels' kD = 128 instantiation (5 of the 11 attention
-     sites; the 16x16 level's 6 run 6 heads of 64). The kD = 128 kernels'
+     which run the bf16 kernels' exact-width kD = 80 instantiation and the
+     fp32 kernels' kD = 128 (5 of the 11 attention sites; the 16x16
+     level's 6 run 6 heads of 64). The kD = 80 and kD = 128 kernels'
      threads, shared memory, registers and spills (none allowed);
      (a) the sampler and one strict training step card against CPU, phase
      5's and phase 9's limits; (b) the sampler at b8, K=16 and 5 training
      steps at b8, dropout 0.1, in strict and fast mode, with counts set to
      0 before each and exactly 29 K1 + 11 K2 per pass, 29 / 11 / 11 per
-     step, no copy, finite output; ms per batch and step, device time,
-     peak memory; (c) K2 and K3 (and K2's lse) against their plain versions
-     at head dims 72, 80, 96, 100, 120 and 127 (kD = 128; 100 and 127
-     copied zero-padded), L = 64, 256, 1024 and 100, every layout and mode
-     (phase 3's and 7's limits, two calls bit-equal, the copies counted,
-     the strict_bf16 dS check), and at the path's own site; (d) K2 and K3
-     per U-Net pass over the path's sites, strict and fast (K3 split by
-     kernel), beside SDPA and its backward on the same tensors, and the
-     bound at the real head dim.
+     step, by head width 5 at kD = 80 (fast) or 128 (strict) and 6 at 64,
+     no copy, finite output; ms per batch and step, device time, peak
+     memory; (c) K2 and K3 (and K2's lse) against their plain versions at
+     head dims 65, 72, 80, 88, 96 (kD = 80 / 96 in bf16), 100, 120 and 127
+     (kD = 128; 65, 100 and 127 copied zero-padded), L = 64, 256, 1024 and
+     100, every layout and mode (phase 3's and 7's limits, two calls
+     bit-equal, the copies counted, the strict_bf16 dS check), and at the
+     path's own site; in bf16 at 65-96 also against the kD = 128 kernels
+     on the same inputs (K3, and K2 at kD = 128's block shape: bit-equal;
+     K2 at its own plan: within the fast limit); (d) K2 and K3 per U-Net
+     pass over the path's sites, strict and fast (K3 split by kernel),
+     beside SDPA and its backward on the same tensors, the kD = 128
+     kernels on the same inputs, and the bound at the real head dim; the
+     exact-width sites apart. The kernels line gets an entry for each of
+     K2 and K3 at the exact widths.
 
 Every device time of a kernel or of SDPA (phases 6, 10, 16) comes from one
 estimator, ``device_ms(whole=True)``: each kernel's mean launch pooled over
@@ -350,8 +360,11 @@ MC96_STEPS, MC96_BATCHES, MC96_WARMUP = 5, 4, 2
 # of other widths: rows of whole 16-byte bf16 chunks, read in place), 100
 # and 127 (copied, zero-padded to 104 and 128), at these lengths (100
 # ragged), b2 with 2 heads, and the path's site itself
-MC96_HEAD_DIMS = (72, 80, 96, 100, 120, 127)
+MC96_HEAD_DIMS = (65, 72, 80, 88, 96, 100, 120, 127)
 MC96_LENGTHS = (64, 256, 1024, 100)
+# (L, heads) at b8 whose plans take every block shape built at the exact
+# widths kD = 80 / 96 (phase 1): the path's 32x32 site, one 64-row tile
+EXACT_SITES = [(1024, 4), (64, 4)]
 
 
 def log(msg=""):
@@ -430,12 +443,14 @@ def sass_census(_build):
         log(f"[1] SASS {name}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG")
     fp32 = [n for n in counts if "_f32<" in n]
     sm90 = [n for n in counts if "_sm90<" in n and "_prep_" not in n]
-    # each at head widths kD = 64 and 128. fp32: fwd, the row pass, dq x 2,
-    # dkdv x (one kernel at 64; a dV and a dK pass at 128); bf16: fwd x (3
-    # block shapes at 64, 1 at 128); dkdv x (fast at 64 rows, split dS at 64
-    # and 128 rows at kD = 64; at kD = 128 a dV pass and a dK pass fast and
-    # split); dq x (3 at 64, fast and split at 128); the row pass x 2
-    want = {"fp32": 3 * 2 + 3, "sm90": 4 + 6 + 5, "all": 9 + 15 + 2}
+    # fp32 at head widths kD = 64 and 128: fwd, the row pass, dq x 2, dkdv x
+    # (one kernel at 64; a dV and a dK pass at 128). bf16 at kD = 64, 80, 96
+    # and 128: fwd x (3 block shapes at 64, 2 at 80, 1 at 96 and 128); dkdv
+    # x (fast at 64 rows, split dS at 64 and 128 rows at kD = 64; fast and
+    # split at 80 and 96; at kD = 128 a dV pass and a dK pass fast and
+    # split); dq x (3 at 64, fast and split at 80, 96 and 128); the row
+    # pass x 4
+    want = {"fp32": 3 * 2 + 3, "sm90": 7 + 10 + 9, "all": 9 + 26 + 4}
     bad = [n for n in fp32 + sm90 if not (counts[n]["HGMMA"] and counts[n]["UTMALDG"])]
     bad += [n for n, c in counts.items() if c["HMMA"]]
     if (len(fp32), len(sm90), len(counts)) != (want["fp32"], want["sm90"], want["all"]) or bad:
@@ -494,12 +509,14 @@ def attn_kernel_info(torch, K2, sites, num_sms, kd=64, phase=1):
         _build.check(fn(*args, out), "attention query")
         return dict(zip(keys, out))
 
-    # K3's kernels: dK/dV and dQ; at kD = 128 the dK/dV kernel's dV and dK passes
-    bwd = ((0, "dkdv"), (1, "dq")) if kd == 64 else ((0, "dv"), (2, "dk"), (1, "dq"))
+    # K3's kernels: dK/dV and dQ; at kD = 128 the dK/dV kernel's dV and dK
+    # passes; the row pass (no dynamic shared memory)
+    bwd = ((0, "dkdv"), (1, "dq")) if kd != 128 else ((0, "dv"), (2, "dk"), (1, "dq"))
     for L, nh in sites:
         p = K2.plan(BATCH, nh, L, num_sms, kd)
         kernels = {"fwd": (query(lib.probunet_attention_fwd_query, p.fwd_rows, p.fwd_tile, kd),
-                           p.fwd_smem)}
+                           p.fwd_smem),
+                   "row_pass": (query(lib.probunet_attention_bwd_query, 3, 64, 0, kd), 0)}
         for split, rows in ((0, p.bwd_rows), (1, p.bwd_split_rows)):
             for k, name in bwd:
                 d = query(lib.probunet_attention_bwd_query, k, rows, split, kd)
@@ -578,7 +595,7 @@ def _device_events(torch, prof):
             and not getattr(e, "is_user_annotation", False) and e.count]
 
 
-def device_ms(torch, fn, reps=50, traces=5, warm=True, whole=False, split=None):
+def device_ms(torch, fn, reps=50, traces=5, warm=True, whole=False, split=None, _again=2):
     """Mean device time per call of ``fn`` in ms: the kernels' own time from
     torch.profiler over ``traces`` traces of ``reps`` calls, free of the
     host's launch pace. A trace with no device activity (the profiler now
@@ -591,9 +608,11 @@ def device_ms(torch, fn, reps=50, traces=5, warm=True, whole=False, split=None):
     a trace's records and delivers a few of earlier work, which thin the
     mean but do not bias it, and leave the launches per call (each kernel's
     count over ``reps``, rounded, at its largest in any trace; a kernel of
-    earlier work rounds to 0 and is left out) as they are. ``split``, a
-    dict, gets each kernel's ms per call. ``warm=False`` skips the warm-up
-    call (``fn`` ran just before)."""
+    earlier work rounds to 0 and is left out) as they are; where every
+    kernel rounds to 0, the profiler lost most of the call's records, and
+    the traces are taken again, twice at most. ``split``, a dict, gets each
+    kernel's ms per call. ``warm=False`` skips the warm-up call (``fn`` ran
+    just before)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -621,6 +640,10 @@ def device_ms(torch, fn, reps=50, traces=5, warm=True, whole=False, split=None):
             n = max(round(count / reps) for _, count in seen)
             if n:
                 per[key] = sum(t for t, _ in seen) / sum(c for _, c in seen) / 1e3 * n
+        if not per and _again:
+            log(f"    torch.profiler kept fewer than half of every kernel's launches in "
+                f"{len(runs)} traces of {reps} calls; tracing again")
+            return device_ms(torch, fn, reps, traces, False, whole, split, _again - 1)
     else:
         per = max(({k: t / 1e3 / reps for k, (t, _) in r.items()} for r in runs),
                   key=lambda d: sum(d.values()))
@@ -800,6 +823,10 @@ def run_phases(torch, dev, card, sass):
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     k1_info = k1_kernel_info(torch, K1, max(gn_sites, key=math.prod), num_sms)
     attn_info = attn_kernel_info(torch, K2, sorted(set(attn_sites)), num_sms)
+    # the exact widths (64 < c <= 96) at the model_channels 96 path's 32x32
+    # site and at one 64-row tile, which take each built block shape
+    attn_info_exact = {f"kd{kd}": attn_kernel_info(torch, K2, EXACT_SITES, num_sms, kd)
+                       for kd in (80, 96)}
     attn_info_f32 = {f"kd{kd}": f32_kernel_info(torch, K2, kd) for kd in (64, 128)}
 
     # ---- 2. K1 against its plain version -------------------------------------
@@ -1063,6 +1090,7 @@ def run_phases(torch, dev, card, sass):
                                  f"model_channels {MC96} U-Net forward at b{BATCH}",
                         "strict": mc96["report"]["timings"]["k2_strict"],
                         "fast": mc96["report"]["timings"]["k2_fast"],
+                        "kd80_kernels": mc96["report"]["kd80_kernels"],
                         "kd128_kernels": mc96["report"]["kd128_kernels"],
                         "max_err": mc96["report"]["max_err"]},
                "sass": {n: c for n, c in sass.items() if n.startswith("attention_fwd")}}),
@@ -1083,7 +1111,37 @@ def run_phases(torch, dev, card, sass):
                         "fast": mc96["report"]["timings"]["k3_fast"],
                         **{k: v for k, v in mc96["report"].items() if k != "timings"}},
                "sass": {n: c for n, c in sass.items() if n.startswith("attention_bwd")}}),
+        *exact_width_entries(entry, mc96, attn_info_exact),
     ]
+
+
+def exact_width_entries(entry, mc96, info):
+    """The kernels line's entries of the exact-width bf16 instantiations of
+    K2 and K3 (kD = 80 / 96, head dims 65-96): their launches on the
+    model_channels 96 path (phase 16 (b)), their largest error against the
+    plain versions at c = 65-96 in fast mode (phase 16 (c)), and their
+    times, bound and SDPA's at the path's exact-width sites in fast mode
+    (phase 16 (d)), beside the kD = 128 kernels' on the same inputs."""
+    launches = {leg: sum(n["by_kd"][leg].get(f"bf16_kd{kd}", 0)
+                         for n in mc96["launches"].values() for kd in (80, 96))
+                for leg in ("fwd", "bwd")}
+    rep = mc96["report"]
+    out = []
+    for leg, name, src, replaces, err, tol in (
+            ("fwd", "attention_fwd_exact_width", "probunet_torch/csrc/attention_fwd.cu",
+             "probunet_tpu/ops/pallas_attn.py:69", rep["exact_max_err"]["fwd"], ATTN_TOL["fast"]),
+            ("bwd", "attention_bwd_exact_width", "probunet_torch/csrc/attention_bwd.cu",
+             "probunet_tpu/ops/pallas_attn.py:91", rep["exact_max_err"]["bwd"],
+             ATTN_BWD_TOL["bfloat16"])):
+        t = rep["timings"][f"k{2 if leg == 'fwd' else 3}_fast"]["exact_width_sites"]
+        out.append(entry(name, src, replaces, launches[leg], err, tol, t, {
+            "timed": f"sum over the {sum(n for (_, _, c), n in MC96_SITES.items() if c > 64)} "
+                     f"head dim 72 sites (kD = 80) of one model_channels {MC96} U-Net "
+                     f"{'forward' if leg == 'fwd' else 'backward'} at b{BATCH}, fast (bf16)",
+            "device_ms": t["device_ms"], "library_device_ms": t["library_device_ms"],
+            "kd128_device_ms": t["kd128_device_ms"], "fast": t,
+            "vs_kd128": rep["exact_vs_kd128"], "kernels": info}))
+    return out
 
 
 def sample_card_vs_cpu(torch, model, cfg, ds, ds_cpu, dev, phase):
@@ -3236,10 +3294,12 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
         raise AssertionError(f"expected {MC96_PARAMS:,} parameters, {K1_PER_BATCH} K1 sites "
                              f"and attention at {MC96_SITES}")
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    kd128 = attn_kernel_info(torch, K2, [(L, nh) for L, nh, c in MC96_SITES if c > 64],
-                             num_sms, kd=128, phase=16)
+    wide = [(L, nh) for L, nh, c in MC96_SITES if c > 64]
+    kd80 = attn_kernel_info(torch, K2, wide, num_sms, kd=80, phase=16)
+    kd128 = attn_kernel_info(torch, K2, wide, num_sms, kd=128, phase=16)
     report = {"card": card, "params": nparams, "sites": {str(k): v for k, v in sites.items()},
-              "kd128_kernels": kd128, "kd128_fp32_kernels": f32_kernel_info(torch, K2, 128, 16)}
+              "kd80_kernels": kd80, "kd128_kernels": kd128,
+              "kd128_fp32_kernels": f32_kernel_info(torch, K2, 128, 16)}
     mark(16)
 
     # ---- (a) the sampler and one strict step, card against CPU ----------------------
@@ -3267,19 +3327,21 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
             outs = [fn(hr_all, ds.stats, batches[i], eps=e) for i in range(MC96_BATCHES)]
             torch.cuda.synchronize()
             per = (time.perf_counter() - t0) / MC96_BATCHES
-            n = launch_counts()
+            n, kds = launch_counts(), launches_by_kd()
             device = profile(torch, lambda: fn(hr_all, ds.stats, batches[0], eps=e),
                              f"mc96 sampler {name}", "one batch", phase=16, top=8)
-        by_path[f"mc96_serve_{name}"] = as_launches(n)
+        by_path[f"mc96_serve_{name}"] = {**as_launches(n), "by_kd": kds}
         want = (MC96_BATCHES * K1_PER_BATCH, MC96_BATCHES * K2_PER_BATCH, 0, 0)
+        want_kd = {"fwd": mc96_by_kd(K2, dtype == torch.bfloat16, MC96_BATCHES), "bwd": {}}
         finite = all(bool(torch.isfinite(o[0]).all()) for o in outs)
         shape = tuple(outs[0][0].shape)
         rates[f"sampler_{name}"] = {"ms_per_batch": per * 1e3, "device_ms": device,
                                     "inputs_per_s": BATCH / per}
         log(f"[16] sampler {name}: {per * 1e3:.2f} ms per batch of {BATCH} inputs x {MEMBERS} "
             f"members (device {device} ms), output {shape}, finite {finite}; launches K1 "
-            f"{n[0]}, K2 {n[1]}, K3 {n[2]}, copies {n[3]} (expected {want}) ({card})")
-        if n != want or not finite or shape != (BATCH, MEMBERS, RES, RES, 3):
+            f"{n[0]}, K2 {n[1]}, K3 {n[2]}, copies {n[3]} (expected {want}); by head width "
+            f"{kds} (expected {want_kd}) ({card})")
+        if n != want or kds != want_kd or not finite or shape != (BATCH, MEMBERS, RES, RES, 3):
             raise AssertionError("the mc96 sampler's launches or output are off")
         del m, outs
     for name, c in modes.items():
@@ -3300,20 +3362,23 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
               for i in range(MC96_STEPS)]
         torch.cuda.synchronize()
         per = (time.perf_counter() - t0) / MC96_STEPS
-        n = launch_counts()
+        n, kds = launch_counts(), launches_by_kd()
         losses = [x["train_loss"].item() for x in ms]
         peak = torch.cuda.max_memory_allocated() / 2**30
         device = profile(torch, lambda: step(state, hr_all, ds.stats, batches[0], c.seed),
                          f"mc96 train step {name}", "one step", phase=16, top=8)
-        by_path[f"mc96_train_{name}"] = as_launches(n)
+        by_path[f"mc96_train_{name}"] = {**as_launches(n), "by_kd": kds}
         want = (MC96_STEPS * K1_PER_BATCH, MC96_STEPS * K2_PER_BATCH, MC96_STEPS * K3_PER_STEP, 0)
+        want_kd = {leg: mc96_by_kd(K2, dtype == torch.bfloat16, MC96_STEPS)
+                   for leg in ("fwd", "bwd")}
         rates[f"train_{name}"] = {"ms_per_step": per * 1e3, "device_ms": device,
                                   "samples_per_s": BATCH / per, "peak_gib": peak,
                                   "losses": losses}
         log(f"[16] train {name}: {per * 1e3:.2f} ms per step of {BATCH} samples (device "
             f"{device} ms), peak {peak:.2f} GiB, loss {[round(x, 1) for x in losses]}; launches "
-            f"K1 {n[0]}, K2 {n[1]}, K3 {n[2]}, copies {n[3]} (expected {want}) ({card})")
-        if n != want or not all(math.isfinite(x) for x in losses):
+            f"K1 {n[0]}, K2 {n[1]}, K3 {n[2]}, copies {n[3]} (expected {want}); by head width "
+            f"{kds} (expected {want_kd}) ({card})")
+        if n != want or kds != want_kd or not all(math.isfinite(x) for x in losses):
             raise AssertionError("the mc96 training step's launches or losses are off")
         del state, step, ms
     report["rates"] = rates
@@ -3322,7 +3387,7 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
     # ---- (c) K2 and K3 against their plain versions at head dims past 64 -----------------
     cases = [(2, L, 2, c) for c in MC96_HEAD_DIMS for L in MC96_LENGTHS]
     cases += [(BATCH, L, nh, c) for L, nh, c in MC96_SITES if c > 64]
-    worst = {}
+    worst, vs128, exact_err = {}, {}, {"fwd": 0.0, "bwd": 0.0}
     ds_seen = {"kernel": 0.0, "kernel_rounded": math.inf, "plain_rounded": math.inf,
                "kernel_vs_plain_version": 0.0}
     for mode, (dname, fast) in ATTN_MODES.items():
@@ -3370,26 +3435,44 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
                 if mode == "strict_bf16" and L > 1:
                     split_ds_check(torch, K2, q, k, v, lo, lse, do, got, ref_b, ds_seen,
                                    f"{layout:10s} B={b} L={L} heads={nh} c={c}", 16)
+                if dname == "bfloat16" and K2._kd(K2.kernel_width(c)) != 128:
+                    for key, val in exact_vs_kd128(torch, K2, q, k, v, do, fast, c).items():
+                        vs128[key] = max(vs128.get(key, 0.0), val)
                 errs = {"fwd": max(errs["fwd"], e_f), "bwd": max(errs["bwd"], e_b),
                         "lse": max(errs["lse"], e_l)}
+            kd = K2._kd(K2.kernel_width(c)) if dname == "bfloat16" else K2._fp32_kd(c)
             log(f"[16] K2/K3 {mode:11s} B={b} L={L:4d} heads={nh} c={c:3d} (kD "
-                f"{64 if c <= 64 else 128}; {'every layout' if b == 2 else 'block views'}): "
+                f"{kd}; {'every layout' if b == 2 else 'block views'}): "
                 f"max abs err fwd {errs['fwd']:.3e} (tol {ATTN_TOL[mode]}), dq/dk/dv / max|ref|"
                 f" {errs['bwd']:.3e} (tol {ATTN_BWD_TOL[dname]}), lse {errs['lse']:.3e}; two "
                 f"calls bit-equal ok")
             for key, val in errs.items():
                 worst[f"{mode}_{key}"] = max(worst.get(f"{mode}_{key}", 0.0), val)
+            if mode == "fast" and kd in (80, 96):
+                exact_err = {key: max(val, errs[key]) for key, val in exact_err.items()}
     log(f"[16] strict_bf16 dS check over (c): the kernel at most {ds_seen['kernel']:.3e}, dS "
         f"rounded at least {ds_seen['kernel_rounded']:.3e} (kernel) / "
         f"{ds_seen['plain_rounded']:.3e} (plain); limit {DS_SPLIT_TOL}")
+    log(f"[16] the exact widths (kD = 80 / 96, c = 65-96, bf16) against the kD = 128 kernels on "
+        f"the same inputs, largest difference: K2 at its own plan {vs128['k2_own_plan']:.3e} "
+        f"(within {ATTN_TOL['fast']}: other K/V tiles), K2 at kD = 128's block shape "
+        f"{vs128['k2_kd128_shape']:.3e} and K3 on the same forward {vs128['k3_same_inputs']:.3e} "
+        f"(expected 0)")
+    if vs128["k2_own_plan"] > ATTN_TOL["fast"] or vs128["k2_kd128_shape"] or \
+            vs128["k3_same_inputs"]:
+        raise AssertionError(f"[16] the exact-width kernels part from kD = 128: {vs128}")
     report["max_err"], report["ds_check"] = worst, {**ds_seen, "limit": DS_SPLIT_TOL}
+    report["exact_vs_kd128"], report["exact_max_err"] = vs128, exact_err
     mark(16)
 
     # ---- (d) K2 and K3 per U-Net pass over this path's sites ------------------------------
     def time_sites(mode, backward):
+        """The pass totals of one leg in one mode, and those of the sites
+        that run an exact width (kD = 80 / 96; bf16 only)."""
         dname, fast = ATTN_MODES[mode]
-        dtype, tot = getattr(torch, dname), {}
+        dtype, tot, exact = getattr(torch, dname), {}, {}
         for (L, nh, c), mult in MC96_SITES.items():
+            kd = K2._kd(K2.kernel_width(c)) if dname == "bfloat16" else None
             q, k, v = qkv_views(torch, "block", BATCH, L, nh, dtype, dev, gen, c)
             qs, ks, vs = (a.permute(0, 2, 1, 3).contiguous() for a in (q, k, v))
             if backward:
@@ -3403,6 +3486,9 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
                 def run():
                     return K2.attention_bwd(q, k, v, out, lse, do, fast)
 
+                def run128():
+                    return K2._launch_bwd(q, k, v, out, lse, do, fast, kd=128)
+
                 def plain():
                     return K2._plain_attention_bwd(q, k, v, do, fast)
 
@@ -3412,6 +3498,9 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
             else:
                 def run():
                     return K2.fused_attention(q, k, v, fast)
+
+                def run128():
+                    return K2._launch(q, k, v, with_lse=False, kd=128)
 
                 def plain():
                     return K2._plain_attention(q, k, v, fast)
@@ -3424,8 +3513,17 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
                 t = {"ms": cuda_ms(torch, run),
                      "device_ms": device_ms(torch, run, whole=True, split=split),
                      "plain_ms": cuda_ms(torch, plain, reps=5)}
+                # the kD = 128 kernels on the same inputs, where the site runs an
+                # exact width (elsewhere the site's own kernels)
+                split128 = {}
+                t["kd128_device_ms"] = (device_ms(torch, run128, whole=True, split=split128)
+                                        if kd in (80, 96) else t["device_ms"])
             if backward:
                 t.update(k3_split(split))
+                if kd in (80, 96):
+                    t.update({f"kd128_{k_}": v_ for k_, v_ in k3_split(split128).items()})
+                else:
+                    t.update({f"kd128_{k_}": v_ for k_, v_ in k3_split(split).items()})
             t["library_ms"] = cuda_ms(torch, lib)
             t["library_device_ms"] = device_ms(torch, lib, whole=True)
             # q, k, v (and o, dO; dq, dk, dv) read or written once at the real c, and
@@ -3438,23 +3536,90 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
                          f"{t['dkdv_device_ms']:.4f}, dQ {t['dq_device_ms']:.4f}"
                          if backward else "")
             log(f"[16] {'K3' if backward else 'K2'} {mode:6s} B={BATCH} L={L} heads={nh} c={c} "
-                f"x{mult}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}{by_kernel}), plain "
-                f"{t['plain_ms']:.4f}, SDPA{' backward' if backward else ''} "
-                f"{t['library_ms']:.4f} (device {t['library_device_ms']:.4f}), bound "
-                f"{t['bound_ms']:.4f}; {flops / t['device_ms'] / 1e9:.1f} TFLOP/s by device time")
+                f"x{mult} (kD {kd or K2._fp32_kd(c)}): kernel {t['ms']:.4f} ms (device "
+                f"{t['device_ms']:.4f}{by_kernel}; the kD = 128 kernels "
+                f"{t['kd128_device_ms']:.4f}), plain {t['plain_ms']:.4f}, "
+                f"SDPA{' backward' if backward else ''} {t['library_ms']:.4f} (device "
+                f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.4f}; "
+                f"{flops / t['device_ms'] / 1e9:.1f} TFLOP/s by device time")
             for key, val in t.items():
                 tot[key] = tot.get(key, 0.0) + mult * val
-        return attn_totals(tot, tot.pop("flops"))
+                if kd in (80, 96):
+                    exact[key] = exact.get(key, 0.0) + mult * val
+        tot = attn_totals(tot, tot.pop("flops"))
+        if exact:
+            tot["exact_width_sites"] = attn_totals(exact, exact.pop("flops"))
+        return tot
 
     with full_fp32():
         timings = {f"{'k3' if bwd else 'k2'}_{mode}": time_sites(mode, bwd)
                    for bwd in (False, True) for mode in ("strict", "fast")}
     for name, tt in timings.items():
         log(f"[16] per U-Net pass at b{BATCH}, mc {MC96} ({name}): " + ", ".join(
-            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in tt.items()))
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in tt.items()
+            if k != "exact_width_sites"))
+        if "exact_width_sites" in tt:
+            log("[16]   of which the exact-width sites (kD = 80, c = 72): " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in tt["exact_width_sites"].items()))
     report["timings"] = timings
     mark(16)
     return {"launches": by_path, "report": report}
+
+
+def mc96_by_kd(K2, bf16, passes):
+    """K2's (or K3's) launches by head width over ``passes`` U-Net passes of
+    the model_channels 96 path, bf16 or fp32: its 32x32 sites (4 heads of
+    72) on the bf16 kernels' kD = 80 or the fp32 kernels' 128, its 16x16
+    sites (6 of 64) on kD = 64."""
+    out = {}
+    for (L, nh, c), n in MC96_SITES.items():
+        w = K2.kernel_width(c)
+        key = f"{'bf16' if bf16 else 'fp32'}_kd{K2._kd(w) if bf16 else K2._fp32_kd(w)}"
+        out[key] = out.get(key, 0) + n * passes
+    return out
+
+
+@contextlib.contextmanager
+def kd128_shape(K2, kd):
+    """K2 at head width ``kd`` takes kD = 128's block shape (64-row blocks
+    and K/V tiles) inside the block."""
+    real = K2.plan
+
+    def plan(b, heads, L, num_sms, kd_=64):
+        p = real(b, heads, L, num_sms, kd_)
+        return p._replace(fwd_rows=64, fwd_tile=64) if kd_ == kd else p
+
+    K2.plan = plan
+    try:
+        yield
+    finally:
+        K2.plan = real
+
+
+def exact_vs_kd128(torch, K2, q, k, v, do, fast, c):
+    """The largest differences of the exact-width bf16 kernels (kD = 80 / 96
+    at 64 < c <= 96) from the kD = 128 ones on the same inputs: K2 at its
+    own plan (whose K/V tiles may be 128 rows, so the online softmax
+    rescales at other bounds), K2 at kD = 128's block shape, and K3 on the
+    same forward output and lse (both expected 0: the columns past c and
+    the k16 steps past the head add exact zeros)."""
+    kd = K2._kd(K2.kernel_width(c))
+    kq, kk, kv, kdo = map(K2.kernel_layout, (q, k, v, do))
+    with torch.no_grad():
+        own = K2._launch(kq, kk, kv, True, c=c)
+        wide = K2._launch(kq, kk, kv, True, c=c, kd=128)
+        with kd128_shape(K2, kd):
+            same = K2._launch(kq, kk, kv, True, c=c)
+        g = K2._launch_bwd(kq, kk, kv, wide[0], wide[1], kdo, fast, c)
+        g128 = K2._launch_bwd(kq, kk, kv, wide[0], wide[1], kdo, fast, c, kd=128)
+
+    def diff(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    return {"k2_own_plan": max(diff(own[0], wide[0]), diff(own[1], wide[1])),
+            "k2_kd128_shape": max(diff(same[0], wide[0]), diff(same[1], wide[1])),
+            "k3_same_inputs": max(diff(x, y) for x, y in zip(g, g128))}
 
 
 def launch_counts():
@@ -3471,7 +3636,18 @@ def reset_launch_counts():
     from probunet_torch.ops import gn_silu as K1
 
     K1.gn_silu.launches = K2.fused_attention.launches = K2.attention_bwd.launches = 0
+    K2.fused_attention.launches_by_kd.clear()
+    K2.attention_bwd.launches_by_kd.clear()
     K2.kernel_layout.copies = 0
+
+
+def launches_by_kd():
+    """K2's and K3's launches so far by dtype and head width, e.g.
+    {"fwd": {"bf16_kd80": 5, ...}, "bwd": {...}}."""
+    from probunet_torch.ops import attention as K2
+
+    return {"fwd": dict(K2.fused_attention.launches_by_kd),
+            "bwd": dict(K2.attention_bwd.launches_by_kd)}
 
 
 def as_launches(n):

@@ -38,14 +38,28 @@
 // the bf16 bound is 0.19 ms per backward of 11 sites.
 //
 // Head dims: as in the forward kernel, every kernel is instantiated for a
-// head KD = 64 or 128 columns wide in shared memory, 64 < c <= 128 running
-// KD = 128 with the columns past c zero (attention_hopper.cuh). At KD =
-// 128 the kernels take 64-row blocks of one consumer warpgroup, and (b)
-// runs as two passes over the q tiles, one for dV and one for dK, each
-// recomputing S^T: dK and dV of 64 keys by 128 columns are 128 fp32
-// registers a thread together, which beside S^T, dP^T and their A
-// operands would spill (bf16), and whose operands' hi / lo pairs would not
-// fit the block's shared memory (fp32).
+// head KD columns wide in shared memory (attention_hopper.cuh): bf16 at KD
+// = 64, the exact widths 80 and 96 (64 < c <= 96: a 64-column atom and a
+// 16- or 32-column tail atom) and 128 (96 < c <= 128); fp32 at 64 and 128,
+// the columns past c zero. The bound at the model_channels 96 path's c = 72
+// site (b8, L=1024, 4 heads) is 24 GFLOP, 24.4 us at 989 TFLOP/s.
+//   KD = 128 runs the products over 128 columns where 72 are real, and (b)
+//   as two passes over the q tiles, one for dV and one for dK, each
+//   recomputing S^T: dK and dV of 64 keys by 128 columns are 128 fp32
+//   registers a thread together, which beside S^T, dP^T and their A
+//   operands would spill (bf16), and whose operands' hi / lo pairs would not
+//   fit the block's shared memory (fp32).
+//   KD = 80 / 96 (bf16) run S^T, dP^T, S and dP in KD / 16 k16 steps, each
+//   output product as one m64n64k16 and one m64nTk16, and (b) as one pass
+//   (kPassBoth, as at KD = 64): dK and dV are 80 / 96 registers a thread,
+//   the consumer holds 188 / 204, none spilled. 64-row blocks of one
+//   consumer (two would be held to 168), two blocks an SM at KD = 80 (one
+//   at 96, by registers). What still holds it back: the serial order below,
+//   the tail's m64nTk16 products, which cost about what a whole-atom
+//   product does (scripts/torch_attn_variants.py no_tail), and dQ at 143 /
+//   156 registers, two blocks an SM where KD = 64's fits three (asking
+//   ptxas for three holds it to 128 registers, which spills and serializes
+//   the products: dq_three_blocks).
 //
 // bf16 (fast, and strict with bf16 activations): the machinery of
 // attention_hopper.cuh, warp-specialised as the forward kernel:
@@ -100,7 +114,8 @@
 // Layout: q, k, v, o (the forward output) and dout are (B, L, heads, W)
 // with any element strides and a unit-stride head dim, rows 16-byte
 // aligned, W = 64 or a multiple of 8 in 72..128 (the head dim, or the
-// wrapper's zero-padded width); dq, dk, dv are contiguous (B, L, heads, W).
+// wrapper's zero-padded width), W <= KD; dq, dk, dv are contiguous (B, L,
+// heads, W).
 //
 // Numerics follow _bwd_kernel (pallas_attn.py:101-135):
 //   - S is recomputed on the forward kernel's operands with the same
@@ -143,8 +158,8 @@ constexpr int kPrepThreads = 256;  // four per row of a 64-row tile
 // (a) D = rowsum(dO o O) in fp32 and the forward's lse in base 2, per
 // 64-row tile of one (batch * head) into stats[bh][tile] = {lse2[64],
 // D[64]}; rows past L get lse2 = +inf (P = 0) and D = 0. At KD = 64 a
-// row's four threads sum 16 columns each; at KD = 128, 8-column chunks
-// q, q + 4, ... of the row's W columns.
+// row's four threads sum 16 columns each; at the other widths, 8-column
+// chunks q, q + 4, ... of the row's W columns.
 template <int KD>
 __global__ void __launch_bounds__(kPrepThreads)
     attention_bwd_prep_sm90(const __nv_bfloat16* __restrict__ o,
@@ -224,8 +239,8 @@ __device__ __forceinline__ void bwd_barriers(unsigned char* smem, uint64_t*& own
 template <int NWG, bool STATS, int KD>
 __device__ __forceinline__ void bwd_producer(unsigned char* smem, uint64_t* own_full,
                                              uint64_t* full, uint64_t* empty,
-                                             const CUtensorMap* own0, const CUtensorMap* own1,
-                                             const CUtensorMap* in0, const CUtensorMap* in1,
+                                             const TileMap* own0, const TileMap* own1,
+                                             const TileMap* in0, const TileMap* in1,
                                              const float* stats_bh, int h, int b, int r0,
                                              int n_tiles) {
   using Smem = BwdSmem<NWG, STATS, KD>;
@@ -246,8 +261,8 @@ __device__ __forceinline__ void bwd_producer(unsigned char* smem, uint64_t* own_
   }
 }
 
-// What a dK/dV kernel computes: both (KD = 64), or at KD = 128 one of its
-// two passes.
+// What a dK/dV kernel computes: both (KD = 64, 80, 96), or at KD = 128 one
+// of its two passes.
 constexpr int kPassDV = 1, kPassDK = 2, kPassBoth = 3;
 
 // P and dS of one tile from S and dP in registers: p = 2^(S c - lse2), dS =
@@ -272,14 +287,13 @@ __device__ __forceinline__ void grads(float (&p)[32], float (&ds)[32], float c, 
 // hi + lo.
 template <int NWG, bool SPLIT, int KD, int PASS>
 __global__ void __launch_bounds__(kBlockThreads<NWG>, 1)
-    attention_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tq,
-                            const __grid_constant__ CUtensorMap tk,
-                            const __grid_constant__ CUtensorMap tv,
-                            const __grid_constant__ CUtensorMap tdo,
+    attention_bwd_dkdv_sm90(const __grid_constant__ TileMap tq, const __grid_constant__ TileMap tk,
+                            const __grid_constant__ TileMap tv,
+                            const __grid_constant__ TileMap tdo,
                             const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
                             __nv_bfloat16* __restrict__ dv, int H, int L, int W, float scale) {
   using Smem = BwdSmem<NWG, true, KD>;
-  constexpr int kT = Smem::kT, kA = KD / 64;
+  constexpr int kT = Smem::kT, kA = kAtoms<KD>, kTl = kTail<KD>;
   constexpr bool kDV = PASS & kPassDV, kDK = PASS & kPassDK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -305,13 +319,18 @@ __global__ void __launch_bounds__(kBlockThreads<NWG>, 1)
   const unsigned char* Kw = smem + Smem::own0 + w * kT;
   const unsigned char* Vw = smem + Smem::own1 + w * kT;
   const float c = scale * kLog2e;
-  // p: S^T then P^T; ds: dP^T then dS^T (kDK only)
+  // p: S^T then P^T; ds: dP^T then dS^T (kDK only); dk_t, dv_t: the tail's
   float dk_acc[kA][32], dv_acc[kA][32], p[32], ds[32];
+  TailAcc<KD> dk_t, dv_t;
   uint32_t pa[4][4], hi[4][4], lo[4][4];  // P^T, dS^T as A operands (lo: SPLIT only)
 #pragma unroll
   for (int a = 0; a < kA; ++a)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk_acc[a][i] = dv_acc[a][i] = 0.f;
+  if constexpr (kTl != 0) {
+    zero(dk_t);
+    zero(dv_t);
+  }
   mbar_wait(own_full, 0);
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % kBwdStages;
@@ -335,21 +354,32 @@ __global__ void __launch_bounds__(kBlockThreads<NWG>, 1)
       to_a<64>(p, pa);
     }
     wgmma_fence();
-    if constexpr (kDV)
+    if constexpr (kDV) {
 #pragma unroll
       for (int a = 0; a < kA; ++a) mma_rs<64>(dv_acc[a], pa, atom(dOs(s), a, 64));  // dV += P^T dO
-    if constexpr (kDK)
+      if constexpr (kTl != 0) mma_rs_tail<64, kTl>(dv_t, pa, tail<KD>(dOs(s), 64));
+    }
+    if constexpr (kDK) {
 #pragma unroll
       for (int a = 0; a < kA; ++a) {
         if constexpr (SPLIT) mma_rs<64>(dk_acc[a], lo, atom(Qs(s), a, 64));
         mma_rs<64>(dk_acc[a], hi, atom(Qs(s), a, 64));  // dK += dS^T Q
       }
+      if constexpr (kTl != 0) {
+        if constexpr (SPLIT) mma_rs_tail<64, kTl>(dk_t, lo, tail<KD>(Qs(s), 64));
+        mma_rs_tail<64, kTl>(dk_t, hi, tail<KD>(Qs(s), 64));
+      }
+    }
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
     for (int a = 0; a < kA; ++a) {
       if constexpr (kDV) reg_fence(dv_acc[a]);
       if constexpr (kDK) reg_fence(dk_acc[a]);
+    }
+    if constexpr (kTl != 0) {
+      if constexpr (kDV) reg_fence(dv_t);
+      if constexpr (kDK) reg_fence(dk_t);
     }
     mbar_arrive(&empty[s]);  // this stage is free for the load kBwdStages tiles on
   }
@@ -360,19 +390,21 @@ __global__ void __launch_bounds__(kBlockThreads<NWG>, 1)
     if constexpr (kDK) store_rows<KD>(dk, dk_acc[a], b, h, H, L, W, a, row0, lane, s2);
     if constexpr (kDV) store_rows<KD>(dv, dv_acc[a], b, h, H, L, W, a, row0, lane, one);
   }
+  if constexpr (kTl != 0) {
+    if constexpr (kDK) store_rows<KD, kTl>(dk, dk_t, b, h, H, L, W, kA, row0, lane, s2);
+    if constexpr (kDV) store_rows<KD, kTl>(dv, dv_t, b, h, H, L, W, kA, row0, lane, one);
+  }
 }
 
 // (c) dQ of 64 NWG query rows; SPLIT carries dS as bf16 hi + lo.
 template <int NWG, bool SPLIT, int KD>
 __global__ void __launch_bounds__(kBlockThreads<NWG>, 1)
-    attention_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
-                          const __grid_constant__ CUtensorMap tk,
-                          const __grid_constant__ CUtensorMap tv,
-                          const __grid_constant__ CUtensorMap tdo,
+    attention_bwd_dq_sm90(const __grid_constant__ TileMap tq, const __grid_constant__ TileMap tk,
+                          const __grid_constant__ TileMap tv, const __grid_constant__ TileMap tdo,
                           const float* __restrict__ stats, __nv_bfloat16* __restrict__ dq, int H,
                           int L, int W, float scale) {
   using Smem = BwdSmem<NWG, false, KD>;
-  constexpr int kT = Smem::kT, kA = KD / 64;
+  constexpr int kT = Smem::kT, kA = kAtoms<KD>, kTl = kTail<KD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t *own_full, *full, *empty;
@@ -407,11 +439,13 @@ __global__ void __launch_bounds__(kBlockThreads<NWG>, 1)
   }
   const float c = scale * kLog2e;
   float dq_acc[kA][32], p[32], ds[32];  // p: S then P; ds: dP then dS
+  TailAcc<KD> dq_t;
   uint32_t hi[4][4], lo[4][4];  // dS as the A operand (lo: SPLIT only)
 #pragma unroll
   for (int a = 0; a < kA; ++a)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dq_acc[a][i] = 0.f;
+  if constexpr (kTl != 0) zero(dq_t);
   auto tile_grads = [&](uint32_t(&hi_)[4][4], uint32_t(&lo_)[4][4]) {
     grads<SPLIT>(
         p, ds, c, [&](int i) { return lse2[(i / 2) % 2]; }, [&](int i) { return D[(i / 2) % 2]; },
@@ -435,16 +469,22 @@ __global__ void __launch_bounds__(kBlockThreads<NWG>, 1)
       if constexpr (SPLIT) mma_rs<64>(dq_acc[a], lo, atom(Ks(s), a, 64));
       mma_rs<64>(dq_acc[a], hi, atom(Ks(s), a, 64));  // dQ += dS K, the raw K
     }
+    if constexpr (kTl != 0) {
+      if constexpr (SPLIT) mma_rs_tail<64, kTl>(dq_t, lo, tail<KD>(Ks(s), 64));
+      mma_rs_tail<64, kTl>(dq_t, hi, tail<KD>(Ks(s), 64));
+    }
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
     for (int a = 0; a < kA; ++a) reg_fence(dq_acc[a]);
+    if constexpr (kTl != 0) reg_fence(dq_t);
     mbar_arrive(&empty[s]);  // this stage is free for the load kBwdStages tiles on
   }
   const float s2[2] = {scale, scale};
+  const int row0 = q0 + 64 * w + 16 * warp;
 #pragma unroll
-  for (int a = 0; a < kA; ++a)
-    store_rows<KD>(dq, dq_acc[a], b, h, H, L, W, a, q0 + 64 * w + 16 * warp, lane, s2);
+  for (int a = 0; a < kA; ++a) store_rows<KD>(dq, dq_acc[a], b, h, H, L, W, a, row0, lane, s2);
+  if constexpr (kTl != 0) store_rows<KD, kTl>(dq, dq_t, b, h, H, L, W, kA, row0, lane, s2);
 }
 
 template <int NWG, bool SPLIT, int KD> struct Bwd {
@@ -452,8 +492,8 @@ template <int NWG, bool SPLIT, int KD> struct Bwd {
   static constexpr int dkdv_smem = BwdSmem<NWG, true, KD>::bytes;
   static constexpr int dq_smem = BwdSmem<NWG, false, KD>::bytes;
 
-  static cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                            const CUtensorMap& tdo, const void* o, const void* dout,
+  static cudaError_t launch(const TileMap& tq, const TileMap& tk, const TileMap& tv,
+                            const TileMap& tdo, const void* o, const void* dout,
                             const float* lse, float* stats, void* dq, void* dk, void* dv, int B,
                             int H, int L, int W, Strides so, Strides sdo,
                             float scale, cudaStream_t stream) {
@@ -474,7 +514,7 @@ template <int NWG, bool SPLIT, int KD> struct Bwd {
                                                    scale);
       return cudaGetLastError();
     };
-    if constexpr (KD == 64) {
+    if constexpr (KD != 128) {
       err = dkdv(attention_bwd_dkdv_sm90<NWG, SPLIT, KD, kPassBoth>);
     } else {  // the dV pass forms no dS: one kernel serves both SPLITs
       err = dkdv(attention_bwd_dkdv_sm90<NWG, false, KD, kPassDV>);
@@ -489,11 +529,13 @@ template <int NWG, bool SPLIT, int KD> struct Bwd {
     return cudaGetLastError();
   }
 
-  // kernel 0: (b) (at KD = 128 its dV pass), 1: (c), 2: (b)'s dK pass (KD = 128)
+  // kernel 0: (b) (at KD = 128 its dV pass), 1: (c), 2: (b)'s dK pass (KD =
+  // 128), 3: the row pass (a)
   static cudaError_t query(int kernel, int* out) {
     if (kernel == 1)
       return hopper::query(attention_bwd_dq_sm90<NWG, SPLIT, KD>, threads, dq_smem, out);
-    if constexpr (KD == 64) {
+    if (kernel == 3) return hopper::query(attention_bwd_prep_sm90<KD>, kPrepThreads, 0, out);
+    if constexpr (KD != 128) {
       if (kernel == 0)
         return hopper::query(attention_bwd_dkdv_sm90<NWG, SPLIT, KD, kPassBoth>, threads,
                              dkdv_smem, out);
@@ -509,18 +551,19 @@ template <int NWG, bool SPLIT, int KD> struct Bwd {
   }
 };
 
-// Op<NWG, SPLIT, KD> of a plan: block_rows = 64 NWG rows per block (128
-// only with dS split at KD = 64: fast mode's plan is 64 rows, and KD = 128
-// takes 64-row blocks only).
+// Op<NWG, SPLIT, KD> of a plan (ops/attention.py::plan): block_rows = 64
+// NWG rows per block, kd = KD the head width, SPLIT with dS carried as hi +
+// lo; the shapes the plan gives each width and no other (128 rows only with
+// dS split at kd = 64: fast mode's plan is 64 rows, and kd = 80, 96 and 128
+// take 64-row blocks only).
 template <template <int, bool, int> class Op, typename F>
 cudaError_t with_plan(int block_rows, bool split, int kd, F&& f) {
-  if (kd == 128) {
-    if (block_rows != 64) return cudaErrorInvalidValue;
+  if (kd == 64 && block_rows == 128 && split) return f(Op<2, true, 64>());
+  if (kd == 64 && block_rows == 64) return split ? f(Op<1, true, 64>()) : f(Op<1, false, 64>());
+  if (kd == 80 && block_rows == 64) return split ? f(Op<1, true, 80>()) : f(Op<1, false, 80>());
+  if (kd == 96 && block_rows == 64) return split ? f(Op<1, true, 96>()) : f(Op<1, false, 96>());
+  if (kd == 128 && block_rows == 64)
     return split ? f(Op<1, true, 128>()) : f(Op<1, false, 128>());
-  }
-  if (kd != 64) return cudaErrorInvalidValue;
-  if (block_rows == 128 && split) return f(Op<2, true, 64>());
-  if (block_rows == 64) return split ? f(Op<1, true, 64>()) : f(Op<1, false, 64>());
   return cudaErrorInvalidValue;
 }
 
@@ -948,39 +991,45 @@ template <typename F> cudaError_t with_plan(int kd, int rows, F&& f) {
 // (B*H, L) fp32 from the forward kernel. scratch: fp32 (B*H, ceil(L / 64),
 // 2, 64): lse in base 2 and D per 64-row tile. dq, dk, dv: (B, L, H,
 // head_dim) contiguous, q's dtype. scale is 1/sqrt(c). fast rounds dS to
-// bf16 (bf16 only; fp32 ignores it). rows is the plan's: bf16, the block
-// rows of ops/attention.py::plan (64 or 128); fp32, the streamed tile rows
-// of fp32_plan. Returns a cudaError_t code; 0 on success.
+// bf16 (bf16 only; fp32 ignores it). rows and kd are the plan's: bf16, the
+// block rows of ops/attention.py::plan (64 or 128) and its kd (64, 80, 96
+// or 128); fp32, the streamed tile rows of fp32_plan and its kd (64 or
+// 128); a kd not built, or narrower than head_dim, is refused. Returns a
+// cudaError_t code; 0 on success.
 extern "C" int probunet_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
     void* scratch, void* dq, void* dk, void* dv, int B, int H, int L, int head_dim,
     long long q_sb, long long q_sl, long long q_sh, long long k_sb, long long k_sl,
     long long k_sh, long long v_sb, long long v_sl, long long v_sh, long long o_sb,
     long long o_sl, long long o_sh, long long do_sb, long long do_sl, long long do_sh,
-    float scale, int is_bf16, int fast, int rows, void* stream) {
+    float scale, int is_bf16, int fast, int rows, int kd, void* stream) {
   using probunet::Strides;
   using probunet::hopper::make_map;
-  const int W = head_dim, kd = W == 64 ? 64 : 128;
-  if (W != 64 && (W <= 64 || W > 128 || W % 8)) return cudaErrorInvalidValue;
+  const int W = head_dim;
+  if (!probunet::hopper::head_width_ok(W, kd, is_bf16)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(scratch);
-  const int esize = is_bf16 ? 2 : 4, box = is_bf16 ? probunet::hopper::kBoxRows
-                                                   : probunet::hopper::kF32BoxRows;
-  CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = make_map(&tq, q, B, H, L, W, q_sb, q_sl, q_sh, esize, box);
-  if (err == cudaSuccess) err = make_map(&tk, k, B, H, L, W, k_sb, k_sl, k_sh, esize, box);
-  if (err == cudaSuccess) err = make_map(&tv, v, B, H, L, W, v_sb, v_sl, v_sh, esize, box);
-  if (err == cudaSuccess) err = make_map(&tdo, dout, B, H, L, W, do_sb, do_sl, do_sh, esize, box);
-  if (err != cudaSuccess) return err;
   if (!is_bf16) {
-    CUtensorMap to;
-    err = make_map(&to, o, B, H, L, W, o_sb, o_sl, o_sh, esize, box);
+    const int box = probunet::hopper::kF32BoxRows;
+    CUtensorMap tq, tk, tv, tdo, to;
+    cudaError_t err = make_map(&tq, q, B, H, L, W, q_sb, q_sl, q_sh, 4, box);
+    if (err == cudaSuccess) err = make_map(&tk, k, B, H, L, W, k_sb, k_sl, k_sh, 4, box);
+    if (err == cudaSuccess) err = make_map(&tv, v, B, H, L, W, v_sb, v_sl, v_sh, 4, box);
+    if (err == cudaSuccess) err = make_map(&tdo, dout, B, H, L, W, do_sb, do_sl, do_sh, 4, box);
+    if (err == cudaSuccess) err = make_map(&to, o, B, H, L, W, o_sb, o_sl, o_sh, 4, box);
     if (err != cudaSuccess) return err;
     return probunet::f32::with_plan(kd, rows, [&](auto plan) {
       return plan.launch(tq, tk, tv, to, tdo, l, d, dq, dk, dv, B, H, L, W, scale, st);
     });
   }
+  using probunet::hopper::make_tile_map;
+  probunet::hopper::TileMap tq, tk, tv, tdo;
+  cudaError_t err = make_tile_map(&tq, q, B, H, L, W, q_sb, q_sl, q_sh, kd);
+  if (err == cudaSuccess) err = make_tile_map(&tk, k, B, H, L, W, k_sb, k_sl, k_sh, kd);
+  if (err == cudaSuccess) err = make_tile_map(&tv, v, B, H, L, W, v_sb, v_sl, v_sh, kd);
+  if (err == cudaSuccess) err = make_tile_map(&tdo, dout, B, H, L, W, do_sb, do_sl, do_sh, kd);
+  if (err != cudaSuccess) return err;
   const Strides so{o_sb, o_sl, o_sh}, sdo{do_sb, do_sl, do_sh};
   return probunet::sm90::with_plan<probunet::sm90::Bwd>(
       rows, !fast, kd, [&](auto plan) {
@@ -989,11 +1038,12 @@ extern "C" int probunet_attention_bwd(
       });
 }
 
-// What a bf16 backward kernel of a plan at head width kd (64 or 128) is on
-// this card (kernel 0: dK/dV, at kd 128 its dV pass; 1: dQ; 2: at kd 128
-// the dK pass; split: strict mode's hi + lo dS): out = {threads, dynamic
-// shared bytes, registers, local (spilled) bytes per thread, static shared
-// bytes}. Returns a cudaError_t code; 0 on success.
+// What a bf16 backward kernel of a plan at head width kd (64, 80, 96 or
+// 128) is on this card (kernel 0: dK/dV, at kd 128 its dV pass; 1: dQ; 2:
+// at kd 128 the dK pass; 3: the row pass; split: strict mode's hi + lo dS):
+// out = {threads, dynamic shared bytes, registers, local (spilled) bytes
+// per thread, static shared bytes}. Returns a cudaError_t code; 0 on
+// success.
 extern "C" int probunet_attention_bwd_query(int kernel, int block_rows, int split, int kd,
                                             int* out) {
   return probunet::sm90::with_plan<probunet::sm90::Bwd>(

@@ -16,15 +16,25 @@
 // 0.080 ms per pass of 11 sites; the bytes (q, k, v read and o written
 // once) take a quarter of that.
 //
-// Head dims: every kernel is instantiated for a head KD = 64 or 128 columns
-// wide in shared memory (attention_hopper.cuh): c = 64
-// runs KD = 64, 64 < c <= 128 (72 at the U-Net's 288-wide level with
-// model_channels 96) runs KD = 128 with the columns past c zero, and so
-// does (128 / c) times the products of an exact-width kernel. At KD = 128
-// the bf16 kernel takes 64-row blocks of one consumer warpgroup and 64-row
-// K/V tiles (ops/attention.py::plan): O is 64 fp32 registers a thread, the
-// consumer holds 155 (ptxas), and 128-row tiles would add S's 32 past the
-// 168 that ptxas leaves a two-consumer block.
+// Head dims: every kernel is instantiated for a head KD columns wide in
+// shared memory (attention_hopper.cuh). c = 64 runs KD = 64. The bf16
+// kernel runs the exact widths KD = 80 (64 < c <= 80: 72 at the U-Net's
+// 288-wide level with model_channels 96) and 96 (80 < c <= 96): a
+// 64-column atom and a 16- or 32-column tail atom, S = Q K^T in ceil(W /
+// 16) k16 steps and O += P V as one m64n64k16 and one m64nTk16 per 16 keys,
+// 40 / 48 accumulators a thread. 96 < c <= 128, and the fp32 kernel past 64,
+// run KD = 128 with the columns past c zero. The bound at the c = 72 site
+// (b8, L=1024, 4 heads) is 9.7 GFLOP, 9.8 us at 989 TFLOP/s (its bytes 5.6
+// us); kD = 128 did 128/72 = 1.78x those products, and held O in 64
+// registers, which kept it to 64-row blocks of one consumer. At KD = 80
+// O is 40 registers, and two consumers of 64 rows each fit ptxas's 168
+// with 128-row K/V tiles (167, no spill; ops/attention.py::plan takes them
+// where they fill the card); at KD = 96 two consumers spill, so 64-row
+// blocks and tiles (137 registers, two blocks an SM). What still holds it
+// back: the softmax's ex2, which does not shrink with c, and the tail's
+// m64nTk16 products, which cost about what a whole-atom product does.
+// The kD = 128 kernel stays callable at c <= 96 (ops/attention.py::_launch
+// kd=128), and at its block shape the exact width gives its bits.
 //
 // bf16: attention_fwd_sm90 (machinery in attention_hopper.cuh), the
 // FlashAttention-3 shape. One block per (batch * head, 64 NWG query rows):
@@ -34,7 +44,7 @@
 // consumer runs S = Q K^T on wgmma from the two shared tiles (m64nBNk16,
 // K-major), the online softmax in fp32 registers, and O += P V on wgmma
 // with P in registers as the A operand and V read MN-major (m64n64k16, one
-// per 64 columns of the head).
+// per 64-column atom of the head, and m64nTk16 on a tail atom).
 // The two products overlap across tiles (FlashAttention-3's intra-
 // warpgroup pipelining): S of tile j + 1 is issued together with PV of
 // tile j, and the softmax of tile j + 1 runs on the CUDA cores while PV
@@ -67,8 +77,8 @@
 // Layout: q, k, v are (B, L, heads, W) with any element strides (sb, sl,
 // sh) and a unit-stride head dim, each row 16-byte aligned, W = 64 or a
 // multiple of 8 in 72..128 (the head dim, or the zero-padded width the
-// wrapper copied it to): the U-Net block's q/k/v views of its qkv conv
-// output are read where the conv wrote them. The output is contiguous (B,
+// wrapper copied it to), W <= KD: the U-Net block's q/k/v views of its qkv
+// conv output are read where the conv wrote them. The output is contiguous (B,
 // L, heads, W). Given a non-null lse,
 // the kernel also writes each row's fp32 log-sum-exp of the logits,
 // (B*heads, L), which the backward kernel (attention_bwd.cu) uses to
@@ -142,17 +152,18 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], int col0, int 
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
 }
 
-// KD / 64 accumulators of 64 columns each (one per atom of the head).
-template <int KD> using Acc = float[KD / 64][32];
+// kAtoms accumulators of 64 columns each (one per whole atom of the head);
+// the tail's is a TailAcc.
+template <int KD> using Acc = float[kAtoms<KD>][32];
 
 template <int NWG, int BN, int KD>
 __global__ void __launch_bounds__(kBlockThreads<NWG>, 1)
-    attention_fwd_sm90(const __grid_constant__ CUtensorMap tq,
-                       const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+    attention_fwd_sm90(const __grid_constant__ TileMap tq, const __grid_constant__ TileMap tk,
+                       const __grid_constant__ TileMap tv, __nv_bfloat16* __restrict__ o,
                        float* __restrict__ lse, int H, int L, int W, float scale) {
   using Smem = FwdSmem<NWG, BN, KD>;
-  constexpr int kQ = tile_bytes<KD>(64), kKV = tile_bytes<KD>(BN), kA = KD / 64;
+  constexpr int kQ = tile_bytes<KD>(64), kKV = tile_bytes<KD>(BN), kA = kAtoms<KD>;
+  constexpr int kT = kTail<KD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Smem::bars);
@@ -200,14 +211,18 @@ __global__ void __launch_bounds__(kBlockThreads<NWG>, 1)
   const float c = scale * kLog2e;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2], sc[BN / 2];
   Acc<KD> acc;
+  TailAcc<KD> acc_t;
   uint32_t pa[BN / 16][4];  // P rounded to bf16 (as p.astype(v.dtype) rounds it)
 #pragma unroll
   for (int a = 0; a < kA; ++a)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
-  uint64_t dq[KD / 16], dk[KD / 16], dv[kA][BN / 16];
+  if constexpr (kT != 0) zero(acc_t);
+  // the tail's descriptors are one base, stepped at each product: pinning
+  // all BN / 16 of them spilled a two-consumer block at KD = 80
+  uint64_t dq[KD / 16], dk[KD / 16], dv[kA][BN / 16], dv_t[1];
 #pragma unroll
-  for (int k = 0; k < KD / 16; ++k) dq[k] = desc_k(Qw) + desc_k_step<64>(k);
+  for (int k = 0; k < KD / 16; ++k) dq[k] = desc_k_at<64, KD>(Qw, k);
   mbar_wait(q_full, 0);
   mbar_wait(&k_full[0], 0);
   wgmma_fence();
@@ -226,15 +241,17 @@ __global__ void __launch_bounds__(kBlockThreads<NWG>, 1)
   for (; j + 1 < n_tiles; ++j) {
     const int s = j % kFwdStages, s1 = (j + 1) % kFwdStages;
 #pragma unroll
-    for (int k = 0; k < KD / 16; ++k) dk[k] = desc_k(Ks(s1)) + desc_k_step<BN>(k);
+    for (int k = 0; k < KD / 16; ++k) dk[k] = desc_k_at<BN, KD>(Ks(s1), k);
 #pragma unroll
     for (int a = 0; a < kA; ++a)
 #pragma unroll
       for (int k = 0; k < BN / 16; ++k) dv[a][k] = desc_mn(atom(Vs(s), a, BN)) + k * kDescMN16;
+    if constexpr (kT != 0) dv_t[0] = desc_mn_tail<kT>(tail<KD>(Vs(s), BN));
     pin(dq);
     pin(dk);
 #pragma unroll
     for (int a = 0; a < kA; ++a) pin(dv[a]);
+    if constexpr (kT != 0) pin(dv_t);
     mbar_wait(&k_full[s1], ((j + 1) / kFwdStages) & 1);
     mbar_wait(&v_full[s], (j / kFwdStages) & 1);
     wgmma_fence();
@@ -245,6 +262,10 @@ __global__ void __launch_bounds__(kBlockThreads<NWG>, 1)
     for (int a = 0; a < kA; ++a)
 #pragma unroll
       for (int k = 0; k < BN / 16; ++k) Wgmma<64>::rs_t(acc[a], pa[k], dv[a][k]);  // O += P V
+    if constexpr (kT != 0)
+#pragma unroll
+      for (int k = 0; k < BN / 16; ++k)
+        Wgmma<kT>::rs_t(acc_t, pa[k], dv_t[0] + k * desc_mn_tail_step<kT>);
     wgmma_commit();
     wgmma_wait<1>();  // S of tile j + 1; PV may still run
     reg_fence(sc);
@@ -252,25 +273,32 @@ __global__ void __launch_bounds__(kBlockThreads<NWG>, 1)
     wgmma_wait<0>();
 #pragma unroll
     for (int a = 0; a < kA; ++a) reg_fence(acc[a]);
+    if constexpr (kT != 0) reg_fence(acc_t);
     mbar_arrive(&empty[s]);  // this stage is free for the load kFwdStages tiles on
     to_a<BN>(sc, pa);
 #pragma unroll
     for (int a = 0; a < kA; ++a)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[a][i] *= alpha[(i / 2) % 2];
+    if constexpr (kT != 0)
+#pragma unroll
+      for (int i = 0; i < kT / 2; ++i) acc_t[i] *= alpha[(i / 2) % 2];
   }
   mbar_wait(&v_full[j % kFwdStages], (j / kFwdStages) & 1);
   wgmma_fence();
 #pragma unroll
   for (int a = 0; a < kA; ++a) mma_rs<BN>(acc[a], pa, atom(Vs(j % kFwdStages), a, BN));
+  if constexpr (kT != 0) mma_rs_tail<BN, kT>(acc_t, pa, tail<KD>(Vs(j % kFwdStages), BN));
   wgmma_commit();
   wgmma_wait<0>();
 #pragma unroll
   for (int a = 0; a < kA; ++a) reg_fence(acc[a]);
+  if constexpr (kT != 0) reg_fence(acc_t);
 
   const float inv[2] = {1.f / l[0], 1.f / l[1]};
 #pragma unroll
   for (int a = 0; a < kA; ++a) store_rows<KD>(o, acc[a], b, h, H, L, W, a, row0, lane, inv);
+  if constexpr (kT != 0) store_rows<KD, kT>(o, acc_t, b, h, H, L, W, kA, row0, lane, inv);
   if (lse != nullptr && t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -283,8 +311,8 @@ __global__ void __launch_bounds__(kBlockThreads<NWG>, 1)
 template <int NWG, int BN, int KD> struct Fwd {
   static constexpr int threads = kBlockThreads<NWG>, smem = FwdSmem<NWG, BN, KD>::bytes;
 
-  static cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                            void* o, float* lse, int B, int H, int L, int W, float scale,
+  static cudaError_t launch(const TileMap& tq, const TileMap& tk, const TileMap& tv, void* o,
+                            float* lse, int B, int H, int L, int W, float scale,
                             cudaStream_t stream) {
     const cudaError_t err = cudaFuncSetAttribute(
         attention_fwd_sm90<NWG, BN, KD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -300,18 +328,20 @@ template <int NWG, int BN, int KD> struct Fwd {
   }
 };
 
-// Op<NWG, BN, KD> of a plan: block_rows = 64 NWG query rows, tile_rows = BN
-// (128-row blocks only with 128-row tiles: at L <= 64 the second consumer
-// would have no rows), kd the head width; kd = 128 takes 64-row blocks and
-// tiles only.
+// Op<NWG, BN, KD> of a plan (ops/attention.py::plan): block_rows = 64 NWG
+// query rows, tile_rows = BN, kd = KD the head width; the shapes the plan
+// gives each width and no other. 128-row blocks only with 128-row tiles (at
+// L <= 64 the second consumer would have no rows); kd = 96 and 128 take
+// 64-row blocks and tiles only (two consumers spill there).
 template <template <int, int, int> class Op, typename F>
 cudaError_t with_plan(int block_rows, int tile_rows, int kd, F&& f) {
-  if (kd == 128) return block_rows == 64 && tile_rows == 64 ? f(Op<1, 64, 128>())
-                                                             : cudaErrorInvalidValue;
-  if (kd != 64) return cudaErrorInvalidValue;
-  if (block_rows == 128 && tile_rows == 128) return f(Op<2, 128, 64>());
-  if (block_rows == 64 && tile_rows == 128) return f(Op<1, 128, 64>());
-  if (block_rows == 64 && tile_rows == 64) return f(Op<1, 64, 64>());
+  if (kd == 64 && block_rows == 128 && tile_rows == 128) return f(Op<2, 128, 64>());
+  if (kd == 64 && block_rows == 64 && tile_rows == 128) return f(Op<1, 128, 64>());
+  if (kd == 64 && block_rows == 64 && tile_rows == 64) return f(Op<1, 64, 64>());
+  if (kd == 80 && block_rows == 128 && tile_rows == 128) return f(Op<2, 128, 80>());
+  if (kd == 80 && block_rows == 64 && tile_rows == 64) return f(Op<1, 64, 80>());
+  if (kd == 96 && block_rows == 64 && tile_rows == 64) return f(Op<1, 64, 96>());
+  if (kd == 128 && block_rows == 64 && tile_rows == 64) return f(Op<1, 64, 128>());
   return cudaErrorInvalidValue;
 }
 
@@ -480,42 +510,48 @@ template <typename F> cudaError_t with_plan(int kd, int tile_rows, F&& f) {
 // multiple of 8 in 72..128 (the head dim c, or the zero-padded width that
 // ops/attention.py::kernel_width gives c); o: (B, L, H, head_dim)
 // contiguous, same dtype; lse: null or (B*H, L) fp32. scale is 1/sqrt(c).
-// block_rows and tile_rows are the plan's (ops/attention.py::plan for bf16,
-// 64 or 128 each; fp32_plan for fp32: 64 and its K/V tile rows). Returns a
-// cudaError_t code; 0 on success.
+// block_rows, tile_rows and kd are the plan's (ops/attention.py::plan for
+// bf16: 64 or 128 rows each, kd 64, 80, 96 or 128; fp32_plan for fp32: 64,
+// its K/V tile rows and kd 64 or 128); a kd not built, or narrower than
+// head_dim, is refused. Returns a cudaError_t code; 0 on success.
 extern "C" int probunet_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int B, int H, int L, int head_dim,
                                       long long q_sb, long long q_sl, long long q_sh,
                                       long long k_sb, long long k_sl, long long k_sh,
                                       long long v_sb, long long v_sl, long long v_sh, float scale,
-                                      int is_bf16, int block_rows, int tile_rows, void* stream) {
-  const int W = head_dim, kd = W == 64 ? 64 : 128;
-  if (W != 64 && (W <= 64 || W > 128 || W % 8)) return cudaErrorInvalidValue;
+                                      int is_bf16, int block_rows, int tile_rows, int kd,
+                                      void* stream) {
+  using probunet::hopper::make_map;
+  const int W = head_dim;
+  if (!probunet::hopper::head_width_ok(W, kd, is_bf16)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  const int esize = is_bf16 ? 2 : 4, box = is_bf16 ? probunet::hopper::kBoxRows
-                                                   : probunet::hopper::kF32BoxRows;
-  CUtensorMap tq, tk, tv;
-  cudaError_t err = probunet::hopper::make_map(&tq, q, B, H, L, W, q_sb, q_sl, q_sh, esize, box);
-  if (err == cudaSuccess)
-    err = probunet::hopper::make_map(&tk, k, B, H, L, W, k_sb, k_sl, k_sh, esize, box);
-  if (err == cudaSuccess)
-    err = probunet::hopper::make_map(&tv, v, B, H, L, W, v_sb, v_sl, v_sh, esize, box);
-  if (err != cudaSuccess) return err;
   if (!is_bf16) {
+    const int box = probunet::hopper::kF32BoxRows;
+    CUtensorMap tq, tk, tv;
+    cudaError_t err = make_map(&tq, q, B, H, L, W, q_sb, q_sl, q_sh, 4, box);
+    if (err == cudaSuccess) err = make_map(&tk, k, B, H, L, W, k_sb, k_sl, k_sh, 4, box);
+    if (err == cudaSuccess) err = make_map(&tv, v, B, H, L, W, v_sb, v_sl, v_sh, 4, box);
+    if (err != cudaSuccess) return err;
     if (block_rows != 64) return cudaErrorInvalidValue;
     return probunet::f32::with_plan(
         kd, tile_rows, [&](auto plan) { return plan.launch(tq, tk, tv, o, l, B, H, L, W, scale, st); });
   }
+  using probunet::hopper::make_tile_map;
+  probunet::hopper::TileMap tq, tk, tv;
+  cudaError_t err = make_tile_map(&tq, q, B, H, L, W, q_sb, q_sl, q_sh, kd);
+  if (err == cudaSuccess) err = make_tile_map(&tk, k, B, H, L, W, k_sb, k_sl, k_sh, kd);
+  if (err == cudaSuccess) err = make_tile_map(&tv, v, B, H, L, W, v_sb, v_sl, v_sh, kd);
+  if (err != cudaSuccess) return err;
   return probunet::sm90::with_plan<probunet::sm90::Fwd>(
       block_rows, tile_rows, kd,
       [&](auto plan) { return plan.launch(tq, tk, tv, o, l, B, H, L, W, scale, st); });
 }
 
-// What the bf16 kernel of a plan at head width kd (64 or 128) is on this
-// card: out = {threads, dynamic shared bytes, registers, local (spilled)
-// bytes per thread, static shared bytes}. Returns a cudaError_t code; 0 on
-// success.
+// What the bf16 kernel of a plan at head width kd (64, 80, 96 or 128) is on
+// this card: out = {threads, dynamic shared bytes, registers, local
+// (spilled) bytes per thread, static shared bytes}. Returns a cudaError_t
+// code; 0 on success.
 extern "C" int probunet_attention_fwd_query(int block_rows, int tile_rows, int kd, int* out) {
   return probunet::sm90::with_plan<probunet::sm90::Fwd>(
       block_rows, tile_rows, kd, [&](auto plan) { return plan.query(out); });

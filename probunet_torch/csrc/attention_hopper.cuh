@@ -18,13 +18,26 @@
 // library links no -lcuda), and reach the kernels as __grid_constant__
 // parameters.
 //
-// Head width. The kernels are instantiated for a head KD = 64 or 128
-// columns wide in shared memory. A tile of R rows is KD / 64 column blocks
-// ("atoms") of R x 128 bytes, atom a (columns 64 a .. 64 a + 63) at byte
-// a R 128: each TMA box lands in one atom. At W < KD the columns from W on
-// are the map's zeros: zero columns of Q and K leave QK^T unchanged, zero
-// columns of V and dO give zero columns of O, dQ, dK and dV, which are not
-// stored.
+// Head width. The kernels are instantiated for a head KD = 64, 80, 96 or
+// 128 columns wide in shared memory. A tile of R rows is kAtoms = KD / 64
+// column blocks ("atoms") of R x 128 bytes, atom a (columns 64 a .. 64 a +
+// 63) at byte a R 128, each the landing place of one TMA box; at KD = 80 /
+// 96 a tail atom of T = KD - 64 = 16 / 32 columns (R x 2T bytes) follows at
+// byte R 128, loaded by a second map per tensor whose boxes are T columns
+// wide (TileMap). tile_bytes<KD>(R) = 2 R KD either way. At W < KD the
+// columns from W on are the map's zeros: zero columns of Q and K leave QK^T
+// unchanged, zero columns of V and dO give zero columns of O, dQ, dK and
+// dV, which are not stored.
+// The exact widths are for heads of 65-96 columns, such as the 4 heads of
+// 72 at model_channels 96's 288-wide level (b8, L=1024): bf16 bounds of
+// 4 and 10 B heads L^2 c FLOP, 9.8 and 24.4 us a site for K2 and K3 at 989
+// TFLOP/s. KD = 128 ran 128/72 = 1.78x those products and held 64
+// accumulators a thread per output, which kept K2 to one consumer and K3's
+// dK/dV to two passes; at KD = 80 K2 runs two consumers and K3 one pass.
+// What still holds them back: the softmax's ex2, which does not shrink
+// with c, and the tail's m64nTk16 products, which cost about what a
+// whole-atom m64n64k16 does (the A fragment goes to the tensor cores
+// either way).
 //
 // Shared layout. CU_TENSOR_MAP_SWIZZLE_128B: an atom's row is 128 bytes,
 // and within each group of 8 rows (1024 bytes) the 16-byte chunk c of row r
@@ -39,7 +52,18 @@
 //     64-wide atom is the N of one m64n64k16 product, so KD = 128 runs two,
 //     one per atom; 8-row groups along the contraction 1024 bytes apart,
 //     the next 16 rows 2048 bytes on.
-// Tiles start on 1024-byte boundaries, so the descriptors' base offset is 0.
+// The tail atom of T columns lands in the 32-byte (T = 16) or 64-byte (T =
+// 32) swizzle (CUTLASS's Layout_K_SW32/SW64 and Layout_MN_SW32/SW64 atoms):
+// rows of 2T bytes, chunk c of row r at c ^ ((r / 4) % 2) or c ^ ((r / 2) %
+// 4), the pattern repeating every 8 rows (16 T bytes). Its descriptors carry
+// that layout type (3: 32-byte, 2: 64-byte) and 8-row groups 16 T bytes
+// apart (SBO); K-major, its T / 16 k16 steps are 32 bytes apart; MN-major,
+// it is the whole N of one m64nTk16 product per 16 rows, 32 T bytes on. The
+// leading offset spans swizzle atoms along the swizzled dimension, of which
+// each read takes one, so it is never applied.
+// Tiles start on 1024-byte boundaries, and every tile is a whole number of
+// KB (R 2 KD bytes at R = 64, 128), so each atom does too and the
+// descriptors' base offset is 0.
 //
 // Products. wgmma.mma_async m64nNk16 with bf16 operands and fp32
 // accumulators: a warpgroup (4 warps) owns 64 rows, warp w rows 16 w ..
@@ -48,7 +72,12 @@
 // g = lane / 4, t = lane % 4. An A operand in registers takes mma.sync's
 // m16n8k16 A fragment layout, so an accumulator turns into the A operand
 // of the next product in registers (to_a below): P, P^T, dS and dS^T
-// never pass through shared memory.
+// never pass through shared memory. A product over the head dim (S, dP)
+// takes KD / 16 k16 steps: ceil(W / 16) at the exact widths, where the plan
+// sends W = KD - 8 or KD, and all 8 at KD = 128, whatever W. An output
+// product (O, dQ, dK, dV) is one m64n64 per atom and, at KD = 80 / 96, one
+// m64nTk16 on the tail: 40 / 48 accumulators a thread where KD = 128 holds
+// 64.
 //
 // Synchronisation. A ring of stages, each with a "full" barrier (armed by
 // the producer's expect-tx, completed by the TMA unit's byte count) and an
@@ -74,9 +103,18 @@ constexpr int kWarpgroup = 128;
 
 // A tile of R rows at head width KD, in bytes.
 template <int KD> __host__ __device__ constexpr int tile_bytes(int rows) { return rows * KD * 2; }
+// Whole 64-column atoms of a head of KD columns, and the columns of its
+// tail atom (0 at KD = 64, 128).
+template <int KD> constexpr int kAtoms = KD / 64;
+template <int KD> constexpr int kTail = KD % 64;
 // Atom a (columns 64 a ..) of a tile of R rows.
 __device__ __forceinline__ const unsigned char* atom(const unsigned char* tile, int a, int rows) {
   return tile + a * rows * kAtomBytes;
+}
+// The tail atom (columns 64 kAtoms ..) of a tile of R rows at head width KD.
+template <int KD>
+__device__ __forceinline__ const unsigned char* tail(const unsigned char* tile, int rows) {
+  return tile + kAtoms<KD> * rows * kAtomBytes;
 }
 
 // ---- host: tensor maps --------------------------------------------------------
@@ -103,13 +141,14 @@ inline cudaError_t encode_tiled(EncodeTiled* fn) {
 
 // The 4-D map of a (B, L, H, W) tensor at ptr with element strides (sb,
 // sl, sh) and elements of esize bytes (2: bf16, 4: fp32); boxes of
-// box_rows rows by one 128-byte swizzle atom of columns (64 bf16, 32 fp32)
-// of one (batch, head), 128-byte swizzle, zeros outside. A dimension of
+// box_rows rows by box_bytes bytes of columns (one swizzle atom: 128 bytes,
+// 64 bf16 or 32 fp32 columns; a bf16 tail atom of 32 or 64 bytes) of one
+// (batch, head), swizzled within box_bytes, zeros outside. A dimension of
 // extent 1 is given a packed stride (its stride is never used, and a view
 // may carry any value there).
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int W,
                             long long sb, long long sl, long long sh, int esize = 2,
-                            int box_rows = kBoxRows) {
+                            int box_rows = kBoxRows, int box_bytes = kAtomBytes) {
   EncodeTiled encode;
   cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
@@ -118,15 +157,42 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int H, int
   const long long bb = B > 1 ? sb * esize : bl * L;
   const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)bh, (cuuint64_t)bl, (cuuint64_t)bb};
-  const cuuint32_t box[4] = {(cuuint32_t)(kAtomBytes / esize), 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(box_bytes / esize), 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = box_bytes == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+                                     : box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_128B;
   const CUresult r = encode(map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                             4, const_cast<void*>(ptr),
                             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The maps of one bf16 tensor at head width kd: 64-column boxes for its
+// whole atoms and, at kd = 80 / 96, (kd - 64)-column boxes for the tail
+// atom (left unencoded at kd = 64, 128, where no load reads it).
+struct TileMap {
+  CUtensorMap atoms, tail;
+};
+inline cudaError_t make_tile_map(TileMap* map, const void* ptr, int B, int H, int L, int W,
+                                 long long sb, long long sl, long long sh, int kd) {
+  cudaError_t err = make_map(&map->atoms, ptr, B, H, L, W, sb, sl, sh);
+  if (err == cudaSuccess && kd % 64)
+    err = make_map(&map->tail, ptr, B, H, L, W, sb, sl, sh, 2, kBoxRows, 2 * (kd % 64));
+  return err;
+}
+
+// Whether the kernels of head width kd take rows of W columns: W = 64 or a
+// multiple of 8 in 72..128, kd one built for the dtype (bf16: 64, 80, 96,
+// 128; fp32: 64, 128) and no narrower than W, and W = 64 at kd = 64 (whose
+// results are stored 64 columns wide).
+inline bool head_width_ok(int W, int kd, bool bf16) {
+  const bool built = kd == 64 || kd == 128 || (bf16 && (kd == 80 || kd == 96));
+  return built && (W == 64 || (W > 64 && W <= 128 && W % 8 == 0)) && W <= kd &&
+         (kd != 64 || W == 64);
 }
 
 // A block: NWG consumer warpgroups (threads 0 .. 128 NWG - 1), then one
@@ -205,17 +271,25 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
-// A tile of R rows (R / 64 boxes down, KD / 64 atoms across) of head h of
-// batch b from row0 on into dst, its tile_bytes<KD>(R) bytes counted on bar.
+// A tile of R rows (R / 64 boxes down; kAtoms atoms and the tail across) of
+// head h of batch b from row0 on into dst, its tile_bytes<KD>(R) bytes
+// counted on bar.
 template <int KD, int R>
-__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar,
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const TileMap* map, uint64_t* bar,
                                          int h, int row0, int b) {
 #pragma unroll
-  for (int a = 0; a < KD / 64; ++a)
+  for (int a = 0; a < kAtoms<KD>; ++a)
 #pragma unroll
     for (int i = 0; i < R / kBoxRows; ++i)
-      tma_load(dst + a * R * kAtomBytes + i * kBoxBytes, map, bar, h, row0 + kBoxRows * i, b,
-               64 * a);
+      tma_load(dst + a * R * kAtomBytes + i * kBoxBytes, &map->atoms, bar, h,
+               row0 + kBoxRows * i, b, 64 * a);
+  if constexpr (kTail<KD> != 0) {
+    unsigned char* t = dst + kAtoms<KD> * R * kAtomBytes;
+#pragma unroll
+    for (int i = 0; i < R / kBoxRows; ++i)
+      tma_load(t + i * kBoxRows * 2 * kTail<KD>, &map->tail, bar, h, row0 + kBoxRows * i, b,
+               64 * kAtoms<KD>);
+  }
 }
 
 // bytes (a multiple of 16) from 16-byte-aligned src into dst, counted on bar
@@ -229,9 +303,11 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
 
 // ---- device: wgmma ------------------------------------------------------------
 
-__device__ __forceinline__ uint64_t smem_desc(const void* tile, unsigned lbo, unsigned sbo) {
+// layout: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte
+__device__ __forceinline__ uint64_t smem_desc(const void* tile, unsigned lbo, unsigned sbo,
+                                              unsigned layout = 1) {
   return (uint64_t)((smem_addr(tile) & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);  // layout 1: 128-byte swizzle
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
 }
 // A tile of whole 8-row groups read K-major; + 2 per 16 columns (32 bytes).
 __device__ __forceinline__ uint64_t desc_k(const void* tile) { return smem_desc(tile, 16, 1024); }
@@ -246,6 +322,26 @@ constexpr uint64_t kDescMN16 = 2048 >> 4;  // next 16 rows, MN-major
 // k16 step k of a K-major tile of R rows: four steps per atom.
 template <int R> __device__ __forceinline__ constexpr uint64_t desc_k_step(int k) {
   return (uint64_t)(k / 4) * (R * kAtomBytes >> 4) + (uint64_t)(k % 4) * kDescK16;
+}
+// The tail atom of T columns (rows of 2T bytes, 8-row groups 16 T bytes
+// apart) in its swizzle: read K-major (+ kDescK16 per 16 columns) or
+// MN-major (+ desc_mn_tail_step<T> per 16 rows).
+template <int T> constexpr unsigned kTailLayout = T == 16 ? 3u : 2u;
+template <int T> __device__ __forceinline__ uint64_t desc_k_tail(const void* t) {
+  return smem_desc(t, 16, 16 * T, kTailLayout<T>);
+}
+template <int T> __device__ __forceinline__ uint64_t desc_mn_tail(const void* t) {
+  return smem_desc(t, 16 * T, 16 * T, kTailLayout<T>);
+}
+template <int T> constexpr uint64_t desc_mn_tail_step = (32 * T) >> 4;
+// k16 step k (of KD / 16) over the head dim of a K-major tile of R rows:
+// four per whole atom, then the tail's.
+template <int R, int KD>
+__device__ __forceinline__ uint64_t desc_k_at(const unsigned char* tile, int k) {
+  if (k < 4 * kAtoms<KD>) return desc_k(tile) + desc_k_step<R>(k);
+  if constexpr (kTail<KD> != 0)
+    return desc_k_tail<kTail<KD>>(tail<KD>(tile, R)) + (uint64_t)(k - 4 * kAtoms<KD>) * kDescK16;
+  return 0;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -302,6 +398,38 @@ template <> struct Wgmma<64> {
   }
 };
 
+// The tail atom's output products at KD = 80 / 96: d += A B, A 64 x 16 in
+// registers as in Wgmma<64>::rs_t, B 16 x N MN-major in shared memory
+// (transposed), N = 16 / 32 columns.
+template <> struct Wgmma<16> {
+  __device__ __forceinline__ static void rs_t(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<32> {
+  __device__ __forceinline__ static void rs_t(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
 template <> struct Wgmma<128> {
   // d (+)= A B^T: A 64 x 16 and B 128 x 16 K-major in shared memory
   __device__ __forceinline__ static void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
@@ -328,14 +456,15 @@ template <> struct Wgmma<128> {
   }
 };
 
-// d (+)= A B^T over the KD-wide head dim: A (64 rows) and B (N rows) both
-// K-major tiles in shared memory; acc 0 overwrites d.
+// d (+)= A B^T over the KD-wide head dim (KD / 16 k16 steps, the tail's
+// last): A (64 rows) and B (N rows) both K-major tiles in shared memory;
+// acc 0 overwrites d.
 template <int N, int KD>
-__device__ __forceinline__ void mma_ss(float (&d)[N / 2], const void* a, const void* b) {
-  const uint64_t da = desc_k(a), db = desc_k(b);
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], const unsigned char* a,
+                                       const unsigned char* b) {
 #pragma unroll
   for (int k = 0; k < KD / 16; ++k)
-    Wgmma<N>::ss(d, da + desc_k_step<64>(k), db + desc_k_step<N>(k), k);
+    Wgmma<N>::ss(d, desc_k_at<64, KD>(a, k), desc_k_at<N, KD>(b, k), k);
 }
 
 // d += A B: A (64 x K) in registers as to_a gives it, B one 64-column atom
@@ -347,6 +476,19 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[K / 1
 #pragma unroll
   for (int k = 0; k < K / 16; ++k) Wgmma<64>::rs_t(d, a[k], db + k * kDescMN16);
 }
+
+// The same on the tail atom of T columns of a tile of K rows (m64nTk16).
+template <int K, int T>
+__device__ __forceinline__ void mma_rs_tail(float (&d)[T / 2], const uint32_t (&a)[K / 16][4],
+                                            const void* t) {
+  const uint64_t db = desc_mn_tail<T>(t);
+#pragma unroll
+  for (int k = 0; k < K / 16; ++k) Wgmma<T>::rs_t(d, a[k], db + k * desc_mn_tail_step<T>);
+}
+
+// The accumulator of a tail of T columns (one float where there is no tail,
+// never read).
+template <int KD> using TailAcc = float[kTail<KD> ? kTail<KD> / 2 : 1];
 
 // The values as they stand at this point of the program: computed before
 // the next asm statement (a wgmma.fence), not sunk past it.
@@ -385,14 +527,15 @@ __device__ __forceinline__ void to_a(const float (&d)[N / 2], uint32_t (&hi)[N /
     }
 }
 
-// Rows row0 + g and row0 + g + 8 of a warp's accumulator of atom a
-// (columns 64 a ..), scaled by mul, into a contiguous (B, L, H, W) bf16
-// tensor (W = 64 at KD = 64); rows at or past L and columns at or past W
-// are not written.
-template <int KD>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out, const float (&d)[32],
-                                           int b, int h, int H, int L, int W, int a, int row0,
-                                           int lane, const float (&mul)[2]) {
+// Rows row0 + g and row0 + g + 8 of a warp's accumulator of N columns from
+// column 64 a on (an atom, N = 64, or the tail, N = kTail<KD>), scaled by
+// mul, into a contiguous (B, L, H, W) bf16 tensor (W = 64 at KD = 64); rows
+// at or past L and columns at or past W are not written.
+template <int KD, int N = 64>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out,
+                                           const float (&d)[N / 2], int b, int h, int H, int L,
+                                           int W, int a, int row0, int lane,
+                                           const float (&mul)[2]) {
   const int g = lane / 4, t = lane % 4;
   const int pitch = KD == 64 ? 64 : W, col0 = 64 * a + 2 * t;
 #pragma unroll
@@ -401,7 +544,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out, cons
     if (row >= L) continue;
     __nv_bfloat16* p = out + (((size_t)b * L + row) * H + h) * pitch + col0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < N / 8; ++j)
       if (KD == 64 || col0 + 8 * j < W)
         *reinterpret_cast<uint32_t*>(p + 8 * j) =
             pack_bf16(d[4 * j + 2 * r] * mul[r], d[4 * j + 2 * r + 1] * mul[r]);

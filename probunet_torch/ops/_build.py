@@ -35,19 +35,20 @@ _SIGNATURES = {
     "probunet_gn_silu_query": [_int] * 7 + [_vp],
     # q, k, v, o, lse, B, H, L, head_dim (the row width the kernels read),
     # (b, l, h) element strides of q, k and v, scale, is_bf16, block_rows,
-    # tile_rows, stream
-    "probunet_attention_fwd": [_vp] * 5 + [_int] * 4 + [_i64] * 9 + [_float] + [_int] * 3 + [_vp],
-    # the bf16 kernel: block_rows, tile_rows, kd (64 or 128), out (int[5])
+    # tile_rows, kd (the kernels' head width), stream
+    "probunet_attention_fwd": [_vp] * 5 + [_int] * 4 + [_i64] * 9 + [_float] + [_int] * 4 + [_vp],
+    # the bf16 kernel: block_rows, tile_rows, kd (64, 80, 96 or 128), out (int[5])
     "probunet_attention_fwd_query": [_int] * 3 + [_vp],
     # the fp32 kernel: kd, tile_rows, out (int[5])
     "probunet_attention_fwd_f32_query": [_int] * 2 + [_vp],
     # q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, L, head_dim, (b, l, h)
     # element strides of q, k, v, o and dout, scale, is_bf16, fast, rows
-    # (bf16: block rows; fp32: streamed tile rows), stream
-    "probunet_attention_bwd": [_vp] * 10 + [_int] * 4 + [_i64] * 15 + [_float] + [_int] * 3
+    # (bf16: block rows; fp32: streamed tile rows), kd, stream
+    "probunet_attention_bwd": [_vp] * 10 + [_int] * 4 + [_i64] * 15 + [_float] + [_int] * 4
                               + [_vp],
     # a bf16 kernel (0 dK/dV or, at kd 128, its dV pass; 1 dQ; 2 the dK pass
-    # at kd 128), block_rows, split, kd (64 or 128), out (int[5])
+    # at kd 128; 3 the row pass), block_rows, split, kd (64, 80, 96 or 128),
+    # out (int[5])
     "probunet_attention_bwd_query": [_int] * 4 + [_vp],
     # an fp32 kernel (0-2 as above, 3 the row pass), kd, rows, out (int[5])
     "probunet_attention_bwd_f32_query": [_int] * 3 + [_vp],

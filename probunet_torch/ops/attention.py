@@ -15,15 +15,19 @@ transposed where a product contracts over a tile's rows, by a producer
 warpgroup). The bf16 kernels take their block sizes from :func:`plan`, the
 fp32 kernels from :func:`fp32_plan`.
 
-Head dims: the kernels hold a head in shared memory 64 or 128 columns wide
-(``kD``), so they take any head dim c up to 128, every one the U-Net
-builds (a width C gives C // 64 heads of C // (C // 64) channels, 64..127). c = 64 runs the kD = 64 kernels;
-64 < c <= 128 runs kD = 128 on rows of c columns, the columns from c to
-127 zeros in shared memory, which leave QK^T unchanged and give zero
-columns in O, dQ, dK and dV that are never stored. The kernels read rows
-of whole 16-byte bf16 chunks (:func:`kernel_width`): a view of another
-width is copied, zero-padded, first (:func:`kernel_layout`), and the
-results are its first c columns. The CPU's plain versions take any c.
+Head dims: the kernels hold a head in shared memory ``kD`` columns wide,
+so they take any head dim c up to 128, every one the U-Net builds (a
+width C gives C // 64 heads of C // (C // 64) channels, 64..127). The bf16
+kernels are built at kD = 64, 80, 96 and 128 and take the narrowest that
+holds the row (:func:`_kd`): c = 64 runs kD = 64; 64 < c <= 96 (72 at
+``--model_channels 96``) the exact-width kD = 80 / 96, a 64-column atom
+and a 16- or 32-column one; 96 < c <= 128 kD = 128. The fp32 kernels are
+built at kD = 64 and 128 (:func:`_fp32_kd`). Columns from c to kD - 1 are
+zeros in shared memory, which leave QK^T unchanged and give zero columns
+in O, dQ, dK and dV that are never stored. The kernels read rows of whole
+16-byte bf16 chunks (:func:`kernel_width`): a view of another width is
+copied, zero-padded, first (:func:`kernel_layout`), and the results are
+its first c columns. The CPU's plain versions take any c.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ from probunet_torch.ops import _build
 
 #: the widest head dim the kernels take (their kD = 128 instantiation)
 MAX_HEAD_DIM = 128
+#: the head widths kD the bf16 kernels are built for
+BF16_KDS = (64, 80, 96, 128)
 #: shared memory one block may use on the H100 (227 KB)
 SMEM_LIMIT = 232_448
 _FWD_STAGES = _BWD_STAGES = 3
@@ -46,12 +52,18 @@ _FWD_STAGES = _BWD_STAGES = 3
 def kernel_width(c: int) -> int:
     """The columns per row that the kernels read for head dim ``c``: 64 up
     to 64 (the kD = 64 kernels, narrower heads zero-padded to 64), else
-    ``c`` rounded up to whole 16-byte bf16 chunks, 8 columns (kD = 128)."""
+    ``c`` rounded up to whole 16-byte bf16 chunks, 8 columns."""
     return 64 if c <= 64 else -(-c // 8) * 8
 
 
 def _kd(width: int) -> int:
-    """The kernels' shared-memory head width for rows of ``width`` columns."""
+    """The bf16 kernels' shared-memory head width for rows of ``width``
+    columns: the narrowest of :data:`BF16_KDS` that holds them."""
+    return next(kd for kd in BF16_KDS if width <= kd) if width <= MAX_HEAD_DIM else MAX_HEAD_DIM
+
+
+def _fp32_kd(width: int) -> int:
+    """The fp32 kernels' head width for rows of ``width`` columns (64, 128)."""
     return 64 if width <= 64 else 128
 
 
@@ -70,7 +82,7 @@ class Plan(NamedTuple):
     ``*_smem`` fields are each kernel's dynamic shared bytes at those block
     sizes, as csrc/attention_fwd.cu (FwdSmem) and csrc/attention_bwd.cu
     (BwdSmem) lay them out; ``kd`` is the head width the kernels are
-    instantiated for (64 or 128)."""
+    instantiated for (:data:`BF16_KDS`), which the C entry points take."""
 
     fwd_rows: int
     fwd_tile: int
@@ -107,22 +119,40 @@ def plan(b: int, heads: int, L: int, num_sms: int, kd: int = 64) -> Plan:
     hold more registers and fit one block per SM either way, the rule of
     K2's blocks. These are the shapes the kernels are built for.
 
+    kd = 80 and 96 (the exact widths of 64 < c <= 96): at kd = 80 K2 takes
+    128-row blocks and tiles where they fill the card (two consumers: 167
+    registers, no spill; 32.2 us against 44.3 for 64-row blocks and tiles
+    at the model_channels 96 site, b8, L=1024, 4 heads of 72, measured the
+    same way), else 64-row blocks and tiles (126 registers). At kd = 96 two
+    consumers spill, and K2 takes 64-row blocks and tiles (137 registers,
+    two blocks an SM; 128-row tiles would hold 185 and leave one block an
+    SM by shared memory). K3 takes 64-row blocks in both modes: its
+    one-pass dK/dV consumer holds dK and dV of 64 x kd fp32 (40 / 48
+    registers a thread each) beside S^T, dP^T and their A operands, 188 /
+    204 registers, past the 168 that ptxas leaves each thread of a
+    two-consumer block.
+
     At kd = 128 every kernel takes 64-row blocks (one consumer warpgroup)
     and 64-row tiles, the one shape built: a consumer's fp32 accumulators
     of 64 x 128 are 64 registers a thread each (K2's O; dK and dV in K3,
     which runs them in two passes), and K2's consumer holds 155 registers
     (chip_smoke.py phase 16); 128-row tiles would add 32 for S, past the
     168 that ptxas leaves each thread of a two-consumer block."""
+    if kd not in BF16_KDS:
+        raise ValueError(f"the bf16 attention kernels are built for kd {BF16_KDS}, not {kd}")
     if kd == 128:
         return Plan(64, 64, 64, 64, fwd_smem=_fwd_smem(64, 64, kd),
                     dkdv_smem=_bwd_smem(64, True, kd), dq_smem=_bwd_smem(64, False, kd), kd=kd)
-    if kd != 64:
-        raise ValueError(f"the attention kernels are built for kd 64 and 128, not {kd}")
-    tile = 128 if L > 64 else 64
-    rows = 128 if tile == 128 and b * heads * math.ceil(L / 128) >= num_sms else 64
-    return Plan(rows, tile, 64, rows, fwd_smem=_fwd_smem(rows, tile),
-                dkdv_smem=max(_bwd_smem(64, True), _bwd_smem(rows, True)),
-                dq_smem=max(_bwd_smem(64, False), _bwd_smem(rows, False)))
+    fill = L > 64 and b * heads * math.ceil(L / 128) >= num_sms  # 128-row blocks fill the card
+    if kd == 64:
+        tile = 128 if L > 64 else 64
+        rows = 128 if fill else 64
+    else:  # kd 80: two consumers where they fill the card; kd 96: one
+        rows = tile = 128 if fill and kd == 80 else 64
+    split_rows = rows if kd == 64 else 64
+    return Plan(rows, tile, 64, split_rows, fwd_smem=_fwd_smem(rows, tile, kd),
+                dkdv_smem=max(_bwd_smem(64, True, kd), _bwd_smem(split_rows, True, kd)),
+                dq_smem=max(_bwd_smem(64, False, kd), _bwd_smem(split_rows, False, kd)), kd=kd)
 
 
 class Fp32Plan(NamedTuple):
@@ -173,8 +203,9 @@ def _f32_dq_smem(kd: int, tile: int, stages: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def fp32_plan(kd: int) -> Fp32Plan:
-    """The fp32 kernels' tiles at head width ``kd``; pure and cached. One
-    shape per width, the one built (with_plan in the sources).
+    """The fp32 kernels' tiles at head width ``kd`` (64 or 128,
+    :func:`_fp32_kd`); pure and cached. One shape per width, the one built
+    (with_plan in the sources).
 
     kd = 64: 64-row K/V tiles in two stages for K2 (193 KB); one stage of
     64-row tiles for K3's dK/dV kernel (each q tile's Q and dO as hi / lo
@@ -299,26 +330,39 @@ def _check_cuda(q, k, v):
                          f"shape {tuple(q.shape)}")
 
 
-def _rows(q: torch.Tensor, fast: bool = False):
-    """(K2's block rows, its K/V tile rows, K3's rows) of a launch on q (B,
-    L, heads, w), as the C entry points take them: for bf16 from
+def _rows(q: torch.Tensor, fast: bool = False, kd: Optional[int] = None):
+    """(K2's block rows, its K/V tile rows, K3's rows, kd) of a launch on q
+    (B, L, heads, w), as the C entry points take them: for bf16 from
     :func:`plan` (K3's block rows in fast or strict mode), for fp32 from
-    :func:`fp32_plan` (64-row blocks; K3's streamed tile rows)."""
+    :func:`fp32_plan` (64-row blocks; K3's streamed tile rows). ``kd`` is
+    the head width of the kernels to run: by default the narrowest built
+    that holds w (:func:`_kd`, :func:`_fp32_kd`); a wider one (the kD = 128
+    kernels at c <= 96, to compare) or one not built reaches the plan,
+    which refuses what is not built, and the entry points, which refuse a
+    kd narrower than w."""
     b, L, h, w = q.shape
     if q.dtype == torch.float32:
-        p = fp32_plan(_kd(w))
-        return 64, p.fwd_tile, p.bwd_tile
-    p = plan(b, h, L, _build.num_sms(q.device.index), _kd(w))
-    return p.fwd_rows, p.fwd_tile, p.bwd_rows if fast else p.bwd_split_rows
+        p = fp32_plan(_fp32_kd(w) if kd is None else kd)
+        return 64, p.fwd_tile, p.bwd_tile, p.kd
+    p = plan(b, h, L, _build.num_sms(q.device.index), _kd(w) if kd is None else kd)
+    return p.fwd_rows, p.fwd_tile, p.bwd_rows if fast else p.bwd_split_rows, p.kd
+
+
+def _count(fn, kd: int, bf16: bool) -> None:
+    """One launch of ``fn``'s kernel: its count and its count by head width."""
+    fn.launches += 1
+    key = f"{'bf16' if bf16 else 'fp32'}_kd{kd}"
+    fn.launches_by_kd[key] = fn.launches_by_kd.get(key, 0) + 1
 
 
 @torch.no_grad()
-def _launch(q, k, v, with_lse: bool, c: Optional[int] = None):
+def _launch(q, k, v, with_lse: bool, c: Optional[int] = None, kd: Optional[int] = None):
     """K2 on q/k/v as they lie (see :func:`kernel_layout`), rows of w
     columns of which the first ``c`` (default w) are the head dim, the
     rest zeros: (out, lse), out (B, L, heads, w), lse the (B*H, L) fp32 row
     log-sum-exp of the logits when ``with_lse``, else None (the kernel then
-    writes no more than out)."""
+    writes no more than out). ``kd``: the kernels' head width (see
+    :func:`_rows`)."""
     b, L, h, w = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q, k and v must have the same shape")
@@ -326,22 +370,24 @@ def _launch(q, k, v, with_lse: bool, c: Optional[int] = None):
     c = w if c is None else c
     out = torch.empty(b, L, h, w, device=q.device, dtype=q.dtype)
     lse = torch.empty(b * h, L, device=q.device, dtype=torch.float32) if with_lse else None
-    rows, tile, _ = _rows(q)
+    rows, tile, _, kd = _rows(q, kd=kd)
+    bf16 = q.dtype == torch.bfloat16
     code = _build.lib().probunet_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if with_lse else None, b, h, L, w, *strides,
-        1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), rows, tile,
-        _build.stream_handle(q.device))
+        1.0 / math.sqrt(c), int(bf16), rows, tile, kd, _build.stream_handle(q.device))
     _build.check(code, "attention kernel")
-    fused_attention.launches += 1
+    _count(fused_attention, kd, bf16)
     return out, lse
 
 
 @torch.no_grad()
-def _launch_bwd(q, k, v, out, lse, do, fast: bool, c: Optional[int] = None):
+def _launch_bwd(q, k, v, out, lse, do, fast: bool, c: Optional[int] = None,
+                kd: Optional[int] = None):
     """K3 on q/k/v/out/do as they lie (see :func:`kernel_layout`), rows of w
     columns of which the first ``c`` (default w) are the head dim: (dq, dk,
-    dv), contiguous (B, L, heads, w)."""
+    dv), contiguous (B, L, heads, w). ``kd``: the kernels' head width (see
+    :func:`_rows`)."""
     b, L, h, w = q.shape
     if any(a.shape != q.shape for a in (k, v, out, do)):
         raise ValueError("q, k, v, out and do must have the same shape")
@@ -350,13 +396,15 @@ def _launch_bwd(q, k, v, out, lse, do, fast: bool, c: Optional[int] = None):
     lse = lse.contiguous()
     scratch = torch.empty(bwd_scratch_shape(b, h, L), device=q.device, dtype=torch.float32)
     dq, dk, dv = (torch.empty(b, L, h, w, device=q.device, dtype=q.dtype) for _ in range(3))
+    _, _, rows, kd = _rows(q, fast, kd)
+    bf16 = q.dtype == torch.bfloat16
     code = _build.lib().probunet_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
         lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, L, w, *strides, 1.0 / math.sqrt(c), int(q.dtype == torch.bfloat16), int(fast),
-        _rows(q, fast)[2], _build.stream_handle(q.device))
+        b, h, L, w, *strides, 1.0 / math.sqrt(c), int(bf16), int(fast), rows, kd,
+        _build.stream_handle(q.device))
     _build.check(code, "attention backward kernel")
-    attention_bwd.launches += 1
+    _count(attention_bwd, kd, bf16)
     return dq, dk, dv
 
 
@@ -450,4 +498,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 fused_attention.launches = 0  # K2 launches; CPU calls of the plain version do not count
 attention_bwd.launches = 0    # K3 launches (one per call, for its three CUDA kernels)
+# the same by dtype and head width, e.g. {"bf16_kd80": 5}
+fused_attention.launches_by_kd = {}
+attention_bwd.launches_by_kd = {}
 kernel_layout.copies = 0      # tensors copied before a launch (on any device)

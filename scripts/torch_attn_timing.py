@@ -9,7 +9,8 @@ device time and by CUDA events, beside scaled_dot_product_attention.
 The 11 attention sites of one U-Net pass at batch 8, 128x128: ``mc128``,
 the default width (L=1024 with 6 heads of 64 x5, L=256 with 8 heads of 64
 x6), ``mc96``, ``--model_channels 96`` (L=1024 with 4 heads of 72 x5, on
-the kernels' kD = 128 instantiation, L=256 with 6 heads of 64 x6). Each
+the bf16 kernels' exact-width kD = 80 instantiation and the fp32 kernels'
+kD = 128, L=256 with 6 heads of 64 x6). Each
 runs on the U-Net block's q/k/v views, is checked against its plain
 version first, then timed: K2 (``fused_attention`` without gradient, as
 serving calls it) and K3 (``attention_bwd`` on K2's output and lse, its
@@ -22,7 +23,7 @@ whose dS products run twice; strict (fp32) against three TF32 products).
 ``--tree`` imports ``probunet_torch`` from another checkout of the
 repository (an earlier commit unpacked with ``git archive``), so that two
 versions of the kernels are timed on one card. ``--plans`` also times
-every block size the bf16 kernels are built for at each site
+every block size the bf16 kernels are built for at each site's head width
 (``ops/attention.py::plan`` overridden). The last line is a JSON object of
 the timings.
 """
@@ -139,7 +140,7 @@ def main() -> int:
                       flush=True)
             if args.plans and hasattr(K2, "plan") and dtype == torch.bfloat16:
                 site["plans"] = time_plans(torch, K2, _build, q, k, v, out, lse, do, fast,
-                                           cs.device_ms)
+                                           cs.device_ms, c)
             per_site.append(site)
         for leg, t in tot.items():
             t["tflops"] = t["flops"] / t["device_ms"] / 1e9
@@ -157,19 +158,26 @@ def main() -> int:
     return 0
 
 
-def time_plans(torch, K2, _build, q, k, v, out, lse, do, fast, device_ms):
+# the K2 block shapes (block rows, K/V tile rows) built at each bf16 head
+# width; K3 with dS split also at 128 rows at kD = 64 (elsewhere 64 rows)
+BUILT = {64: [(64, 64), (64, 128), (128, 128)], 80: [(64, 64), (128, 128)], 96: [(64, 64)],
+         128: [(64, 64)]}
+
+
+def time_plans(torch, K2, _build, q, k, v, out, lse, do, fast, device_ms, c):
     """Device ms of K2 and K3 at this site under each block shape the bf16
-    kernels are built for (the plan overridden): K2 at (rows, tile) of
-    (64, 64), (64, 128), (128, 128); K3 with dS split at 64 and 128 rows
-    (fast mode's K3 is built for 64 rows only)."""
-    b, L, h, _ = q.shape
-    base = K2.plan(b, h, L, _build.num_sms(q.device.index))
-    shapes = [(64, 64), (64, 128), (128, 128)]
+    kernels are built for at its head width (the plan overridden): K2 at
+    each (rows, tile) of BUILT; K3 with dS split at 64 and, at kD = 64, 128
+    rows (fast mode's K3 is built for 64 rows only)."""
+    b, L, h, w = q.shape
+    kd = K2._kd(w) if hasattr(K2, "_kd") else 64
+    base = K2.plan(b, h, L, _build.num_sms(q.device.index), kd)
+    shapes = BUILT.get(kd, [(64, 64)])
     res = {}
     real = K2.plan
     try:
         for i, (rows, tile) in enumerate(shapes):
-            bwd_rows = 128 if rows == 128 and not fast else 64
+            bwd_rows = 128 if rows == 128 and not fast and kd == 64 else 64
             K2.plan = lambda *a, rows=rows, tile=tile, bwd_rows=bwd_rows: base._replace(
                 fwd_rows=rows, fwd_tile=tile, bwd_split_rows=bwd_rows)
             with torch.no_grad():
@@ -179,8 +187,8 @@ def time_plans(torch, K2, _build, q, k, v, out, lse, do, fast, device_ms):
             res[f"{rows}x{tile}"] = {"fwd_device_ms": f, "bwd_device_ms": g,
                                      "bwd_rows": bwd_rows}
             mark = " (the plan)" if (rows, tile) == base[:2] else ""
-            print(f"    plan rows {rows} tile {tile}: K2 device {f * 1e3:.1f} us{mark}; K3 at "
-                  f"{bwd_rows} rows device {g * 1e3:.1f} us", flush=True)
+            print(f"    kD {kd} plan rows {rows} tile {tile}: K2 device {f * 1e3:.1f} us{mark}; "
+                  f"K3 at {bwd_rows} rows device {g * 1e3:.1f} us", flush=True)
     finally:
         K2.plan = real
     return res

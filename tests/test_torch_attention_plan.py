@@ -6,8 +6,10 @@ the blocks and tiles take values the kernels are built for, and their
 grids cover every row. The plans' shared-memory figures mirror the
 kernels' own layouts (FwdSmem, BwdSmem; FwdSmem32, PrepSmem32, DkdvSmem32,
 DqSmem32); chip_smoke.py phase 1 holds them against what the built kernels
-report on the card. Past head dim 64 the kernels hold 128 columns a head
-(kD = 128), at every site of the model_channels 96 path too."""
+report on the card. Past head dim 64 the bf16 kernels hold the narrowest
+head width built (kD = 80 at the model_channels 96 path's head dim 72, 96,
+or 128) and the fp32 kernels 128 columns; the kD = 128 plan stays callable
+at every head dim past 64."""
 
 import math
 
@@ -141,8 +143,88 @@ def test_plan_fits_head_dims_past_64(b, L, heads, c):
 
 
 def test_plan_refuses_other_head_widths():
-    with pytest.raises(ValueError, match="kd 64 and 128"):
-        tatt.plan(8, 4, 1024, NUM_SMS, 96)
+    """The bf16 kernels are built at kd 64, 80, 96 and 128 only."""
+    for kd in (32, 72, 112, 256):
+        with pytest.raises(ValueError, match=r"kd \(64, 80, 96, 128\)"):
+            tatt.plan(8, 4, 1024, NUM_SMS, kd)
+
+
+def test_kd_of_every_head_dim():
+    """Every head dim 1..128 the kernels take gets the narrowest head width
+    built that holds its row of kernel_width(c) columns: bf16 kd 64 up to
+    64, 80 for 65-80, 96 for 81-96, 128 for 97-128 (the exact widths: 64
+    columns and a tail of 16 or 32); fp32 kd 64 or 128. No row is wider
+    than its kd, and none fits the next narrower one."""
+    for c in range(1, 129):
+        w = tatt.kernel_width(c)
+        kd = tatt._kd(w)
+        assert kd == (64 if c <= 64 else 80 if c <= 80 else 96 if c <= 96 else 128), c
+        assert kd in tatt.BF16_KDS and w <= kd
+        narrower = [k for k in tatt.BF16_KDS if k < kd]
+        assert not narrower or w > max(narrower)
+        assert tatt._fp32_kd(w) == (64 if c <= 64 else 128)
+        assert tatt.plan(8, 4, 1024, NUM_SMS, kd).kd == kd
+
+
+# (B, L, heads, c) at the exact widths: the model_channels 96 path's 32x32
+# site at b8 and its 256x256 tile's at b4, then head dims 65-96 at edge
+# lengths (one row; a ragged 64-row tile; one 64-row tile; L = 4096)
+EXACT = ([(8, L, h, c) for L, h, c in _head_dim_sites(128, 96) if c > 64]
+         + [(4, L, h, c) for L, h, c in _head_dim_sites(256, 96) if c > 64]
+         + [(1, 1, 1, 72), (2, 65, 3, 65), (2, 100, 2, 80), (2, 64, 4, 88), (1, 4096, 2, 96),
+            (8, 1024, 1, 96), (64, 64, 8, 88), (1, 127, 2, 72)])
+# the K2 block shapes (block rows, K/V tile rows) built at each exact width
+# (attention_fwd.cu with_plan); K3 takes 64-row blocks there in both modes
+EXACT_FWD_SHAPES = {80: {(128, 128), (64, 64)}, 96: {(64, 64)}}
+
+
+@pytest.mark.parametrize("b,L,heads,c", EXACT, ids=lambda x: str(x))
+def test_plan_fits_exact_widths(b, L, heads, c):
+    """kd = 80 / 96 at every such site: the built shapes, every kernel's
+    shared memory under SMEM_LIMIT, grids that cover every row (K2's blocks
+    of query rows and K/V tiles, K3's 64-row blocks), and K3's scratch at
+    64-row tiles."""
+    kd = tatt._kd(tatt.kernel_width(c))
+    assert kd in (80, 96)
+    p = tatt.plan(b, heads, L, NUM_SMS, kd)
+    assert p.kd == kd
+    assert (p.fwd_rows, p.fwd_tile) in EXACT_FWD_SHAPES[kd]
+    assert p.bwd_rows == p.bwd_split_rows == 64
+    assert max(p.fwd_smem, p.dkdv_smem, p.dq_smem) <= tatt.SMEM_LIMIT
+    for rows in (p.fwd_rows, p.bwd_rows):
+        blocks = math.ceil(L / rows)
+        covered = [r for blk in range(blocks) for r in range(blk * rows, (blk + 1) * rows) if r < L]
+        assert covered == list(range(L))
+    tiles = math.ceil(L / p.fwd_tile)
+    assert tiles * p.fwd_tile >= L > (tiles - 1) * p.fwd_tile
+    # two consumers only where the second has rows and 128-row blocks fill the card
+    if p.fwd_rows == 128:
+        assert L > 64 and b * heads * math.ceil(L / 128) >= NUM_SMS
+    assert tatt.bwd_scratch_shape(b, heads, L)[1] * 64 >= L
+
+
+def test_exact_width_plan_layouts():
+    """The exact widths' shared bytes as the kernels lay them out: a 64-row
+    tile is 64 x kd bf16 (10 KB at kd 80, 12 KB at 96), its 64-column atom
+    then its 16- or 32-column tail; K2 holds its blocks' Q tiles and three
+    stages of K and V tiles, K3 its two operand tiles and three stages of
+    two streamed tiles (+ 512 bytes of lse and D in dK/dV); the barriers
+    and 1024 bytes to align. At the model_channels 96 site K2 takes
+    128-row blocks and tiles (two consumers), K3 64-row blocks."""
+    p = tatt.plan(8, 4, 1024, NUM_SMS, 80)
+    assert (p.fwd_rows, p.fwd_tile, p.bwd_rows, p.bwd_split_rows) == (128, 128, 64, 64)
+    t80, t96 = 64 * 80 * 2, 64 * 96 * 2
+    assert (t80, t96) == (10_240, 12_288)
+    assert p.fwd_smem == 2 * t80 + 6 * 2 * t80 + 8 * 10 + 1024 == 144_464
+    assert p.dkdv_smem == 2 * t80 + 3 * (2 * t80 + 512) + 8 * 7 + 1024 == 84_536
+    assert p.dq_smem == 2 * t80 + 6 * t80 + 8 * 7 + 1024 == 83_000
+    p = tatt.plan(8, 4, 1024, NUM_SMS, 96)
+    assert (p.fwd_rows, p.fwd_tile, p.bwd_rows, p.bwd_split_rows) == (64, 64, 64, 64)
+    assert p.fwd_smem == t96 + 6 * t96 + 8 * 10 + 1024 == 87_120
+    assert p.dkdv_smem == 2 * t96 + 3 * (2 * t96 + 512) + 8 * 7 + 1024 == 100_920
+    assert p.dq_smem == 2 * t96 + 6 * t96 + 8 * 7 + 1024 == 99_384
+    assert tatt.plan(8, 4, 64, NUM_SMS, 80)[:4] == (64, 64, 64, 64)
+    assert tatt.plan(1, 1, 1024, NUM_SMS, 80)[:4] == (64, 64, 64, 64)
 
 
 # ---- the fp32 (3xTF32) kernels' plan ------------------------------------------------------

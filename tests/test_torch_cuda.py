@@ -254,11 +254,13 @@ def test_attention_fp32_with_fast_runs_the_strict_kernels(dev, layout, b, L, nh)
         assert (g - r).abs().max().item() <= 1e-4 * max(1e-3, r.abs().max().item())
 
 
-# head dims past 64, which run the kernels' kD = 128 instantiation: 72 (the
-# 288-wide level of model_channels 96: 4 heads), 96 (one head of a 96-wide
-# level) and 100 (bf16 rows of 200 bytes, not whole 16-byte chunks: copied
-# zero-padded to 104 columns first); 32 runs kD = 64 on a zero-padded copy
-HEAD_DIMS = (32, 72, 96, 100)
+# head dims past 64: 65 (copied zero-padded to 72 columns) and 72 (the
+# 288-wide level of model_channels 96: 4 heads) run the bf16 kernels' kD =
+# 80, 80 too; 88 and 96 (one head of a 96-wide level) kD = 96; 100 (bf16
+# rows of 200 bytes, not whole 16-byte chunks: copied zero-padded to 104
+# columns first) kD = 128; the fp32 kernels run kD = 128 at all of them; 32
+# runs kD = 64 on a zero-padded copy
+HEAD_DIMS = (32, 65, 72, 80, 88, 96, 100)
 
 
 def _head_dim_copies(layout, c):
@@ -323,6 +325,81 @@ def test_attention_head_dims_rerun_bit_equal(dev, fast, b, L, nh, c):
     assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
     assert all(torch.equal(a, b_) for a, b_ in zip(*grads))
     assert all(g.shape == (b, L, nh, c) for g in grads[0])
+
+
+def _same_plan_as_kd128(monkeypatch, kd):
+    """Runs the exact-width kernels (kd) at kD = 128's block shape: 64-row
+    blocks and K/V tiles, so that K2's online softmax meets the same tiles
+    in the same order."""
+    real = K2.plan
+
+    def plan(b, heads, L, num_sms, kd_=64):
+        p = real(b, heads, L, num_sms, kd_)
+        return p._replace(fwd_rows=64, fwd_tile=64) if kd_ == kd else p
+
+    monkeypatch.setattr(K2, "plan", plan)
+
+
+@pytest.mark.parametrize("c", [72, 88])
+@pytest.mark.parametrize("fast", [True, False], ids=["fast", "strict_bf16"])
+@pytest.mark.parametrize("b,L,nh", [(8, 1024, 4), (2, 65, 3), (1, 300, 2), (1, 1, 1)])
+def test_attention_exact_width_matches_kd128(dev, monkeypatch, fast, b, L, nh, c):
+    """The exact-width bf16 kernels (kD = 80 at c = 72, 96 at 88) against
+    the kD = 128 ones on the same inputs: K3 on the same forward output and
+    lse gives the same bits (the columns past c and the k steps past the
+    tail add exact zeros), and so does K2 at kD = 128's block shape; at its
+    own plan (128-row K/V tiles at kD = 80 where they fill the card) K2's
+    online softmax rescales at other tile bounds, within the fast tolerance.
+    (8, 1024, 4) at c = 72 is the model_channels 96 path's 32x32 site."""
+    kd = 80 if c <= 80 else 96
+    gen = torch.Generator(device=dev).manual_seed(L + nh + c)
+    (q, k, v), _ = _qkv("block", b, L, nh, torch.bfloat16, dev, gen, c=c)
+    do = torch.randn(b, L, nh, c, device=dev, generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        before = dict(K2.fused_attention.launches_by_kd)
+        own = K2._launch(q, k, v, with_lse=True)
+        assert K2.fused_attention.launches_by_kd.get(f"bf16_kd{kd}", 0) == \
+            before.get(f"bf16_kd{kd}", 0) + 1
+        wide = K2._launch(q, k, v, with_lse=True, kd=128)
+        grads = K2._launch_bwd(q, k, v, wide[0], wide[1], do, fast)
+        grads_wide = K2._launch_bwd(q, k, v, wide[0], wide[1], do, fast, kd=128)
+        _same_plan_as_kd128(monkeypatch, kd)
+        same_shape = K2._launch(q, k, v, with_lse=True)
+    assert all(torch.equal(x, y) for x, y in zip(grads, grads_wide))
+    assert torch.equal(same_shape[0], wide[0]) and torch.equal(same_shape[1], wide[1])
+    torch.testing.assert_close(own[0].float(), wide[0].float(), atol=2e-2, rtol=2e-2)
+    assert (own[1] - wide[1]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("c", [72, 88])
+def test_attention_exact_width_tail_atom(dev, c):
+    """One site (b1, L = 64: one block, one K/V tile) whose q, k, v and dO
+    are nonzero only in the tail atom's columns 64 .. c - 1: S = Q K^T and
+    dP = dO V^T come from the tail's K-major k16 steps alone, and O, dV, dK
+    and dQ from its MN-major m64nTk16 products alone (32-byte swizzle at
+    kD = 80, 64-byte at 96). Against the plain versions; columns 0 .. 63
+    of every result exactly 0. A kd narrower than the row is refused by
+    the entry point, one not built by the plan."""
+    gen = torch.Generator(device=dev).manual_seed(c)
+    (q, k, v), _ = _qkv("block", 1, 64, 2, torch.bfloat16, dev, gen, c=c)
+    do = torch.randn(1, 64, 2, c, device=dev, generator=gen).to(torch.bfloat16)
+    for a in (q, k, v, do):
+        a[..., :64] = 0
+    with torch.no_grad():
+        out, lse = K2._launch(q, k, v, with_lse=True)
+        grads = K2._launch_bwd(q, k, v, out, lse, do, True)
+        ref = K2._plain_attention(q, k, v, True)
+        ref_b = K2._plain_attention_bwd(q, k, v, do, True)
+    assert not out[..., :64].any() and all(not g[..., :64].any() for g in grads)
+    assert out[..., 64:].abs().max().item() > 0.1
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    for g, r in zip(grads, ref_b):
+        assert (g.float() - r.float()).abs().max().item() <= \
+            5e-2 * max(1e-3, r.float().abs().max().item())
+    with pytest.raises(RuntimeError, match="attention kernel"):
+        K2._launch(q, k, v, with_lse=False, kd=64)
+    with pytest.raises(ValueError, match="kd"):
+        K2._launch(q, k, v, with_lse=False, kd=112)
 
 
 # ---- the fp32 (strict, 3xTF32 on tf32 wgmma) kernels -------------------------------------

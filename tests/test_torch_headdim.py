@@ -62,11 +62,13 @@ def _head_dims(model):
 # ---- the attention itself --------------------------------------------------------------
 
 @pytest.mark.parametrize("mode", list(ATTN_MODES))
-@pytest.mark.parametrize("c", [72, 96, 100, 127])
+@pytest.mark.parametrize("c", [65, 72, 88, 96, 100, 127])
 def test_plain_attention_matches_jax_interpret(c, mode):
-    """Forward and backward at head dim c: the plain versions and autograd
-    through the block's (qkv, head, channel) views, against JAX's Pallas
-    kernels in interpret mode, with the head dim 64 tolerances of
+    """Forward and backward at head dim c (on the card 65 and 72 run the
+    bf16 kernels' kD = 80, 88 and 96 kD = 96, 100 and 127 kD = 128): the
+    plain versions and autograd through the block's (qkv, head, channel)
+    views, against JAX's Pallas kernels in interpret mode, with the head
+    dim 64 tolerances of
     test_torch_kernels.py (forward: strict 2e-5, fast 2e-2) and
     test_torch_train.py (gradients relative to the largest reference
     entry: 1e-4 and 5e-2)."""

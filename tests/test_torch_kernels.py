@@ -187,12 +187,15 @@ def test_kernel_signatures_match_c_declarations():
     assert set(_build._SIGNATURES) == set(decls) - {"probunet_error_string"}
     for name, argtypes in _build._SIGNATURES.items():
         assert argtypes == decls[name], name
-    # the attention entry points take the head dim after (B, H, L), the
-    # bf16 queries the head width kd after the block sizes, the fp32
-    # queries kd before the tile rows
+    # the attention entry points take the head dim after (B, H, L) and the
+    # head width kd after the plan's rows, last before the stream; the bf16
+    # queries kd after the block sizes, the fp32 queries kd before the tile
+    # rows
     i = ctypes.c_int
     assert decls["probunet_attention_fwd"][5:10] == [i, i, i, i, ctypes.c_longlong]
     assert decls["probunet_attention_bwd"][10:15] == [i, i, i, i, ctypes.c_longlong]
+    assert decls["probunet_attention_fwd"][-6:] == [ctypes.c_float, i, i, i, i, ctypes.c_void_p]
+    assert decls["probunet_attention_bwd"][-6:] == [ctypes.c_float, i, i, i, i, ctypes.c_void_p]
     assert decls["probunet_attention_fwd_query"] == [i, i, i, ctypes.c_void_p]
     assert decls["probunet_attention_bwd_query"] == [i, i, i, i, ctypes.c_void_p]
     assert decls["probunet_attention_fwd_f32_query"] == [i, i, ctypes.c_void_p]
@@ -217,6 +220,8 @@ def fake_lib(monkeypatch):
     monkeypatch.setattr(_build, "num_sms", lambda index: 132)
     monkeypatch.setattr(tatt.fused_attention, "launches", 0)
     monkeypatch.setattr(tatt.attention_bwd, "launches", 0)
+    monkeypatch.setattr(tatt.fused_attention, "launches_by_kd", {})
+    monkeypatch.setattr(tatt.attention_bwd, "launches_by_kd", {})
     return lib
 
 
@@ -225,9 +230,10 @@ def test_attention_wrappers_pass_the_declared_arguments(fake_lib, monkeypatch):
     with CPU tensors standing in), fp32 and bf16: the declared arity and
     types; the stride arguments are the tensors' own (b, l, h) strides (the
     block's views go in place); then the scale, the dtype flag and the
-    plan's sizes (bf16: plan's block and tile rows; fp32: 64-row blocks and
-    fp32_plan's tile rows); K3's scratch is an fp32 tensor of
-    bwd_scratch_shape (lse and D per 64-row tile, both dtypes)."""
+    plan's sizes and head width (bf16: plan's block and tile rows, kd 64;
+    fp32: 64-row blocks and fp32_plan's tile rows, kd 64); K3's scratch is
+    an fp32 tensor of bwd_scratch_shape (lse and D per 64-row tile, both
+    dtypes)."""
     made = []
     empty = torch.empty
 
@@ -263,13 +269,17 @@ def test_attention_wrappers_pass_the_declared_arguments(fake_lib, monkeypatch):
         bf16 = int(dtype == torch.bfloat16)
         if bf16:
             p = tatt.plan(b, h, L, 132)
-            assert fargs[-4:-1] == (bf16, p.fwd_rows, p.fwd_tile)
-            assert bargs[-4:-1] == (bf16, 1, p.bwd_rows)
-            assert strict_args[-4:-1] == (bf16, 0, p.bwd_split_rows)
+            assert fargs[-5:-1] == (bf16, p.fwd_rows, p.fwd_tile, 64)
+            assert bargs[-5:-1] == (bf16, 1, p.bwd_rows, 64)
+            assert strict_args[-5:-1] == (bf16, 0, p.bwd_split_rows, 64)
         else:
             p = tatt.fp32_plan(64)
-            assert fargs[-4:-1] == (0, 64, p.fwd_tile) == (0, 64, 64)
-            assert bargs[-4:-1] == (0, 1, p.bwd_tile) and strict_args[-4:-1] == (0, 0, 64)
+            assert fargs[-5:-1] == (0, 64, p.fwd_tile, 64) == (0, 64, 64, 64)
+            assert bargs[-5:-1] == (0, 1, p.bwd_tile, 64) and strict_args[-5:-1] == (0, 0, 64, 64)
+        assert tatt.fused_attention.launches_by_kd == {f"{'bf16' if bf16 else 'fp32'}_kd64": 1}
+        assert tatt.attention_bwd.launches_by_kd == {f"{'bf16' if bf16 else 'fp32'}_kd64": 2}
+        tatt.fused_attention.launches_by_kd.clear()
+        tatt.attention_bwd.launches_by_kd.clear()
         scratch = next(t for t in made if t.data_ptr() == bargs[6])
         assert scratch.dtype == torch.float32
         assert tuple(scratch.shape) == tatt.bwd_scratch_shape(b, h, L) == (b * h, -(-L // 64), 2, 64)
@@ -282,9 +292,11 @@ def test_attention_wrappers_at_other_head_dims(fake_lib, monkeypatch, dtype, c, 
     the block's views of whole 16-byte bf16 chunks go in place (c = 72, 96:
     no copy), any other width is copied zero-padded to that width (each
     copy counted; the backward reuses the forward's copies of q/k/v and
-    pads dO), the scale is 1/sqrt(c) of the real c, kD = 128 past 64 picks
-    the plan's 64-row blocks, and the results are the first c columns.
-    (fake_lib: the outputs' bits are whatever torch.empty left.)"""
+    pads dO), the scale is 1/sqrt(c) of the real c, the head width is the
+    narrowest built that holds the row (bf16: kD = 80 at 72, 96 at 96, 128
+    at 104 and 128; fp32: 128 past 64) with its plan's rows, and the
+    results are the first c columns. (fake_lib: the outputs' bits are
+    whatever torch.empty left.)"""
     assert tatt.kernel_width(c) == width
     monkeypatch.setattr(tatt.kernel_layout, "copies", 0)
     rng = np.random.default_rng(c)
@@ -307,16 +319,115 @@ def test_attention_wrappers_at_other_head_dims(fake_lib, monkeypatch, dtype, c, 
     assert fargs[5:9] == bargs[10:14] == (2, 2, 64, width)
     assert fargs[18] == bargs[29] == pytest.approx(1 / math.sqrt(c), rel=1e-7)
     assert fargs[0] == kq.data_ptr() and bargs[0] == kq.data_ptr()
-    kd = 128 if c > 64 else 64
     if dtype == torch.bfloat16:
+        kd = {64: 64, 72: 80, 96: 96, 104: 128, 128: 128}[width]
         p = tatt.plan(2, 2, 64, 132, kd)
-        assert p.kd == kd and fargs[-3:-1] == (p.fwd_rows, p.fwd_tile) and bargs[-2] == p.bwd_rows
-        if kd == 128:
+        assert p.kd == kd and fargs[-4:-1] == (p.fwd_rows, p.fwd_tile, kd)
+        assert bargs[-3:-1] == (p.bwd_rows, kd)
+        if kd != 64:
             assert (p.fwd_rows, p.fwd_tile, p.bwd_rows, p.bwd_split_rows) == (64, 64, 64, 64)
     else:  # fp32: 64-row blocks, the fp32 plan's tiles (32 rows at kD = 128)
+        kd = 128 if c > 64 else 64
         p = tatt.fp32_plan(kd)
-        assert fargs[-3:-1] == (64, p.fwd_tile) and bargs[-2] == p.bwd_tile
+        assert fargs[-4:-1] == (64, p.fwd_tile, kd) and bargs[-3:-1] == (p.bwd_tile, kd)
         assert (p.fwd_tile, p.bwd_tile) == ((32, 32) if kd == 128 else (64, 64))
+
+
+@pytest.mark.parametrize("c,width,kd", [(65, 72, 80), (72, 72, 80), (88, 88, 96), (96, 96, 96),
+                                        (100, 104, 128)])
+def test_attention_wrappers_pass_the_exact_head_width(fake_lib, monkeypatch, c, width, kd):
+    """bf16 at head dims past 64: the entry points get kd 80, 80, 96, 96 and
+    128 at c = 65, 72, 88, 96 and 100, the narrowest width built that holds
+    the row, with that width's plan rows (here 128-row blocks and tiles at
+    kd 80, where 8 blocks fill the 8 SMs the recorder's card reports: 64 at
+    kd 96 and 128); the block's views of whole bf16 chunks (72, 88, 96) go
+    in place; kd = 128 stays callable at every such c, with its own plan;
+    the counts by head width see each launch; a kd not built is refused
+    before any call."""
+    monkeypatch.setattr(_build, "num_sms", lambda index: 8)
+    monkeypatch.setattr(tatt.kernel_layout, "copies", 0)
+    rng = np.random.default_rng(c)
+    y = torch.from_numpy(rng.standard_normal((2, 256, 3, 2, c)).astype(np.float32)).to(
+        torch.bfloat16)
+    q, k, v = map(tatt.kernel_layout, y.unbind(2))
+    assert tatt.kernel_layout.copies == (0 if width == c else 3)
+    assert (q.data_ptr() == y.data_ptr()) == (width == c)
+    do = torch.zeros(2, 256, 2, width, dtype=torch.bfloat16)
+    for want in (kd, 128):
+        fake_lib.calls.clear()
+        out, lse = tatt._launch(q, k, v, with_lse=True, c=c, kd=None if want == kd else 128)
+        tatt._launch_bwd(q, k, v, out, lse, do, True, c, kd=None if want == kd else 128)
+        tatt._launch_bwd(q, k, v, out, lse, do, False, c, kd=None if want == kd else 128)
+        (_, fargs), (_, bargs), (_, sargs) = fake_lib.calls
+        p = tatt.plan(2, 2, 256, 8, want)
+        assert fargs[8] == bargs[13] == width
+        assert fargs[-4:-1] == (p.fwd_rows, p.fwd_tile, want)
+        assert bargs[-4:-1] == (1, p.bwd_rows, want) and sargs[-4:-1] == (0, p.bwd_split_rows, want)
+        rows = {80: (128, 128, 64, 64), 96: (64, 64, 64, 64), 128: (64, 64, 64, 64)}[want]
+        assert p[:4] == rows
+    assert tatt.fused_attention.launches_by_kd == ({"bf16_kd128": 2} if kd == 128 else
+                                                   {f"bf16_kd{kd}": 1, "bf16_kd128": 1})
+    assert tatt.attention_bwd.launches_by_kd == ({"bf16_kd128": 4} if kd == 128 else
+                                                 {f"bf16_kd{kd}": 2, "bf16_kd128": 2})
+    fake_lib.calls.clear()
+    for bad in (72, 112):
+        with pytest.raises(ValueError, match="kd"):
+            tatt._launch(q, k, v, with_lse=False, c=c, kd=bad)
+    assert fake_lib.calls == []
+
+
+def _with_plan_cases(path):
+    """The (kd, rows, ...) -> Op<...> lines of the bf16 with_plan in a
+    source: K2's (kd, block rows, tile rows, NWG, BN, KD), K3's (kd, block
+    rows, split, NWG, SPLIT, KD)."""
+    src = re.sub(r"//[^\n]*", "", path.read_text())
+    body = src[src.index("namespace sm90"):src.index("namespace f32")]
+    body = body[body.index("cudaError_t with_plan("):]
+    fwd = [tuple(map(int, m)) for m in re.findall(
+        r"kd == (\d+) && block_rows == (\d+) && tile_rows == (\d+)\) return f\(Op<(\d+), (\d+), "
+        r"(\d+)>", body)]
+    bwd = []
+    for m in re.finditer(r"kd == (\d+) && block_rows == (\d+)( && split)?\)\s*return ([^;]+);",
+                         body):
+        kd, rows, only_split, ret = int(m.group(1)), int(m.group(2)), m.group(3), m.group(4)
+        for nwg, split, k in re.findall(r"Op<(\d+), (true|false), (\d+)>", ret):
+            bwd.append((kd, rows, split == "true", int(nwg), split == "true", int(k)))
+        assert not only_split or "false" not in ret
+    return fwd, bwd
+
+
+def test_with_plan_builds_every_shape_the_plan_gives():
+    """A census of the sources against ops/attention.py::plan: every (kd,
+    block rows, tile rows) K2 plan and every (kd, block rows, split) K3
+    plan at each built kd, over the U-Net's sites and edge shapes, has its
+    case in with_plan (attention_fwd.cu, attention_bwd.cu), each case's
+    instantiation matches it (rows = 64 NWG, tile = BN, KD = kd), no case
+    is at a kd outside BF16_KDS, and no case is one the plan never gives
+    (a shape built for nothing)."""
+    fwd, _ = _with_plan_cases(_build.CSRC / "attention_fwd.cu")
+    _, bwd = _with_plan_cases(_build.CSRC / "attention_bwd.cu")
+    assert fwd and bwd
+    for kd, rows, tile, nwg, bn, k in fwd:
+        assert kd == k and rows == 64 * nwg and tile == bn and kd in tatt.BF16_KDS
+    for kd, rows, split, nwg, _, k in bwd:
+        assert kd == k and rows == 64 * nwg and kd in tatt.BF16_KDS
+    built_fwd = {c[:3] for c in fwd}
+    built_bwd = {c[:3] for c in bwd}
+    assert len(built_fwd) == len(fwd) and len(built_bwd) == len(bwd)
+    given_fwd, given_bwd = set(), set()
+    for kd in tatt.BF16_KDS:
+        for b in (1, 2, 4, 8, 64):
+            for heads in (1, 2, 4, 6, 8):
+                for L in (1, 64, 65, 100, 128, 256, 1024, 4096):
+                    for sms in (16, 132):
+                        p = tatt.plan(b, heads, L, sms, kd)
+                        given_fwd.add((kd, p.fwd_rows, p.fwd_tile))
+                        given_bwd.add((kd, p.bwd_rows, False))
+                        given_bwd.add((kd, p.bwd_split_rows, True))
+    assert given_fwd == built_fwd
+    assert given_bwd <= built_bwd
+    # the split-dS 64-row shapes are built for fast mode's 64-row plan too
+    assert built_bwd - given_bwd <= {(kd, 64, True) for kd in tatt.BF16_KDS}
 
 
 def test_attention_refuses_heads_past_128():
