@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from probunet_torch.utils import device as _device
+from probunet_torch.utils.logging import span
 
 
 def is_initialized() -> bool:
@@ -173,17 +174,19 @@ class DataParallel:
         """Replace every ``p.grad`` by the global gradient: summed over the
         ranks, as one flat buffer per dtype, and divided by the world size
         when the loss is a mean over the batch (a loss summed over the batch
-        sums its gradients, as the JAX step's global loss does)."""
-        by_dtype: Dict[torch.dtype, list] = {}
-        for p in params:
-            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-        for grads in by_dtype.values():
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat)
-            if mean:
-                flat.div_(self.world)
-            parts = flat.split([g.numel() for g in grads])
-            torch._foreach_copy_(grads, [c.view(g.shape) for c, g in zip(parts, grads)])
+        sums its gradients, as the JAX step's global loss does). One
+        ``probunet.allreduce`` span."""
+        with span("probunet.allreduce"):
+            by_dtype: Dict[torch.dtype, list] = {}
+            for p in params:
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+            for grads in by_dtype.values():
+                flat = torch.cat([g.reshape(-1) for g in grads])
+                dist.all_reduce(flat)
+                if mean:
+                    flat.div_(self.world)
+                parts = flat.split([g.numel() for g in grads])
+                torch._foreach_copy_(grads, [c.view(g.shape) for c, g in zip(parts, grads)])
 
     def reduce_metrics(self, metrics: Dict, sums: Sequence[str] = (),
                        means: Sequence[str] = ()) -> Dict:

@@ -18,6 +18,8 @@ from typing import Callable, Iterable, List, Optional
 import torch
 from torch import nn
 
+from probunet_torch.utils.logging import span
+
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm), fp32."""
@@ -100,23 +102,25 @@ class Optimizer:
         """One micro-step. With ``accum`` > 1 the gradients join the window's
         running mean (Welford, as MultiSteps keeps it) and the inner update
         runs with that mean on the window's last micro-step only. Returns
-        whether the parameters were updated."""
-        grads = [p.grad for p in self.params]
-        if self.acc is not None:
-            delta = torch._foreach_sub(grads, self.acc)
-            torch._foreach_div_(delta, self.mini_step + 1)
-            torch._foreach_add_(self.acc, delta)
-            self.mini_step = (self.mini_step + 1) % self.accum
-            if self.mini_step:
-                return False
-            torch._foreach_copy_(grads, self.acc)
-            torch._foreach_zero_(self.acc)
-        if self.grad_clip:
-            norm = global_norm(grads)
-            torch._foreach_mul_(grads, torch.where(norm < self.grad_clip, 1.0,
-                                                   self.grad_clip / norm))
-        self.inner.step()
-        return True
+        whether the parameters were updated. One ``probunet.optimizer``
+        span."""
+        with span("probunet.optimizer"):
+            grads = [p.grad for p in self.params]
+            if self.acc is not None:
+                delta = torch._foreach_sub(grads, self.acc)
+                torch._foreach_div_(delta, self.mini_step + 1)
+                torch._foreach_add_(self.acc, delta)
+                self.mini_step = (self.mini_step + 1) % self.accum
+                if self.mini_step:
+                    return False
+                torch._foreach_copy_(grads, self.acc)
+                torch._foreach_zero_(self.acc)
+            if self.grad_clip:
+                norm = global_norm(grads)
+                torch._foreach_mul_(grads, torch.where(norm < self.grad_clip, 1.0,
+                                                       self.grad_clip / norm))
+            self.inner.step()
+            return True
 
     def state_dict(self) -> dict:
         """What exact resume needs: the inner optimizer's ``state_dict``

@@ -17,6 +17,14 @@ rows of the global draw, the gradients are all-reduced before the gradient
 norm, the clip and the optimizer, and the metrics are reduced on the device
 (summed where the loss sums over the batch, as the ELBO does, else
 averaged). Without ``dp`` every step is the single-process step.
+
+Spans (``utils/logging.py::span``, recorded only under a profiler): each
+training step is one ``probunet.train_step`` and each sampler call one
+``probunet.sample``; inside it the phases ``probunet.pair`` (the pair
+synthesis), ``probunet.forward``, ``probunet.backward`` (with the zero
+gradients of unused parameters), ``probunet.allreduce`` and
+``probunet.optimizer`` (``parallel/mesh.py``, ``train/state.py``) and
+``probunet.output`` (residual -> HR), in that order.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from probunet_torch.data.units import k_to_c, kgm2s_to_mmday
 from probunet_torch.ops.crps import crps_empirical
 from probunet_torch.train.state import TrainState, global_norm
 from probunet_torch.utils.device import full_fp32
+from probunet_torch.utils.logging import span
 
 SeedOrGenerator = Union[int, torch.Generator]
 
@@ -87,10 +96,21 @@ def _grad_leaf_norms(model: torch.nn.Module) -> dict:
 
 
 def _pair(hr_all, stats, idx, lowres_scale, standardization, compute_dtype):
-    hr = hr_all[idx]
-    sl = transforms.slice_stats(stats, standardization, idx)
-    pair = transforms.make_pair(hr, lowres_scale, standardization, sl)
-    return pair["inputs"].to(compute_dtype), pair["targets"].to(compute_dtype)
+    with span("probunet.pair"):
+        hr = hr_all[idx]
+        sl = transforms.slice_stats(stats, standardization, idx)
+        pair = transforms.make_pair(hr, lowres_scale, standardization, sl)
+        return pair["inputs"].to(compute_dtype), pair["targets"].to(compute_dtype)
+
+
+def _backward(loss: torch.Tensor, params) -> None:
+    """``loss.backward()``, then a zero gradient for each parameter outside
+    the graph: unused parameters (map_layer*) still decay, as in optax."""
+    with span("probunet.backward"):
+        loss.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
 def make_probunet_train_step(model, lowres_scale: int, standardization: str,
@@ -121,7 +141,7 @@ def make_probunet_train_step(model, lowres_scale: int, standardization: str,
         if state.model is not model:
             raise ValueError("the train state holds another model than this step's")
         model.train()
-        with full_fp32():
+        with span("probunet.train_step"), full_fp32():
             x, y = _pair(hr_all, stats, idx, lowres_scale, standardization, compute_dtype)
             beta = beta_fn(state.step // accum)
             g_latent, g_dropout = _step_generators(seed_or_generator, state.step, x.device)
@@ -130,12 +150,10 @@ def make_probunet_train_step(model, lowres_scale: int, standardization: str,
             params = state.optimizer.params
             for p in params:
                 p.grad = None
-            total, recon, kl = model.elbo(x, y, beta, generator=g_dropout, eps=eps,
-                                      shard=_shard(dp))
-            total.backward()
-            for p in params:  # unused parameters (map_layer*) still decay, as in optax
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+            with span("probunet.forward"):
+                total, recon, kl = model.elbo(x, y, beta, generator=g_dropout, eps=eps,
+                                          shard=_shard(dp))
+            _backward(total, params)
             metrics = {"train_loss": total.detach(), "recon_loss": recon.detach(),
                        "kl_div": kl.detach()}
             if dp is not None:
@@ -193,6 +211,15 @@ def make_probunet_eval_step(model, lowres_scale: int, standardization: str,
     return step
 
 
+def _members_to_hr(preds, pair, standardization, sl):
+    """(B, K, H, W, C) residuals -> physical HR fields (``probunet.output``)."""
+    with span("probunet.output"):
+        # the stats broadcast over the K axis for the inverse transform
+        if sl is not None and standardization != "perpixel":
+            sl = (sl[0][:, None], sl[1][:, None])
+        return transforms.residual_to_hr(preds, pair["lrinterp"][:, None], standardization, sl)
+
+
 def make_sample_fn(model, lowres_scale: int, standardization: str, num_samples: int,
                    compute_dtype: torch.dtype = torch.float32):
     """Returns fn(hr_all, stats, idx, generator=None, eps=None) ->
@@ -205,17 +232,15 @@ def make_sample_fn(model, lowres_scale: int, standardization: str, num_samples: 
     def fn(hr_all: torch.Tensor, stats, idx: torch.Tensor,
            generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None):
         model.eval()
-        hr = hr_all[idx]
-        sl = transforms.slice_stats(stats, standardization, idx)
-        pair = transforms.make_pair(hr, lowres_scale, standardization, sl)
-        x = pair["inputs"].to(compute_dtype)
-        preds = model.sample(x, num_samples, generator=generator, eps=eps).float()
-        # the stats broadcast over the K axis for the inverse transform
-        if sl is not None and standardization != "perpixel":
-            sl = (sl[0][:, None], sl[1][:, None])
-        hr_preds = transforms.residual_to_hr(preds, pair["lrinterp"][:, None],
-                                             standardization, sl)
-        return hr_preds, pair
+        with span("probunet.sample"):
+            with span("probunet.pair"):
+                hr = hr_all[idx]
+                sl = transforms.slice_stats(stats, standardization, idx)
+                pair = transforms.make_pair(hr, lowres_scale, standardization, sl)
+                x = pair["inputs"].to(compute_dtype)
+            with span("probunet.forward"):
+                preds = model.sample(x, num_samples, generator=generator, eps=eps).float()
+            return _members_to_hr(preds, pair, standardization, sl), pair
 
     return fn
 
@@ -295,19 +320,17 @@ def make_deterministic_train_step(model, lowres_scale: int, standardization: str
         if state.model is not model:
             raise ValueError("the train state holds another model than this step's")
         model.train()
-        with full_fp32():
+        with span("probunet.train_step"), full_fp32():
             x, y = _pair(hr_all, stats, idx, lowres_scale, standardization, compute_dtype)
             _, g_dropout = _step_generators(seed_or_generator, state.step, x.device)
-            labels = transforms.time_features(timestamps, timetransform)
             params = state.optimizer.params
             for p in params:
                 p.grad = None
-            preds = model(x, class_labels=labels, generator=g_dropout, shard=_shard(dp))
-            total = loss_of(preds, y)
-            total.backward()
-            for p in params:  # unused parameters (map_layer*) still decay, as in optax
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+            with span("probunet.forward"):
+                labels = transforms.time_features(timestamps, timetransform)
+                preds = model(x, class_labels=labels, generator=g_dropout, shard=_shard(dp))
+                total = loss_of(preds, y)
+            _backward(total, params)
             preds = preds.detach()
             metrics = {"train_loss": total.detach()}
             for i in range(y.shape[-1]):
@@ -367,10 +390,11 @@ def make_deterministic_eval_step(model, lowres_scale: int, standardization: str,
 
 def _edm_pair(hr_all, stats, idx, lowres_scale, standardization, compute_dtype):
     """(condition in ``compute_dtype``, fp32 clean residual, pair dict)."""
-    hr = hr_all[idx]
-    sl = transforms.slice_stats(stats, standardization, idx)
-    pair = transforms.make_pair(hr, lowres_scale, standardization, sl)
-    return pair["inputs"].to(compute_dtype), pair["targets"].float(), pair, sl
+    with span("probunet.pair"):
+        hr = hr_all[idx]
+        sl = transforms.slice_stats(stats, standardization, idx)
+        pair = transforms.make_pair(hr, lowres_scale, standardization, sl)
+        return pair["inputs"].to(compute_dtype), pair["targets"].float(), pair, sl
 
 
 def _dsm_loss(model, x, y, sigma, noise, sigma_data, compute_dtype, generator=None,
@@ -424,7 +448,7 @@ def make_edm_train_step(model, lowres_scale: int, standardization: str, p_mean: 
         if state.model is not model:
             raise ValueError("the train state holds another model than this step's")
         model.train()
-        with full_fp32():
+        with span("probunet.train_step"), full_fp32():
             x, y, _, _ = _edm_pair(hr_all, stats, idx, lowres_scale, standardization,
                                    compute_dtype)
             g_sigma, g_noise, g_dropout = _step_generators(seed_or_generator, state.step,
@@ -434,12 +458,10 @@ def make_edm_train_step(model, lowres_scale: int, standardization: str, p_mean: 
             params = state.optimizer.params
             for p in params:
                 p.grad = None
-            loss = _dsm_loss(model, x, y, sigma, noise, sigma_data, compute_dtype, g_dropout,
-                             _shard(dp))
-            loss.backward()
-            for p in params:  # a parameter outside the graph still decays, as in optax
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+            with span("probunet.forward"):
+                loss = _dsm_loss(model, x, y, sigma, noise, sigma_data, compute_dtype,
+                                 g_dropout, _shard(dp))
+            _backward(loss, params)
             metrics = {"train_loss": loss.detach()}
             if dp is not None:
                 dp.allreduce_grads(params, mean=True)
@@ -548,21 +570,17 @@ def make_edm_sample_fn(model, lowres_scale: int, standardization: str, num_sampl
     def fn(hr_all: torch.Tensor, stats, idx: torch.Tensor,
            generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None):
         model.eval()
-        with full_fp32():
+        with span("probunet.sample"), full_fp32():
             x, _, pair, sl = _edm_pair(hr_all, stats, idx, lowres_scale, standardization,
                                        compute_dtype)
             b, h, w, c = x.shape
             k = num_samples
-            x_rep = x[None].expand(k, b, h, w, c).reshape(k * b, h, w, c)
-            residual = edm_heun_chain(model, x_rep, num_steps, sigma_min, sigma_max, rho,
-                                      generator, noise)
-            preds = residual.float().reshape(k, b, h, w, c).transpose(0, 1)   # (B, K, ...)
-            # the stats broadcast over the K axis for the inverse transform
-            if sl is not None and standardization != "perpixel":
-                sl = (sl[0][:, None], sl[1][:, None])
-            hr_preds = transforms.residual_to_hr(preds, pair["lrinterp"][:, None],
-                                                 standardization, sl)
-        return hr_preds, pair
+            with span("probunet.forward"):
+                x_rep = x[None].expand(k, b, h, w, c).reshape(k * b, h, w, c)
+                residual = edm_heun_chain(model, x_rep, num_steps, sigma_min, sigma_max, rho,
+                                          generator, noise)
+                preds = residual.float().reshape(k, b, h, w, c).transpose(0, 1)   # (B, K, ...)
+            return _members_to_hr(preds, pair, standardization, sl), pair
 
     return fn
 

@@ -8,17 +8,20 @@ match the reference's (train_loss/recon_loss/kl_div, val_*), and ``val_loss``
 is also logged as ``val-loss``, the name the reference's sweeps.yaml
 minimizes. :class:`StepTimer` reads the host clock after a
 ``torch.cuda.synchronize`` when the run is on the card, so its rate counts
-finished work, not enqueued work.
+finished work, not enqueued work, and owns the run's profiler trace.
+:func:`span` marks a phase of a step on the profiler's timeline.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from typing import Dict, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 try:
     import wandb as _wandb
@@ -86,12 +89,35 @@ def progress(iterable, desc: str = "", total: Optional[int] = None):
     return tqdm(iterable, desc=desc, total=total, dynamic_ncols=True)
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks one phase of a call (``probunet.<phase>``) as a
+    ``torch.profiler.record_function`` range, on the same timeline as the
+    launches and kernels it encloses. With no profiler recording it is a
+    shared no-op context: one flag read, no range, no allocation, no sync.
+    It changes no dtype, stream or order of any operation."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+#: the steps a training trace records: the first step (kernel builds,
+#: algorithm searches, allocator growth) is skipped, the next ones recorded
+TRACE_WARMUP_STEPS = 1
+TRACE_ACTIVE_STEPS = 8
+
+
 class StepTimer:
     """Samples/s since the last :meth:`reset`, by the host clock read after
     the device has finished (``torch.cuda.synchronize`` on a CUDA
-    ``device``). With ``profile_dir``, :meth:`start_trace` and
-    :meth:`stop_trace` bracket a ``torch.profiler`` trace (host and, on the
-    card, device activity) written there as a Chrome trace."""
+    ``device``). With ``profile_dir``, :meth:`start_trace` starts a
+    ``torch.profiler`` trace (host and, on the card, device activity) of a
+    bounded window of steps, advanced by :meth:`tick`: one step skipped,
+    then :data:`TRACE_ACTIVE_STEPS` recorded. It is written there as
+    ``trace.json`` (a Chrome trace) when the window closes, or at
+    :meth:`stop_trace` if that comes first."""
 
     def __init__(self, profile_dir: str = "", device=None):
         self.device = torch.device(device) if device is not None else torch.device("cpu")
@@ -101,20 +127,29 @@ class StepTimer:
 
     def start_trace(self):
         if self.profile_dir and self._prof is None:
-            from torch.profiler import ProfilerActivity, profile
+            from torch.profiler import ProfilerActivity, profile, schedule
 
             activities = [ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(ProfilerActivity.CUDA)
-            self._prof = profile(activities=activities)
+            self._exported = False
+            self._prof = profile(activities=activities, on_trace_ready=self._export,
+                                 schedule=schedule(wait=0, warmup=TRACE_WARMUP_STEPS,
+                                                   active=TRACE_ACTIVE_STEPS, repeat=1))
             self._prof.__enter__()
 
+    def _export(self, prof) -> None:
+        os.makedirs(self.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.profile_dir, "trace.json"))
+        self._exported = True
+
     def stop_trace(self):
+        """Closes the trace; writes it unless its window already has."""
         if self._prof is not None:
             self._sync()
             self._prof.__exit__(None, None, None)
-            os.makedirs(self.profile_dir, exist_ok=True)
-            self._prof.export_chrome_trace(os.path.join(self.profile_dir, "trace.json"))
+            if not self._exported:   # closed before the first recorded step
+                self._export(self._prof)
             self._prof = None
 
     def _sync(self):
@@ -122,7 +157,17 @@ class StepTimer:
             torch.cuda.synchronize(self.device)
 
     def tick(self, n: int = 1):
+        """Counts ``n`` samples of one finished step; advances the trace."""
         self.count += n
+        if self._prof is not None:
+            from torch.profiler import ProfilerAction
+
+            if self._prof.current_action == ProfilerAction.RECORD_AND_SAVE:
+                self._sync()   # the window's last step: its kernels belong in the trace
+            self._prof.step()
+            if self._exported:
+                self._prof.__exit__(None, None, None)
+                self._prof = None
 
     def rate(self) -> float:
         self._sync()
