@@ -16,7 +16,8 @@ several processes (two ranks sharing the card, one NCCL rank), then with
 the tile's height sharded over the ranks (``--parallel_mode spatial`` and
 ``2d``), then the prob-U-Net at ``--model_channels 96``, whose attention
 heads of 72 run the bf16 kernels' exact-width kD = 80 instantiation (the
-fp32 kernels' kD = 128). Phases:
+fp32 kernels' kD = 128), then the convolutions in 3xTF32 against IEEE
+fp32. Phases:
 
   1. card and build: nvidia-smi name and power limit; nvcc for sm_90a with
      ptxas registers, shared memory and spills; ``cuobjdump -sass`` of the
@@ -202,8 +203,28 @@ fp32 kernels' kD = 128). Phases:
      kernels on the same inputs, and the bound at the real head dim; the
      exact-width sites apart. The kernels line gets an entry for each of
      K2 and K3 at the exact widths.
+ 17. the convolutions (``ops/conv.py``: an fp32 sampler's forward in
+     3xTF32, an fp32 training step's forward and weight gradient in IEEE
+     fp32, its input gradient in 3xTF32): the split kernel
+     (``csrc/tf32_split.cu``) bit-equal to its plain version, hi and the
+     pair, on activations (channels_last, contiguous, C = 6) and OIHW
+     weights in each order the convolutions use, and timed on the level-0
+     activation beside its bound (4 bytes read or written per element and
+     part); one strict training step at b8 whose every convolution takes
+     the strict paths (``conv2d.calls``: an IEEE forward at every site,
+     some as transposed convolutions, the weight gradient at every site,
+     the 3xTF32 input gradient where the input needs one, two split
+     launches each, no ``F.conv2d``, ``cudnn.allow_tf32`` as before); one
+     EDM pass (8 rows) all in 3xTF32; the EDM pass again with all but
+     PRESSURE_FREE of the card taken, bit-equal or not, in 3xTF32 and in
+     IEEE fp32; the step's and the pass's convolutions replayed on their
+     shapes through the port's paths and through IEEE fp32 ``F.conv2d``
+     and its backward (the yardstick, ``library_ms``): device ms, events
+     ms, launches, the leading kernels, the memory a call takes beyond
+     its inputs and outputs (cuDNN's workspace), and no FFT or complex
+     kernel in the 3xTF32 forward, or it fails.
 
-Every device time of a kernel or of SDPA (phases 6, 10, 16) comes from one
+Every device time of a kernel or of SDPA (phases 6, 10, 16, 17) comes from one
 estimator, ``device_ms(whole=True)``: each kernel's mean launch pooled over
 five traces times its launches per call, which records the profiler loses
 late in a long run do not bias. Any failed phase
@@ -365,6 +386,11 @@ MC96_LENGTHS = (64, 256, 1024, 100)
 # (L, heads) at b8 whose plans take every block shape built at the exact
 # widths kD = 80 / 96 (phase 1): the path's 32x32 site, one 64-row tile
 EXACT_SITES = [(1024, 4), (64, 4)]
+# phase 17: the device memory left free when the EDM pass runs again under
+# pressure (cuDNN falls back to another algorithm when a workspace does not fit)
+PRESSURE_FREE = 3 * 2 ** 30
+# the split kernel against its plain version: bit for bit
+SPLIT_TOL = 0.0
 
 
 def log(msg=""):
@@ -1047,6 +1073,7 @@ def run_phases(torch, dev, card, sass):
     multi = multiprocess_phase(torch, dev, card, gn_sites, mark)
     spatial = spatial_phase(torch, dev, card, ds, mark)
     mc96 = mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark)
+    conv = conv_phase(torch, dev, card, mark)
 
     def entry(name, source, replaces, n, err, tol, t, extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1112,6 +1139,13 @@ def run_phases(torch, dev, card, sass):
                         **{k: v for k, v in mc96["report"].items() if k != "timings"}},
                "sass": {n: c for n, c in sass.items() if n.startswith("attention_bwd")}}),
         *exact_width_entries(entry, mc96, attn_info_exact),
+        entry("tf32_split", "probunet_torch/csrc/tf32_split.cu",
+              "none: the 3xTF32 parts of cuDNN's fp32 convolutions' operands",
+              sum(conv["launches"].values()), conv["max_abs_err"], SPLIT_TOL, conv["split"],
+              {"timed": f"the level-0 activation ({BATCH}x128x{RES}x{RES} fp32) split into "
+                        f"hi and [lo, hi]; bit-equal to the plain version",
+               "device_ms": conv["split"]["device_ms"], "launches_by_path": conv["launches"],
+               "convolutions": conv["report"]}),
     ]
 
 
@@ -3565,6 +3599,278 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
     report["timings"] = timings
     mark(16)
     return {"launches": by_path, "report": report}
+
+
+def conv_phase(torch, dev, card, mark):
+    """Phase 17: the convolutions (ops/conv.py; see the module docstring).
+    Returns the split kernel's entry fields and the phase's report."""
+    import torch.nn.functional as F
+
+    from probunet_torch.config import Config
+    from probunet_torch.ops import conv as C
+    from probunet_torch.train.loop import build_edm_model, build_probunet, init_probunet_state
+    from probunet_torch.train.state import make_optimizer
+    from probunet_torch.train.steps import make_probunet_train_step
+    from probunet_torch.utils.device import full_fp32
+
+    report = {"card": card}
+    gen = torch.Generator(device=dev).manual_seed(17)
+    flag0 = torch.backends.cudnn.allow_tf32
+    aten = torch.ops.aten
+
+    def reset_calls():
+        for k in C.conv2d.calls:
+            C.conv2d.calls[k] = 0
+
+    # ---- the split kernel against its plain version, bit for bit ---------------------
+    cases = [((BATCH, 128, RES, RES), "channels_last"), ((BATCH, 512, 16, 16), "channels_last"),
+             ((2, 6, RES, RES), "channels_last"), ((BATCH, 128, 32, 32), "contiguous"),
+             ((256, 128, 3, 3), "weight"), ((768, 256, 1, 1), "weight")]
+    uses = ((C.X_FWD, 1), (C.W_FWD, 1), (C.DY_DGRAD, 1), (C.W_DGRAD, 0))
+    split_err = 0.0
+    for shape, layout in cases:
+        x = torch.randn(shape, device=dev, generator=gen) * 3
+        if layout == "channels_last":
+            x = x.contiguous(memory_format=torch.channels_last)
+        for order, dim in uses:
+            got = C.split(x, order, dim)
+            want = C._plain_split(x, order, dim)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                split_err = max(split_err, (g - w).abs().max().item())
+                if not (torch.equal(g.view(torch.int32), w.view(torch.int32))
+                        and g.is_contiguous(memory_format=torch.channels_last)):
+                    raise AssertionError(f"the split kernel differs from its plain version at "
+                                         f"{shape} {layout} {order} dim {dim}")
+    if split_err > SPLIT_TOL:
+        raise AssertionError(f"the split kernel's max |got - want| {split_err} > {SPLIT_TOL}")
+    log(f"[17] tf32 split kernel bit-equal to its plain version in {len(cases) * len(uses)} "
+        f"cases, hi and the pair (activations channels_last and contiguous, C = 6 "
+        f"unvectorized, OIHW weights); max |got - want| {split_err}")
+    x0 = torch.randn(BATCH, 128, RES, RES, device=dev, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    nbytes = 4 * x0.numel() * 4   # read S, write hi and the pair: 3S
+
+    def split0():
+        return C.split(x0, C.X_FWD, 1)
+
+    split_t = {"ms": cuda_ms(torch, split0),
+               "device_ms": device_ms(torch, split0, whole=True),
+               "plain_ms": cuda_ms(torch, lambda: C._plain_split(x0, C.X_FWD, 1), reps=5),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "library_ms": None}
+    log(f"[17] split of the level-0 activation ({BATCH}x128x{RES}x{RES} fp32 -> hi and "
+        f"[lo, hi]): kernel {split_t['ms']:.4f} ms (device {split_t['device_ms']:.4f}), plain "
+        f"{split_t['plain_ms']:.4f}, bound {split_t['bound_ms']:.4f} (bytes; "
+        f"{split_t['bound_ms'] / split_t['device_ms']:.0%} of it)")
+    del x0
+    mark(17)
+
+    # ---- the sites of one strict training step and of one EDM pass --------------------
+    sites = []
+    orig = {name: getattr(C, name) for name in ("forward_ieee", "forward_3x")}
+
+    def meta(t):
+        return (tuple(t.shape), t.is_contiguous(memory_format=torch.channels_last))
+
+    def recorder(name):
+        def rec(x, w, b, stride, padding):
+            sites.append((meta(x), tuple(w.shape), b is not None, stride, padding,
+                          x.requires_grad))
+            return orig[name](x, w, b, stride, padding)
+        return rec
+
+    cfg = Config(coords=(0, RES, 0, RES), resolution=(RES, RES), dropout=0.1)
+    state = init_probunet_state(cfg, build_probunet(cfg, device="meta"),
+                                make_optimizer(cfg.lr, cfg.weight_decay), device=dev)
+    step = make_probunet_train_step(state.model, cfg.lowres_scale, cfg.standardization)
+    hr = torch.rand(2 * BATCH, RES, RES, 3, device=dev, generator=gen) + 1
+    stats = (hr.mean(0), hr.std(0))
+    idx = torch.arange(BATCH, device=dev)
+    step(state, hr, stats, idx, 0)
+    reset_calls()
+    C.forward_ieee = recorder("forward_ieee")
+    try:
+        step(state, hr, stats, idx, 1)
+        torch.cuda.synchronize()
+    finally:
+        C.forward_ieee = orig["forward_ieee"]
+    step_calls = dict(C.conv2d.calls)
+    train_sites = list(sites)
+    n_fwd, n_dgrad = len(train_sites), sum(1 for s in train_sites if s[-1])
+    log(f"[17] strict training step (b{BATCH}, {RES}x{RES}): conv2d.calls {step_calls}; "
+        f"{n_fwd} sites, {n_dgrad} of them with an input that needs a gradient; "
+        f"cudnn.allow_tf32 after it {torch.backends.cudnn.allow_tf32}")
+    if (step_calls["plain"] or step_calls["tf32x3_fwd"]
+            or step_calls["ieee_fwd"] + step_calls["ieee_fwd_transposed"] != n_fwd
+            or step_calls["ieee_wgrad"] != n_fwd or step_calls["tf32x3_dgrad"] != n_dgrad
+            or not step_calls["ieee_fwd_transposed"] or step_calls["split"] != 2 * n_dgrad
+            or torch.backends.cudnn.allow_tf32 != flag0):
+        raise AssertionError("the strict step's convolutions did not take the strict paths, "
+                             "or the cuDNN TF32 flag was not restored")
+    del state, step, hr, stats
+
+    sites.clear()
+    ecfg = Config(ds_model="edm", coords=(0, RES, 0, RES), resolution=(RES, RES), dropout=0.0)
+    edm = build_edm_model(ecfg, device="meta").to_empty(device=dev).eval()
+    fill_weights(torch, edm, seed=17)
+    xe = torch.randn(BATCH, RES, RES, 3, device=dev, generator=gen)
+    ce = torch.randn(BATCH, RES, RES, 3, device=dev, generator=gen)
+    sig = torch.full((BATCH,), 1.7, device=dev)
+
+    def edm_pass():
+        with full_fp32(), torch.inference_mode():
+            return edm(xe, sig, condition_img=ce)
+
+    reset_calls()
+    C.forward_3x = recorder("forward_3x")
+    try:
+        edm_pass()
+    finally:
+        C.forward_3x = orig["forward_3x"]
+    edm_calls = dict(C.conv2d.calls)
+    edm_sites = list(sites)
+    log(f"[17] EDM pass ({BATCH} rows): {len(edm_sites)} sites; conv2d.calls {edm_calls}")
+    if (edm_calls["tf32x3_fwd"] != len(edm_sites) or edm_calls["plain"]
+            or edm_calls["split"] != 2 * len(edm_sites)):
+        raise AssertionError("the EDM pass's convolutions did not all run in 3xTF32")
+
+    # ---- the bits under memory pressure: the pass again with all but
+    # PRESSURE_FREE bytes of the card taken, 3xTF32 and IEEE fp32 ---------------------
+    def pressured(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+        filler = torch.empty(max(0, free - PRESSURE_FREE), dtype=torch.uint8, device=dev)
+        try:
+            return fn()
+        finally:
+            del filler
+            torch.cuda.empty_cache()
+
+    pressure = {"tf32x3": torch.equal(edm_pass(), pressured(edm_pass))}
+    C.forward_3x = lambda x, w, b, stride, padding: F.conv2d(x, w, b, stride, padding)
+    try:
+        pressure["ieee"] = torch.equal(edm_pass(), pressured(edm_pass))
+    finally:
+        C.forward_3x = orig["forward_3x"]
+    report["bit_equal_under_memory_pressure"] = pressure
+    log(f"[17] EDM pass with {PRESSURE_FREE / 2**30:.1f} GiB of the card left free against "
+        f"the card free: bit-equal in 3xTF32 {pressure['tf32x3']}, in IEEE fp32 (cuDNN's "
+        f"FFT path, whose workspace then does not fit) {pressure['ieee']}")
+    del edm
+
+    # ---- both paths replayed on the recorded shapes -----------------------------------
+    def tensor(m):
+        shape, cl = m
+        t = torch.randn(shape, device=dev, generator=gen)
+        return t.contiguous(memory_format=torch.channels_last) if cl else t
+
+    def replay(site_list, train):
+        """([the port's call], [IEEE fp32's call]) a site: the training
+        step's forward, input gradient where the input needs one, weight
+        and bias gradient (the port: forward_ieee, dgrad_3x, IEEE wgrad,
+        dy.sum; IEEE: F.conv2d and the one convolution_backward its
+        autograd makes), or a sampler's forward (forward_3x; F.conv2d)."""
+        port, ieee = [], []
+        for xm, wshape, has_b, stride, padding, need_x in site_list:
+            x, w = tensor(xm), torch.randn(wshape, device=dev, generator=gen)
+            b = torch.randn(wshape[0], device=dev, generator=gen) if has_b else None
+            if not train:
+                port.append(lambda x=x, w=w, b=b, s=stride, p=padding:
+                            C.forward_3x(x, w, b, s, p))
+                ieee.append(lambda x=x, w=w, b=b, s=stride, p=padding: F.conv2d(x, w, b, s, p))
+                continue
+            out = [(xm[0][i + 2] + 2 * padding[i] - wshape[i + 2]) // stride[i] + 1
+                   for i in (0, 1)]
+            dy = tensor(((xm[0][0], wshape[0], *out), True))
+
+            def ours(x=x, w=w, b=b, s=stride, p=padding, dy=dy, need_x=need_x):
+                C.forward_ieee(x, w, b, s, p)
+                if need_x:
+                    C.dgrad_3x(dy, x, w, s, p)
+                C._backward(False, dy, x, w, s, p, (False, True, False))
+                return dy.sum((0, 2, 3))
+
+            port.append(ours)
+            ieee.append(lambda x=x, w=w, b=b, s=stride, p=padding, dy=dy, need_x=need_x: (
+                F.conv2d(x, w, b, s, p),
+                aten.convolution_backward(dy, x, w, [w.shape[0]], s, p, (1, 1), False, (0, 0),
+                                          1, (need_x, True, True))))
+        return port, ieee
+
+    def kernels_of(fn):
+        """{kernel: launches} of one call of ``fn``."""
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return {e.key: e.count for e in _device_events(torch, prof)}
+
+    def peak_above(op):
+        """Device memory one call takes beyond what it started with and
+        what it returns: cuDNN's workspace (and the 3xTF32 path's parts)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        out = op()
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated() - m0
+        del out
+        return torch.cuda.max_memory_allocated() - m0 - kept
+
+    timings = {}
+    for what, site_list, train in (("train_step", train_sites, True),
+                                   ("edm_pass", edm_sites, False)):
+        port, ieee = replay(site_list, train)
+        t = {"sites": len(site_list)}
+        for path, ops in (("port", port), ("ieee", ieee)):
+            def fn(ops=ops):
+                for op in ops:
+                    op()
+            with full_fp32(), torch.no_grad():
+                split = {}
+                t[f"{path}_device_ms"] = device_ms(torch, fn, reps=2, traces=2, whole=True,
+                                                   split=split)
+                t[f"{path}_ms"] = cuda_ms(torch, fn, reps=2, warmup=1)
+                names = kernels_of(fn)
+                t[f"{path}_launches"] = sum(names.values())
+                t[f"{path}_kernels"] = {k[:100]: round(v, 3) for k, v in sorted(
+                    split.items(), key=lambda kv: -kv[1])[:8]}
+                t[f"{path}_fft_kernels"] = sorted(k[:100] for k in names
+                                                  if "fft" in k.lower() or "cf32" in k)
+                peaks = sorted(peak_above(op) for op in ops)
+                t[f"{path}_peak_above_bytes"] = {"max": peaks[-1],
+                                                 "median": peaks[len(peaks) // 2]}
+        t["speedup_device"] = t["ieee_device_ms"] / t["port_device_ms"]
+        timings[what] = t
+        log(f"[17] {what} convolutions ({t['sites']} sites), device ms: the port "
+            f"{t['port_device_ms']:.2f} (events {t['port_ms']:.2f}, {t['port_launches']} "
+            f"launches), IEEE fp32 F.conv2d and its backward (library_ms) "
+            f"{t['ieee_device_ms']:.2f} (events {t['ieee_ms']:.2f}, {t['ieee_launches']} "
+            f"launches): x{t['speedup_device']:.2f}; memory a site's call takes beyond its "
+            f"inputs and outputs (max, median MiB): the port "
+            f"{t['port_peak_above_bytes']['max'] / 2**20:.1f}, "
+            f"{t['port_peak_above_bytes']['median'] / 2**20:.1f}, IEEE "
+            f"{t['ieee_peak_above_bytes']['max'] / 2**20:.1f}, "
+            f"{t['ieee_peak_above_bytes']['median'] / 2**20:.1f}; FFT or complex kernels: "
+            f"the port {t['port_fft_kernels']}, IEEE {len(t['ieee_fft_kernels'])}")
+        for path in ("port", "ieee"):
+            for k, v in t[f"{path}_kernels"].items():
+                log(f"      {path:4s} {v:9.3f} ms  {k}")
+        if t["port_fft_kernels"] and not train:
+            raise AssertionError(f"the 3xTF32 forward ran FFT kernels: "
+                                 f"{t['port_fft_kernels']}")
+        del port, ieee
+    report["timings"] = timings
+    report["step_calls"], report["edm_pass_calls"] = step_calls, edm_calls
+    if torch.backends.cudnn.allow_tf32 != flag0:
+        raise AssertionError("cudnn.allow_tf32 not restored after phase 17")
+    mark(17)
+    return {"split": split_t, "report": report, "max_abs_err": split_err,
+            "launches": {"train_step": step_calls["split"], "edm_pass": edm_calls["split"]}}
 
 
 def mc96_by_kd(K2, bf16, passes):

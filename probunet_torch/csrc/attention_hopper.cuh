@@ -638,16 +638,6 @@ __device__ __forceinline__ void tma_tile_f32(unsigned char* dst, const CUtensorM
                row0 + kF32BoxRows * i, b, kF32Cols * a);
 }
 
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - hi);
-}
-
 // hi = tf32(x) in place and lo = tf32(x - hi) at the same offset, over a
 // tile of BYTES bytes; by the 128 threads (tid) of a warpgroup, 16 bytes a
 // thread at a time (the layout does not matter: each element keeps its place).

@@ -1,7 +1,7 @@
 // Helpers shared by the port's hand-written kernels: the (b, l, h) strides
 // of an attention tensor, fp32 <-> storage-type conversion, 16-byte vector
-// loads/stores, cp.async copies, and the base-2 exponential and quad
-// reductions of the attention kernels' softmax.
+// loads/stores, cp.async copies, the 3xTF32 split, and the base-2
+// exponential and quad reductions of the attention kernels' softmax.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,6 +66,19 @@ __device__ __forceinline__ float exp2_fast(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// The 3xTF32 split (cvt.rna: round to nearest, ties away, 10 mantissa
+// bits): hi = tf32(x), lo = tf32(x - hi). The strict attention kernels and
+// the convolutions' split kernel carry every fp32 operand so.
+__device__ __forceinline__ float tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
 }
 
 // Quad reductions: the four lanes t = 0..3 of an mma row hold its columns.

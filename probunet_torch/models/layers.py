@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from probunet_torch.ops.conv import conv2d
 from probunet_torch.ops.gn_silu import gn_silu
 from probunet_torch.ops.norm import group_norm, num_groups_for
 from probunet_torch.ops.resample import avg_pool, nearest_upsample_2x
@@ -134,8 +135,7 @@ class Conv2d(_Layer):
         if self.down:
             x = nchw(avg_pool(nhwc(x), 2))
         if self.weight is not None:
-            x = F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                         padding=self.kernel // 2)
+            x = conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.kernel // 2)
         return x
 
 
@@ -157,8 +157,7 @@ class TorchConv(_Layer):
         self.bias.copy_(torch_default_init(self.bias.shape, fan_in, generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        padding=self.kernel // 2)
+        return conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.kernel // 2)
 
 
 class Linear(_Layer):

@@ -24,7 +24,6 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
@@ -44,6 +43,7 @@ from probunet_torch.models.layers import (
     silu,
 )
 from probunet_torch.ops.attention import fused_attention
+from probunet_torch.ops.conv import conv2d
 from probunet_torch.utils.device import resolve_device
 
 #: an attention block of C channels has C // 64 heads of C // (C // 64)
@@ -112,8 +112,8 @@ class UNetBlock(nn.Module):
         # channel), the same math, so that q, k and v come out as views with
         # a unit-stride head dim that the attention kernels read in place;
         # the parameters keep the reference's layout.
-        y = F.conv2d(self.norm2(x), _qkv_major(self.qkv.weight, nh, x.dtype),
-                     _qkv_major(self.qkv.bias, nh, x.dtype))
+        y = conv2d(self.norm2(x), _qkv_major(self.qkv.weight, nh, x.dtype),
+                   _qkv_major(self.qkv.bias, nh, x.dtype))
         q, k, v = nhwc(y).reshape(b, h * w, 3, nh, c // nh).unbind(2)
         a = fused_attention(q, k, v, fast)
         return self.proj(nchw(a.reshape(b, h, w, c)))

@@ -52,6 +52,9 @@ _SIGNATURES = {
     "probunet_attention_bwd_query": [_int] * 4 + [_vp],
     # an fp32 kernel (0-2 as above, 3 the row pass), kd, rows, out (int[5])
     "probunet_attention_bwd_f32_query": [_int] * 3 + [_vp],
+    # x, hi_out, out, d0..d3 (the 4-D view read), its element
+    # strides s0..s3, nslots, lo_mask, slot_outer, vec, stream
+    "probunet_tf32_split": [_vp] * 3 + [_int] * 4 + [_i64] * 4 + [_int] * 4 + [_vp],
 }
 
 

@@ -51,9 +51,9 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 
 from probunet_torch.models.layers import nchw, nhwc, silu
+from probunet_torch.ops.conv import conv2d
 from probunet_torch.ops.resample import avg_pool, nearest_upsample_2x
 from probunet_torch.parallel.mesh import SpatialMesh, collective_device
 
@@ -193,7 +193,7 @@ def spatial_conv3x3(x: torch.Tensor, w: torch.Tensor, mesh: SpatialMesh, stride:
     be even so that the output rows stay aligned."""
     if stride not in (1, 2) or (stride == 2 and x.shape[2] % 2):
         raise ValueError(f"stride {stride} on {x.shape[2]} local rows")
-    return F.conv2d(halo_exchange_rows(x, mesh, 1), w, bias, stride, padding=(0, 1))
+    return conv2d(halo_exchange_rows(x, mesh, 1), w, bias, (0, 1), stride)
 
 
 def spatial_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -39,11 +39,11 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from probunet_torch.models.layers import TorchConv, dropout, nchw, nhwc, silu
 from probunet_torch.models.prob_unet import AxisAlignedConvGaussian, Fcomb, ProbabilisticUNet
 from probunet_torch.models.unet import BlockSpec, UNet, UNetBlock, remat_block
+from probunet_torch.ops.conv import conv2d
 from probunet_torch.ops.distributions import DiagGaussian, kl_diag_gaussian
 from probunet_torch.parallel.mesh import SpatialMesh, is_initialized
 from probunet_torch.parallel.spatial import (
@@ -75,8 +75,8 @@ def _conv(conv, x: torch.Tensor, mesh: SpatialMesh) -> torch.Tensor:
     k = conv.weight.shape[-1]
     w, b = conv.weight.to(x.dtype), conv.bias.to(x.dtype)
     if k == 1:
-        return F.conv2d(x, w, b)
-    return F.conv2d(halo_exchange_rows(x, mesh, k // 2), w, b, padding=(0, k // 2))
+        return conv2d(x, w, b)
+    return conv2d(halo_exchange_rows(x, mesh, k // 2), w, b, (0, k // 2))
 
 
 def _gn(norm, x: torch.Tensor, mesh: SpatialMesh) -> torch.Tensor:

@@ -20,11 +20,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 @contextlib.contextmanager
 def full_fp32():
-    """Run fp32 convolutions and matmuls in IEEE fp32, not TF32.
+    """Keep fp32 work out of plain TF32.
 
     cuDNN convolutions default to TF32 (``cudnn.allow_tf32`` is True), which
     keeps about three decimal digits; the JAX package runs its strict mode at
-    ``Precision.HIGHEST``. Both flags are restored on exit."""
+    ``Precision.HIGHEST``. This context turns both flags off, so that every
+    cuDNN call and every fp32 matmul runs in IEEE fp32. The port's fp32
+    convolutions on the card (``ops/conv.py``) set the cuDNN flag around
+    each of their own calls: on for the 3xTF32 ones (a sampler's forward, a
+    training step's input gradient), off for the rest. Both flags are
+    restored on exit."""
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -8,8 +8,11 @@ every mode on the U-Net block's row-strided views, stride-3 views and
 contiguous tensors (and on fp32 operands with fast=True, as the EDM path
 runs them), the baselines' paths
 (K1 at the deterministic U-Net's 10 and 14 channels per group, the
-deterministic step's launches, BCSD's day-of-year sums bit-equal), and the
-wrappers' and kernels' refusals. Marked ``cuda``: they skip without a
+deterministic step's launches, BCSD's day-of-year sums bit-equal), the
+convolutions' paths (the split kernel bit-equal to tests/_tf32x3.py, the
+3xTF32 and IEEE paths at the U-Net's level-0 and level-3 shapes against
+float64 beside plain TF32, the paths taken and cuDNN's TF32 flag
+restored), and the wrappers' and kernels' refusals. Marked ``cuda``: they skip without a
 card. On the card, without JAX (this file imports none):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -98,6 +101,155 @@ def test_gn_silu_kernel_refusals(dev):
     xc = x.cpu().requires_grad_()
     K1.gn_silu(xc, w.cpu(), w.cpu(), 2).sum().backward()
     torch.testing.assert_close(xg.grad.cpu(), xc.grad, atol=1e-5, rtol=1e-5)
+
+
+# ---- the convolutions (ops/conv.py): 3xTF32 and IEEE fp32 on cuDNN -----------------------
+
+SPLIT_CASES = [((8, 128, 128, 128), "channels_last"), ((8, 512, 16, 16), "channels_last"),
+               ((2, 6, 33, 17), "channels_last"), ((3, 8, 5, 7), "contiguous"),
+               ((2, 16, 8, 8), "unaligned"), ((256, 128, 3, 3), "weight"),
+               ((768, 256, 1, 1), "weight")]
+
+
+@pytest.mark.parametrize("shape,layout", SPLIT_CASES)
+@pytest.mark.parametrize("role", ["x_fwd", "w_fwd", "dy_dgrad", "w_dgrad"])
+def test_tf32_split_kernel_matches_tf32x3_split(dev, shape, layout, role):
+    """The split kernel against tests/_tf32x3.py's split, bit for bit: hi
+    alone and the pair in each order and place the convolutions use (along
+    the channels or stacked along dim 0), on channels_last and contiguous
+    activations, an unaligned view (scalar path), C = 6 (no vectors) and
+    OIHW weights; values at the rounding's edges included; one launch a
+    call."""
+    from _tf32x3 import split as split_ref
+
+    from probunet_torch.ops import conv as C
+
+    order, dim = {"x_fwd": (C.X_FWD, 1), "w_fwd": (C.W_FWD, 1), "dy_dgrad": (C.DY_DGRAD, 1),
+                  "w_dgrad": (C.W_DGRAD, 0)}[role]
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = torch.randn(shape, device=dev, generator=gen) * 3
+    x.view(-1)[:4] = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 2 - 2.0 ** -23, 0.0])
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif layout == "unaligned":
+        x = torch.cat([torch.zeros(1, device=dev), x.flatten()])[1:].view(shape)
+        assert x.data_ptr() % 16
+    before = C.conv2d.calls["split"]
+    hi_got, got = C.split(x, order, dim)
+    torch.cuda.synchronize()
+    assert C.conv2d.calls["split"] == before + 1
+    hi, lo = split_ref(x.cpu().contiguous())
+    want = torch.cat([{"hi": hi, "lo": lo}[p] for p in order], dim)
+    for a, b in ((got, want), (hi_got, hi)):
+        assert a.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+def _conv_errors(dev, b, cin, cout, hw, k):
+    """max |err| / max |ref| against float64 on the card of one
+    convolution's forward, input gradient, weight gradient and bias
+    gradient by each path: ``3xtf32`` (a sampler's forward, a training
+    step's input gradient), ``strict`` (the training Function: IEEE
+    forward and weight gradient), ``ieee`` and ``tf32`` (F.conv2d and its
+    autograd with TF32 off and on)."""
+    import torch.nn.functional as F
+
+    from probunet_torch.ops import conv as C
+    from probunet_torch.utils.device import full_fp32
+
+    gen = torch.Generator(device=dev).manual_seed(cin + hw)
+    x = torch.randn(b, cin, hw, hw, device=dev, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn(cout, cin, k, k, device=dev, generator=gen) / (cin * k * k) ** 0.5
+    bias = torch.randn(cout, device=dev, generator=gen)
+    dy = torch.randn(b, cout, hw, hw, device=dev, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    refs = [t.double().requires_grad_() for t in (x, w, bias)]
+    ref = F.conv2d(*refs, padding=k // 2)
+    ref.backward(dy.double())
+    want = [ref.detach()] + [t.grad for t in refs]
+
+    def errs(got):
+        return [((g.double() - r).abs().max() / r.abs().max()).item() for g, r in zip(got, want)]
+
+    out = {}
+    with full_fp32():
+        s, p = (1, 1), (k // 2, k // 2)
+        out["3xtf32"] = errs([C.forward_3x(x, w, bias, s, p), C.dgrad_3x(dy, x, w, s, p)])
+        for path in ("strict", "ieee", "tf32"):
+            leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+            if path == "strict":
+                y = C.conv2d(*leaves, k // 2)
+            else:
+                torch.backends.cudnn.allow_tf32 = path == "tf32"
+                y = F.conv2d(*leaves, padding=k // 2)
+            y.backward(dy)
+            out[path] = errs([y] + [t.grad for t in leaves])
+    return out
+
+
+@pytest.mark.parametrize("b,cin,cout,hw,k", [(8, 128, 128, 128, 3), (8, 384, 128, 128, 3),
+                                             (8, 512, 512, 16, 3), (8, 512, 512, 16, 1)])
+def test_conv_paths_at_unet_shapes_against_float64(dev, b, cin, cout, hw, k):
+    """At the U-Net's level-0 (b8, 128 and 384 -> 128 channels, 128x128;
+    the first takes the transposed route) and level-3 (512 channels,
+    16x16) shapes, against float64: the training Function's forward and
+    weight and bias gradients within twice IEEE fp32's own cuDNN error
+    (they are IEEE fp32); the 3xTF32 forward and input gradient within
+    6e-9 K of the largest value (K the reduction depth: the tensor cores'
+    accumulator rounds toward zero, ~3e-9 K measured on the H100) or four
+    times IEEE fp32's error, and a plain TF32 forward at least ten times
+    further off than the 3xTF32 one."""
+    e = _conv_errors(dev, b, cin, cout, hw, k)
+    msg = f"(y, dx, dw, db) {e}"
+    limit = 2 ** -20
+    for got, ieee in zip(e["strict"][:1] + e["strict"][2:], e["ieee"][:1] + e["ieee"][2:]):
+        assert got <= max(2 * ieee, limit), msg
+    for got, ieee, depth in zip(e["3xtf32"], e["ieee"], (cin * k * k, cout * k * k)):
+        assert got <= max(6e-9 * depth, 4 * ieee), msg
+    assert e["tf32"][0] >= 10 * e["3xtf32"][0], msg
+
+
+def test_conv2d_paths_and_the_cudnn_flag_on_card(dev):
+    """An fp32 CUDA conv whose gradient is recorded runs the IEEE forward,
+    the 3xTF32 input gradient (two split launches) and the IEEE weight
+    gradient; without a gradient the 3xTF32 forward (two split launches);
+    bf16 takes F.conv2d; cudnn.allow_tf32 reads as before after a call,
+    and after a call that raised."""
+    from probunet_torch.ops import conv as C
+    from probunet_torch.utils.device import full_fp32
+
+    def delta(before):
+        return {k: v - before[k] for k, v in C.conv2d.calls.items() if v != before[k]}
+
+    x = torch.randn(2, 8, 16, 16, device=dev).contiguous(memory_format=torch.channels_last)
+    w = torch.randn(4, 8, 3, 3, device=dev)
+    b = torch.randn(4, device=dev)
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        with full_fp32():
+            c0 = dict(C.conv2d.calls)
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            C.conv2d(xg, wg, b, 1).square().sum().backward()
+            assert torch.backends.cudnn.allow_tf32 is False
+            assert delta(c0) == {"ieee_fwd": 1, "tf32x3_dgrad": 1, "ieee_wgrad": 1, "split": 2}
+            c1 = dict(C.conv2d.calls)
+            with torch.no_grad():
+                C.conv2d(x, w, b, 1)
+            assert delta(c1) == {"tf32x3_fwd": 1, "split": 2}
+            c2 = dict(C.conv2d.calls)
+            C.conv2d(x.bfloat16(), w.bfloat16(), b.bfloat16(), 1)
+            assert delta(c2) == {"plain": 1}
+            with pytest.raises(RuntimeError):
+                C.conv2d(x, torch.randn(4, 6, 3, 3, device=dev), b, 1)   # 8 != 6 channels
+            assert torch.backends.cudnn.allow_tf32 is False
+            with pytest.raises(TypeError):
+                C.conv2d(x, w.double(), b, 1)
+        torch.backends.cudnn.allow_tf32 = True
+        C.conv2d(x, w, b, 1)
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
 # (q/k/v dtype, fast): strict fp32, fast bf16, strict with bf16 activations
