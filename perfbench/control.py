@@ -50,13 +50,15 @@ def control_readings(cell, seed: int, device) -> dict:
     job = cell.family().make_job(cell, seed, device)
     job.make_inputs()
     out = {}
-    if job.wl["job"] == "train":
+    if job.wl["job"] in ("train", "train_dp"):
         def readings(precision, fault=None):
             return job.reference_readings(set_precision(job.reference(), precision), fault)
 
         ref = readings("fp32")
         out["control"] = compare.training_gaps(readings(job.wl["control"]), ref)
         out["half_batch"] = compare.training_gaps(readings("fp32", "half_batch"), ref)
+        if job.wl["job"] == "train_dp":
+            out["no_exchange"] = compare.training_gaps(readings("fp32", "no_exchange"), ref)
         return out
     job.plan_checks(job.wl["check_calls"])
     gap = 0.0

@@ -1,6 +1,8 @@
 """The Probabilistic U-Net family: ``train`` (the ELBO training step with
-AdamW, ``train/steps.py::make_probunet_train_step``) and ``sample`` (the
-K-member prior sampler, ``make_sample_fn``) of probunet_torch.
+AdamW, ``train/steps.py::make_probunet_train_step``), ``train_dp`` (the same
+step on one rank per card, through the program's data-parallel path) and
+``sample`` (the K-member prior sampler, ``make_sample_fn``) of
+probunet_torch.
 
 Call ``i`` takes batch ``i`` of the seeded day order and a generator
 seeded from (seed, i): the benchmark draws the posterior noise (training,
@@ -11,7 +13,14 @@ Training: set-up runs the first ``checked_steps`` calls as the window
 runs them, on the same object, and reads each step's loss, the first
 gradient of each leaf from the optimizer's second moment after one step
 (v = (1 - beta2) g^2) and each leaf's parameter change after the last;
-the reference repeats those steps after the window. Sampling: the
+the reference repeats those steps after the window. Data-parallel
+training (``train_dp``, ``perfbench/ranks.py``): each of the cell's
+``chips`` ranks takes its ``batch`` rows of each global batch of
+``batch * chips``, its rows of the global posterior noise (``dp.randn``) and
+of the dropout masks (``shard=(rank, world)``); the gradients are summed
+over the ranks, so rank 0's readings are of the global step, and the
+reference repeats it at the global batch, ``batch`` rows at a time (the
+ELBO sums over the batch: the parts' gradients add). Sampling: the
 answers of ``check_calls`` calls drawn from the seed are kept and the
 reference recomputes them after the window.
 """
@@ -22,8 +31,8 @@ import math
 
 import torch
 
-from perfbench import compare, counts
-from perfbench.job import Job, SampleJob
+from perfbench import compare, counts, inputs, ranks
+from perfbench.job import FEED_ROWS, Job, SampleJob
 from perfbench.reference import probunet as ref
 
 
@@ -63,16 +72,24 @@ class Train(_ProbUNetJob):
         self.units_per_call = self.wl["batch"]
 
     def setup(self) -> None:
+        self.model = self.build_program()
+        self.make_step()
+        self.run_checked_steps()
+
+    def make_step(self, dp=None) -> None:
+        """The training state and step (``dp``: the program's ``DataParallel``)."""
         from probunet_torch.train.state import create_train_state, make_optimizer
         from probunet_torch.train.steps import make_probunet_train_step
 
-        self.model = self.build_program()
         p = self.pcfg
         self.state = create_train_state(self.model, make_optimizer(
             p.lr, p.weight_decay, 1, "adamw", None, p.opt_state_dtype))
         self.step = make_probunet_train_step(self.model, p.lowres_scale, p.standardization,
-                                             compute_dtype=self.dtype)
+                                             compute_dtype=self.dtype, dp=dp)
         self.losses = []
+
+    def run_checked_steps(self) -> None:
+        """The first ``checked_steps`` calls, read for the check, then the warm-up."""
         n = self.wl["checked_steps"]
         for i in range(n):
             self.call()
@@ -182,5 +199,78 @@ class Sample(SampleJob, _ProbUNetJob):
         return counts.count(model, run, self.itemsize(), backward=False)
 
 
-def make_job(cell, seed, device):
+class TrainDP(Train):
+    """``Train`` on ``cell.chips`` ranks, this one ``rank``; rank 0 starts
+    and drives the others (``perfbench/ranks.py``)."""
+
+    def __init__(self, cell, seed, device, rank=0):
+        super().__init__(cell, seed, device)
+        self.rank, self.world = rank, cell.chips
+        self.global_batch = self.wl["batch"] * self.world
+        self.units_per_call = self.global_batch
+        self.ranks = None
+
+    def make_inputs(self) -> None:
+        super().make_inputs()
+        self.rows = inputs.batch_rows(self.seed, self.hr_all.shape[0], self.global_batch,
+                                      FEED_ROWS, self.device)
+
+    def setup(self) -> None:
+        env = None
+        if self.rank == 0:
+            self.ranks = ranks.Ranks(self.cell, self.seed, self.device)
+            env = self.ranks.env(0)
+            self.mark("ranks started")
+        self.model = self.build_program()
+        if self.ranks:
+            self.ranks.beat()
+        self.dp = ranks.join_group(self.device, env)
+        self.dp.check_same_params(self.model)
+        self.mark("process group")
+        self.make_step(self.dp)
+        if self.rank == 0:   # the other ranks make the calls rank 0 tells them
+            self.run_checked_steps()
+
+    def draws(self, i):
+        """Call ``i``: this rank's days, its rows of the global posterior
+        noise, and the generator its rows of the dropout masks come from."""
+        rows, gen = self.feed(i)
+        b = self.wl["batch"]
+        eps = self.dp.randn((b, self.cfg["latent_dim"]), gen, self.device)
+        return rows[self.rank * b:(self.rank + 1) * b], eps, gen
+
+    def global_draws(self, i):
+        """Call ``i``'s global batch: days, posterior noise and generator."""
+        rows, gen = self.feed(i)
+        eps = torch.randn((len(rows), self.cfg["latent_dim"]), generator=gen, device=self.device)
+        return rows, eps, gen
+
+    def call(self) -> None:
+        if self.ranks:
+            self.ranks.tell()
+        super().call()
+
+    def free(self) -> None:
+        """Stops the other ranks (their peaks kept), leaves the group and
+        waits for the other ranks to end."""
+        if self.ranks:
+            self.rank_peaks = [a["peak_bytes"] for a in self.ranks.stop()]
+        ranks.leave_group()
+        if self.ranks:
+            self.ranks.join()
+            self.ranks = None
+        self.__dict__.pop("dp", None)
+        super().free()
+
+    def reference_readings(self, model, fault=None):
+        feeds = [self.global_draws(i) for i in range(self.wl["checked_steps"])]
+        return ref.train_readings(model, self.hr_all, self.stats, feeds,
+                                  self.cfg["lr"], self.cfg["weight_decay"],
+                                  self.cfg["lowres_scale"], fault, chunk=self.wl["batch"])
+
+
+def make_job(cell, seed, device, rank=0):
+    """The cell's job; ``rank``: which rank of a ``train_dp`` cell this process is."""
+    if cell.workload["job"] == "train_dp":
+        return TrainDP(cell, seed, device, rank)
     return {"train": Train, "sample": Sample}[cell.workload["job"]](cell, seed, device)

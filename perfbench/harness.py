@@ -49,6 +49,7 @@ class Cell:
 
     def __init__(self, name: str, overrides: Optional[dict] = None):
         self.name = name
+        self.overrides = overrides
         self.workload = load_json(HERE / "workloads" / f"{name}.json")
         self.config = load_json(HERE / "configs" / f"{self.workload['config']}.json")
         if overrides:
@@ -57,6 +58,8 @@ class Cell:
         self.peaks = load_json(HERE / "peaks.json")
         self.bench = load_json(ROOT / "BENCHMARK.json")
         self.chips = next((w["chips"] for w in self.bench["workloads"] if w["name"] == name), 1)
+        if overrides and "chips" in overrides:
+            self.chips = overrides["chips"]
 
     def metrics(self, kind: str) -> List[dict]:
         return [m for m in self.bench[kind]
@@ -233,6 +236,8 @@ def run(cell: Cell, seed: int, seconds: float, trace_on: bool, device, t_start: 
     if "breakdown" in r:
         out["breakdown"] = r["breakdown"]
     job.free()
+    if job.rank_peaks and out["device"]:   # the peak on the fullest card
+        out["device"]["memory_peak_bytes"] = max(r["peak"], *job.rank_peaks)
     t = time.perf_counter()
     checks = job.check()
     log(f"check {time.perf_counter() - t:.1f} s")

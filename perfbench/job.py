@@ -26,6 +26,8 @@ FEED_ROWS = 4096
 class Job:
     #: work done by one call (samples or members), set by each job
     units_per_call = 1
+    #: peak device bytes of the other ranks of a cell on several cards, known after ``free``
+    rank_peaks: Tuple[int, ...] = ()
 
     def __init__(self, cell, seed: int, device: torch.device):
         self.cell, self.seed, self.device = cell, int(seed), device

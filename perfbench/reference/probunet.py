@@ -61,10 +61,11 @@ class ProbUNet(nn.Module):
         self.posterior = Encoder(2 * nv, nf, self.latent_dim)
         self.fcomb = Fcomb(nf[0], self.latent_dim, nv)
 
-    def elbo(self, x, y, eps, generator=None):
+    def elbo(self, x, y, eps, generator=None, shard=(0, 1)):
         """(total, recon, kl) for NHWC input x and target y, the posterior
-        draw mu + exp(log_sigma) * eps."""
-        feats = self.unet(x, generator=generator)
+        draw mu + exp(log_sigma) * eps; ``shard``: the U-Net's dropout
+        (``unet.dropout``)."""
+        feats = self.unet(x, generator=generator, shard=shard)
         p_mu, p_ls = self.prior(x.permute(0, 3, 1, 2))
         q_mu, q_ls = self.posterior(torch.cat([x, y], dim=-1).permute(0, 3, 1, 2))
         out = self.fcomb(feats, q_mu + torch.exp(q_ls) * eps)
@@ -102,13 +103,18 @@ def adamw_(params: List[nn.Parameter], state: Dict, lr: float, wd: float,
 
 
 def train_readings(model: ProbUNet, hr_all, stats, feeds, lr: float, wd: float, scale: int,
-                   fault: Optional[str] = None) -> Dict:
+                   fault: Optional[str] = None, chunk: Optional[int] = None) -> Dict:
     """Runs the training steps of ``feeds`` (idx, eps, dropout generator)
     from the model's weights: each step's loss, the norms of the first
     step's gradient of each leaf and of its rows (slices along the first
     axis), and the row norms of each leaf's change over all the steps.
-    ``fault="half_batch"`` plants a fault: the loss of the first half of
-    each batch, doubled."""
+    ``chunk``: rows a backward, the batch's parts drawing their parts of the
+    whole batch's dropout masks from the generator as it stood after the
+    step's noise; the ELBO sums over the batch, so the parts' losses and
+    gradients add. ``fault`` plants a fault: ``"half_batch"``, the loss of
+    the first half of each batch, doubled; ``"no_exchange"`` (with
+    ``chunk``), the first part's alone, as rank 0 steps on its own rows
+    where the ranks exchange no gradient."""
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     start = [p.detach().clone() for p in params]
@@ -120,14 +126,16 @@ def train_readings(model: ProbUNet, hr_all, stats, feeds, lr: float, wd: float, 
             x, y = pair["inputs"], pair["targets"]
             for p in params:
                 p.grad = None
-            if fault == "half_batch":
-                h = x.shape[0] // 2
-                total, _, _ = model.elbo(x[:h], y[:h], eps[:h], gen)
-                total = 2 * total
-            else:
-                total, _, _ = model.elbo(x, y, eps, gen)
-            total.backward()
-            losses.append(total.item())
+            drawn = gen.get_state() if gen is not None else None
+            loss = 0.0
+            for rows, shard, weight in _parts(len(idx), chunk, fault):
+                if drawn is not None:
+                    gen.set_state(drawn)
+                total, _, _ = model.elbo(x[rows], y[rows], eps[rows], gen, shard)
+                total = weight * total
+                total.backward()
+                loss += total.item()
+            losses.append(loss)
             if grad_rows is None:
                 grad_rows = {n: row_norms(p.grad if p.grad is not None else torch.zeros_like(p))
                              for n, p in zip(names, params)}
@@ -135,6 +143,19 @@ def train_readings(model: ProbUNet, hr_all, stats, feeds, lr: float, wd: float, 
     return {"losses": losses, "grad_rows": grad_rows,
             "grad_norms": {n: float(r.norm()) for n, r in grad_rows.items()},
             "change_rows": {n: row_norms(p - s) for n, p, s in zip(names, params, start)}}
+
+
+def _parts(batch: int, chunk: Optional[int], fault: Optional[str]) -> List[tuple]:
+    """(rows, dropout shard, loss weight) of each backward of a step."""
+    if chunk is None or chunk == batch:
+        if fault == "half_batch":
+            return [(slice(0, batch // 2), (0, 1), 2.0)]
+        return [(slice(0, batch), (0, 1), 1.0)]
+    n = batch // chunk
+    if fault == "no_exchange":
+        return [(slice(0, chunk), (0, n), 1.0)]
+    keep, weight = (n // 2, 2.0) if fault == "half_batch" else (n, 1.0)
+    return [(slice(j * chunk, (j + 1) * chunk), (j, n), weight) for j in range(keep)]
 
 
 def sample_residuals(model: ProbUNet, hr_all, stats, idx, eps, scale: int) -> Dict:

@@ -16,7 +16,9 @@ itself.
 
 Dropout draws uniforms of the NHWC shape of each block's activation from
 the generator it is given, block by block in encoder then decoder order,
-and keeps an element where its uniform is below 1 - rate.
+and keeps an element where its uniform is below 1 - rate. With ``shard``
+= (j, n) the batch is part j of n equal parts of a larger batch, and the
+draw is part j of the larger batch's.
 """
 
 from __future__ import annotations
@@ -156,9 +158,12 @@ class Attention(Ref):
         return a.reshape(b, c, h, w)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     b, c, h, w = x.shape
-    u = torch.rand((b, h, w, c), generator=generator, device=x.device).permute(0, 3, 1, 2)
+    j, n = shard
+    u = torch.rand((b * n, h, w, c), generator=generator, device=x.device)
+    u = u[j * b:(j + 1) * b].permute(0, 3, 1, 2)
     keep = 1.0 - rate
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -187,13 +192,13 @@ class Block(nn.Module):
             self.attn = Attention()
             self.proj = Conv(cout, cout, 1)
 
-    def forward(self, x, emb, generator=None):
+    def forward(self, x, emb, generator=None, shard=(0, 1)):
         orig = x
         x = self.conv0(self.norm0(x))
         scale, shift = self.affine(emb)[:, :, None, None].chunk(2, dim=1)
         x = F.silu(self.norm1(x) * (scale + 1) + shift)
         if self.training and self.dropout_rate:
-            x = dropout(x, self.dropout_rate, generator)
+            x = dropout(x, self.dropout_rate, generator, shard)
         x = self.conv1(x)
         if self.skip is not None:
             orig = self.skip(orig)
@@ -277,18 +282,18 @@ class UNet(nn.Module):
         e = F.silu(self.map_layer0(positional_embedding(noise_labels, self.mc)))
         return F.silu(self.map_layer1(e))
 
-    def forward(self, x_nhwc, noise_labels=None, generator=None):
+    def forward(self, x_nhwc, noise_labels=None, generator=None, shard=(0, 1)):
         emb = self.embedding(x_nhwc, noise_labels)
         x = x_nhwc.permute(0, 3, 1, 2)
         skips = []
         for e in self.enc_plan:
             blk = self.enc[e[0]]
-            x = blk(x) if e[1] == "conv" else blk(x, emb, generator)
+            x = blk(x) if e[1] == "conv" else blk(x, emb, generator, shard)
             skips.append(x)
         for e in self.dec_plan:
             if e[7]:
                 x = torch.cat([x, skips.pop()], dim=1)
-            x = self.dec[e[0]](x, emb, generator)
+            x = self.dec[e[0]](x, emb, generator, shard)
         return self.out_conv(self.out_norm(x)).permute(0, 2, 3, 1)
 
 

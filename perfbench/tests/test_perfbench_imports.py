@@ -27,7 +27,7 @@ def _top_level_after(code: str) -> set:
 def test_a_run_loads_no_jax():
     code = """
 import glob, os
-import perfbench.run, perfbench.harness as h, perfbench.control
+import perfbench.run, perfbench.harness as h, perfbench.control, perfbench.ranks
 from perfbench.families import probunet, edm
 from probunet_torch.train import loop, state, steps
 from probunet_torch.ops import _build, attention, gn_silu

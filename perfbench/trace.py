@@ -14,6 +14,8 @@ that tie them (by correlation id). The estimators:
   to 0 launches and is left out.
 - ``launches_per_call``: the same launches per call, summed: a count.
 - ``busy``: the union of device-operation intervals inside the window.
+- ``alone_s``: the time inside the window in which a kernel that ``keep``
+  admits runs and no other kernel does.
 - ``idle_gaps``: the gaps of that union, each named by the innermost host
   op that launched the operation ending it.
 """
@@ -90,16 +92,7 @@ class Segment:
         return sum(b - a for a, b in self._union()) / 1e6
 
     def _union(self) -> List[Tuple[float, float]]:
-        merged: List[List[float]] = []
-        for a, b, *_ in self.device:
-            a, b = max(a, self.t0), min(b, self.t1)
-            if b <= a:
-                continue
-            if merged and a <= merged[-1][1]:
-                merged[-1][1] = max(merged[-1][1], b)
-            else:
-                merged.append([a, b])
-        return [(a, b) for a, b in merged]
+        return [(a, b) for a, b in _union(((d[0], d[1]) for d in self.device), self.t0, self.t1)]
 
     def idle_gaps(self) -> List[Tuple[str, float]]:
         """(what the host was doing, seconds) of each idle gap in the window."""
@@ -119,6 +112,39 @@ class Segment:
                 out.append((name, (a - prev) / 1e6))
             prev = max(prev, b)
         return out
+
+
+def _union(intervals: Iterable[Tuple[float, float]], t0: float, t1: float) -> List[list]:
+    """The union of ``intervals`` clipped to [t0, t1], sorted."""
+    merged: List[list] = []
+    for a, b in sorted(intervals):
+        a, b = max(a, t0), min(b, t1)
+        if b <= a:
+            continue
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def alone_s(seg: Segment, keep) -> float:
+    """Seconds of ``seg``'s window in which a kernel ``keep(seg, kernel)``
+    admits runs and no other kernel does."""
+    mine, others = [], []
+    for k in seg.kernels():
+        (mine if keep(seg, k) else others).append((k[0], k[1]))
+    covered = _union(others, seg.t0, seg.t1)
+    total, j = 0.0, 0
+    for a, b in _union(mine, seg.t0, seg.t1):
+        total += b - a
+        while j < len(covered) and covered[j][1] <= a:
+            j += 1
+        i = j
+        while i < len(covered) and covered[i][0] < b:
+            total -= min(b, covered[i][1]) - max(a, covered[i][0])
+            i += 1
+    return total / 1e6
 
 
 def _parents(ops: List[tuple]) -> List[int]:
