@@ -17,7 +17,9 @@ the tile's height sharded over the ranks (``--parallel_mode spatial`` and
 ``2d``), then the prob-U-Net at ``--model_channels 96``, whose attention
 heads of 72 run the bf16 kernels' exact-width kD = 80 instantiation (the
 fp32 kernels' kD = 128), then the convolutions in 3xTF32 against IEEE
-fp32. Phases:
+fp32, then CorrDiff's denoiser at 448x448 (``ds_model=corrdiff``, two
+DDPM++ U-Nets of 79,985,411 parameters), whose one 256-wide head runs the
+fp32 kernel's kD = 256 build. Phases:
 
   1. card and build: nvidia-smi name and power limit; nvcc for sm_90a with
      ptxas registers, shared memory and spills; ``cuobjdump -sass`` of the
@@ -31,7 +33,7 @@ fp32. Phases:
      (EXACT_SITES: every block shape built there), the row pass with each,
      and the fp32 kernels of ``fp32_plan`` at kD = 64 and 128, their
      threads, shared memory (held against the plan's), registers and
-     spills (none allowed);
+     spills (none allowed); the fp32 forward at kD = 256 in phase 18;
   2. K1 GroupNorm+SiLU against its plain version, output and (B, G) mean
      and rstd, at every (H, W, C) of the path at batch 8 and at edge shapes
      (C = 6 without vectors, H*W = 1, B = 1, a view off a 16-byte boundary,
@@ -223,8 +225,27 @@ fp32. Phases:
      ms, launches, the leading kernels, the memory a call takes beyond
      its inputs and outputs (cuDNN's workspace), and no FFT or complex
      kernel in the 3xTF32 forward, or it fails.
+ 18. CorrDiff (``ds_model=corrdiff``) at the benchmark cell's widths,
+     448x448 (159,970,822 parameters, seeded random weights): the fp32 K2
+     at kD = 256 (``attention_fwd_f32_wide``: threads, shared memory held
+     against ``fp32_plan(256)``, registers, no spill); (a) K2 at kD = 256
+     against its plain version, O and the row lse, at the path's site (b2,
+     L = 784, one head of 256) and at KD256_CASES, every layout, within the
+     strict limit, a second call bit-equal, each launch counted under
+     ``fp32_kd256``; (b) K1 at the path's streamed sites (b2 and b1, the
+     448x448 and 224x224 slices too large for a cluster) against its plain
+     version, fp32, two calls bit-equal; (c) the path's sites by hooks
+     against ``gn_silu_sites(ddpmpp=True)`` and the plan's 6 attention
+     blocks, then the launch counters set to 0 just before one denoiser pass
+     at 2 rows and one regression pass at 1 row: 111 K1 each, by plan
+     (``gn_silu.launches_by_plan``) as ``gn_silu.plan`` gives them, 6 K2 at
+     ``fp32_kd256`` and none else, no K3, no copy, finite output; a profile
+     of the pass; (d) K2 at the site by CUDA events and device time beside
+     its plain version, SDPA (fp32, TF32 off) and the bound. The kernels
+     line gets an ``attention_fwd_kd256`` entry and K1's entry the path's
+     launches by plan.
 
-Every device time of a kernel or of SDPA (phases 6, 10, 16, 17) comes from one
+Every device time of a kernel or of SDPA (phases 6, 10, 16-18) comes from one
 estimator, ``device_ms(whole=True)``: each kernel's mean launch pooled over
 five traces times its launches per call, which records the profiler loses
 late in a long run do not bias. Any failed phase
@@ -391,6 +412,16 @@ EXACT_SITES = [(1024, 4), (64, 4)]
 PRESSURE_FREE = 3 * 2 ** 30
 # the split kernel against its plain version: bit for bit
 SPLIT_TOL = 0.0
+# phase 18, CorrDiff at the cell's widths (perfbench/configs/corrdiff_cwb448.json):
+# a denoiser pass at 2 rows (the cell's b1 x K2), a regression pass at 1; per
+# pass 111 K1 sites and 6 attention blocks of one 256-wide head over 28x28
+CORRDIFF_RES, CORRDIFF_ROWS, CORRDIFF_PARAMS = 448, 2, 159_970_822
+CORRDIFF_K1_PER_PASS, CORRDIFF_K2_PER_PASS = 111, 6
+# (B, L, heads, c) of K2 at kD = 256: the path's site, one row, a ragged
+# 32-row tile with two heads, a narrower head read in place (200) and one
+# copied zero-padded (129 -> 136)
+KD256_SITE = (2, 784, 1, 256)
+KD256_CASES = [KD256_SITE, (1, 1, 1, 256), (1, 65, 2, 256), (2, 100, 1, 200), (2, 100, 1, 129)]
 
 
 def log(msg=""):
@@ -445,7 +476,8 @@ def sass_census(_build):
     products has HGMMA and UTMALDG and none has HMMA: the fp32 ``_f32``
     kernels (forward, row pass, dK/dV and dQ at each head width) and the
     bf16 ``_sm90`` forward, dK/dV and dQ kernels of each plan; the bf16 row
-    pass (``attention_bwd_prep_sm90``) does no product."""
+    pass (``attention_bwd_prep_sm90``) does no product. The fp32 forward at
+    kD = 256 is ``attention_fwd_f32_wide``."""
     import re
 
     dump = subprocess.run([_build.find_tool("cuobjdump"), "-sass", str(_build.LIB_PATH)],
@@ -467,16 +499,17 @@ def sass_census(_build):
                 counts[cur][op.group(1)] += 1
     for name, c in sorted(counts.items()):
         log(f"[1] SASS {name}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG")
-    fp32 = [n for n in counts if "_f32<" in n]
+    fp32 = [n for n in counts if "_f32<" in n or "_f32_wide<" in n]
     sm90 = [n for n in counts if "_sm90<" in n and "_prep_" not in n]
     # fp32 at head widths kD = 64 and 128: fwd, the row pass, dq x 2, dkdv x
-    # (one kernel at 64; a dV and a dK pass at 128). bf16 at kD = 64, 80, 96
+    # (one kernel at 64; a dV and a dK pass at 128); at kD = 256 the forward
+    # alone (attention_fwd_f32_wide). bf16 at kD = 64, 80, 96
     # and 128: fwd x (3 block shapes at 64, 2 at 80, 1 at 96 and 128); dkdv
     # x (fast at 64 rows, split dS at 64 and 128 rows at kD = 64; fast and
     # split at 80 and 96; at kD = 128 a dV pass and a dK pass fast and
     # split); dq x (3 at 64, fast and split at 80, 96 and 128); the row
     # pass x 4
-    want = {"fp32": 3 * 2 + 3, "sm90": 7 + 10 + 9, "all": 9 + 26 + 4}
+    want = {"fp32": 3 * 2 + 3 + 1, "sm90": 7 + 10 + 9, "all": 10 + 26 + 4}
     bad = [n for n in fp32 + sm90 if not (counts[n]["HGMMA"] and counts[n]["UTMALDG"])]
     bad += [n for n, c in counts.items() if c["HMMA"]]
     if (len(fp32), len(sm90), len(counts)) != (want["fp32"], want["sm90"], want["all"]) or bad:
@@ -560,10 +593,11 @@ def attn_kernel_info(torch, K2, sites, num_sms, kd=64, phase=1):
 
 
 def f32_kernel_info(torch, K2, kd, phase=1):
-    """The fp32 attention kernels of ``fp32_plan(kd)``: threads, dynamic
-    shared bytes (checked against the plan's own figure), registers and
-    spilled bytes, as the built library reports them. Raises if a kernel
-    spills or the plan's shared memory disagrees with the kernel's."""
+    """The fp32 attention kernels of ``fp32_plan(kd)`` (at kd 256 the
+    forward alone): threads, dynamic shared bytes (checked against the
+    plan's own figure), registers and spilled bytes, as the built library
+    reports them. Raises if a kernel spills or the plan's shared memory
+    disagrees with the kernel's."""
     from probunet_torch.ops import _build
 
     lib, out, p = _build.lib(), (ctypes.c_int * 5)(), K2.fp32_plan(kd)
@@ -572,7 +606,7 @@ def f32_kernel_info(torch, K2, kd, phase=1):
     kernels = {"fwd": (dict(zip(keys, out)), p.fwd_smem)}
     bwd = [(3, "row_pass", p.prep_smem), (0, "dkdv" if kd == 64 else "dv", p.dkdv_smem),
            (1, "dq", p.dq_smem)] + ([(2, "dk", p.dk_smem)] if kd == 128 else [])
-    for k, name, planned in bwd:
+    for k, name, planned in bwd if p.bwd_tile else []:
         _build.check(lib.probunet_attention_bwd_f32_query(k, kd, p.bwd_tile, out),
                      "attention query")
         kernels[name] = (dict(zip(keys, out)), planned)
@@ -1074,6 +1108,7 @@ def run_phases(torch, dev, card, sass):
     spatial = spatial_phase(torch, dev, card, ds, mark)
     mc96 = mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark)
     conv = conv_phase(torch, dev, card, mark)
+    corrdiff = corrdiff_phase(torch, dev, card, gen, mark)
 
     def entry(name, source, replaces, n, err, tol, t, extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1088,7 +1123,8 @@ def run_phases(torch, dev, card, sass):
                      **{f"baseline_{path}": n[key] for path, n in baseline["launches"].items()},
                      **{f"multiprocess_{path}": n[key] for path, n in multi["launches"].items()},
                      **{f"spatial_{path}": n[key] for path, n in spatial["launches"].items()},
-                     **{path: n[key] for path, n in mc96["launches"].items()}}
+                     **{path: n[key] for path, n in mc96["launches"].items()},
+                     **{f"corrdiff_{path}": n[key] for path, n in corrdiff["launches"].items()}}
                for key in ("gn", "attn", "attn_bwd")}
     launches = {key: sum(by_path[key].values()) for key in by_path}
     return [
@@ -1100,6 +1136,10 @@ def run_phases(torch, dev, card, sass):
                "bf16": k1_t["bf16"], "bf16_max_abs_err": k1_err[torch.bfloat16],
                "launches_by_path": by_path["gn"], "largest_site": k1_info,
                "edm_128_rows_max_abs_err": edm["k1_err"],
+               "corrdiff": {"by_plan": {path: r["k1_by_plan"] for path, r in
+                                        corrdiff["report"]["passes"].items()},
+                            "streamed_sites": corrdiff["report"]["k1_streamed_sites"],
+                            "streamed_max_abs_err": corrdiff["k1_err"]},
                "baseline": {"timed": per.format(K1_PER_BATCH).replace(
                                 "U-Net", "deterministic U-Net"),
                             "fp32": baseline["k1_t"]["fp32"], "bf16": baseline["k1_t"]["bf16"],
@@ -1139,6 +1179,23 @@ def run_phases(torch, dev, card, sass):
                         **{k: v for k, v in mc96["report"].items() if k != "timings"}},
                "sass": {n: c for n, c in sass.items() if n.startswith("attention_bwd")}}),
         *exact_width_entries(entry, mc96, attn_info_exact),
+        entry("attention_fwd_kd256", "probunet_torch/csrc/attention_fwd.cu",
+              "probunet_tpu/ops/pallas_attn.py:69",
+              sum(p["by_kd"]["fwd"].get("fp32_kd256", 0)
+                  for p in corrdiff["report"]["passes"].values()),
+              corrdiff["k2_err"]["out"], ATTN_TOL["strict"], corrdiff["k2_t"],
+              {"timed": f"CorrDiff's attention site (B={KD256_SITE[0]}, L={KD256_SITE[1]}, one "
+                        f"head of {KD256_SITE[3]}), strict fp32, on the block's views; "
+                        f"{CORRDIFF_K2_PER_PASS} such sites a pass",
+               "device_ms": corrdiff["k2_t"]["device_ms"],
+               "plain_device_ms": corrdiff["k2_t"]["plain_device_ms"],
+               "library_device_ms": corrdiff["k2_t"]["library_device_ms"],
+               "lse_max_abs_err": corrdiff["k2_err"]["lse"],
+               "launches_by_path": {path: p["by_kd"] for path, p in
+                                    corrdiff["report"]["passes"].items()},
+               "corrdiff": corrdiff["report"],
+               "sass": {n: c for n, c in sass.items()
+                        if n.startswith("attention_fwd_f32_wide")}}),
         entry("tf32_split", "probunet_torch/csrc/tf32_split.cu",
               "none: the 3xTF32 parts of cuDNN's fp32 convolutions' operands",
               sum(conv["launches"].values()), conv["max_abs_err"], SPLIT_TOL, conv["split"],
@@ -3873,6 +3930,189 @@ def conv_phase(torch, dev, card, mark):
             "launches": {"train_step": step_calls["split"], "edm_pass": edm_calls["split"]}}
 
 
+def corrdiff_phase(torch, dev, card, gen, mark):
+    """Phase 18: CorrDiff at the cell's widths (see CORRDIFF_* and
+    KD256_*): the kD = 256 kernel's registers and spills, (a) K2 at kD = 256
+    against its plain version, (b) K1 at the path's streamed sites against
+    its plain version, (c) one denoiser and one regression pass with exact
+    launch counts by head width and by K1 plan, (d) K2 at the path's site
+    beside its plain version, SDPA and the bound. Returns the errors, the
+    timings, the launches by pass and the report."""
+    import torch.nn.functional as F
+
+    from probunet_torch.config import Config
+    from probunet_torch.models.unet import build_unet_plan, gn_silu_sites
+    from probunet_torch.ops import attention as K2
+    from probunet_torch.ops import gn_silu as K1
+    from probunet_torch.ops.norm import num_groups_for
+    from probunet_torch.train.loop import build_corrdiff_model
+
+    res, tol = (CORRDIFF_RES, CORRDIFF_RES), ATTN_TOL["strict"]
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    report = {"card": card, "kd256_kernels": f32_kernel_info(torch, K2, 256, 18)}
+
+    # ---- (a) K2 at kD = 256 against its plain version --------------------------------
+    worst = {"out": 0.0, "lse": 0.0}
+    for b, L, nh, c in KD256_CASES:
+        for layout in LAYOUTS:
+            q, k, v = qkv_views(torch, layout, b, L, nh, torch.float32, dev, gen, c)
+            before = K2.fused_attention.launches_by_kd.get("fp32_kd256", 0)
+            with torch.inference_mode():
+                out = K2.fused_attention(q, k, v)
+                again = K2.fused_attention(q, k, v)
+                ref = K2._plain_attention(q, k, v, False)
+                _, lse = K2._launch(*map(K2.kernel_layout, (q, k, v)), with_lse=True, c=c)
+                ref_lse = torch.logsumexp(
+                    torch.einsum("bqhc,bkhc->bhqk", q, k) / math.sqrt(c), -1).reshape(b * nh, L)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            same = torch.equal(out, again)
+            n = K2.fused_attention.launches_by_kd.get("fp32_kd256", 0) - before
+            ok = (torch.allclose(out, ref, atol=tol, rtol=tol) and lse_err <= tol and same
+                  and n == 3 and out.shape == (b, L, nh, c))
+            worst = {"out": max(worst["out"], err), "lse": max(worst["lse"], lse_err)}
+            log(f"[18] K2 fp32 kD 256 {layout:10s} B={b} L={L} heads={nh} c={c}: max abs err "
+                f"O {err:.3e}, lse {lse_err:.3e} (tol {tol}), two calls bit-equal {same}, "
+                f"fp32_kd256 launches {n} of 3 {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("K2 at kD = 256 disagrees with its plain version, two "
+                                     "calls differ, or its launches were not counted")
+    report["kd256_max_abs_err"] = worst
+    mark(18)
+
+    # ---- (b) K1 at the path's streamed sites -------------------------------------------
+    enc, dec, final_c = build_unet_plan(res, 6, 128, (1, 2, 2, 2, 2), 4, (28,), True, True)
+    plan_sites = gn_silu_sites(enc, dec, final_c, res, ddpmpp=True)
+
+    def by_plan(rows):
+        on = [K1.plan(rows, *s, num_groups_for(s[2]), 4, num_sms).on_chip for s in plan_sites]
+        return {"on_chip": sum(on), "streamed": len(on) - sum(on)}
+
+    streamed = sorted({s for s in plan_sites if not K1.plan(
+        CORRDIFF_ROWS, *s, num_groups_for(s[2]), 4, num_sms).on_chip})
+    atol, rtol = GN_TOL["float32"]
+    k1_worst = 0.0
+    for rows in (CORRDIFF_ROWS, 1):
+        for h, w, c in streamed:
+            g = num_groups_for(c)
+            p = K1.plan(rows, h, w, c, g, 4, num_sms)
+            x = torch.randn(rows, h, w, c, device=dev, generator=gen) + 0.5
+            gamma = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+            beta = 0.1 * torch.randn(c, device=dev, generator=gen)
+            with torch.inference_mode():
+                out = K1.gn_silu(x, gamma, beta, g, 1e-6)
+                again = K1.gn_silu(x, gamma, beta, g, 1e-6)
+                ref = K1._plain_gn_silu(x, gamma, beta, g, 1e-6)[0]
+            torch.cuda.synchronize()
+            d = (out - ref).abs()
+            same = torch.equal(out, again)
+            ok = bool((d <= atol + rtol * ref.abs()).all()) and same and not p.on_chip
+            k1_worst = max(k1_worst, d.max().item())
+            log(f"[18] K1 fp32 {rows}x{h}x{w}x{c} G={g} eps 1e-6 (cb {p.cb}, cluster {p.n}, "
+                f"{p.rows} rows/block, {'on chip' if p.on_chip else 'streamed'}): max abs err "
+                f"{d.max().item():.3e} (atol {atol}, rtol {rtol:.3g}), two calls bit-equal "
+                f"{same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("K1 on CorrDiff's streamed sites disagrees with its plain "
+                                     "version, or a site was planned on chip")
+            del x, out, again, ref, d
+    report["k1_streamed_sites"] = [list(s) for s in streamed]
+    report["k1_streamed_max_abs_err"] = k1_worst
+    mark(18)
+
+    # ---- (c) the path: one denoiser pass, one regression pass --------------------------
+    cfg = Config(ds_model="corrdiff", resolution=res, model_channels=128,
+                 channel_mult=(1, 2, 2, 2, 2), num_blocks=4, attn_resolutions=(28,))
+    model = build_corrdiff_model(cfg, device="meta").to_empty(device=dev).eval()
+    fill_weights(torch, model, seed=18)
+    nparams = sum(p.numel() for p in model.parameters())
+    r = torch.randn(CORRDIFF_ROWS, *res, cfg.nvars, device=dev, generator=gen)
+    cond = torch.randn(CORRDIFF_ROWS, *res, cfg.nvars, device=dev, generator=gen)
+    sigma = torch.full((CORRDIFF_ROWS,), 1.0, device=dev)
+    gn_sites, attn_sites = census(torch, model, lambda: model(r, sigma, condition_img=cond))
+    log(f"[18] CorrDiff: two {res[0]}x{res[1]} DDPM++ U-Nets, {nparams:,} parameters; a pass "
+        f"has {len(gn_sites)} K1 sites ({len(streamed)} distinct streamed shapes) and attention "
+        f"sites (L, heads) {sorted(set(attn_sites))} x {len(attn_sites)}")
+    if (nparams != CORRDIFF_PARAMS or sorted(gn_sites) != sorted(plan_sites)
+            or len(gn_sites) != CORRDIFF_K1_PER_PASS
+            or attn_sites != [(784, 1)] * CORRDIFF_K2_PER_PASS):
+        raise AssertionError(f"expected {CORRDIFF_PARAMS:,} parameters, the plan's "
+                             f"{CORRDIFF_K1_PER_PASS} K1 sites and {CORRDIFF_K2_PER_PASS} "
+                             f"attention sites of (784, 1)")
+    passes, launches = {}, {}
+    for name, rows, fn in (
+            ("denoiser_pass", CORRDIFF_ROWS, lambda: model(r, sigma, condition_img=cond)),
+            ("regression_pass", 1, lambda: model.regression(cond[:1]))):
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n, kds, plans = launch_counts(), launches_by_kd(), dict(K1.gn_silu.launches_by_plan)
+            device = profile(torch, fn, f"CorrDiff {name.replace('_', ' ')} at {rows} rows",
+                             "one pass", phase=18, top=8)
+        want = (CORRDIFF_K1_PER_PASS, CORRDIFF_K2_PER_PASS, 0, 0)
+        want_kd = {"fwd": {"fp32_kd256": CORRDIFF_K2_PER_PASS}, "bwd": {}}
+        want_plan = {k: v for k, v in by_plan(rows).items() if v}
+        finite = bool(torch.isfinite(out).all())
+        launches[name] = as_launches(n)
+        passes[name] = {"rows": rows, "ms": wall * 1e3, "device_ms": device,
+                        "launches": {**as_launches(n), "copies": n[3]}, "by_kd": kds,
+                        "k1_by_plan": plans}
+        log(f"[18] {name} at {rows} rows: {wall * 1e3:.1f} ms (device {device} ms), output "
+            f"{tuple(out.shape)}, finite {finite}; launches K1 {n[0]}, K2 {n[1]}, K3 {n[2]}, "
+            f"copies {n[3]} (expected {want}); K2 by head width {kds} (expected {want_kd}); K1 "
+            f"by plan {plans} (expected {want_plan}) ({card})")
+        if (n != want or kds != want_kd or plans != want_plan or not finite
+                or tuple(out.shape) != (rows, *res, cfg.nvars)):
+            raise AssertionError(f"CorrDiff's {name}: launches or output are off")
+        del out
+    report["passes"] = passes
+    del model
+    mark(18)
+
+    # ---- (d) K2 at the path's site, timed ----------------------------------------------
+    b, L, nh, c = KD256_SITE
+    q, k, v = qkv_views(torch, "block", b, L, nh, torch.float32, dev, gen, c)
+    qs, ks, vs = (a.permute(0, 2, 1, 3).contiguous() for a in (q, k, v))
+
+    def run():
+        return K2.fused_attention(q, k, v)
+
+    def plain():
+        return K2._plain_attention(q, k, v, False)
+
+    def lib():
+        return F.scaled_dot_product_attention(qs, ks, vs)
+
+    with torch.inference_mode():
+        K2.kernel_layout.copies = 0
+        t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run, whole=True),
+             "plain_ms": cuda_ms(torch, plain), "plain_device_ms": device_ms(torch, plain,
+                                                                            whole=True),
+             "library_ms": cuda_ms(torch, lib), "library_device_ms": device_ms(torch, lib,
+                                                                              whole=True)}
+        if K2.kernel_layout.copies:
+            raise AssertionError("the block's q/k/v views were copied")
+    flops = 4.0 * b * nh * L * L * c
+    t.update(attn_bound(flops, 4.0 * b * L * nh * c * 4, "strict"))
+    attn_totals(t, flops)
+    t["pass_device_ms"] = CORRDIFF_K2_PER_PASS * t["device_ms"]
+    log(f"[18] K2 fp32 kD 256 at B={b} L={L} heads={nh} c={c} (block views): kernel "
+        f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}, {t['bound_share_device']:.1%} of the "
+        f"bound; a pass of {CORRDIFF_K2_PER_PASS} {t['pass_device_ms']:.4f}), plain "
+        f"{t['plain_ms']:.4f} (device {t['plain_device_ms']:.4f}), SDPA {t['library_ms']:.4f} "
+        f"(device {t['library_device_ms']:.4f}), bound {t['bound_ms']:.5f} ({t['bound_rule']}, "
+        f"{t['bound_by']}); {t['device_tflops']:.1f} TFLOP/s by device time ({card})")
+    mark(18)
+    return {"k2_err": worst, "k1_err": k1_worst, "k2_t": t, "launches": launches,
+            "report": report}
+
+
 def mc96_by_kd(K2, bf16, passes):
     """K2's (or K3's) launches by head width over ``passes`` U-Net passes of
     the model_channels 96 path, bf16 or fp32: its 32x32 sites (4 heads of
@@ -3942,6 +4182,7 @@ def reset_launch_counts():
     from probunet_torch.ops import gn_silu as K1
 
     K1.gn_silu.launches = K2.fused_attention.launches = K2.attention_bwd.launches = 0
+    K1.gn_silu.launches_by_plan.clear()
     K2.fused_attention.launches_by_kd.clear()
     K2.attention_bwd.launches_by_kd.clear()
     K2.kernel_layout.copies = 0

@@ -33,7 +33,9 @@ class Config:
     # --- model selection (reference trainmodel.py:33; "edm" makes the
     # reference's dead EDMPrecond a live diffusion downscaler, "vae" its dead
     # vae enum a live conditional conv-VAE) ---
-    ds_model: str = "probabilistic_unet"  # {deterministic_unet, probabilistic_unet, linearcnn, bcsd, edm, vae}
+    # "corrdiff" (the port only) serves NVIDIA's CorrDiff: a regression
+    # DDPM++ U-Net, then an EDM residual chain on a second one
+    ds_model: str = "probabilistic_unet"  # {deterministic_unet, probabilistic_unet, linearcnn, bcsd, edm, vae, corrdiff}
 
     # --- prob-U-Net architecture (reference main.py:32-37, prob_unet.py:129) ---
     latent_dim: int = 6
@@ -117,7 +119,7 @@ class Config:
 
     def __post_init__(self) -> None:
         if self.ds_model not in ("deterministic_unet", "probabilistic_unet",
-                                 "linearcnn", "bcsd", "edm", "vae"):
+                                 "linearcnn", "bcsd", "edm", "vae", "corrdiff"):
             raise ValueError(f"unknown ds_model {self.ds_model!r}")
         if self.standardization not in ("none", "perpixel", "pertimestep", "minmax"):
             raise ValueError(f"unknown standardization {self.standardization!r}")

@@ -1,5 +1,6 @@
 // Fused self-attention forward, softmax(Q (K s)^T) V with s = 1/sqrt(c) for
-// a head dim c up to 128: kernel K2 of the port, for Hopper (sm_90a).
+// a head dim c up to 128 (fp32: 256): kernel K2 of the port, for Hopper
+// (sm_90a).
 //
 // Replaces probunet_tpu/ops/pallas_attn.py::_fwd_kernel (launched by
 // _fwd_pallas). The TPU kernel holds the whole of K and V in VMEM and skips
@@ -76,7 +77,7 @@
 //
 // Layout: q, k, v are (B, L, heads, W) with any element strides (sb, sl,
 // sh) and a unit-stride head dim, each row 16-byte aligned, W = 64 or a
-// multiple of 8 in 72..128 (the head dim, or the zero-padded width the
+// multiple of 8 in 72..KD (the head dim, or the zero-padded width the
 // wrapper copied it to), W <= KD: the U-Net block's q/k/v views of its qkv
 // conv output are read where the conv wrote them. The output is contiguous (B,
 // L, heads, W). Given a non-null lse,
@@ -491,12 +492,219 @@ template <int KD, int BN> struct Fwd32 {
   }
 };
 
+// ---- kD = 256: the head streamed through shared memory in chunks ----------
+//
+// A head of 256 fp32 columns (CorrDiff's one head at its 28x28 level) does
+// not fit attention_fwd_f32's layout: Q's hi / lo pair alone is 128 KB, and
+// one 32-row K tile's pair 64 KB more. So attention_fwd_f32_wide keeps Q's
+// pair (split once, as above) and streams K and V through a ring of
+// kWideSlots slots of kChunk (64) head columns each: per K/V tile, the
+// KD / kChunk chunks of K, then the chunks of V that the block's output
+// columns need. A K chunk is split into its hi / lo pair in place; a V
+// chunk is transposed into its pair (V^T, kChunk rows of BN keys). The
+// consumer runs S = Q K^T chunk by chunk, each chunk's product into a fresh
+// accumulator joined to S by an fp32 add (the tensor cores' accumulation
+// truncates; at most 8 k8 steps sum there, as at KD = 64), the online
+// softmax, then P V chunk by chunk into a fresh accumulator joined to O by
+// an fp32 FMA, as attention_fwd_f32 does per tile.
+//
+// Columns: each block computes S whole and O for OC of the 256 columns
+// (blockIdx.z picks which): O is OC / 2 registers a thread, 64 at OC = 128
+// where all 256 would take 128 and crowd the split of P and the products'
+// accumulators. Two blocks per 64 query rows compute the same S twice (1.5
+// times the products of one block), and double the blocks: at CorrDiff's
+// site (b2, L = 784, one head) 26 blocks of 64 rows would leave 106 of the
+// H100's 132 SMs idle.
+//
+// Bound: operations, 4 B heads L^2 c FLOP against three TF32 products (165
+// TFLOP/s): 1.26 GFLOP, 7.6 us at CorrDiff's site; a block's 64 rows run
+// 3/4 of a row's products of that site on one SM, in the ring's order.
+
+constexpr int kWideSlots = 4;
+constexpr int kChunk = 64;   // head columns per streamed chunk
+
+// Shared memory of attention_fwd_f32_wide: Q's hi / lo pair (Q lands in
+// q_hi), then kWideSlots slots of three chunk tiles of BN rows (a: the
+// chunk as it lands, split in place; b, c: K's lo, or V^T's hi and lo).
+template <int KD, int BN> struct WideSmem32 {
+  static constexpr int kQ = f32_tile_bytes<KD>(64), kC = f32_tile_bytes<kChunk>(BN);
+  static constexpr int q_hi = 0, q_lo = kQ, slots = 2 * kQ;
+  static constexpr int a = 0, b = kC, c = 2 * kC, slot = 3 * kC;
+  static constexpr int bars = slots + kWideSlots * slot;
+  static constexpr int bytes = bars + kRing32Bytes<kWideSlots> + 1024;
+};
+
+// Rows row0 + g and row0 + g + 8 of a warp's accumulator of kChunk columns,
+// scaled by mul, into columns col0 .. of a contiguous (B, L, H, W) fp32
+// tensor; rows at or past L and columns at or past W are not written.
+__device__ __forceinline__ void store_chunk_f32(float* __restrict__ out,
+                                                const float (&d)[kChunk / 2], int b, int h,
+                                                int H, int L, int W, int col0, int row0,
+                                                int lane, const float (&mul)[2]) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= L) continue;
+    float* p = out + (((size_t)b * L + row) * H + h) * W + col0 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kChunk / 8; ++j)
+      if (col0 + 8 * j + 2 * t < W)
+        *reinterpret_cast<float2*>(p + 8 * j) =
+            make_float2(d[4 * j + 2 * r] * mul[r], d[4 * j + 2 * r + 1] * mul[r]);
+  }
+}
+
+// One block per (64 query rows, batch * head, OC output columns): a consumer
+// and a producer warpgroup, as attention_fwd_f32.
+template <int KD, int BN, int OC>
+__global__ void __launch_bounds__(2 * kWarpgroup, 1)
+    attention_fwd_f32_wide(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
+                           float* __restrict__ lse, int H, int L, int W, float scale) {
+  using Smem = WideSmem32<KD, BN>;
+  constexpr int S = kWideSlots, kKC = KD / kChunk, kVC = OC / kChunk;
+  constexpr int kQC = f32_tile_bytes<kChunk>(64);  // a chunk of Q's 64 rows
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + Smem::bars);  // Q loaded, Q ready
+  Ring32* ring = reinterpret_cast<Ring32*>(own + 2);
+  auto slot = [&](int s, int off) { return smem + Smem::slots + s * Smem::slot + off; };
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * 64;
+  const int col0 = blockIdx.z * OC;
+  const int n_tiles = (L + BN - 1) / BN;
+  if (threadIdx.x == 0) ring32_init<S>(own, ring);
+  __syncthreads();
+  const int tid = threadIdx.x % kWarpgroup;
+
+  if (threadIdx.x >= kWarpgroup) {  // the producer warpgroup
+    if (tid == 0) {
+      mbar_expect_tx(&own[0], Smem::kQ);
+      tma_tile_f32<KD, 64>(smem + Smem::q_hi, &tq, &own[0], h, q0, b);
+    }
+    mbar_wait(&own[0], 0);
+    split_tile<Smem::kQ>(smem + Smem::q_hi, smem + Smem::q_lo, tid);
+    fence_async_smem();
+    mbar_arrive(&own[1]);
+    int n = 0;  // chunks through the ring so far
+    for (int j = 0; j < n_tiles; ++j) {
+      for (int i = 0; i < kKC + kVC; ++i, ++n) {
+        const int s = n % S;
+        const unsigned ph = (n / S) & 1;
+        const bool key = i < kKC;
+        Ring32& st = ring[s];
+        producer_sync();  // every producer thread is done with this slot's last chunk
+        if (tid == 0) {
+          mbar_wait(&st.nat_empty, ph ^ 1);
+          mbar_expect_tx(&st.loaded, Smem::kC);
+          const int col = key ? kChunk * i : col0 + kChunk * (i - kKC);
+#pragma unroll
+          for (int a = 0; a < kChunk / kF32Cols; ++a)
+#pragma unroll
+            for (int r = 0; r < BN / kF32BoxRows; ++r)
+              tma_load(slot(s, Smem::a) + a * BN * kAtomBytes + r * kF32BoxRows * kAtomBytes,
+                       key ? &tk : &tv, &st.loaded, h, j * BN + kF32BoxRows * r, b,
+                       col + kF32Cols * a);
+        }
+        mbar_wait(&st.loaded, ph);
+        if (key)
+          split_tile<Smem::kC>(slot(s, Smem::a), slot(s, Smem::b), tid);
+        else
+          transpose_tile<kChunk, BN, true>(slot(s, Smem::a), nullptr, slot(s, Smem::b),
+                                           slot(s, Smem::c), tid);
+        fence_async_smem();
+        mbar_arrive(&st.nat_full);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: query rows q0 .. q0 + 63, this thread's row0 +
+  // g and row0 + g + 8
+  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const int row0 = q0 + 16 * warp;
+  const float c = scale * kLog2e;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2], sc[BN / 2], part[BN / 2],
+        pv[kChunk / 2], acc[kVC][kChunk / 2];
+  uint32_t pa_hi[BN / 8][4], pa_lo[BN / 8][4];  // P as the A operand of P V
+#pragma unroll
+  for (int i = 0; i < kVC; ++i) zero(acc[i]);
+  mbar_wait(&own[1], 0);
+  int n = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+#pragma unroll
+    for (int i = 0; i < kKC; ++i, ++n) {  // S = Q K^T, a chunk of the head at a time
+      Ring32& st = ring[n % S];
+      mbar_wait(&st.nat_full, (n / S) & 1);
+      wgmma_fence();
+      mma3_ss<BN, kChunk / 8>(part, smem + Smem::q_hi + i * kQC, smem + Smem::q_lo + i * kQC,
+                              slot(n % S, Smem::a), slot(n % S, Smem::b), 0, kChunk / 8);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(part);
+      mbar_arrive(&st.nat_empty);
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) sc[e] = i == 0 ? part[e] : sc[e] + part[e];
+    }
+    sm90::softmax_tile<BN>(sc, j * BN, L, t, c, m, l, alpha);
+    split_a<BN>(sc, pa_hi, pa_lo);
+#pragma unroll
+    for (int i = 0; i < kVC; ++i, ++n) {  // O += P V, a chunk of the output at a time
+      Ring32& st = ring[n % S];
+      mbar_wait(&st.nat_full, (n / S) & 1);
+      wgmma_fence();
+      mma3_rs<kChunk, BN / 8>(pv, pa_hi, pa_lo, slot(n % S, Smem::b), slot(n % S, Smem::c), 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(pv);
+      mbar_arrive(&st.nat_empty);
+#pragma unroll
+      for (int e = 0; e < kChunk / 2; ++e) acc[i][e] = fmaf(acc[i][e], alpha[(e / 2) % 2], pv[e]);
+    }
+  }
+
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+  for (int i = 0; i < kVC; ++i)
+    store_chunk_f32(o, acc[i], b, h, H, L, W, col0 + kChunk * i, row0, lane, inv);
+  if (lse != nullptr && blockIdx.z == 0 && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + lane / 4 + 8 * r;
+      if (row < L) lse[(size_t)bh * L + row] = (m[r] + log2f(l[r])) / kLog2e;
+    }
+  }
+}
+
+template <int KD, int BN, int OC> struct Wide32 {
+  static constexpr int threads = 2 * kWarpgroup, smem = WideSmem32<KD, BN>::bytes;
+
+  static cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                            void* o, float* lse, int B, int H, int L, int W, float scale,
+                            cudaStream_t stream) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_fwd_f32_wide<KD, BN, OC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((L + 63) / 64, B * H, KD / OC);
+    attention_fwd_f32_wide<KD, BN, OC><<<grid, threads, smem, stream>>>(
+        tq, tk, tv, static_cast<float*>(o), lse, H, L, W, scale);
+    return cudaGetLastError();
+  }
+
+  static cudaError_t query(int* out) {
+    return hopper::query(attention_fwd_f32_wide<KD, BN, OC>, threads, smem, out);
+  }
+};
+
 // The kernel of an fp32 plan (ops/attention.py::fp32_plan): head width kd,
 // BN = tile_rows K/V rows per tile: 64 at kd 64; 32 at kd 128, where O and
-// this tile's P V are 64 registers a thread each.
+// this tile's P V are 64 registers a thread each; 32 at kd 256, streamed in
+// 64-column chunks, 128 output columns a block.
 template <typename F> cudaError_t with_plan(int kd, int tile_rows, F&& f) {
   if (kd == 64 && tile_rows == 64) return f(Fwd32<64, 64>());
   if (kd == 128 && tile_rows == 32) return f(Fwd32<128, 32>());
+  if (kd == 256 && tile_rows == 32) return f(Wide32<256, 32, 128>());
   return cudaErrorInvalidValue;
 }
 
@@ -507,12 +715,12 @@ template <typename F> cudaError_t with_plan(int kd, int tile_rows, F&& f) {
 
 // q, k, v: (B, L, H, head_dim) of one dtype, element strides (*_sb, *_sl,
 // *_sh), unit-stride head dim, 16-byte-aligned rows; head_dim 64, or a
-// multiple of 8 in 72..128 (the head dim c, or the zero-padded width that
+// multiple of 8 in 72..128 (fp32: 72..256) (the head dim c, or the zero-padded width that
 // ops/attention.py::kernel_width gives c); o: (B, L, H, head_dim)
 // contiguous, same dtype; lse: null or (B*H, L) fp32. scale is 1/sqrt(c).
 // block_rows, tile_rows and kd are the plan's (ops/attention.py::plan for
 // bf16: 64 or 128 rows each, kd 64, 80, 96 or 128; fp32_plan for fp32: 64,
-// its K/V tile rows and kd 64 or 128); a kd not built, or narrower than
+// its K/V tile rows and kd 64, 128 or 256); a kd not built, or narrower than
 // head_dim, is refused. Returns a cudaError_t code; 0 on success.
 extern "C" int probunet_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int B, int H, int L, int head_dim,

@@ -186,13 +186,12 @@ inline cudaError_t make_tile_map(TileMap* map, const void* ptr, int B, int H, in
 }
 
 // Whether the kernels of head width kd take rows of W columns: W = 64 or a
-// multiple of 8 in 72..128, kd one built for the dtype (bf16: 64, 80, 96,
-// 128; fp32: 64, 128) and no narrower than W, and W = 64 at kd = 64 (whose
-// results are stored 64 columns wide).
+// multiple of 8 in 72..kd, kd one built for the dtype (bf16: 64, 80, 96,
+// 128; fp32: 64, 128 and, for the forward, 256) and no narrower than W, and
+// W = 64 at kd = 64 (whose results are stored 64 columns wide).
 inline bool head_width_ok(int W, int kd, bool bf16) {
-  const bool built = kd == 64 || kd == 128 || (bf16 && (kd == 80 || kd == 96));
-  return built && (W == 64 || (W > 64 && W <= 128 && W % 8 == 0)) && W <= kd &&
-         (kd != 64 || W == 64);
+  const bool built = kd == 64 || kd == 128 || (bf16 ? kd == 80 || kd == 96 : kd == 256);
+  return built && (W == 64 || (W > 64 && W <= kd && W % 8 == 0)) && (kd != 64 || W == 64);
 }
 
 // A block: NWG consumer warpgroups (threads 0 .. 128 NWG - 1), then one

@@ -53,31 +53,45 @@ CHANNELS_PER_HEAD = 64
 
 class UNetBlock(nn.Module):
     """Residual block with optional resampling and self-attention
-    (reference networks.py:132-185)."""
+    (reference networks.py:132-185), with the JAX block's fields: the ADM
+    block by default; the DDPM++ block of NVIDIA's SongUNet (CorrDiff's
+    ``ddpmpp-cwb``) with ``num_heads=1, skip_scale=sqrt(1/2), eps=1e-6,
+    resample_proj=True, adaptive_scale=False``. ``num_heads`` None gives
+    C // 64 heads. Without ``adaptive_scale`` the affine map gives one shift
+    per channel, added before ``norm1``, and ``silu(norm1(x + shift))`` runs
+    through kernel K1 (``norm1`` is then a :class:`GroupNormSiLU`, the same
+    parameters). ``skip_scale`` multiplies the residual sum, and again the
+    attention's."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
                  up: bool = False, down: bool = False, attention: bool = False,
-                 fast_attention: bool = False,
-                 dropout: float = 0.0, init: Init = Init(), init_zero: Init = Init(weight=0.0), *,
+                 fast_attention: bool = False, num_heads: Optional[int] = None,
+                 dropout: float = 0.0, skip_scale: float = 1.0, eps: float = 1e-5,
+                 resample_proj: bool = False, adaptive_scale: bool = True,
+                 init: Init = Init(), init_zero: Init = Init(weight=0.0), *,
                  device=None, generator=None):
         super().__init__()
         f = dict(device=device, generator=generator)
         self.fast_attention = fast_attention
         self.dropout = dropout
-        self.heads = out_channels // CHANNELS_PER_HEAD if attention else 0
-        self.norm0 = GroupNormSiLU(in_channels, **f)
+        self.skip_scale = skip_scale
+        self.adaptive_scale = adaptive_scale
+        self.heads = ((num_heads if num_heads is not None else out_channels // CHANNELS_PER_HEAD)
+                      if attention else 0)
+        self.norm0 = GroupNormSiLU(in_channels, eps=eps, **f)
         self.conv0 = Conv2d(in_channels, out_channels, 3, up=up, down=down, init=init, **f)
         # adaptive scale: the affine map gives a (scale, shift) pair per channel
-        self.affine = Linear(emb_channels, out_channels * 2, init=init, **f)
-        self.norm1 = GroupNorm(out_channels, **f)
+        self.affine = Linear(emb_channels, out_channels * (2 if adaptive_scale else 1),
+                             init=init, **f)
+        self.norm1 = (GroupNorm if adaptive_scale else GroupNormSiLU)(out_channels, eps=eps, **f)
         self.conv1 = Conv2d(out_channels, out_channels, 3, init=init_zero, **f)
         self.skip = None
         if out_channels != in_channels or up or down:
-            kernel = 1 if out_channels != in_channels else 0
+            kernel = 1 if resample_proj or out_channels != in_channels else 0
             self.skip = Conv2d(in_channels, out_channels, kernel, up=up, down=down,
                                init=init, **f)
         if self.heads:
-            self.norm2 = GroupNorm(out_channels, **f)
+            self.norm2 = GroupNorm(out_channels, eps=eps, **f)
             self.qkv = Conv2d(out_channels, out_channels * 3, 1, init=init, **f)
             self.proj = Conv2d(out_channels, out_channels, 1, init=init_zero, **f)
 
@@ -88,16 +102,23 @@ class UNetBlock(nn.Module):
         ``shard``'s (rank, world) rows of the global batch's mask."""
         orig = x
         x = self.conv0(self.norm0(x))
-        params = self.affine(emb)[:, :, None, None].to(x.dtype)  # (B|1, 2C, 1, 1)
-        scale, shift = params.chunk(2, dim=1)
-        x = silu(self.norm1(x) * (scale + 1) + shift)
+        params = self.affine(emb)[:, :, None, None].to(x.dtype)  # (B|1, 2C or C, 1, 1)
+        if self.adaptive_scale:
+            scale, shift = params.chunk(2, dim=1)
+            x = silu(self.norm1(x) * (scale + 1) + shift)
+        else:
+            x = self.norm1(x + params)  # GroupNorm + SiLU (K1)
         x = dropout(x, self.dropout, self.training, generator, shard)
         x = self.conv1(x)
         if self.skip is not None:
             orig = self.skip(orig)
-        x = x + orig  # skip_scale is 1 in every configuration of the reference
+        x = x + orig
+        if self.skip_scale != 1:  # the ADM blocks skip the multiply by 1
+            x = x * self.skip_scale
         if self.heads:
             x = x + self.attend(x, self.fast_attention)
+            if self.skip_scale != 1:
+                x = x * self.skip_scale
         return x
 
     def attend(self, x: torch.Tensor, fast: bool) -> torch.Tensor:
@@ -148,10 +169,16 @@ def build_unet_plan(
     num_blocks: int,
     attn_resolutions: Sequence[int],
     bottleneck_attention: bool = True,
+    ddpmpp: bool = False,
 ) -> Tuple[List[BlockSpec], List[BlockSpec], int]:
     """The full encoder/decoder topology, replicating the reference
     constructor's channel bookkeeping (networks.py:258-298) including the
     runtime concat rule (networks.py:327-330) resolved statically.
+
+    ``ddpmpp``: the topology of the DDPM++ U-Net (NVIDIA's SongUNet, the
+    EDM code base's networks.py): the first conv gives ``model_channels``,
+    and a decoder level's blocks attend only on its last block (``idx ==
+    num_blocks``), where the ADM U-Net attends on each of them.
 
     Returns (encoder_specs, decoder_specs, final_channels).
     """
@@ -161,7 +188,7 @@ def build_unet_plan(
         resx = img_resolution[0] >> level
         resy = img_resolution[1] >> level
         if level == 0:
-            cin, cout = cout, model_channels * mult
+            cin, cout = cout, model_channels * (1 if ddpmpp else mult)
             enc.append(BlockSpec(f"{resx}x{resy}_conv", "conv", cin, cout))
         else:
             enc.append(BlockSpec(f"{resx}x{resy}_down", "block", cout, cout, down=True))
@@ -184,8 +211,9 @@ def build_unet_plan(
         for idx in range(num_blocks + 1):
             cin = cout + skips.pop()
             cout = model_channels * mult
+            attend = resx in attn_resolutions and (idx == num_blocks or not ddpmpp)
             dec.append(BlockSpec(f"{resx}x{resy}_block{idx}", "block", cin, cout,
-                                 attention=(resx in attn_resolutions)))
+                                 attention=attend))
     resolved: List[BlockSpec] = []
     cur = enc[-1].out_channels
     for spec in dec:
@@ -198,17 +226,21 @@ def build_unet_plan(
 
 
 def gn_silu_sites(enc: List[BlockSpec], dec: List[BlockSpec], final_channels: int,
-                  img_resolution: Tuple[int, int]) -> List[Tuple[int, int, int]]:
+                  img_resolution: Tuple[int, int],
+                  ddpmpp: bool = False) -> List[Tuple[int, int, int]]:
     """(H, W, C) of every GroupNorm+SiLU (kernel K1) call in one forward of
     the U-Net that ``build_unet_plan`` describes: ``norm0`` of each block, at
     its input's resolution (a down block's conv halves it after the norm,
-    an up block's doubles it), then ``out_norm``."""
+    an up block's doubles it), with ``ddpmpp`` also ``norm1`` at its
+    output's, then ``out_norm`` (the DDPM++ ``aux_norm``)."""
     sites = []
     for spec in enc + dec:
         if spec.kind == "block":
-            hw = [int(v) for v in spec.name.split("_")[0].split("x")]
-            hw = [v * 2 if spec.down else v // 2 if spec.up else v for v in hw]
+            out = [int(v) for v in spec.name.split("_")[0].split("x")]
+            hw = [v * 2 if spec.down else v // 2 if spec.up else v for v in out]
             sites.append((hw[0], hw[1], spec.in_channels))
+            if ddpmpp:
+                sites.append((out[0], out[1], spec.out_channels))
     return sites + [(img_resolution[0], img_resolution[1], final_channels)]
 
 
@@ -246,7 +278,21 @@ class UNet(nn.Module):
     enabled. ``bottleneck_attention`` gives the bottleneck's first block an
     attention layer whatever ``attn_resolutions`` says (the reference's
     networks.py:284-285); the deterministic baseline turns it off
-    (baseline/deterministic_unet.py:283-284)."""
+    (baseline/deterministic_unet.py:283-284).
+
+    ``ddpmpp``: the DDPM++ U-Net instead (NVIDIA's SongUNet with
+    ``embedding_type="positional"``, ``channel_mult_noise=1``, standard
+    encoder and decoder, resampling filter [1, 1]; CorrDiff's ``ddpmpp-cwb``
+    at its widths): its topology (``build_unet_plan(ddpmpp=True)``), its
+    block (:class:`UNetBlock`'s DDPM++ fields: one head, ``skip_scale``
+    sqrt(1/2), eps 1e-6, a 1x1 skip conv on every resampling block, the
+    embedding as a shift), the noise embedding always on
+    (``PositionalEmbedding(endpoint=True)`` with its cos and sin halves
+    swapped, then ``map_layer0``, SiLU, ``map_layer1``, SiLU), and the
+    output ``aux_conv(silu(aux_norm(x)))``, held as the decoder's
+    ``<res>x<res>_aux_norm`` and ``_aux_conv`` as SongUNet names them.
+    It draws the ADM U-Net's inits: it is only served, from weights loaded
+    into it. Labels and augmentation are the ADM U-Net's only."""
 
     def __init__(self, img_resolution: Tuple[int, int], in_channels: int, out_channels: int,
                  label_dim: int = 0, augment_dim: int = 0, model_channels: int = 128,
@@ -254,19 +300,23 @@ class UNet(nn.Module):
                  num_blocks: int = 2, attn_resolutions: Tuple[int, ...] = (32, 16, 8),
                  dropout: float = 0.10, label_dropout: float = 0.0, use_diffuse: bool = False,
                  bottleneck_attention: bool = True, fast_attention: bool = False,
-                 remat: bool = False, *, device=None, generator=None):
+                 remat: bool = False, ddpmpp: bool = False, *, device=None, generator=None):
         super().__init__()
+        if ddpmpp and (label_dim or augment_dim):
+            raise ValueError("the DDPM++ U-Net takes no labels or augmentation here")
         device = resolve_device(device)
         f = dict(device=device, generator=generator)
         self.remat = remat
+        self.ddpmpp = ddpmpp
         self.label_dropout = label_dropout
         self.emb_channels = emb = model_channels * channel_mult_emb  # networks.py:233
         self.enc_specs, self.dec_specs, final_c = build_unet_plan(
             tuple(img_resolution), in_channels, model_channels, channel_mult, num_blocks,
-            attn_resolutions, bottleneck_attention)
+            attn_resolutions, bottleneck_attention, ddpmpp)
         # the mapping network (networks.py:249-253); map_layer0/1 are
         # constructed unconditionally, as the reference does
-        self.map_noise = PositionalEmbedding(model_channels) if use_diffuse else None
+        self.map_noise = (PositionalEmbedding(model_channels, endpoint=ddpmpp)
+                          if use_diffuse or ddpmpp else None)
         self.map_layer0 = Linear(model_channels, emb, init=ADM_INIT, **f)
         self.map_layer1 = Linear(emb, emb, init=ADM_INIT, **f)
         self.map_label = self.map_augment = None
@@ -278,6 +328,9 @@ class UNet(nn.Module):
                                       **f)
         block_kw = dict(emb_channels=emb, fast_attention=fast_attention,
                         dropout=dropout, init=ADM_INIT, init_zero=ADM_INIT_ZERO, **f)
+        if ddpmpp:   # SongUNet's block_kwargs
+            block_kw.update(num_heads=1, skip_scale=math.sqrt(0.5), eps=1e-6, resample_proj=True,
+                            adaptive_scale=False)
 
         def make(spec: BlockSpec) -> nn.Module:
             if spec.kind == "conv":
@@ -287,8 +340,15 @@ class UNet(nn.Module):
 
         self.enc = nn.ModuleDict({s.name: make(s) for s in self.enc_specs})
         self.dec = nn.ModuleDict({s.name: make(s) for s in self.dec_specs})
-        self.out_norm = GroupNormSiLU(final_c, **f)
-        self.out_conv = Conv2d(final_c, out_channels, 3, init=ADM_INIT_ZERO, **f)
+        if ddpmpp:
+            res = f"{img_resolution[0]}x{img_resolution[1]}"
+            self.aux_names = (f"{res}_aux_norm", f"{res}_aux_conv")
+            self.dec[self.aux_names[0]] = GroupNormSiLU(final_c, eps=1e-6, **f)
+            self.dec[self.aux_names[1]] = Conv2d(final_c, out_channels, 3, init=ADM_INIT_ZERO,
+                                                 **f)
+        else:
+            self.out_norm = GroupNormSiLU(final_c, **f)
+            self.out_conv = Conv2d(final_c, out_channels, 3, init=ADM_INIT_ZERO, **f)
 
     def embedding(self, x: torch.Tensor, noise_labels: Optional[torch.Tensor] = None,
                   class_labels: Optional[torch.Tensor] = None,
@@ -307,7 +367,10 @@ class UNet(nn.Module):
                 tmp = tmp * (keep >= self.label_dropout).to(tmp.dtype)
             emb = self.map_label(tmp)
         if self.map_noise is not None:
-            emb_n = silu(self.map_layer0(self.map_noise(noise_labels)))
+            emb_n = self.map_noise(noise_labels)
+            if self.ddpmpp:   # SongUNet swaps the cos and sin halves
+                emb_n = emb_n.reshape(emb_n.shape[0], 2, -1).flip(1).reshape(emb_n.shape)
+            emb_n = silu(self.map_layer0(emb_n))
             emb = emb + self.map_layer1(emb_n)
         if self.map_augment is not None and augment_labels is not None:
             emb = emb + self.map_augment(augment_labels)
@@ -335,4 +398,8 @@ class UNet(nn.Module):
             if spec.concat_skip:
                 x = torch.cat([x, skips.pop()], dim=1)
             x = run(self.dec[spec.name], x, emb, generator, shard)
-        return nhwc(self.out_conv(self.out_norm(x)))
+        if self.ddpmpp:
+            norm, conv = (self.dec[name] for name in self.aux_names)
+        else:
+            norm, conv = self.out_norm, self.out_conv
+        return nhwc(conv(norm(x)))

@@ -16,13 +16,18 @@ warpgroup). The bf16 kernels take their block sizes from :func:`plan`, the
 fp32 kernels from :func:`fp32_plan`.
 
 Head dims: the kernels hold a head in shared memory ``kD`` columns wide,
-so they take any head dim c up to 128, every one the U-Net builds (a
-width C gives C // 64 heads of C // (C // 64) channels, 64..127). The bf16
+so they take any head dim c up to 128, every one the ADM U-Net builds (a
+width C gives C // 64 heads of C // (C // 64) channels, 64..127), and the
+fp32 forward up to 256 (the DDPM++ U-Net's one head of 256 channels at
+CorrDiff's 28x28 level, :data:`MAX_HEAD_DIM`); the backward kernels stop
+at 128 (:data:`MAX_BWD_HEAD_DIM`) and raise past it. The bf16
 kernels are built at kD = 64, 80, 96 and 128 and take the narrowest that
 holds the row (:func:`_kd`): c = 64 runs kD = 64; 64 < c <= 96 (72 at
 ``--model_channels 96``) the exact-width kD = 80 / 96, a 64-column atom
 and a 16- or 32-column one; 96 < c <= 128 kD = 128. The fp32 kernels are
-built at kD = 64 and 128 (:func:`_fp32_kd`). Columns from c to kD - 1 are
+built at kD = 64 and 128 (:func:`_fp32_kd`), and the fp32 forward at kD =
+256, which streams K and V through shared memory 64 head columns at a time
+(csrc/attention_fwd.cu, ``attention_fwd_f32_wide``). Columns from c to kD - 1 are
 zeros in shared memory, which leave QK^T unchanged and give zero columns
 in O, dQ, dK and dV that are never stored. The kernels read rows of whole
 16-byte bf16 chunks (:func:`kernel_width`): a view of another width is
@@ -40,8 +45,11 @@ import torch
 
 from probunet_torch.ops import _build
 
-#: the widest head dim the kernels take (their kD = 128 instantiation)
-MAX_HEAD_DIM = 128
+#: the widest head dim the kernels take: the fp32 forward's kD = 256
+#: instantiation; bf16 operands and the backward stop at MAX_BWD_HEAD_DIM
+MAX_HEAD_DIM = 256
+#: the widest head dim of the bf16 kernels and of the backward (kD = 128)
+MAX_BWD_HEAD_DIM = 128
 #: the head widths kD the bf16 kernels are built for
 BF16_KDS = (64, 80, 96, 128)
 #: shared memory one block may use on the H100 (227 KB)
@@ -59,12 +67,13 @@ def kernel_width(c: int) -> int:
 def _kd(width: int) -> int:
     """The bf16 kernels' shared-memory head width for rows of ``width``
     columns: the narrowest of :data:`BF16_KDS` that holds them."""
-    return next(kd for kd in BF16_KDS if width <= kd) if width <= MAX_HEAD_DIM else MAX_HEAD_DIM
+    return next((kd for kd in BF16_KDS if width <= kd), MAX_BWD_HEAD_DIM)
 
 
 def _fp32_kd(width: int) -> int:
-    """The fp32 kernels' head width for rows of ``width`` columns (64, 128)."""
-    return 64 if width <= 64 else 128
+    """The fp32 kernels' head width for rows of ``width`` columns (64, 128,
+    256)."""
+    return 64 if width <= 64 else 128 if width <= 128 else 256
 
 
 def _tile_bytes(kd: int, rows: int = 64, itemsize: int = 2) -> int:
@@ -163,8 +172,9 @@ class Fp32Plan(NamedTuple):
     kernel's dynamic shared bytes, as csrc/attention_fwd.cu (FwdSmem32) and
     csrc/attention_bwd.cu (PrepSmem32, DkdvSmem32, DqSmem32) lay them out
     (chip_smoke.py phase 1 holds them against the built kernels); ``dk_smem``
-    is 0 where there is no dK pass. The tile rows go to the C entry points,
-    which refuse any but the ones built."""
+    is 0 where there is no dK pass, and the backward's fields are 0 at kd =
+    256, where only the forward is built. The tile rows go to the C entry
+    points, which refuse any but the ones built."""
 
     fwd_tile: int
     bwd_tile: int
@@ -201,9 +211,16 @@ def _f32_dq_smem(kd: int, tile: int, stages: int) -> int:
             + _ring32_bytes(stages) + 1024)
 
 
+def _f32_wide_smem(kd: int, tile: int, slots: int) -> int:
+    # Q's hi / lo pair; per slot a 64-column chunk of a tile three times (as
+    # it lands, then K's lo or V^T's hi and lo)
+    return (2 * _tile_bytes(kd, 64, 4) + slots * 3 * _tile_bytes(64, tile, 4)
+            + _ring32_bytes(slots) + 1024)
+
+
 @functools.lru_cache(maxsize=None)
 def fp32_plan(kd: int) -> Fp32Plan:
-    """The fp32 kernels' tiles at head width ``kd`` (64 or 128,
+    """The fp32 kernels' tiles at head width ``kd`` (64, 128 or 256,
     :func:`_fp32_kd`); pure and cached. One shape per width, the one built
     (with_plan in the sources).
 
@@ -214,7 +231,9 @@ def fp32_plan(kd: int) -> Fp32Plan:
     stages (its consumer holds O and a tile's P V, 64 registers a thread
     each), and K3 32-row tiles, dK and dV in two passes over them: the dV
     pass in two stages; the dK pass, whose block holds K's and V's pairs,
-    and dQ in one."""
+    and dQ in one. kd = 256 (the forward only): Q's pair takes 128 KB, and
+    K and V stream through four slots of 64 head columns of 32-row tiles
+    (24 KB each: the chunk as it lands, and its pair), 225 KB in all."""
     if kd == 64:
         return Fp32Plan(64, 64, fwd_smem=_f32_fwd_smem(64, 64, 2),
                         prep_smem=4 * _tile_bytes(64, 64, 4) + 8 + 1024,
@@ -226,7 +245,10 @@ def fp32_plan(kd: int) -> Fp32Plan:
                         dkdv_smem=_f32_dkdv_smem(128, 32, 2, True, False),
                         dk_smem=_f32_dkdv_smem(128, 32, 1, False, True),
                         dq_smem=_f32_dq_smem(128, 32, 1), kd=128)
-    raise ValueError(f"the attention kernels are built for kd 64 and 128, not {kd}")
+    if kd == 256:
+        return Fp32Plan(32, 0, fwd_smem=_f32_wide_smem(256, 32, 4), prep_smem=0, dkdv_smem=0,
+                        dk_smem=0, dq_smem=0, kd=256)
+    raise ValueError(f"the fp32 attention kernels are built for kd 64, 128 and 256, not {kd}")
 
 
 def bwd_scratch_shape(b: int, heads: int, L: int):
@@ -325,9 +347,18 @@ def _check_cuda(q, k, v):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attention kernels take fp32 or bf16 q/k/v of one dtype, "
                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(f"the attention kernels take head dims up to {MAX_HEAD_DIM}, got q of "
-                         f"shape {tuple(q.shape)}")
+    widest = MAX_HEAD_DIM if q.dtype == torch.float32 else MAX_BWD_HEAD_DIM
+    if q.shape[-1] > widest:
+        raise ValueError(f"the {'fp32' if widest == MAX_HEAD_DIM else 'bf16'} attention kernels "
+                         f"take head dims up to {widest}, got q of shape {tuple(q.shape)}")
+
+
+def _check_bwd_width(c: int) -> None:
+    if c > MAX_BWD_HEAD_DIM:
+        raise NotImplementedError(
+            f"the attention backward kernels (K3, csrc/attention_bwd.cu) are built for head "
+            f"dims up to {MAX_BWD_HEAD_DIM}, got {c}: there is no kD = 256 backward, so a "
+            f"head this wide runs forward only (sampling)")
 
 
 def _rows(q: torch.Tensor, fast: bool = False, kd: Optional[int] = None):
@@ -423,6 +454,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: Option
     if q.device.type != "cuda":
         raise RuntimeError(f"attention_bwd has no path for device {q.device}")
     _check_cuda(q, k, v)
+    _check_bwd_width(q.shape[-1] if c is None else c)
     return _kernel_bwd(q, k, v, out, lse, do, fast, c)
 
 
@@ -466,7 +498,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(Q K^T / sqrt(c)) V without materializing the weights.
 
     q, k, v: (B, L, heads, c); CUDA tensors take c up to 128 (every head
-    dim the U-Net builds). The kernels read them where they lie when the
+    dim the ADM U-Net builds), and fp32 ones up to 256 in the forward (the
+    backward raises past 128). The kernels read them where they lie when the
     head dim is unit-stride and rows are whole, 16-byte-aligned bf16 chunks,
     as in the U-Net block's views of its qkv conv output; other views (the
     stride-3 views of an interleaved qkv tensor, say, or a width that is

@@ -160,6 +160,8 @@ def _launch(x, weight, bias, groups, eps):
         int(x.dtype == torch.bfloat16), vec, _build.stream_handle(dev))
     _build.check(code, "gn_silu kernel")
     gn_silu.launches += 1
+    plan_key = "on_chip" if p.on_chip else "streamed"
+    gn_silu.launches_by_plan[plan_key] = gn_silu.launches_by_plan.get(plan_key, 0) + 1
     return out, mean, rstd
 
 
@@ -212,4 +214,7 @@ def gn_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: i
 
 
 gn_silu.launches = 0   # kernel launches; CPU calls of the plain version do not count
+# the same by plan: "on_chip" (the slice held in a cluster, x read once) or
+# "streamed" (a slice too large for a cluster, read twice), e.g. {"on_chip": 29}
+gn_silu.launches_by_plan = {}
 gn_silu.bwd_calls = 0  # backward calls (plain PyTorch on every device)

@@ -9,8 +9,10 @@ behind its compute on the CUDA stream, and written while batch i+1 computes,
 so host memory stays O(batch).
 
 ``ds_model`` is the Probabilistic U-Net or the conv-VAE (``vae``; K prior
-draws per input), or ``edm``, the diffusion downscaler (K Heun chains of
-``cfg.edm_steps`` steps per input, folded into one batch). The
+draws per input), ``edm``, the diffusion downscaler (K Heun chains of
+``cfg.edm_steps`` steps per input, folded into one batch), or ``corrdiff``
+(NVIDIA's CorrDiff: a regression U-Net's mean per input, then K residual
+Heun chains on a second U-Net, folded the same way). The
 deterministic baselines draw no ensemble and are not served, as in the JAX
 package.
 
@@ -28,6 +30,9 @@ parts must lie on a filesystem every process sees.
         --out ./results/downscaled.nc --num_samples 16 [config flags...]
     python -m probunet_torch.serve --ds_model edm --checkpoint ./results/checkpoints/edm \\
         --out ./results/downscaled_edm.nc --num_samples 16 [config flags...]
+    python -m probunet_torch.serve --ds_model corrdiff --checkpoint ./ckpt/corrdiff \\
+        --resolution 448,448 --model_channels 128 --channel_mult 1,2,2,2,2 \\
+        --num_blocks 4 --attn_resolutions 28 --out ./results/downscaled_corrdiff.nc ...
     python -m probunet_torch.serve --ds_model vae --checkpoint ./results/checkpoints/vae \\
         --out ./results/downscaled_vae.nc --num_samples 16 [config flags...]
     torchrun --nproc_per_node 2 -m probunet_torch.serve --checkpoint ... [config flags...]
@@ -52,9 +57,13 @@ from probunet_torch.parallel.multihost import (
     shard_years,
 )
 from probunet_torch.train.checkpoint import restore_checkpoint
-from probunet_torch.train.loop import build_edm_model, build_probunet
+from probunet_torch.train.loop import build_corrdiff_model, build_edm_model, build_probunet
 from probunet_torch.train.state import TrainState
-from probunet_torch.train.steps import make_edm_sample_fn, make_sample_fn
+from probunet_torch.train.steps import (
+    make_corrdiff_sample_fn,
+    make_edm_sample_fn,
+    make_sample_fn,
+)
 from probunet_torch.utils.device import full_fp32
 
 
@@ -100,10 +109,10 @@ def downscale(
     ``device``: default the CUDA card (under a process group this rank's);
     ``"cpu"`` runs the plain versions. Under a process group every process
     calls this with the same arguments (see the module docstring)."""
-    if cfg.ds_model not in ("probabilistic_unet", "vae", "edm"):
+    if cfg.ds_model not in ("probabilistic_unet", "vae", "edm", "corrdiff"):
         raise NotImplementedError(f"ds_model={cfg.ds_model!r} draws no ensemble and is not "
                                   "served (nor by the JAX package); serving takes "
-                                  "probabilistic_unet, vae or edm")
+                                  "probabilistic_unet, vae, edm or corrdiff")
     pi, pc = process_info()
     dev = mesh.resolve_device(device)
     years = list(years if years is not None else cfg.years("test"))
@@ -114,13 +123,15 @@ def downscale(
         cfg.datadir, years=years, variables=cfg.variables, coords=cfg.coords,
         lowres_scale=cfg.lowres_scale, standardization=cfg.standardization, device=dev)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    edm = cfg.ds_model == "edm"
-    build = build_edm_model if edm else build_probunet
+    edm = cfg.ds_model in ("edm", "corrdiff")   # chains that start from noise
+    build = {"edm": build_edm_model, "corrdiff": build_corrdiff_model}.get(cfg.ds_model,
+                                                                          build_probunet)
     model = build(cfg, device="meta").to_empty(device=dev).eval()
     restore_checkpoint(checkpoint_dir, TrainState(model, None))
     if edm:
-        sample_fn = make_edm_sample_fn(model, cfg.lowres_scale, cfg.standardization,
-                                       num_samples, cfg.edm_steps, compute_dtype=dtype)
+        make = make_corrdiff_sample_fn if cfg.ds_model == "corrdiff" else make_edm_sample_fn
+        sample_fn = make(model, cfg.lowres_scale, cfg.standardization, num_samples,
+                         cfg.edm_steps, compute_dtype=dtype)
     else:
         sample_fn = make_sample_fn(model, cfg.lowres_scale, cfg.standardization, num_samples,
                                    dtype)

@@ -30,6 +30,7 @@ import torch
 
 from probunet_torch.config import Config
 from probunet_torch.models.baselines import ConvVAE, LinearCNN
+from probunet_torch.models.corrdiff import CorrDiff
 from probunet_torch.models.edm import EDMPrecond
 from probunet_torch.models.layers import reset_parameters
 from probunet_torch.models.prob_unet import ProbabilisticUNet
@@ -135,6 +136,37 @@ def build_edm_model(cfg: Config, device=None,
         generator=generator,
     )
     return model.to(memory_format=torch.channels_last)
+
+
+def build_corrdiff_model(cfg: Config, device=None,
+                         generator: Optional[torch.Generator] = None) -> CorrDiff:
+    """CorrDiff for ``cfg`` (``ds_model="corrdiff"``) on ``device`` (default
+    the CUDA card), in ``channels_last`` memory format: the regression and
+    the residual DDPM++ U-Nets at ``cfg``'s widths, each seeing nvars
+    zeros or noisy-residual channels beside the nvars LR-interp condition.
+    Its weights are drawn from ``generator``; on the ``meta`` device nothing
+    is allocated. Both U-Nets run in fp32 in both numerics modes. It is
+    served (``serve.downscale``), not trained: see :data:`CORRDIFF_NO_TRAINING`."""
+    model = CorrDiff(
+        img_resolution=tuple(cfg.resolution),
+        cond_channels=cfg.nvars,
+        out_channels=cfg.nvars,
+        model_channels=cfg.model_channels,
+        channel_mult=tuple(cfg.channel_mult),
+        num_blocks=cfg.num_blocks,
+        attn_resolutions=tuple(cfg.attn_resolutions),
+        dropout=cfg.dropout,
+        device=resolve_device(device),
+        generator=generator,
+    )
+    return model.to(memory_format=torch.channels_last)
+
+
+#: why ``ds_model="corrdiff"`` does not train
+CORRDIFF_NO_TRAINING = (
+    "ds_model=corrdiff is served only (python -m probunet_torch.serve --ds_model corrdiff): "
+    "training it needs the attention backward (K3, csrc/attention_bwd.cu) at its 256-wide "
+    "head, and K3 is built for head dims up to 128 (there is no kD = 256 build)")
 
 
 def init_edm_state(cfg: Config, model: EDMPrecond, tx, device=None) -> TrainState:
@@ -295,6 +327,8 @@ def train_baseline(cfg: Config, datasets=None, make_plots: bool = True, device=N
     and end with the validation MAE in physical units (mm/day, deg C).
     Those return {state, tr_losses, val_losses, mae, samples_per_sec}, the
     losses and the MAE per variable."""
+    if cfg.ds_model == "corrdiff":
+        raise NotImplementedError(CORRDIFF_NO_TRAINING)
     if cfg.ds_model == "bcsd":
         return run_bcsd(cfg, datasets or load_datasets(cfg, resolve_device(device)),
                         device=device)

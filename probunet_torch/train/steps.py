@@ -21,10 +21,11 @@ averaged). Without ``dp`` every step is the single-process step.
 Spans (``utils/logging.py::span``, recorded only under a profiler): each
 training step is one ``probunet.train_step`` and each sampler call one
 ``probunet.sample``; inside it the phases ``probunet.pair`` (the pair
-synthesis), ``probunet.forward``, ``probunet.backward`` (with the zero
-gradients of unused parameters), ``probunet.allreduce`` and
-``probunet.optimizer`` (``parallel/mesh.py``, ``train/state.py``) and
-``probunet.output`` (residual -> HR), in that order.
+synthesis), ``probunet.regression`` (CorrDiff's mean, before its chains),
+``probunet.forward``, ``probunet.backward`` (with the zero gradients of
+unused parameters), ``probunet.allreduce`` and ``probunet.optimizer``
+(``parallel/mesh.py``, ``train/state.py``) and ``probunet.output``
+(residual -> HR), in that order.
 """
 
 from __future__ import annotations
@@ -580,6 +581,43 @@ def make_edm_sample_fn(model, lowres_scale: int, standardization: str, num_sampl
                 residual = edm_heun_chain(model, x_rep, num_steps, sigma_min, sigma_max, rho,
                                           generator, noise)
                 preds = residual.float().reshape(k, b, h, w, c).transpose(0, 1)   # (B, K, ...)
+            return _members_to_hr(preds, pair, standardization, sl), pair
+
+    return fn
+
+
+def make_corrdiff_sample_fn(model, lowres_scale: int, standardization: str, num_samples: int,
+                            num_steps: int = 18, sigma_min: float = 0.002,
+                            sigma_max: float = 80.0, rho: float = 7.0,
+                            compute_dtype: torch.dtype = torch.float32):
+    """Returns fn(hr_all, stats, idx, generator=None, noise=None) ->
+    (hr_preds (B, K, H, W, C) fp32, pair dict), the surface of
+    :func:`make_edm_sample_fn`, for a :class:`~probunet_torch.models.corrdiff.
+    CorrDiff` ``model``: the pair, the regression mean ``mu`` once per input
+    (span ``probunet.regression``), then K residual Heun chains folded
+    K-major into one (K*B)-row chain of the residual denoiser, member k =
+    ``mu + r_k`` (span ``probunet.forward``), then residual -> HR. ``noise``
+    is an optional (K*B, H, W, C) tensor of the chains' initial standard
+    normals, else they come from ``generator``. Runs in eval mode under
+    ``torch.inference_mode``, in fp32 whatever ``compute_dtype`` says (the
+    condition is cast to it first, as :func:`make_edm_sample_fn` does)."""
+
+    @torch.inference_mode()
+    def fn(hr_all: torch.Tensor, stats, idx: torch.Tensor,
+           generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None):
+        model.eval()
+        with span("probunet.sample"), full_fp32():
+            x, _, pair, sl = _edm_pair(hr_all, stats, idx, lowres_scale, standardization,
+                                       compute_dtype)
+            b, h, w, c = x.shape
+            k = num_samples
+            with span("probunet.regression"):
+                mu = model.regression(x)
+            with span("probunet.forward"):
+                x_rep = x[None].expand(k, b, h, w, c).reshape(k * b, h, w, c)
+                residual = edm_heun_chain(model, x_rep, num_steps, sigma_min, sigma_max, rho,
+                                          generator, noise)
+                preds = (mu[None] + residual.reshape(k, b, h, w, c)).transpose(0, 1)
             return _members_to_hr(preds, pair, standardization, sl), pair
 
     return fn

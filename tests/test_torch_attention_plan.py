@@ -14,6 +14,7 @@ at every head dim past 64."""
 import math
 
 import pytest
+import torch
 
 from probunet_torch.config import Config
 from probunet_torch.models.unet import build_unet_plan
@@ -153,8 +154,9 @@ def test_kd_of_every_head_dim():
     """Every head dim 1..128 the kernels take gets the narrowest head width
     built that holds its row of kernel_width(c) columns: bf16 kd 64 up to
     64, 80 for 65-80, 96 for 81-96, 128 for 97-128 (the exact widths: 64
-    columns and a tail of 16 or 32); fp32 kd 64 or 128. No row is wider
-    than its kd, and none fits the next narrower one."""
+    columns and a tail of 16 or 32); fp32 kd 64 or 128, and 256 for the
+    fp32 forward's 129-256. No row is wider than its kd, and none fits the
+    next narrower one."""
     for c in range(1, 129):
         w = tatt.kernel_width(c)
         kd = tatt._kd(w)
@@ -164,6 +166,9 @@ def test_kd_of_every_head_dim():
         assert not narrower or w > max(narrower)
         assert tatt._fp32_kd(w) == (64 if c <= 64 else 128)
         assert tatt.plan(8, 4, 1024, NUM_SMS, kd).kd == kd
+    for c in range(129, 257):
+        w = tatt.kernel_width(c)
+        assert tatt._fp32_kd(w) == 256 and 128 < w <= 256 and w % 8 == 0, c
 
 
 # (B, L, heads, c) at the exact widths: the model_channels 96 path's 32x32
@@ -283,12 +288,29 @@ def test_fp32_plan_layouts():
     assert p.dq_smem == 4 * t128 + 6 * half + 16 + 40 + 1024 == 230_456
 
 
+def test_fp32_plan_at_kd256():
+    """The fp32 forward at kd 256 (CorrDiff's one 256-wide head): Q's hi /
+    lo pair (64 x 256 fp32, 64 KB each), then four slots of three 32-row
+    tiles of 64 head columns (8 KB each: the chunk as it lands, K's lo or
+    V^T's pair), five barriers a slot and two for Q: under SMEM_LIMIT, as
+    csrc/attention_fwd.cu (WideSmem32) lays it out. 32-row K/V tiles cover
+    any L; no backward is built, so its fields are 0."""
+    p = tatt.fp32_plan(256)
+    chunk = 32 * 64 * 4
+    assert (p.kd, p.fwd_tile) == (256, 32)
+    assert p.fwd_smem == 2 * 64 * 256 * 4 + 4 * 3 * chunk + 16 + 4 * 40 + 1024 == 230_576
+    assert p.fwd_smem <= tatt.SMEM_LIMIT
+    assert (p.bwd_tile, p.prep_smem, p.dkdv_smem, p.dk_smem, p.dq_smem) == (0, 0, 0, 0, 0)
+    assert tatt._rows(torch.zeros(2, 784, 1, 256))[:2] == (64, 32)
+    assert tatt._rows(torch.zeros(2, 784, 1, 256))[3] == 256
+
+
 def test_fp32_plan_is_pure_and_cached():
     assert tatt.fp32_plan(64) is tatt.fp32_plan(64)
     assert tatt.fp32_plan(128) is tatt.fp32_plan(128) and tatt.fp32_plan(128).kd == 128
 
 
-@pytest.mark.parametrize("kd", [32, 72, 96, 256])
+@pytest.mark.parametrize("kd", [32, 72, 96, 512])
 def test_fp32_plan_refuses_other_head_widths(kd):
-    with pytest.raises(ValueError, match="kd 64 and 128"):
+    with pytest.raises(ValueError, match="kd 64, 128 and 256"):
         tatt.fp32_plan(kd)

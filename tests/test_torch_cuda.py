@@ -303,9 +303,12 @@ def test_attention_kernel_refusals(dev):
     q = torch.randn(1, 8, 2, 64, device=dev)
     with pytest.raises(TypeError):
         K2.fused_attention(q.half(), q.half(), q.half())
-    wide = torch.randn(1, 8, 2, 136, device=dev)  # past the widest head the kernels hold
-    with pytest.raises(ValueError, match=r"\(1, 8, 2, 136\)"):
+    wide = torch.randn(1, 8, 2, 264, device=dev)  # past the widest head the kernels hold
+    with pytest.raises(ValueError, match=r"\(1, 8, 2, 264\)"):
         K2.fused_attention(wide, wide, wide)
+    wide = wide[..., :136].to(torch.bfloat16)  # past the bf16 kernels' widest
+    with pytest.raises(ValueError, match=r"\(1, 8, 2, 136\)"):
+        K2.fused_attention(wide, wide, wide, True)
     with pytest.raises(TypeError):
         K2.fused_attention(q.half().requires_grad_(), q.half(), q.half())
     with pytest.raises(TypeError):
@@ -655,6 +658,64 @@ def test_attention_fp32_kernels_match_the_tf32x3_emulation(dev, L, c):
     for got, ref in zip(grads, emu):
         got = _bh(got.cpu())
         assert (got - ref).abs().max().item() <= 2.5e-5 * ref.abs().max().item()
+
+
+# ---- the fp32 forward at kD = 256 (CorrDiff's one 256-wide head) --------------------------
+
+# CorrDiff's site (B = 2, one head, L = 784 at 28x28, c = 256), then one row,
+# a ragged 32-row tile, two heads, a narrower head zero-padded to kD = 256
+# and L = 2048
+KD256_CASES = [(2, 784, 1, 256), (1, 1, 1, 256), (1, 65, 2, 256), (2, 100, 1, 200),
+               (1, 2048, 1, 256)]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("b,L,nh,c", KD256_CASES)
+def test_attention_fp32_kd256_matches_plain(dev, layout, b, L, nh, c):
+    """K2 in fp32 at kD = 256 (K and V streamed 64 head columns at a time,
+    128 output columns a block) against the plain fp32 version: O within
+    2e-5 and the row lse within 2e-5, the strict limit at kD = 64 and 128;
+    one launch, counted under ``fp32_kd256``; results of c columns."""
+    gen = torch.Generator(device=dev).manual_seed(L + c)
+    (q, k, v), _ = _qkv(layout, b, L, nh, torch.float32, dev, gen, c=c)
+    before = K2.fused_attention.launches_by_kd.get("fp32_kd256", 0)
+    with torch.no_grad():
+        out = K2.fused_attention(q, k, v)
+        ref = K2._plain_attention(q, k, v, False)
+        _, lse = K2._launch(*map(K2.kernel_layout, (q, k, v)), with_lse=True, c=c)
+        logits = torch.einsum("bqhc,bkhc->bhqk", q, k) / math.sqrt(c)
+    assert K2.fused_attention.launches_by_kd["fp32_kd256"] == before + 2
+    assert out.shape == (b, L, nh, c) and out.dtype == torch.float32 and out.is_contiguous()
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, torch.logsumexp(logits, -1).reshape(b * nh, L),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_attention_fp32_kd256_reruns_bit_equal(dev):
+    """A second call at CorrDiff's site gives the same bits (no atomics;
+    the two column halves' blocks compute S alike)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    (q, k, v), _ = _qkv("block", 2, 784, 1, torch.float32, dev, gen, c=256)
+    with torch.no_grad():
+        first, second = (K2._launch(q, k, v, with_lse=True) for _ in range(2))
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+def test_attention_kd256_backward_raises(dev):
+    """The forward runs at c = 256 under autograd; its backward raises,
+    naming the missing K3 build, before any launch, and so does a direct
+    call of attention_bwd: there is no kD = 256 backward and no fallback."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    (q, k, v), _ = _qkv("contiguous", 2, 64, 1, torch.float32, dev, gen, grad=True, c=256)
+    out = K2.fused_attention(q, k, v)
+    before = K2.attention_bwd.launches
+    with pytest.raises(NotImplementedError, match="up to 128"):
+        out.backward(torch.ones_like(out))
+    with torch.no_grad():
+        o, lse = K2._launch(q.detach(), k.detach(), v.detach(), with_lse=True)
+        with pytest.raises(NotImplementedError, match="kD = 256"):
+            K2.attention_bwd(q.detach(), k.detach(), v.detach(), o, lse, torch.ones_like(o))
+    assert K2.attention_bwd.launches == before
 
 
 def _rms_rel(got, ref):

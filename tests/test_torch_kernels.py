@@ -431,13 +431,58 @@ def test_with_plan_builds_every_shape_the_plan_gives():
 
 
 def test_attention_refuses_heads_past_128():
-    """The kernels hold at most 128 columns a head: a wider head is refused
-    before any launch, naming its shape (the U-Net builds at most 127)."""
+    """The bf16 kernels and the backward hold at most 128 columns a head,
+    the fp32 forward 256: a wider head is refused before any launch, naming
+    its shape (the ADM U-Net builds at most 127, the DDPM++ U-Net 256), and
+    a backward past 128 raises, naming the missing K3 build."""
     q = torch.zeros(1, 8, 2, 136)
+    tatt._check_cuda(q, q, q)   # fp32: the kD = 256 forward
     with pytest.raises(ValueError, match=r"\(1, 8, 2, 136\)"):
-        tatt._check_cuda(q, q, q)
-    tatt._check_cuda(q[..., :128], q[..., :128], q[..., :128])
-    assert tatt.kernel_width(128) == tatt.MAX_HEAD_DIM == 128
+        tatt._check_cuda(*(q.to(torch.bfloat16),) * 3)
+    wide = torch.zeros(1, 8, 2, 264)
+    with pytest.raises(ValueError, match=r"\(1, 8, 2, 264\)"):
+        tatt._check_cuda(wide, wide, wide)
+    tatt._check_cuda(*(q[..., :128].to(torch.bfloat16),) * 3)
+    tatt._check_bwd_width(128)
+    with pytest.raises(NotImplementedError, match="K3"):
+        tatt._check_bwd_width(136)
+    assert tatt.kernel_width(128) == tatt.MAX_BWD_HEAD_DIM == 128
+    assert tatt.kernel_width(256) == tatt.MAX_HEAD_DIM == 256
+
+
+def test_gn_silu_counts_launches_by_plan(fake_lib, monkeypatch):
+    """K1's launches counted by plan beside the total: a slice that fits a
+    cluster (b2, 8x8x64) under on_chip, CorrDiff's 448x448 level of 128
+    channels (a 3.2 MB group slice in fp32) under streamed."""
+    monkeypatch.setattr(tgn, "_num_sms", lambda index: 132)
+    monkeypatch.setattr(tgn.gn_silu, "launches", 0)
+    monkeypatch.setattr(tgn.gn_silu, "launches_by_plan", {})
+    for shape in ((2, 8, 8, 64), (1, 448, 448, 128), (2, 8, 8, 64)):
+        x = torch.empty(shape)
+        tgn._launch(x, torch.ones(shape[-1]), torch.zeros(shape[-1]), 32, 1e-6)
+    assert not tgn.plan(1, 448, 448, 128, 32, 4, 132).on_chip
+    assert tgn.gn_silu.launches == 3
+    assert tgn.gn_silu.launches_by_plan == {"on_chip": 2, "streamed": 1}
+
+
+@pytest.mark.parametrize("c", [256, 200, 136])
+def test_attention_wrappers_at_kd256(fake_lib, c):
+    """fp32 at head dims 129-256 (CorrDiff's 256): the block's views go in
+    place, the entry point gets kd 256, 64-row blocks, the plan's 32-row
+    tiles and 1/sqrt(c), the launch counts under fp32_kd256, and the result
+    is c columns wide."""
+    rng = np.random.default_rng(c)
+    y = torch.from_numpy(rng.standard_normal((2, 64, 3, 1, c)).astype(np.float32))
+    q, k, v = y.unbind(2)
+    kq, kk, kv = map(tatt.kernel_layout, (q, k, v))
+    assert kq is q
+    out, lse = tatt._launch(kq, kk, kv, with_lse=True, c=c)
+    (fwd, fargs), = fake_lib.calls
+    assert fwd == "probunet_attention_fwd" and fargs[5:9] == (2, 1, 64, c)
+    assert fargs[18] == pytest.approx(1 / math.sqrt(c), rel=1e-7)
+    assert fargs[-5:-1] == (0, 64, 32, 256)
+    assert tatt.fused_attention.launches_by_kd == {"fp32_kd256": 1}
+    assert out.shape == (2, 64, 1, c) and lse.shape == (2, 64)
 
 
 def test_attention_launch_refuses_strided_head_dim(fake_lib):
