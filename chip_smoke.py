@@ -28,7 +28,8 @@ fp32 kernel's kD = 256 build. Phases:
      products, fp32 (3xTF32) and bf16, and HMMA (mma.sync) in none, or it
      fails; K1's plan at the path's largest site, its threads, shared
      memory, registers, spills and cluster residency
-     (cudaOccupancyMaxActiveClusters); the bf16 attention kernels of the
+     (cudaOccupancyMaxActiveClusters), registers, spills and residency
+     also of the instantiations with the embedding's terms (``K1.MODS``); the bf16 attention kernels of the
      plan at each attention site, at the exact widths kD = 80 and 96
      (EXACT_SITES: every block shape built there), the row pass with each,
      and the fp32 kernels of ``fp32_plan`` at kD = 64 and 128, their
@@ -38,7 +39,11 @@ fp32 kernel's kD = 256 build. Phases:
      and rstd, at every (H, W, C) of the path at batch 8 and at edge shapes
      (C = 6 without vectors, H*W = 1, B = 1, a view off a 16-byte boundary,
      one shape streamed through shared memory), fp32 and bf16; two calls
-     bit-equal; every site of the path planned on chip;
+     bit-equal; every site of the path planned on chip; then at the same
+     shapes (the unaligned view apart) with the residual block's terms in
+     the launch, (scale, shift) and shift_in, each (B, C) and (1, C),
+     against the plain version, bit-equal reruns, each launch counted by
+     modulation;
   3. K2 attention against its plain version at the path's (B, L, heads)
      and at L = 100, 1, 65, 2048 and 4096, strict, fast and strict with
      bf16 activations, on the U-Net block's views (read in place), on
@@ -46,12 +51,15 @@ fp32 kernel's kD = 256 build. Phases:
      bit-equal to the first;
   4. the main path: a checkpoint, then ``downscale`` of synthetic 128x128
      days with 16 members in both modes; files read back and checked;
-     launch counters must show 29 K1 and 11 K2 launches per batch, and
-     ``kernel_layout`` no copy of q/k/v;
+     launch counters must show 57 K1 (29 unmodulated, 28 with the
+     blocks' (scale, shift): ``gn_silu.launches_by_mod``) and 11 K2
+     launches per batch, and ``kernel_layout`` no copy of q/k/v;
   5. the path against the plain path: one input, two members, the same
      weights and eps, on the card and on the CPU;
   6. timings with CUDA events and by device time (torch.profiler): each
-     kernel (K1 per site with its share of the bound; K2 on the block's own
+     kernel (K1 per site with its share of the bound; at the blocks' norm1
+     sites K1 with per-sample (scale, shift) beside the unmodulated K1 and
+     the plain chain it replaces, by device time; K2 on the block's own
      views, so no q/k/v copy; the wrapper's layout step on those views and
      the copy it makes of stride-3 views, timed), its plain version, one
      PyTorch call computing the same function (a yardstick the port never
@@ -64,7 +72,7 @@ fp32 kernel's kD = 256 build. Phases:
      against rounded dS (DS_SPLIT_TOL);
   8. the training path: the model with its own init, 10 AdamW steps at b8
      in each mode on a fixed batch and eps with dropout 0.1; launch
-     counters must show 29 K1, 11 K2 and 11 K3 launches per step and no
+     counters must show 57 K1, 11 K2 and 11 K3 launches per step and no
      copy before them; loss and
      gradient norm finite, the loss falling; peak device memory;
   9. one training step on the card against the plain step on the CPU: b=1,
@@ -80,13 +88,13 @@ fp32 kernel's kD = 256 build. Phases:
      with its own init) on synthetic netCDF (3 train years of 8 days, one
      val and one test year): 2 epochs of 3 steps with eval, CRPS (4
      members) and a metrics record per step, strict and fast; the records'
-     keys; launch counters: 29 K1, 11 K2 and 11 K3 per step (plus 29 K1
+     keys; launch counters: 57 K1, 11 K2 and 11 K3 per step (plus 57 K1
      and 11 K2 per eval and CRPS batch); ``downscale`` from the trainer's
      checkpoint; exact resume (deterministic cuDNN: 2 steps, then resumed
      to 6, against 6 uninterrupted, parameters bit-equal); streaming
      ingest against resident (2 epochs, the same train and val losses);
      remat on a fixed batch, strict and fast (loss and every gradient
-     against the step without it, 57 K1, 22 K2 and 11 K3 launches); the
+     against the step without it, 113 K1, 22 K2 and 11 K3 launches); the
      trainer's samples/s beside phase 10's bare step, streaming samples/s,
      peak memory, memory held by the forward and ms per step with and
      without remat;
@@ -98,13 +106,14 @@ fp32 kernel's kD = 256 build. Phases:
      operands with fast=True at the path's sites at b8 (the strict limits,
      and bit-equal to fast=False), K1 at every site and K2 at the 128 rows
      of a b8, K=16 pass; ``downscale(ds_model="edm")`` from a checkpoint at
-     b2, K=4, 18 steps, strict and fast: 35 x 29 = 1015 K1 and 35 x 11 = 385
+     b2, K=4, 18 steps, strict and fast: 35 x 57 = 1995 K1 (35 x 28
+     ``scale_shift``) and 35 x 11 = 385
      K2 launches per batch, no q/k/v copy, files finite with members that
      differ, ms per batch of the sampler alone, inputs/s and members/s; one
      denoiser pass at 8 and at 128 rows, both modes, by CUDA events and
      device time, and 35 times the 128-row pass printed as the computed
      (not run) cost of one b8 K=16 Heun batch; 3 + 10 DSM steps at b8,
-     dropout 0.1, sigma and noise fixed, strict and fast: 29 K1, 11 K2 and
+     dropout 0.1, sigma and noise fixed, strict and fast: 57 K1, 11 K2 and
      11 K3 launches per step, the loss falling, ms per step, samples/s, peak
      memory and a profile; ``train_edm`` on phase 11's data, 2 epochs of 3
      steps with eval and CRPS (depth cuts: ``crps_samples`` 2 and
@@ -122,11 +131,11 @@ fp32 kernel's kD = 256 build. Phases:
      512, 4 to 16 channels per group), fp32 and bf16, each site's plan
      printed and required on chip, and K1's times there; 3 + 10
      deterministic steps at b8, cyclic labels (``map_label`` live), dropout
-     0.1, a fixed batch, strict and fast: exactly 29 K1, 0 K2 and 0 K3
-     launches per step and 29 K1 per eval batch, the loss falling, ms per
+     0.1, a fixed batch, strict and fast: exactly 57 K1, 0 K2 and 0 K3
+     launches per step and 57 K1 per eval batch, the loss falling, ms per
      step, samples/s, peak memory and a profile; ``train_baseline`` on
      phase 11's data for each ``ds_model``, 2 epochs of 3 steps: the JAX
-     loop's record keys, finite MAE, the launch counts (261 K1 for the
+     loop's record keys, finite MAE, the launch counts (513 K1 for the
      U-Net: 6 steps, 2 eval batches, 1 MAE batch); ``downscale(ds_model=
      "vae")`` from its checkpoint at b8, K=16: finite members that differ,
      the sampler's inputs/s and members/s.
@@ -144,8 +153,8 @@ fp32 kernel's kD = 256 build. Phases:
      2 epochs of 2 steps, eval and CRPS), against
      this process's run with ``data_shards=2``: the step-1 loss within
      1e-5, every loss, gradient norm and the val loss within 5e-3, the
-     final parameters' update within MP_PARAM_TOL, 29 K1, 11 K2 and 11 K3
-     launches per step on each rank (plus 29 K1 and 11 K2 per eval and
+     final parameters' update within MP_PARAM_TOL, 57 K1, 11 K2 and 11 K3
+     launches per step on each rank (plus 57 K1 and 11 K2 per eval and
      CRPS batch), one checkpoint; the elements whose updates parted by
      more than lr, with each side's gradients of them at steps 1-3
      (AdamW's first moments in runs stopped after each step); a negative
@@ -189,7 +198,7 @@ fp32 kernel's kD = 256 build. Phases:
      (a) the sampler and one strict training step card against CPU, phase
      5's and phase 9's limits; (b) the sampler at b8, K=16 and 5 training
      steps at b8, dropout 0.1, in strict and fast mode, with counts set to
-     0 before each and exactly 29 K1 + 11 K2 per pass, 29 / 11 / 11 per
+     0 before each and exactly 57 K1 + 11 K2 per pass, 57 / 11 / 11 per
      step, by head width 5 at kD = 80 (fast) or 128 (strict) and 6 at 64,
      no copy, finite output; ms per batch and step, device time, peak
      memory; (c) K2 and K3 (and K2's lse) against their plain versions at
@@ -217,7 +226,9 @@ fp32 kernel's kD = 256 build. Phases:
      some as transposed convolutions, the weight gradient at every site,
      the 3xTF32 input gradient where the input needs one, two split
      launches each, no ``F.conv2d``, ``cudnn.allow_tf32`` as before); one
-     EDM pass (8 rows) all in 3xTF32; the EDM pass again with all but
+     EDM pass (8 rows) all in 3xTF32, and the device time of its
+     non-vectorized elementwise kernels (BROADCAST_KERNEL) by the module
+     and the ops that launched them; the EDM pass again with all but
      PRESSURE_FREE of the card taken, bit-equal or not, in 3xTF32 and in
      IEEE fp32; the step's and the pass's convolutions replayed on their
      shapes through the port's paths and through IEEE fp32 ``F.conv2d``
@@ -232,15 +243,18 @@ fp32 kernel's kD = 256 build. Phases:
      against its plain version, O and the row lse, at the path's site (b2,
      L = 784, one head of 256) and at KD256_CASES, every layout, within the
      strict limit, a second call bit-equal, each launch counted under
-     ``fp32_kd256``; (b) K1 at the path's streamed sites (b2 and b1, the
-     448x448 and 224x224 slices too large for a cluster) against its plain
-     version, fp32, two calls bit-equal; (c) the path's sites by hooks
-     against ``gn_silu_sites(ddpmpp=True)`` and the plan's 6 attention
+     ``fp32_kd256``; (b) K1 at every distinct site of the path (b2 and b1,
+     on chip and streamed, as ``gn_silu.plan`` picks) against its plain
+     version, fp32, eps 1e-6, unmodulated and with a per-sample shift
+     added (``shift_in``), two calls bit-equal; (c) the path's sites by hooks
+     against ``gn_silu_sites`` and the plan's 6 attention
      blocks, then the launch counters set to 0 just before one denoiser pass
      at 2 rows and one regression pass at 1 row: 111 K1 each, by plan
-     (``gn_silu.launches_by_plan``) as ``gn_silu.plan`` gives them, 6 K2 at
+     (``gn_silu.launches_by_plan``) as ``gn_silu.plan`` gives them and
+     by modulation 55 ``shift_in`` (``gn_silu.launches_by_mod``), 6 K2 at
      ``fp32_kd256`` and none else, no K3, no copy, finite output; a profile
-     of the pass; (d) K2 at the site by CUDA events and device time beside
+     of the pass, and its BROADCAST_KERNEL time by launching module and
+     ops; (d) K2 at the site by CUDA events and device time beside
      its plain version, SDPA (fp32, TF32 off) and the bound. The kernels
      line gets an ``attention_fwd_kd256`` entry and K1's entry the path's
      launches by plan.
@@ -274,11 +288,18 @@ TF32_FLOPS = 495e12      # tensor cores; strict attention runs 3 TF32 products p
 
 RES, BATCH, MEMBERS = 128, 8, 16
 DAYS = 32                # four batches of 8 test days
-K1_PER_BATCH, K2_PER_BATCH = 29, 11
+K1_PER_BATCH, K2_PER_BATCH = 57, 11
+# of the K1 launches a forward, the 28 blocks' norm1 take the embedding's
+# (scale, shift) in the launch (gn_silu.launches_by_mod "scale_shift"); the
+# blocks' norm0 and out_norm are unmodulated ("none")
+K1_MOD_PER_BATCH = {"none": 29, "scale_shift": 28}
 K3_PER_STEP = 11          # one K3 launch per attention block in the backward
 TRAIN_STEPS, WARMUP_STEPS = 10, 3
 EXPECTED_PARAMS = 103_541_083
 GN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 2 ** -8)}   # (atol, rtol)
+# K1 with the embedding's terms in the launch: bf16 outputs reach past 4,
+# where one rounding of two fp32 results apart is up to one ulp, 2^-7
+GN_MOD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 2 ** -7)}
 # strict: 3xTF32 products against fp32 einsums; fast (and strict with bf16
 # activations, whose output is bf16 too): the plain version rounds the
 # logits and the weights to bf16 at other points than the kernel
@@ -417,6 +438,11 @@ SPLIT_TOL = 0.0
 # pass 111 K1 sites and 6 attention blocks of one 256-wide head over 28x28
 CORRDIFF_RES, CORRDIFF_ROWS, CORRDIFF_PARAMS = 448, 2, 159_970_822
 CORRDIFF_K1_PER_PASS, CORRDIFF_K2_PER_PASS = 111, 6
+# the 55 DDPM++ blocks' norm1 add the embedding's shift in the launch
+CORRDIFF_K1_MOD_PER_PASS = {"none": 56, "shift_in": 55}
+# PyTorch's non-vectorized elementwise kernel (broadcasts, strided operands):
+# phases 17 and 18 give its device time by the module and op that launched it
+BROADCAST_KERNEL = "elementwise_kernel<128, 2"
 # (B, L, heads, c) of K2 at kD = 256: the path's site, one row, a ragged
 # 32-row tile with two heads, a narrower head read in place (200) and one
 # copied zero-padded (129 -> 136)
@@ -535,19 +561,28 @@ def k1_kernel_info(torch, K1, site, num_sms):
     info = {"site": [BATCH, h, w, c]}
     for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         p = K1.plan(BATCH, h, w, c, g, dtype.itemsize, num_sms)
-        buf = (ctypes.c_int * len(keys))()
-        _build.check(_build.lib().probunet_gn_silu_query(
-            int(dtype == torch.bfloat16), 16 // dtype.itemsize, c, g, p.cb, p.n, p.chunk_rows,
-            buf), "gn_silu query")
-        d = {**p._asdict(), **dict(zip(keys, buf)), "blocks": BATCH * c // p.cb * p.n}
+        by_mod = {}
+        for mod, mod_name in enumerate(K1.MODS):
+            buf = (ctypes.c_int * len(keys))()
+            _build.check(_build.lib().probunet_gn_silu_query(
+                int(dtype == torch.bfloat16), 16 // dtype.itemsize, c, g, p.cb, p.n,
+                p.chunk_rows, mod, buf), "gn_silu query")
+            by_mod[mod_name] = dict(zip(keys, buf))
+        d = {**p._asdict(), **by_mod["none"], "blocks": BATCH * c // p.cb * p.n,
+             "by_mod": {k: {"registers": v["registers"], "local_bytes": v["local_bytes"],
+                            "max_active_clusters": v["max_active_clusters"]}
+                        for k, v in by_mod.items()}}
         info[name] = d
         log(f"[1] K1 {name} at {BATCH}x{h}x{w}x{c}: cb {p.cb} ({c // p.cb} channel blocks), "
             f"clusters of {p.n} x {d['threads']} threads, {p.rows} rows per block, on chip "
             f"{p.on_chip}; {d['dynamic_smem']} B dynamic + {d['static_smem']} B static shared "
             f"per block, {d['registers']} registers, {d['local_bytes']} B spilled; "
             f"{d['max_active_clusters']} clusters resident at once "
-            f"({d['max_active_clusters'] * p.n} blocks on {num_sms} SMs) of {d['blocks'] // p.n}")
-        if d["max_active_clusters"] < 1:
+            f"({d['max_active_clusters'] * p.n} blocks on {num_sms} SMs) of {d['blocks'] // p.n}"
+            f"; by modulation (registers, spilled bytes, clusters resident): "
+            + ", ".join(f"{k} ({v['registers']}, {v['local_bytes']}, {v['max_active_clusters']})"
+                        for k, v in d["by_mod"].items()))
+        if min(v["max_active_clusters"] for v in d["by_mod"].values()) < 1:
             raise AssertionError("no K1 cluster of the largest site fits on the card")
     return info
 
@@ -797,6 +832,94 @@ def time_k1(torch, sites, dtype, dev, gen, phase):
     return tot
 
 
+def k1_modulated_check(torch, K1, dev, cases, gen, num_sms, eps=1e-5, phase=2):
+    """K1 with the embedding's terms in its launch against its plain
+    version at each (B, H, W, C, what) of ``cases``, fp32 and bf16: (scale,
+    shift) and shift_in, each per sample (B, C) and shared (1, C); output
+    and statistics, two calls bit-equal, each launch counted under its
+    modulation. Returns the largest error by dtype; raises on a miss."""
+    from probunet_torch.ops.norm import group_stats, num_groups_for
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = GN_MOD_TOL[str(dtype).split(".")[1]]
+        worst[str(dtype)[6:]] = 0.0
+        for (b, h, w, c, what) in cases:
+            g = num_groups_for(c)
+            p = K1.plan(b, h, w, c, g, dtype.itemsize, num_sms)
+            x = (torch.randn(b, h, w, c, device=dev, generator=gen) + 0.5).to(dtype)
+            gamma = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+            beta = 0.1 * torch.randn(c, device=dev, generator=gen)
+            for mod in ("scale_shift", "shift_in"):
+                for rows in sorted({b, 1}, reverse=True):
+                    s, t = (0.5 * torch.randn(rows, c, device=dev, generator=gen)
+                            for _ in range(2))
+                    kw = {"scale": s, "shift": t} if mod == "scale_shift" else {"shift_in": t}
+                    before = K1.gn_silu.launches_by_mod.get(mod, 0)
+                    with torch.inference_mode():
+                        out, mean, rstd = K1.gn_silu(x, gamma, beta, g, eps, True, **kw)
+                        again = K1.gn_silu(x, gamma, beta, g, eps, True, **kw)
+                        ref, rmean, rrstd = K1._plain_gn_silu(x, gamma, beta, g, eps, **kw)
+                        u = x.float() + t[:, None, None, :] if mod == "shift_in" else x
+                        smean, srstd = group_stats(u, g, eps)
+                    torch.cuda.synchronize()
+                    d = (out.float() - ref.float()).abs()
+                    worst[str(dtype)[6:]] = max(worst[str(dtype)[6:]], d.max().item())
+                    same = all(torch.equal(a, b_) for a, b_ in zip(again, (out, mean, rstd)))
+                    ok = bool((d <= atol + rtol * ref.float().abs()).all()) and same
+                    ok &= torch.allclose(mean, smean, rtol=1e-5, atol=1e-5)
+                    ok &= torch.allclose(rstd, srstd, rtol=1e-5, atol=1e-5)
+                    ok &= torch.equal(rmean, smean) and torch.equal(rrstd, srstd)
+                    ok &= K1.gn_silu.launches_by_mod.get(mod, 0) == before + 2
+                    log(f"[{phase}] K1 {mod} ({rows}, {c}) {str(dtype)[6:]:8s} {b}x{h}x{w}x{c} "
+                        f"({what}; {'on chip' if p.on_chip else 'streamed'}): max abs err "
+                        f"{d.max().item():.3e} (atol {atol}, rtol {rtol:.3g}), two calls "
+                        f"bit-equal {same} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"K1 {mod} disagrees with its plain version")
+    return worst
+
+
+def time_k1_mod(torch, sites, dtype, dev, gen, phase):
+    """The blocks' norm1 at each distinct (H, W, C) of ``sites`` at batch
+    BATCH in ``dtype``, by device time: K1 with per-sample (scale, shift) in
+    its launch beside the unmodulated K1 at the same shape and the chain it
+    replaces (the plain norm, then the terms and SiLU as separate PyTorch
+    operations on the block's NCHW view); logged per site, summed over
+    ``sites`` (one forward)."""
+    from probunet_torch.ops import gn_silu as K1
+    from probunet_torch.ops.norm import group_norm, num_groups_for
+
+    tot = {"modulated_device_ms": 0.0, "unmodulated_device_ms": 0.0, "chain_device_ms": 0.0,
+           "bound_ms": 0.0}
+    for (h, w, c), mult in _counts(sites).items():
+        g = num_groups_for(c)
+        x = torch.randn(BATCH, h, w, c, device=dev, generator=gen).to(dtype)
+        gamma = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+        beta = 0.1 * torch.randn(c, device=dev, generator=gen)
+        s, t = (0.5 * torch.randn(BATCH, c, device=dev, generator=gen) for _ in range(2))
+        st, tt = (v.to(dtype)[:, :, None, None] for v in (s, t))
+
+        def chain():
+            y = group_norm(x, gamma, beta, g).permute(0, 3, 1, 2) * (st + 1) + tt
+            return y * torch.sigmoid(y)
+
+        with torch.inference_mode():
+            t_ = {"modulated_device_ms": device_ms(
+                      torch, lambda: K1.gn_silu(x, gamma, beta, g, scale=s, shift=t), whole=True),
+                  "unmodulated_device_ms": device_ms(
+                      torch, lambda: K1.gn_silu(x, gamma, beta, g), whole=True),
+                  "chain_device_ms": device_ms(torch, chain)}
+        t_["bound_ms"] = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        log(f"[{phase}] K1 norm1 {str(dtype)[6:]:8s} {BATCH}x{h}x{w}x{c} x{mult}: (scale, shift) "
+            f"in the launch {t_['modulated_device_ms']:.4f} ms device, unmodulated "
+            f"{t_['unmodulated_device_ms']:.4f}, the plain chain {t_['chain_device_ms']:.4f}, "
+            f"bound {t_['bound_ms']:.4f}")
+        for key in tot:
+            tot[key] += mult * t_[key]
+    return tot
+
+
 def census(torch, model, forward):
     """(H, W, C) of every GroupNorm+SiLU site and (L, heads) of every
     attention block of ``model`` in one call of ``forward()``, by hooks."""
@@ -931,6 +1054,8 @@ def run_phases(torch, dev, card, sass):
             if not ok:
                 raise AssertionError("K1 disagrees with its plain version")
         k1_err[dtype] = worst
+    k1_mod_err = k1_modulated_check(torch, K1, dev, [c for c in cases if c[4] != "unaligned"],
+                                    gen, num_sms)
 
     mark(2)
 
@@ -965,6 +1090,7 @@ def run_phases(torch, dev, card, sass):
     save_checkpoint(ckpt, TrainState(model, None))   # parameters only, as serving holds them
     nb = DAYS // BATCH
     K1.gn_silu.launches = 0
+    K1.gn_silu.launches_by_mod.clear()
     K2.fused_attention.launches = 0
     K2.attention_bwd.launches = 0
     K2.kernel_layout.copies = 0
@@ -985,8 +1111,12 @@ def run_phases(torch, dev, card, sass):
                 "attn_bwd": K2.attention_bwd.launches}
     copies = K2.kernel_layout.copies
     want = (2 * nb * K1_PER_BATCH, 2 * nb * K2_PER_BATCH, 0)
-    log(f"[4] q/k/v copies before the attention launches: {copies}")
-    if (launches["gn"], launches["attn"], launches["attn_bwd"]) != want or copies:
+    serve_mods = dict(K1.gn_silu.launches_by_mod)
+    want_mods = {k: 2 * nb * v for k, v in K1_MOD_PER_BATCH.items()}
+    log(f"[4] q/k/v copies before the attention launches: {copies}; K1 by modulation "
+        f"{serve_mods} (expected {want_mods})")
+    if (launches["gn"], launches["attn"], launches["attn_bwd"]) != want or copies \
+            or serve_mods != want_mods:
         raise AssertionError(f"launches {launches}, expected {want} "
                              f"({K1_PER_BATCH} K1 and {K2_PER_BATCH} K2 per batch); "
                              f"{copies} tensors copied before a launch, expected 0")
@@ -1067,10 +1197,20 @@ def run_phases(torch, dev, card, sass):
 
     k1_t = {"fp32": time_k1(torch, gn_sites, torch.float32, dev, gen, 6),
             "bf16": time_k1(torch, gn_sites, torch.bfloat16, dev, gen, 6)}
+    # the blocks' norm1: the census's entries between each block's norm0
+    # and the next (gn_silu_sites' order), the out_norm last
+    norm1_sites = gn_silu_sites(*build_unet_plan(
+        (RES, RES), 4, cfg.model_channels, cfg.channel_mult, cfg.num_blocks,
+        cfg.attn_resolutions), (RES, RES))[1:-1:2]
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        k1_t[name]["norm1"] = time_k1_mod(torch, norm1_sites, dtype, dev, gen, 6)
     k2_t = {"strict": time_k2("strict"), "fast": time_k2("fast")}
     for name, tt in list(k1_t.items()) + list(k2_t.items()):
         log(f"[6] per forward at b{BATCH} ({name}): " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in tt.items()))
+    for name, tt in k1_t.items():
+        log(f"[6] K1 norm1 per forward at b{BATCH} ({name}, {len(norm1_sites)} sites): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in tt["norm1"].items()))
 
     hr_all = ds.hr_device()
     rates = {}
@@ -1135,11 +1275,17 @@ def run_phases(torch, dev, card, sass):
                "library_device_ms": k1_t["fp32"]["library_device_ms"], "fp32": k1_t["fp32"],
                "bf16": k1_t["bf16"], "bf16_max_abs_err": k1_err[torch.bfloat16],
                "launches_by_path": by_path["gn"], "largest_site": k1_info,
+               "modulated_max_abs_err": k1_mod_err,
+               "launches_by_mod": {"serve": serve_mods,
+                                   **{f"edm_serve_{m}": r["k1_by_mod"]
+                                      for m, r in edm["report"]["serve"].items()},
+                                   **{f"corrdiff_{path}": r["k1_by_mod"] for path, r in
+                                      corrdiff["report"]["passes"].items()}},
                "edm_128_rows_max_abs_err": edm["k1_err"],
                "corrdiff": {"by_plan": {path: r["k1_by_plan"] for path, r in
                                         corrdiff["report"]["passes"].items()},
-                            "streamed_sites": corrdiff["report"]["k1_streamed_sites"],
-                            "streamed_max_abs_err": corrdiff["k1_err"]},
+                            "sites": corrdiff["report"]["k1_sites"],
+                            "max_abs_err": corrdiff["k1_err"]},
                "baseline": {"timed": per.format(K1_PER_BATCH).replace(
                                 "U-Net", "deterministic U-Net"),
                             "fp32": baseline["k1_t"]["fp32"], "bf16": baseline["k1_t"]["bf16"],
@@ -1918,12 +2064,15 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
         wall = time.perf_counter() - t0
         n = launch_counts()
         want = (passes * K1_PER_BATCH, passes * K2_PER_BATCH, 0, 0)
+        mods = dict(K1.gn_silu.launches_by_mod)
+        want_mods = {k: passes * v for k, v in K1_MOD_PER_BATCH.items()}
         serve_n += n[:3]
         with NetCDFFile(path) as f:
             fields = {var: f.read_var(var) for var in cfg.variables}
         spread = {var: float(a.std(axis=1).mean()) for var, a in fields.items()}
-        ok = n == want and all(a.shape == (sb, sk, RES, RES) and np.isfinite(a).all()
-                               for a in fields.values()) and min(spread.values()) > 0
+        ok = n == want and mods == want_mods and all(
+            a.shape == (sb, sk, RES, RES) and np.isfinite(a).all()
+            for a in fields.values()) and min(spread.values()) > 0
         # the sampler alone on one batch, data on the card, no file I/O
         dtype = torch.bfloat16 if c.compute_dtype == "bfloat16" else torch.float32
         m = build_edm_model(c, device="meta").to_empty(device=dev).eval()
@@ -1937,10 +2086,11 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
         per = time.perf_counter() - t1
         report["serve"][name] = {"downscale_wall_s": wall, "ms_per_batch": per * 1e3,
                                  "inputs_per_s": sb / per, "members_per_s": sb * sk / per,
-                                 "launches": n[:3], "copies": n[3]}
+                                 "launches": n[:3], "copies": n[3], "k1_by_mod": mods}
         log(f"[12] EDM downscale {name} (b{sb}, K={sk}, {EDM_STEPS} steps): {wall:.2f} s for one "
             f"batch (restore and netCDF output included); launches K1 {n[0]}, K2 {n[1]}, K3 "
-            f"{n[2]}, q/k/v copies {n[3]} (expected {want}); members finite, spread "
+            f"{n[2]}, q/k/v copies {n[3]} (expected {want}); K1 by modulation {mods} (expected "
+            f"{want_mods}); members finite, spread "
             f"{', '.join(f'{v} {s:.4g}' for v, s in spread.items())}; the sampler alone "
             f"{per * 1e3:.1f} ms per batch: {sb / per:.3f} inputs/s, {sb * sk / per:.3f} "
             f"members/s ({card}) {'ok' if ok else 'FAIL'}")
@@ -3791,6 +3941,8 @@ def conv_phase(torch, dev, card, mark):
     if (edm_calls["tf32x3_fwd"] != len(edm_sites) or edm_calls["plain"]
             or edm_calls["split"] != 2 * len(edm_sites)):
         raise AssertionError("the EDM pass's convolutions did not all run in 3xTF32")
+    edm_pass()
+    broadcast = kernel_owners(torch, edm, edm_pass, BROADCAST_KERNEL, "EDM pass", 17)
 
     # ---- the bits under memory pressure: the pass again with all but
     # PRESSURE_FREE bytes of the card taken, 3xTF32 and IEEE fp32 ---------------------
@@ -3923,6 +4075,7 @@ def conv_phase(torch, dev, card, mark):
         del port, ieee
     report["timings"] = timings
     report["step_calls"], report["edm_pass_calls"] = step_calls, edm_calls
+    report["edm_broadcast_owners"] = broadcast
     if torch.backends.cudnn.allow_tf32 != flag0:
         raise AssertionError("cudnn.allow_tf32 not restored after phase 17")
     mark(17)
@@ -3933,8 +4086,8 @@ def conv_phase(torch, dev, card, mark):
 def corrdiff_phase(torch, dev, card, gen, mark):
     """Phase 18: CorrDiff at the cell's widths (see CORRDIFF_* and
     KD256_*): the kD = 256 kernel's registers and spills, (a) K2 at kD = 256
-    against its plain version, (b) K1 at the path's streamed sites against
-    its plain version, (c) one denoiser and one regression pass with exact
+    against its plain version, (b) K1 at every distinct site of the path
+    against its plain version, (c) one denoiser and one regression pass with exact
     launch counts by head width and by K1 plan, (d) K2 at the path's site
     beside its plain version, SDPA and the bound. Returns the errors, the
     timings, the launches by pass and the report."""
@@ -3981,44 +4134,47 @@ def corrdiff_phase(torch, dev, card, gen, mark):
     report["kd256_max_abs_err"] = worst
     mark(18)
 
-    # ---- (b) K1 at the path's streamed sites -------------------------------------------
+    # ---- (b) K1 at every distinct site of the path -------------------------------------
     enc, dec, final_c = build_unet_plan(res, 6, 128, (1, 2, 2, 2, 2), 4, (28,), True, True)
-    plan_sites = gn_silu_sites(enc, dec, final_c, res, ddpmpp=True)
+    plan_sites = gn_silu_sites(enc, dec, final_c, res)
 
     def by_plan(rows):
         on = [K1.plan(rows, *s, num_groups_for(s[2]), 4, num_sms).on_chip for s in plan_sites]
         return {"on_chip": sum(on), "streamed": len(on) - sum(on)}
 
-    streamed = sorted({s for s in plan_sites if not K1.plan(
-        CORRDIFF_ROWS, *s, num_groups_for(s[2]), 4, num_sms).on_chip})
+    sites = sorted(set(plan_sites))
     atol, rtol = GN_TOL["float32"]
     k1_worst = 0.0
     for rows in (CORRDIFF_ROWS, 1):
-        for h, w, c in streamed:
+        for h, w, c in sites:
             g = num_groups_for(c)
             p = K1.plan(rows, h, w, c, g, 4, num_sms)
             x = torch.randn(rows, h, w, c, device=dev, generator=gen) + 0.5
             gamma = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
             beta = 0.1 * torch.randn(c, device=dev, generator=gen)
-            with torch.inference_mode():
-                out = K1.gn_silu(x, gamma, beta, g, 1e-6)
-                again = K1.gn_silu(x, gamma, beta, g, 1e-6)
-                ref = K1._plain_gn_silu(x, gamma, beta, g, 1e-6)[0]
-            torch.cuda.synchronize()
-            d = (out - ref).abs()
-            same = torch.equal(out, again)
-            ok = bool((d <= atol + rtol * ref.abs()).all()) and same and not p.on_chip
-            k1_worst = max(k1_worst, d.max().item())
-            log(f"[18] K1 fp32 {rows}x{h}x{w}x{c} G={g} eps 1e-6 (cb {p.cb}, cluster {p.n}, "
-                f"{p.rows} rows/block, {'on chip' if p.on_chip else 'streamed'}): max abs err "
-                f"{d.max().item():.3e} (atol {atol}, rtol {rtol:.3g}), two calls bit-equal "
-                f"{same} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError("K1 on CorrDiff's streamed sites disagrees with its plain "
-                                     "version, or a site was planned on chip")
-            del x, out, again, ref, d
-    report["k1_streamed_sites"] = [list(s) for s in streamed]
-    report["k1_streamed_max_abs_err"] = k1_worst
+            # unmodulated (norm0, the aux_norm) and with the block's shift added (norm1)
+            shift = 0.5 * torch.randn(rows, c, device=dev, generator=gen)
+            for mod, kw in (("none", {}), ("shift_in", {"shift_in": shift})):
+                with torch.inference_mode():
+                    out = K1.gn_silu(x, gamma, beta, g, 1e-6, **kw)
+                    again = K1.gn_silu(x, gamma, beta, g, 1e-6, **kw)
+                    ref = K1._plain_gn_silu(x, gamma, beta, g, 1e-6, **kw)[0]
+                torch.cuda.synchronize()
+                d = (out - ref).abs()
+                same = torch.equal(out, again)
+                ok = bool((d <= atol + rtol * ref.abs()).all()) and same
+                k1_worst = max(k1_worst, d.max().item())
+                log(f"[18] K1 {mod} fp32 {rows}x{h}x{w}x{c} G={g} eps 1e-6 (cb {p.cb}, cluster "
+                    f"{p.n}, {p.rows} rows/block, {'on chip' if p.on_chip else 'streamed'}): max "
+                    f"abs err {d.max().item():.3e} (atol {atol}, rtol {rtol:.3g}), two calls "
+                    f"bit-equal {same} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("K1 at a CorrDiff site disagrees with its plain "
+                                         "version, or two calls differ")
+                del out, again, ref, d
+            del x
+    report["k1_sites"] = [list(s) for s in sites]
+    report["k1_max_abs_err"] = k1_worst
     mark(18)
 
     # ---- (c) the path: one denoiser pass, one regression pass --------------------------
@@ -4032,7 +4188,7 @@ def corrdiff_phase(torch, dev, card, gen, mark):
     sigma = torch.full((CORRDIFF_ROWS,), 1.0, device=dev)
     gn_sites, attn_sites = census(torch, model, lambda: model(r, sigma, condition_img=cond))
     log(f"[18] CorrDiff: two {res[0]}x{res[1]} DDPM++ U-Nets, {nparams:,} parameters; a pass "
-        f"has {len(gn_sites)} K1 sites ({len(streamed)} distinct streamed shapes) and attention "
+        f"has {len(gn_sites)} K1 sites ({len(sites)} distinct shapes) and attention "
         f"sites (L, heads) {sorted(set(attn_sites))} x {len(attn_sites)}")
     if (nparams != CORRDIFF_PARAMS or sorted(gn_sites) != sorted(plan_sites)
             or len(gn_sites) != CORRDIFF_K1_PER_PASS
@@ -4053,8 +4209,11 @@ def corrdiff_phase(torch, dev, card, gen, mark):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             n, kds, plans = launch_counts(), launches_by_kd(), dict(K1.gn_silu.launches_by_plan)
+            mods = dict(K1.gn_silu.launches_by_mod)
             device = profile(torch, fn, f"CorrDiff {name.replace('_', ' ')} at {rows} rows",
                              "one pass", phase=18, top=8)
+            owners = kernel_owners(torch, model, fn, BROADCAST_KERNEL,
+                                   f"CorrDiff {name.replace('_', ' ')}", 18)
         want = (CORRDIFF_K1_PER_PASS, CORRDIFF_K2_PER_PASS, 0, 0)
         want_kd = {"fwd": {"fp32_kd256": CORRDIFF_K2_PER_PASS}, "bwd": {}}
         want_plan = {k: v for k, v in by_plan(rows).items() if v}
@@ -4062,12 +4221,14 @@ def corrdiff_phase(torch, dev, card, gen, mark):
         launches[name] = as_launches(n)
         passes[name] = {"rows": rows, "ms": wall * 1e3, "device_ms": device,
                         "launches": {**as_launches(n), "copies": n[3]}, "by_kd": kds,
-                        "k1_by_plan": plans}
+                        "k1_by_plan": plans, "k1_by_mod": mods, "broadcast_owners": owners}
         log(f"[18] {name} at {rows} rows: {wall * 1e3:.1f} ms (device {device} ms), output "
             f"{tuple(out.shape)}, finite {finite}; launches K1 {n[0]}, K2 {n[1]}, K3 {n[2]}, "
             f"copies {n[3]} (expected {want}); K2 by head width {kds} (expected {want_kd}); K1 "
-            f"by plan {plans} (expected {want_plan}) ({card})")
+            f"by plan {plans} (expected {want_plan}), by modulation {mods} (expected "
+            f"{CORRDIFF_K1_MOD_PER_PASS}) ({card})")
         if (n != want or kds != want_kd or plans != want_plan or not finite
+                or mods != CORRDIFF_K1_MOD_PER_PASS
                 or tuple(out.shape) != (rows, *res, cfg.nvars)):
             raise AssertionError(f"CorrDiff's {name}: launches or output are off")
         del out
@@ -4183,6 +4344,7 @@ def reset_launch_counts():
 
     K1.gn_silu.launches = K2.fused_attention.launches = K2.attention_bwd.launches = 0
     K1.gn_silu.launches_by_plan.clear()
+    K1.gn_silu.launches_by_mod.clear()
     K2.fused_attention.launches_by_kd.clear()
     K2.attention_bwd.launches_by_kd.clear()
     K2.kernel_layout.copies = 0
@@ -4299,6 +4461,51 @@ def profile(torch, fn, name, what, phase=6, top=12):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"      {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}")
     return total / 1e3
+
+
+def kernel_owners(torch, model, fn, pattern, name, phase, top=8):
+    """Device ms of one call of ``fn`` in the kernels whose name holds
+    ``pattern``, by what launched them: the innermost module of ``model``
+    (each module's forward a profiler range while this runs) and the ATen
+    ops from that module down to the launching op (torch.profiler's op
+    tree). Logged; returns {"module: op > ... > op": ms}."""
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as torch_profile
+
+    open_, hooks = [], []
+
+    def enter(mod, args):
+        open_.append(record_function(f"module::{type(mod).__name__}"))
+        open_[-1].__enter__()
+
+    def leave(mod, args, out):
+        open_.pop().__exit__(None, None, None)
+
+    for m in model.modules():
+        hooks += [m.register_forward_pre_hook(enter), m.register_forward_hook(leave)]
+    try:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    owners = {}
+    for e in prof.events():
+        us = sum(k.duration for k in e.kernels if pattern in k.name)
+        if not us:
+            continue
+        ops, p = [e.name], e.cpu_parent
+        while p is not None and not p.name.startswith("module::"):
+            ops.append(p.name)
+            p = p.cpu_parent
+        key = f"{p.name[8:] if p is not None else '(no module)'}: {' > '.join(reversed(ops))}"
+        owners[key] = owners.get(key, 0.0) + us / 1e3
+    total = sum(owners.values())
+    log(f"[{phase}] {name}: {total:.3f} ms device in kernels named '{pattern}', by owner:")
+    for key, ms in sorted(owners.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"      {ms:9.3f} ms  {ms / total if total else 0:6.1%}  {key[:110]}")
+    return owners
 
 
 if __name__ == "__main__":

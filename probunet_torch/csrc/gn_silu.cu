@@ -39,6 +39,17 @@
 //      wait before exit) keeps every block's shared memory alive while
 //      others read it.
 //
+// The affine map may be modulated per (sample, channel) by operands of shape
+// (B, C), or (1, C) read with batch stride 0 for every sample, fp32: the
+// residual block's embedding terms (template parameter MOD).
+//   kModScaleShift (ADM, adaptive_scale): silu((xhat * gamma + beta) * (1 + s)
+//     + t), i.e. gamma' = gamma (1 + s) and beta' = beta (1 + s) + t, formed
+//     in registers once per thread, as its channels are fixed;
+//   kModShiftIn (DDPM++): silu(GN(x + t)); t is added to x as it is summed in
+//     both statistics passes, and folded into the apply loop's mean as
+//     mean - t, so the streamed plan's second read needs no add either.
+// The unmodulated instantiation is the same code as before: no new loads.
+//
 // HBM traffic is 2N when the unit's slice fits the cluster ("on chip"; the
 // host's plan sizes Cb and n so that every site of the U-Net fits, with up to
 // ~100 KB of x per block so that two blocks share an SM and one's stores
@@ -64,6 +75,9 @@ constexpr int kThreads = 256;    // per block, unless a row holds more vectors
 constexpr int kMaxThreads = 512;
 constexpr int kStages = 4;       // cp.async groups per chunk, summed as they land
 
+// The modulation of the affine map (the header note).
+constexpr int kModNone = 0, kModScaleShift = 1, kModShiftIn = 2, kMods = 3;
+
 struct Params {
   const void* x;
   const float* gamma;
@@ -78,6 +92,9 @@ struct Params {
   int vpr, rpi;       // vectors per row, rows per pass of the block's threads
   int slice_bytes;    // shared bytes of one chunk of rows
   float eps;
+  const float* mscale;         // scale_shift's s, (B|1, C)
+  const float* mshift;         // scale_shift's t or shift_in's t, (B|1, C)
+  int mscale_bs, mshift_bs;    // their batch strides in elements (0: one row for all)
 };
 
 // Merge (nb, mb, m2b) into (n, m, m2): Chan et al.'s pairwise update.
@@ -148,10 +165,11 @@ __device__ __forceinline__ void copy_rows(T* dst, const T* __restrict__ src, siz
 
 // Load the thread's m rows of a chunk in kStages cp.async groups and add
 // each stage into acc as soon as it has landed, while later stages are
-// still in flight.
-template <typename T, int VEC>
+// still in flight; with kModShiftIn each element plus its channel's tin.
+template <typename T, int VEC, int MOD>
 __device__ __forceinline__ void load_and_sum(T* dst, const T* __restrict__ src, size_t ld, int m,
-                                             int tr, const Params& p, float (&acc)[VEC]) {
+                                             int tr, const Params& p, const float (&tin)[VEC],
+                                             float (&acc)[VEC]) {
 #pragma unroll
   for (int s = 0; s < kStages; ++s) {
     copy_rows<T, VEC>(dst, src, ld, m * s / kStages, m * (s + 1) / kStages, tr, p);
@@ -164,7 +182,10 @@ __device__ __forceinline__ void load_and_sum(T* dst, const T* __restrict__ src, 
       float v[VEC];
       load_vec<T, VEC>(dst + (tr + i * p.rpi) * p.cb, v);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] += v[e];
+      for (int e = 0; e < VEC; ++e) {
+        if constexpr (MOD == kModShiftIn) acc[e] += v[e] + tin[e];
+        else acc[e] += v[e];
+      }
     }
   }
 }
@@ -197,7 +218,7 @@ __device__ __forceinline__ void group_sums(const float (&acc)[VEC], float* scrat
 
 // Grid (n, C / cb, B), clusters of (n, 1, 1): one cluster per (sample,
 // channel block); block rank k holds rows [k * rows, (k + 1) * rows).
-template <typename T, int VEC>
+template <typename T, int VEC, int MOD>
 __global__ void __launch_bounds__(kMaxThreads) gn_silu_fused(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -227,6 +248,14 @@ __global__ void __launch_bounds__(kMaxThreads) gn_silu_fused(const Params p) {
 #pragma unroll
   for (int i = 0; i < VEC; ++i) grp[i] = (tc * VEC + i) / p.cg;
   for (int g = tid; g < gb; g += blockDim.x) part[3 * g] = part[3 * g + 1] = part[3 * g + 2] = 0.f;
+  float tin[VEC];  // kModShiftIn: this sample's shift of each of the thread's channels
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    if constexpr (MOD == kModShiftIn)
+      tin[i] = p.mshift[(size_t)b * p.mshift_bs + cbi * p.cb + tc * VEC + i];
+    else
+      tin[i] = 0.f;
+  }
 
   // ---- statistics of this block's rows, chunk by chunk ------------------------
   int c0 = r0, nr = 0, m = 0;  // the chunk in shared memory: first row, rows, this thread's rows
@@ -237,7 +266,7 @@ __global__ void __launch_bounds__(kMaxThreads) gn_silu_fused(const Params p) {
     float acc[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-    load_and_sum<T, VEC>(slice, xg + c0 * ld, ld, m, tr, p, acc);
+    load_and_sum<T, VEC, MOD>(slice, xg + c0 * ld, ld, m, tr, p, tin, acc);
     group_sums<VEC>(acc, scratch, gsum, p, tr, tc, active);
     const float cnt = static_cast<float>(nr) * p.cg;
     float mu[VEC];
@@ -251,7 +280,9 @@ __global__ void __launch_bounds__(kMaxThreads) gn_silu_fused(const Params p) {
       load_vec<T, VEC>(slice + (tr + i * p.rpi) * p.cb, v);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
-        const float d = v[e] - mu[e];
+        float d;
+        if constexpr (MOD == kModShiftIn) d = (v[e] + tin[e]) - mu[e];
+        else d = v[e] - mu[e];
         acc[e] += d * d;
       }
     }
@@ -289,6 +320,7 @@ __global__ void __launch_bounds__(kMaxThreads) gn_silu_fused(const Params p) {
   __syncthreads();
 
   // ---- normalize, affine, SiLU; the last chunk is still in shared memory -----
+  // y = (x - mu) * sc + sh, the modulation folded into the three constants
   float mu[VEC], sc[VEC], sh[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
@@ -296,6 +328,13 @@ __global__ void __launch_bounds__(kMaxThreads) gn_silu_fused(const Params p) {
     mu[i] = gstat[2 * grp[i]];
     sc[i] = gstat[2 * grp[i] + 1] * p.gamma[ch];
     sh[i] = p.beta[ch];
+    if constexpr (MOD == kModScaleShift) {
+      const float s1 = 1.f + p.mscale[(size_t)b * p.mscale_bs + ch];
+      sc[i] *= s1;
+      sh[i] = sh[i] * s1 + p.mshift[(size_t)b * p.mshift_bs + ch];
+    } else if constexpr (MOD == kModShiftIn) {
+      mu[i] -= tin[i];
+    }
   }
   for (int k = nchunks - 1; k >= 0; --k) {
     if (k + 1 < nchunks) {  // streamed: copy this thread's rows of chunk k again
@@ -323,20 +362,28 @@ __global__ void __launch_bounds__(kMaxThreads) gn_silu_fused(const Params p) {
 
 using KernelFn = void (*)(Params);
 
-// (kernel, element size) for a storage type and vector width; null if none.
-KernelFn pick(int is_bf16, int vec, int* index) {
-  static const KernelFn table[4] = {gn_silu_fused<float, 1>, gn_silu_fused<float, 4>,
-                                    gn_silu_fused<__nv_bfloat16, 1>,
-                                    gn_silu_fused<__nv_bfloat16, 8>};
+constexpr int kKernels = 4 * kMods;
+
+// The kernel of a storage type, vector width and modulation, and its index
+// in the table; null if none.
+KernelFn pick(int is_bf16, int vec, int mod, int* index) {
+  static const KernelFn table[kKernels] = {
+      gn_silu_fused<float, 1, kModNone>,       gn_silu_fused<float, 4, kModNone>,
+      gn_silu_fused<__nv_bfloat16, 1, kModNone>, gn_silu_fused<__nv_bfloat16, 8, kModNone>,
+      gn_silu_fused<float, 1, kModScaleShift>, gn_silu_fused<float, 4, kModScaleShift>,
+      gn_silu_fused<__nv_bfloat16, 1, kModScaleShift>,
+      gn_silu_fused<__nv_bfloat16, 8, kModScaleShift>,
+      gn_silu_fused<float, 1, kModShiftIn>,    gn_silu_fused<float, 4, kModShiftIn>,
+      gn_silu_fused<__nv_bfloat16, 1, kModShiftIn>, gn_silu_fused<__nv_bfloat16, 8, kModShiftIn>};
   const int i = is_bf16 ? (vec == 8 ? 3 : vec == 1 ? 2 : -1) : (vec == 4 ? 1 : vec == 1 ? 0 : -1);
-  *index = i;
-  return i < 0 ? nullptr : table[i];
+  *index = i < 0 || mod < 0 || mod >= kMods ? -1 : 4 * mod + i;
+  return *index < 0 ? nullptr : table[*index];
 }
 
 // Opt each kernel into large dynamic shared memory and clusters of up to 16
 // blocks, once per device.
 cudaError_t configure(KernelFn fn, int index) {
-  static unsigned done[4] = {0, 0, 0, 0};
+  static unsigned done[kKernels] = {};
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -359,10 +406,10 @@ struct Launch {
   size_t smem;
 };
 
-cudaError_t prepare(Launch& L, int is_bf16, int vec, int C, int G, int cb, int cluster,
+cudaError_t prepare(Launch& L, int is_bf16, int vec, int mod, int C, int G, int cb, int cluster,
                     int chunk_rows) {
   int index = -1;
-  L.fn = pick(is_bf16, vec, &index);
+  L.fn = pick(is_bf16, vec, mod, &index);
   if (!L.fn || G <= 0 || C % G || cb <= 0 || C % cb || cb % (C / G) || cb % vec ||
       cluster < 1 || cluster > kMaxCluster || chunk_rows < 1)
     return cudaErrorInvalidValue;
@@ -407,16 +454,23 @@ cudaLaunchConfig_t launch_config(const Launch& L, dim3 grid, int cluster, cudaSt
 // C / cb, B) in clusters of `cluster` blocks, each block `rows` rows of H*W,
 // `chunk_rows` of them at a time in shared memory (chunk_rows >= rows: the
 // unit stays on chip). vec is the elements per access: 16 bytes' worth when
-// C and the pointers allow it, else 1.
+// C and the pointers allow it, else 1. mod: 0 none, 1 scale_shift (mscale
+// and mshift), 2 shift_in (mshift); each operand fp32 with unit channel
+// stride and a batch stride of mscale_bs / mshift_bs elements (0 when one
+// row serves every sample).
 extern "C" int probunet_gn_silu_fwd(const void* x, const void* gamma, const void* beta, void* out,
                                     void* mean, void* rstd, int B, int HW, int C, int G, int cb,
                                     int cluster, int rows, int chunk_rows, float eps, int is_bf16,
-                                    int vec, void* stream) {
+                                    int vec, int mod, const void* mscale, const void* mshift,
+                                    int mscale_bs, int mshift_bs, void* stream) {
   using namespace probunet;
   Launch L;
-  cudaError_t err = prepare(L, is_bf16, vec, C, G, cb, cluster, chunk_rows);
+  cudaError_t err = prepare(L, is_bf16, vec, mod, C, G, cb, cluster, chunk_rows);
   if (err != cudaSuccess) return err;
   if (B < 1 || HW < 1 || rows < 1 || (long long)rows * cluster < HW) return cudaErrorInvalidValue;
+  if ((mod == kModScaleShift && !mscale) || (mod != kModNone && !mshift) || mscale_bs < 0 ||
+      mshift_bs < 0)
+    return cudaErrorInvalidValue;
   L.p.x = x;
   L.p.gamma = static_cast<const float*>(gamma);
   L.p.beta = static_cast<const float*>(beta);
@@ -426,6 +480,10 @@ extern "C" int probunet_gn_silu_fwd(const void* x, const void* gamma, const void
   L.p.hw = HW;
   L.p.rows = rows;
   L.p.eps = eps;
+  L.p.mscale = static_cast<const float*>(mscale);
+  L.p.mshift = static_cast<const float*>(mshift);
+  L.p.mscale_bs = mscale_bs;
+  L.p.mshift_bs = mshift_bs;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(L, dim3(cluster, C / cb, B), cluster,
                                                static_cast<cudaStream_t>(stream), &attr);
@@ -436,12 +494,13 @@ extern "C" int probunet_gn_silu_fwd(const void* x, const void* gamma, const void
 // What the kernel of a plan is on this device, into out[6]: clusters of
 // `cluster` blocks that can be resident at once, threads per block, dynamic
 // shared bytes per block, registers per thread, local (spilled) bytes per
-// thread, static shared bytes. Returns a cudaError_t code.
+// thread, static shared bytes; of the instantiation of modulation `mod`.
+// Returns a cudaError_t code.
 extern "C" int probunet_gn_silu_query(int is_bf16, int vec, int C, int G, int cb, int cluster,
-                                      int chunk_rows, void* out) {
+                                      int chunk_rows, int mod, void* out) {
   using namespace probunet;
   Launch L;
-  cudaError_t err = prepare(L, is_bf16, vec, C, G, cb, cluster, chunk_rows);
+  cudaError_t err = prepare(L, is_bf16, vec, mod, C, G, cb, cluster, chunk_rows);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes fa;
   err = cudaFuncGetAttributes(&fa, L.fn);

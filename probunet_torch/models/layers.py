@@ -208,10 +208,16 @@ class GroupNorm(_Layer):
 
 class GroupNormSiLU(GroupNorm):
     """GroupNorm immediately followed by SiLU, through kernel K1
-    (``ops/gn_silu.py``). Same parameters as :class:`GroupNorm`."""
+    (``ops/gn_silu.py``). Same parameters as :class:`GroupNorm`. A residual
+    block's embedding terms, (B, C) or (1, C), modulate it in the same
+    launch: ``scale`` and ``shift`` give ``silu(GN(x) * (1 + scale) +
+    shift)``, ``shift_in`` gives ``silu(GN(x + shift_in))``."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = gn_silu(nhwc(x).contiguous(), self.weight, self.bias, self.num_groups, self.eps)
+    def forward(self, x: torch.Tensor, *, scale: Optional[torch.Tensor] = None,
+                shift: Optional[torch.Tensor] = None,
+                shift_in: Optional[torch.Tensor] = None) -> torch.Tensor:
+        y = gn_silu(nhwc(x).contiguous(), self.weight, self.bias, self.num_groups, self.eps,
+                    scale=scale, shift=shift, shift_in=shift_in)
         return nchw(y)
 
 

@@ -3,9 +3,10 @@
 The encoder/decoder topology, including every skip concat, is the static
 :func:`build_unet_plan` of the JAX package (a copy of its pure-Python plan).
 Blocks run on NCHW activations in ``channels_last`` memory format; the
-public :class:`UNet` takes and returns NHWC like the JAX module. ``norm0``
-and ``out_norm`` go through kernel K1 (GroupNorm+SiLU), every attention
-block through kernels K2 and, in the backward, K3.
+public :class:`UNet` takes and returns NHWC like the JAX module. ``norm0``,
+``norm1`` (with the embedding's terms) and ``out_norm`` go through kernel K1
+(GroupNorm+SiLU), every attention block through kernels K2 and, in the
+backward, K3.
 
 The mapping network is ported whole (JAX ``unet.py:239-265``): the noise
 embedding ``map_noise`` -> ``map_layer0`` -> SiLU -> ``map_layer1`` with
@@ -57,11 +58,12 @@ class UNetBlock(nn.Module):
     block by default; the DDPM++ block of NVIDIA's SongUNet (CorrDiff's
     ``ddpmpp-cwb``) with ``num_heads=1, skip_scale=sqrt(1/2), eps=1e-6,
     resample_proj=True, adaptive_scale=False``. ``num_heads`` None gives
-    C // 64 heads. Without ``adaptive_scale`` the affine map gives one shift
-    per channel, added before ``norm1``, and ``silu(norm1(x + shift))`` runs
-    through kernel K1 (``norm1`` is then a :class:`GroupNormSiLU`, the same
-    parameters). ``skip_scale`` multiplies the residual sum, and again the
-    attention's."""
+    C // 64 heads. ``norm1`` is a :class:`GroupNormSiLU` with the embedding's
+    terms in the same kernel K1 launch: with ``adaptive_scale`` the affine
+    map gives a (scale, shift) pair per channel, ``silu(GN(x) * (1 + scale) +
+    shift)``; without it one shift per channel, added before the norm,
+    ``silu(GN(x + shift))``. ``skip_scale`` multiplies the residual sum, and
+    again the attention's."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
                  up: bool = False, down: bool = False, attention: bool = False,
@@ -83,7 +85,7 @@ class UNetBlock(nn.Module):
         # adaptive scale: the affine map gives a (scale, shift) pair per channel
         self.affine = Linear(emb_channels, out_channels * (2 if adaptive_scale else 1),
                              init=init, **f)
-        self.norm1 = (GroupNorm if adaptive_scale else GroupNormSiLU)(out_channels, eps=eps, **f)
+        self.norm1 = GroupNormSiLU(out_channels, eps=eps, **f)
         self.conv1 = Conv2d(out_channels, out_channels, 3, init=init_zero, **f)
         self.skip = None
         if out_channels != in_channels or up or down:
@@ -102,12 +104,12 @@ class UNetBlock(nn.Module):
         ``shard``'s (rank, world) rows of the global batch's mask."""
         orig = x
         x = self.conv0(self.norm0(x))
-        params = self.affine(emb)[:, :, None, None].to(x.dtype)  # (B|1, 2C or C, 1, 1)
+        params = self.affine(emb).float()  # (B|1, 2C or C), K1's fp32 operands
         if self.adaptive_scale:
             scale, shift = params.chunk(2, dim=1)
-            x = silu(self.norm1(x) * (scale + 1) + shift)
+            x = self.norm1(x, scale=scale, shift=shift)
         else:
-            x = self.norm1(x + params)  # GroupNorm + SiLU (K1)
+            x = self.norm1(x, shift_in=params)
         x = dropout(x, self.dropout, self.training, generator, shard)
         x = self.conv1(x)
         if self.skip is not None:
@@ -226,21 +228,19 @@ def build_unet_plan(
 
 
 def gn_silu_sites(enc: List[BlockSpec], dec: List[BlockSpec], final_channels: int,
-                  img_resolution: Tuple[int, int],
-                  ddpmpp: bool = False) -> List[Tuple[int, int, int]]:
+                  img_resolution: Tuple[int, int]) -> List[Tuple[int, int, int]]:
     """(H, W, C) of every GroupNorm+SiLU (kernel K1) call in one forward of
-    the U-Net that ``build_unet_plan`` describes: ``norm0`` of each block, at
+    the U-Net that ``build_unet_plan`` describes: each block's ``norm0`` at
     its input's resolution (a down block's conv halves it after the norm,
-    an up block's doubles it), with ``ddpmpp`` also ``norm1`` at its
-    output's, then ``out_norm`` (the DDPM++ ``aux_norm``)."""
+    an up block's doubles it) and ``norm1`` at its output's, then
+    ``out_norm`` (the DDPM++ ``aux_norm``)."""
     sites = []
     for spec in enc + dec:
         if spec.kind == "block":
             out = [int(v) for v in spec.name.split("_")[0].split("x")]
             hw = [v * 2 if spec.down else v // 2 if spec.up else v for v in out]
             sites.append((hw[0], hw[1], spec.in_channels))
-            if ddpmpp:
-                sites.append((out[0], out[1], spec.out_channels))
+            sites.append((out[0], out[1], spec.out_channels))
     return sites + [(img_resolution[0], img_resolution[1], final_channels)]
 
 

@@ -29,10 +29,12 @@ _lib: Optional[ctypes.CDLL] = None
 _vp, _int, _i64, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # x, gamma, beta, out, mean, rstd, B, HW, C, G, cb, cluster, rows,
-    # chunk_rows, eps, is_bf16, vec, stream
-    "probunet_gn_silu_fwd": [_vp] * 6 + [_int] * 8 + [_float, _int, _int, _vp],
-    # is_bf16, vec, C, G, cb, cluster, chunk_rows, out (int[6])
-    "probunet_gn_silu_query": [_int] * 7 + [_vp],
+    # chunk_rows, eps, is_bf16, vec, mod (0 none, 1 scale_shift, 2
+    # shift_in), mscale, mshift, their batch strides, stream
+    "probunet_gn_silu_fwd": [_vp] * 6 + [_int] * 8 + [_float, _int, _int, _int, _vp, _vp, _int,
+                                                      _int, _vp],
+    # is_bf16, vec, C, G, cb, cluster, chunk_rows, mod, out (int[6])
+    "probunet_gn_silu_query": [_int] * 8 + [_vp],
     # q, k, v, o, lse, B, H, L, head_dim (the row width the kernels read),
     # (b, l, h) element strides of q, k and v, scale, is_bf16, block_rows,
     # tile_rows, kd (the kernels' head width), stream

@@ -13,6 +13,15 @@ is streamed through shared memory twice by the same kernel (3N). The source
 note in the ``.cu`` file gives the details; :func:`plan` sizes the clusters
 on the host, once per shape.
 
+The affine map may be modulated per (sample, channel) by the residual
+block's embedding terms, (B, C) or (1, C) fp32 operands, so that the block's
+``norm1`` is one launch in both of its forms (``models/unet.py::UNetBlock``):
+``scale``/``shift`` give ``silu(GN(x) * (1 + scale) + shift)`` (the ADM block,
+``adaptive_scale``), ``shift_in`` gives ``silu(GN(x + shift_in))`` (the DDPM++
+block). The kernel folds them into its per-channel constants
+(``gamma (1 + s)``, ``beta (1 + s) + t``; ``mean - t`` after t is added in the
+statistics), so the modulated map is never made.
+
 When an input requires a gradient the forward runs inside an
 ``autograd.Function`` whose backward is :func:`_plain_gn_silu_bwd` on every
 device, as the JAX package's backward (``pallas_gn.py::_gn_silu_bwd``) is
@@ -23,7 +32,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -41,41 +50,83 @@ MAX_CLUSTER = 16
 ROW_BYTES = 64
 
 
+#: K1's modulations of the affine map, by the C entry point's ``mod``
+MODS = ("none", "scale_shift", "shift_in")
+
+
+def _row(t):
+    """A (B|1, C) operand as (B|1, 1, C) fp32, to broadcast over H*W rows."""
+    return t.float()[:, None, :]
+
+
+def _affine(weight, bias, scale, shift):
+    """The affine map's weight and bias, modulated by (1 + scale) and shift
+    when given: (C,) fp32, or (B|1, 1, C)."""
+    wf, bf = weight.float(), bias.float()
+    if scale is None:
+        return wf, bf
+    s1 = 1 + _row(scale)
+    return wf * s1, bf * s1 + _row(shift)
+
+
+def _sum_rows(t, like):
+    """(B, H*W, C) ``t`` summed to ``like``'s (B, C) or (1, C), in its dtype."""
+    return t.sum(dim=1 if like.shape[0] > 1 else (0, 1)).reshape(like.shape).to(like.dtype)
+
+
 def _plain_gn_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                   groups: int, eps: float = 1e-5):
+                   groups: int, eps: float = 1e-5, scale=None, shift=None, shift_in=None):
     """Plain version: two-pass fp32 statistics, fp32 normalize + affine + SiLU,
-    cast to x's dtype. Returns (out, mean, rstd) with (B, G) fp32 stats."""
+    cast to x's dtype; ``shift_in`` added to x in fp32 before the norm,
+    ``scale``/``shift`` modulating the affine map. Returns (out, mean, rstd)
+    with (B, G) fp32 stats (of x + shift_in)."""
     b, h, w, c = x.shape
-    mean, rstd = group_stats(x, groups, eps)
-    cg = c // groups
     xf = x.float().reshape(b, h * w, c)
+    if shift_in is not None:
+        xf = xf + _row(shift_in)
+    mean, rstd = group_stats(xf.reshape(b, h, w, c), groups, eps)
+    cg = c // groups
+    wf, bf = _affine(weight, bias, scale, shift)
     y = ((xf - mean.repeat_interleave(cg, dim=1)[:, None, :])
          * rstd.repeat_interleave(cg, dim=1)[:, None, :]
-         * weight.float() + bias.float())
+         * wf + bf)
     out = (y * torch.sigmoid(y)).reshape(b, h, w, c).to(x.dtype)
     return out, mean, rstd
 
 
 def _plain_gn_silu_bwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                       mean: torch.Tensor, rstd: torch.Tensor, g: torch.Tensor, groups: int):
-    """(dx, dweight, dbias) of GroupNorm + SiLU for the output gradient
-    ``g``, from the saved (B, G) fp32 statistics: ``_gn_silu_bwd`` line for
-    line, fp32 math, dx in x's dtype, dweight and dbias in the parameters'."""
+                       mean: torch.Tensor, rstd: torch.Tensor, g: torch.Tensor, groups: int,
+                       scale=None, shift=None, shift_in=None):
+    """(dx, dweight, dbias, dscale, dshift, dshift_in) of GroupNorm + SiLU
+    for the output gradient ``g``, from the saved (B, G) fp32 statistics:
+    ``_gn_silu_bwd`` line for line, fp32 math, dx in x's dtype, dweight and
+    dbias in the parameters', each operand's gradient (None if it is None)
+    summed over H*W, and over the batch for a (1, C) operand:
+    dscale = sum dy (xhat gamma + beta), dshift = sum dy, dshift_in = sum dx,
+    dy the gradient at the SiLU's input."""
     b, h, w, c = x.shape
     cg = c // groups
     xf = x.float().reshape(b, h * w, c)
+    if shift_in is not None:
+        xf = xf + _row(shift_in)
     gf = g.float().reshape(b, h * w, c)
     mean_c = mean.repeat_interleave(cg, dim=1)[:, None, :]
     rstd_c = rstd.repeat_interleave(cg, dim=1)[:, None, :]
     xhat = (xf - mean_c) * rstd_c
-    wf = weight.float()[None, None, :]
-    y = xhat * wf + bias.float()[None, None, :]
+    wf, bf = _affine(weight, bias, scale, shift)
+    y = xhat * wf + bf
 
     sig = torch.sigmoid(y)
     dy = gf * (sig * (1 + y * (1 - sig)))     # d silu(y)/dy
 
-    dweight = (dy * xhat).sum(dim=(0, 1)).to(weight.dtype)
-    dbias = dy.sum(dim=(0, 1)).to(bias.dtype)
+    dscale = dshift = dshift_in = None
+    dz = dy                                    # at the unmodulated affine map's output
+    if scale is not None:
+        dscale = _sum_rows(dy * (xhat * weight.float() + bias.float()), scale)
+        dshift = _sum_rows(dy, shift)
+        dz = dy * (1 + _row(scale))
+    dweight = (dz * xhat).sum(dim=(0, 1)).to(weight.dtype)
+    dbias = dz.sum(dim=(0, 1)).to(bias.dtype)
 
     dxhat = dy * wf
     # group means of dxhat and dxhat * xhat
@@ -84,7 +135,9 @@ def _plain_gn_silu_bwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
     m1_c = m1.repeat_interleave(cg, dim=1)[:, None, :]
     m2_c = m2.repeat_interleave(cg, dim=1)[:, None, :]
     dx = rstd_c * (dxhat - m1_c - xhat * m2_c)
-    return dx.reshape(b, h, w, c).to(x.dtype), dweight, dbias
+    if shift_in is not None:
+        dshift_in = _sum_rows(dx, shift_in)
+    return dx.reshape(b, h, w, c).to(x.dtype), dweight, dbias, dscale, dshift, dshift_in
 
 
 class Plan(NamedTuple):
@@ -142,7 +195,7 @@ def plan(b: int, h: int, w: int, c: int, groups: int, itemsize: int, num_sms: in
 _num_sms = _build.num_sms
 
 
-def _launch(x, weight, bias, groups, eps):
+def _launch(x, weight, bias, groups, eps, scale=None, shift=None, shift_in=None):
     b, h, w, c = x.shape
     dev = x.device
     p = plan(b, h, w, c, groups, x.element_size(), _num_sms(dev.index))
@@ -154,51 +207,82 @@ def _launch(x, weight, bias, groups, eps):
     vec = _vec(c, x.element_size())
     if x.data_ptr() % 16 or out.data_ptr() % 16:
         vec = 1
+    mod = 1 if scale is not None else 2 if shift_in is not None else 0
+    # each operand's rows are read in place: unit channel stride, batch
+    # stride 0 for a (1, C) row that every sample shares
+    ms, mt = (None if t is None else t if t.stride(1) == 1 else t.contiguous()
+              for t in (scale, shift if shift is not None else shift_in))
     code = _build.lib().probunet_gn_silu_fwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), b, h * w, c, groups, p.cb, p.n, p.rows, p.chunk_rows, eps,
-        int(x.dtype == torch.bfloat16), vec, _build.stream_handle(dev))
+        int(x.dtype == torch.bfloat16), vec, mod, *(None if t is None else t.data_ptr()
+                                                   for t in (ms, mt)),
+        *(0 if t is None or t.shape[0] == 1 else t.stride(0) for t in (ms, mt)),
+        _build.stream_handle(dev))
     _build.check(code, "gn_silu kernel")
     gn_silu.launches += 1
     plan_key = "on_chip" if p.on_chip else "streamed"
     gn_silu.launches_by_plan[plan_key] = gn_silu.launches_by_plan.get(plan_key, 0) + 1
+    gn_silu.launches_by_mod[MODS[mod]] = gn_silu.launches_by_mod.get(MODS[mod], 0) + 1
     return out, mean, rstd
 
 
-def _forward(x, weight, bias, groups, eps):
+def _forward(x, weight, bias, groups, eps, scale=None, shift=None, shift_in=None):
     if x.device.type == "cpu":
-        return _plain_gn_silu(x, weight, bias, groups, eps)
-    return _launch(x, weight, bias, groups, eps)
+        return _plain_gn_silu(x, weight, bias, groups, eps, scale, shift, shift_in)
+    return _launch(x, weight, bias, groups, eps, scale, shift, shift_in)
 
 
 class _GNSiLU(torch.autograd.Function):
-    """K1 forward (saving x and the statistics), plain backward."""
+    """K1 forward (saving x, the operands and the statistics), plain backward."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, groups, eps):
-        out, mean, rstd = _forward(x, weight, bias, groups, eps)
-        ctx.save_for_backward(x, weight, bias, mean, rstd)
+    def forward(ctx, x, weight, bias, scale, shift, shift_in, groups, eps):
+        out, mean, rstd = _forward(x, weight, bias, groups, eps, scale, shift, shift_in)
+        ctx.save_for_backward(x, weight, bias, scale, shift, shift_in, mean, rstd)
         ctx.groups = groups
         ctx.mark_non_differentiable(mean, rstd)
         return out, mean, rstd
 
     @staticmethod
     def backward(ctx, g, _gmean, _grstd):
-        x, weight, bias, mean, rstd = ctx.saved_tensors
+        x, weight, bias, scale, shift, shift_in, mean, rstd = ctx.saved_tensors
         gn_silu.bwd_calls += 1
-        return (*_plain_gn_silu_bwd(x, weight, bias, mean, rstd, g, ctx.groups), None, None)
+        return (*_plain_gn_silu_bwd(x, weight, bias, mean, rstd, g, ctx.groups, scale, shift,
+                                    shift_in), None, None)
+
+
+def _operand(t, x, name):
+    """A modulation operand as (B, C) or (1, C) fp32 on x's device."""
+    b, c = x.shape[0], x.shape[-1]
+    if t.ndim != 2 or t.shape[0] not in (1, b) or t.shape[1] != c:
+        raise ValueError(f"gn_silu's {name} must be ({b}, {c}) or (1, {c}), "
+                         f"got {tuple(t.shape)}")
+    if t.device != x.device:
+        raise ValueError(f"gn_silu's {name} is on {t.device}, x on {x.device}")
+    return t.float()
 
 
 def gn_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
-            eps: float = 1e-5, return_stats: bool = False):
+            eps: float = 1e-5, return_stats: bool = False, *,
+            scale: Optional[torch.Tensor] = None, shift: Optional[torch.Tensor] = None,
+            shift_in: Optional[torch.Tensor] = None):
     """GroupNorm + SiLU over NHWC ``x`` (B, H, W, C), fp32 or bf16, C
-    divisible by ``groups``; ``weight``/``bias`` are (C,). Returns ``out`` in
-    x's dtype, and ``(out, mean, rstd)`` with (B, G) fp32 stats when
-    ``return_stats``. Differentiable in x, weight and bias. CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
+    divisible by ``groups``; ``weight``/``bias`` are (C,). With ``scale`` and
+    ``shift`` (together), ``silu(GN(x) * (1 + scale) + shift)``; with
+    ``shift_in``, ``silu(GN(x + shift_in))``; each (B, C) or (1, C), taken in
+    fp32. Returns ``out`` in x's dtype, and ``(out, mean, rstd)`` with (B, G)
+    fp32 stats when ``return_stats``. Differentiable in x, weight, bias and
+    the operands. CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
     if x.ndim != 4 or x.shape[-1] % groups:
         raise ValueError(f"gn_silu needs NHWC input with C divisible by groups, "
                          f"got shape {tuple(x.shape)} and groups={groups}")
+    if (scale is None) != (shift is None) or (scale is not None and shift_in is not None):
+        raise ValueError("gn_silu takes scale and shift together, or shift_in alone")
+    scale, shift, shift_in = (None if t is None else _operand(t, x, name)
+                              for t, name in ((scale, "scale"), (shift, "shift"),
+                                              (shift_in, "shift_in")))
     if x.device.type == "cuda":
         if x.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"gn_silu kernel takes fp32 or bf16, got {x.dtype}")
@@ -206,10 +290,11 @@ def gn_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: i
             raise ValueError("gn_silu kernel takes a contiguous NHWC tensor")
     elif x.device.type != "cpu":
         raise RuntimeError(f"gn_silu has no path for device {x.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
-        res = _GNSiLU.apply(x, weight, bias, groups, eps)
+    args = (x, weight, bias, scale, shift, shift_in)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        res = _GNSiLU.apply(*args, groups, eps)
     else:
-        res = _forward(x, weight, bias, groups, eps)
+        res = _forward(x, weight, bias, groups, eps, scale, shift, shift_in)
     return res if return_stats else res[0]
 
 
@@ -217,4 +302,7 @@ gn_silu.launches = 0   # kernel launches; CPU calls of the plain version do not 
 # the same by plan: "on_chip" (the slice held in a cluster, x read once) or
 # "streamed" (a slice too large for a cluster, read twice), e.g. {"on_chip": 29}
 gn_silu.launches_by_plan = {}
+# the same by modulation (MODS): "none", "scale_shift" (an ADM block's norm1),
+# "shift_in" (a DDPM++ block's norm1)
+gn_silu.launches_by_mod = {}
 gn_silu.bwd_calls = 0  # backward calls (plain PyTorch on every device)

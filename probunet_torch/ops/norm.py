@@ -1,8 +1,8 @@
 """Group normalization (NHWC, fp32 statistics) — ``probunet_tpu/ops/norm.py``.
 
 Statistics are always two-pass fp32, whatever the activation dtype. This is
-the plain version: ``norm1``/``norm2`` of every U-Net block run it as it is,
-and the GroupNorm+SiLU kernel (``ops/gn_silu.py``) is held against
+the plain version: ``norm2`` of every attention block runs it as it is, and
+the GroupNorm+SiLU kernel (``ops/gn_silu.py``) is held against
 :func:`group_norm_silu`.
 """
 

@@ -4,13 +4,16 @@ U-Net forward, on one CUDA card, by device time and by CUDA events.
 
     python3 scripts/torch_k1_timing.py [--tree DIR]
 
-The 29 GroupNorm+SiLU sites of the default U-Net at batch 8, 128x128 are
-timed one by one in fp32 and bf16 (device time from torch.profiler, CUDA
-events over 20 calls), each beside its bound (one read and one write of x
-at 3.35 TB/s), and summed per pass. ``--tree`` imports ``probunet_torch``
-from another checkout of the repository (an earlier commit unpacked with
-``git archive``), so that two versions of the kernel are timed on one card. The last line
-is a JSON object of the timings.
+The 29 unmodulated GroupNorm+SiLU sites of the default U-Net (each block's
+norm0 and out_norm) at batch 8, 128x128 are timed one by one in fp32 and
+bf16 (device time from torch.profiler, CUDA events over 20 calls), each
+beside its bound (one read and one write of x at 3.35 TB/s), and summed per
+pass. The blocks' norm1, with the embedding's terms in the launch, is timed
+beside the chain it replaces by ``chip_smoke.py`` (phase 6). ``--tree``
+imports ``probunet_torch`` from another checkout of the repository (an
+earlier commit unpacked with ``git archive``), so that two versions of the
+kernel are timed on one card. The last line is a JSON object of the
+timings.
 """
 
 import argparse
@@ -44,9 +47,10 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"{card}; kernel from {tree}", flush=True)
-    # the (H, W, C) of the 29 sites, as models.unet.gn_silu_sites gives them
-    # and chip_smoke.py's hooks count them; written out, since an earlier
-    # tree given by --tree may not have gn_silu_sites
+    # the (H, W, C) of the 29 unmodulated sites (each block's norm0 and
+    # out_norm) as models.unet.gn_silu_sites gives them and chip_smoke.py's
+    # hooks count them; written out, since an earlier tree given by --tree
+    # may not have gn_silu_sites
     sites = ([(128, 128, 128)] * 4 + [(128, 128, 256)] * 2 + [(128, 128, 384)]
              + [(64, 64, 128), (64, 64, 384), (64, 64, 512), (64, 64, 640)] + [(64, 64, 256)] * 3
              + [(32, 32, 256), (32, 32, 640), (32, 32, 768), (32, 32, 896)] + [(32, 32, 384)] * 3

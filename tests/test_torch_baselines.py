@@ -392,8 +392,9 @@ def test_deterministic_eval_step_matches_jax(det, reconstruct):
 
 def test_full_width_parameter_count_and_k1_sites():
     """The reference's baseline at 128x128 (width 64, no attention, not at
-    the bottleneck either): the JAX count from ``jax.eval_shape``; 29
-    GroupNorm+SiLU (K1) modules and no attention block."""
+    the bottleneck either): the JAX count from ``jax.eval_shape``; 57
+    GroupNorm+SiLU (K1) modules (norm0 and norm1 of 28 blocks, out_norm)
+    and no attention block."""
     jcfg = JConfig(ds_model="deterministic_unet", resolution=(128, 128))
     jm = j_build_baseline(jcfg)
     shapes = jax.eval_shape(lambda: jm.init(
@@ -402,7 +403,7 @@ def test_full_width_parameter_count_and_k1_sites():
     j_count = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes))
     tm = t_build_baseline(TConfig(**vars(jcfg)), device="meta")
     assert sum(p.numel() for p in tm.parameters()) == j_count == 22_792_579
-    assert sum(isinstance(m, GroupNormSiLU) for m in tm.modules()) == 29
+    assert sum(isinstance(m, GroupNormSiLU) for m in tm.modules()) == 57
     assert not any(getattr(m, "heads", 0) for m in tm.modules())
     cyc = t_build_baseline(TConfig(**vars(jcfg)).replace(timetransform="cyclic"), device="meta")
     assert sum(p.numel() for p in cyc.parameters()) == 22_793_091   # + map_label 2 x 256

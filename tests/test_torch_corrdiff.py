@@ -196,7 +196,7 @@ def test_corrdiff_at_448_on_meta_matches_the_reference():
             if getattr(b, "heads", 0)]
     assert attn == [(f"enc.28x28_block{i}", 1, 256) for i in range(4)] + \
         [("dec.28x28_in0", 1, 256), ("dec.28x28_block4", 1, 256)]
-    sites = tunet.gn_silu_sites(enc, dec, final, (448, 448), ddpmpp=True)
+    sites = tunet.gn_silu_sites(enc, dec, final, (448, 448))
     assert len(sites) == 2 * (24 + 31) + 1 and sites[-1] == (448, 448, 128)
     # K1 streams the slices too large for a cluster: 26 of a pass's 111 at
     # one row (the regression) and at two (the chains), as counted on the card
@@ -225,9 +225,9 @@ def test_adm_unet_keeps_its_parameters_and_names():
     assert {f"model.{n}": p.shape for n, p in ref.state_dict().items()} == \
         {n: p.shape for n, p in model.state_dict().items()}
     blocks = [m for m in model.modules() if isinstance(m, tunet.UNetBlock)]
+    # norm1 runs through K1 with the (scale, shift) pair in the same launch
     assert blocks and all(b.adaptive_scale and b.skip_scale == 1 and
-                          isinstance(b.norm1, tl.GroupNorm) and
-                          not isinstance(b.norm1, tl.GroupNormSiLU) and b.norm1.eps == 1e-5
+                          isinstance(b.norm1, tl.GroupNormSiLU) and b.norm1.eps == 1e-5
                           for b in blocks)
     assert [b.heads for b in blocks if b.heads] == [6, 6, 8, 8, 8, 8, 8, 8, 6, 6, 6]
 

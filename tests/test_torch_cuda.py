@@ -6,7 +6,9 @@ kernels at every head width and length with dS = 0 on one-hot rows, ragged atten
 lengths and L = 4096, the attention forward (K2) and backward (K3) in
 every mode on the U-Net block's row-strided views, stride-3 views and
 contiguous tensors (and on fp32 operands with fast=True, as the EDM path
-runs them), the baselines' paths
+runs them), K1 with the residual blocks' embedding terms in its launch (forward,
+gradients, launches by modulation over an EDM and a CorrDiff pass), the
+baselines' paths
 (K1 at the deterministic U-Net's 10 and 14 channels per group, the
 deterministic step's launches, BCSD's day-of-year sums bit-equal), the
 convolutions' paths (the split kernel bit-equal to tests/_tf32x3.py, the
@@ -71,6 +73,109 @@ def test_gn_silu_kernel_matches_plain(dev, dtype, b, h, w, c):
     torch.testing.assert_close(rstd, rrstd, atol=1e-5, rtol=1e-5)
     for got, first in zip(again, (out, mean, rstd)):
         assert torch.equal(got, first)
+
+
+MOD_SHAPES = [(8, 128, 128, 128), (8, 64, 64, 256), (8, 32, 32, 384), (8, 16, 16, 512),
+              (2, 448, 448, 128)]
+
+
+@pytest.mark.parametrize("rows", ["per_sample", "shared"])
+@pytest.mark.parametrize("mod", ["scale_shift", "shift_in"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c", MOD_SHAPES)
+def test_gn_silu_kernel_modulated_matches_plain(dev, dtype, mod, rows, b, h, w, c):
+    """K1 with the residual block's embedding terms in its launch against
+    the plain version: (scale, shift) as an ADM block's norm1 takes them
+    and shift_in as a DDPM++ block's, per sample (B, C) or one row for all
+    (1, C, read with batch stride 0), at EDM's norm1 shapes (b8, 128-512
+    channels) and CorrDiff's streamed one (b2, 448x448x128); output and
+    statistics (of x + shift_in), two calls bit-equal, each launch counted
+    under its modulation."""
+    g = num_groups_for(c)
+    assert K1.plan(b, h, w, c, g, dtype.itemsize, 132).on_chip == (h != 448)
+    gen = torch.Generator(device=dev).manual_seed(c + h)
+    x = (torch.randn(b, h, w, c, device=dev, generator=gen) * 2 + 1).to(dtype)
+    gamma = torch.randn(c, device=dev, generator=gen)
+    beta = torch.randn(c, device=dev, generator=gen)
+    n = b if rows == "per_sample" else 1
+    s, t = (0.5 * torch.randn(n, c, device=dev, generator=gen) for _ in range(2))
+    kw = {"scale": s, "shift": t} if mod == "scale_shift" else {"shift_in": t}
+    before = dict(K1.gn_silu.launches_by_mod)
+    with torch.no_grad():
+        out, mean, rstd = K1.gn_silu(x, gamma, beta, g, 1e-5, True, **kw)
+        again = K1.gn_silu(x, gamma, beta, g, 1e-5, True, **kw)
+        ref, rmean, rrstd = K1._plain_gn_silu(x, gamma, beta, g, 1e-5, **kw)
+    assert K1.gn_silu.launches_by_mod[mod] == before.get(mod, 0) + 2
+    assert K1.gn_silu.launches_by_mod.get("none", 0) == before.get("none", 0)
+    # fp32: the constants folded in another order; bf16: the same fp32
+    # results rounded once each, so at most one bf16 ulp apart (2^-7 of the
+    # value: the modulated outputs reach past 4, where 2^-8 is under an ulp)
+    atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(mean, rmean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=1e-5, rtol=1e-5)
+    for got, first in zip(again, (out, mean, rstd)):
+        assert torch.equal(got, first)
+
+
+@pytest.mark.parametrize("mod", ["scale_shift", "shift_in"])
+def test_gn_silu_modulated_gradients_on_card(dev, mod):
+    """The modulated forward launches K1 once and its plain backward gives
+    the gradients of x, the affine parameters and each operand that the
+    CPU gives, per sample and shared rows."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 8, 8, 64, generator=gen) + 0.5
+    gamma, beta = 1 + 0.1 * torch.randn(64, generator=gen), 0.1 * torch.randn(64, generator=gen)
+    for n in (2, 1):
+        ops = [0.5 * torch.randn(n, 64, generator=gen) for _ in range(2 if mod == "scale_shift"
+                                                                         else 1)]
+        grads = {}
+        for where in ("cpu", dev):
+            leaves = [t.detach().to(where).requires_grad_() for t in (x, gamma, beta, *ops)]
+            kw = (dict(zip(("scale", "shift"), leaves[3:])) if mod == "scale_shift"
+                  else {"shift_in": leaves[3]})
+            before = K1.gn_silu.launches
+            out = K1.gn_silu(*leaves[:3], 16, **kw)
+            (out * torch.linspace(-1, 1, out.numel(), device=where).view(out.shape)).sum() \
+                .backward()
+            assert K1.gn_silu.launches == before + (where != "cpu")
+            grads[str(where)] = [t.grad.cpu() for t in leaves]
+        for got, want in zip(grads[str(dev)], grads["cpu"]):
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+def test_k1_launches_by_mod_over_an_edm_and_a_corrdiff_pass(dev):
+    """One EDM denoiser pass at the cell's widths (128x128, 8 rows): 28 K1
+    launches with per-sample (scale, shift), the blocks' norm1, and 29
+    unmodulated (norm0, out_norm); one CorrDiff residual denoiser pass
+    (448x448, 2 rows): 55 with the shift added before the norm and 56
+    unmodulated."""
+    from probunet_torch.config import Config
+    from probunet_torch.train.loop import build_corrdiff_model, build_edm_model
+
+    cases = [
+        (build_edm_model(Config(ds_model="edm", resolution=(128, 128)), device="meta"),
+         (8, 128, 128, 3), {"none": 29, "scale_shift": 28}),
+        (build_corrdiff_model(Config(ds_model="corrdiff", resolution=(448, 448),
+                                     model_channels=128, channel_mult=(1, 2, 2, 2, 2),
+                                     num_blocks=4, attn_resolutions=(28,)), device="meta"),
+         (2, 448, 448, 3), {"none": 56, "shift_in": 55}),
+    ]
+    for model, shape, want in cases:
+        model = model.to_empty(device=dev).eval()
+        gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(max(1, p[0].numel())))
+        x, cond = (torch.randn(shape, device=dev) for _ in range(2))
+        sigma = torch.full((shape[0],), 1.3, device=dev)
+        K1.gn_silu.launches_by_mod.clear()
+        with torch.inference_mode():
+            out = model(x, sigma, condition_img=cond)
+        torch.cuda.synchronize()
+        assert K1.gn_silu.launches_by_mod == want
+        assert torch.isfinite(out).all()
+        del model, out
 
 
 def test_gn_silu_kernel_unaligned_view(dev):
@@ -877,9 +982,9 @@ def test_device_prefetcher_busy_consumer_gets_equal_batches(dev):
 
 def test_remat_launch_counts_and_gradients(dev):
     """One training step with every U-Net block recomputed: K1 at every
-    block's norm0 twice (+ out_norm once), K2 twice per attention block, K3
-    once; no tensor copied before an attention launch; loss and gradients
-    those of the step without remat (deterministic cuDNN)."""
+    block's norm0 and norm1 twice (+ out_norm once), K2 twice per attention
+    block, K3 once; no tensor copied before an attention launch; loss and
+    gradients those of the step without remat (deterministic cuDNN)."""
     from probunet_torch.models.unet import UNetBlock
 
     torch.backends.cudnn.deterministic = True
@@ -897,7 +1002,7 @@ def test_remat_launch_counts_and_gradients(dev):
                 (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches,
                  K2.kernel_layout.copies), counts))
             k = 2 if remat else 1
-            assert n == (k * len(blocks) + 1, k * attn, attn, 0), (remat, n)
+            assert n == (2 * k * len(blocks) + 1, k * attn, attn, 0), (remat, n)
             out[remat] = (m["train_loss"].item(),
                           {name: p.grad.clone() for name, p in state.model.named_parameters()})
         assert out[True][0] == pytest.approx(out[False][0], rel=1e-6)

@@ -18,11 +18,12 @@ import pytest
 import torch
 
 from probunet_torch.config import Config
+from probunet_torch.models import unet as tunet
 from probunet_torch.models.unet import build_unet_plan, gn_silu_sites
 from probunet_torch.ops import _build
 from probunet_torch.ops import attention as tatt
 from probunet_torch.ops import gn_silu as tgn
-from probunet_torch.ops.norm import num_groups_for
+from probunet_torch.ops.norm import group_norm, num_groups_for
 from probunet_tpu.ops.pallas_attn import fused_attention as jax_fused_attention
 from probunet_tpu.ops.pallas_gn import gn_silu as jax_gn_silu
 
@@ -65,6 +66,82 @@ def test_gn_silu_plain_bf16():
     # sides: at most one bf16 ulp (2^-8 relative) apart
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
                                rtol=2 ** -8, atol=1e-2)
+
+
+def _unfused_chain(x, gamma, beta, g, eps, scale=None, shift=None, shift_in=None):
+    """The residual block's norm1 as separate fp32 operations: the shift
+    added before the norm, or the norm's output times (1 + scale) plus
+    shift, then SiLU."""
+    xf = x.float()
+    if shift_in is not None:
+        xf = xf + shift_in[:, None, None, :]
+    y = group_norm(xf, gamma, beta, g, eps)
+    if scale is not None:
+        y = y * (1 + scale[:, None, None, :]) + shift[:, None, None, :]
+    return y * torch.sigmoid(y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows", ["per_sample", "shared"])
+@pytest.mark.parametrize("mod", ["scale_shift", "shift_in"])
+def test_gn_silu_modulated_plain_matches_the_unfused_chain(mod, rows, dtype):
+    """The plain version with the embedding's terms folded into the affine
+    map (scale, shift) or added before the norm (shift_in), (B, C) or one
+    (1, C) row for every sample, against the chain of separate fp32
+    operations it replaces: the output, and the gradients of x, gamma,
+    beta and each operand through the autograd Function (its backward sums
+    each operand's gradient over H*W, and over the batch for a shared
+    row)."""
+    rng = np.random.default_rng(5)
+    b, c, g = 3, 64, 16
+    x = torch.from_numpy((rng.standard_normal((b, 6, 5, c)) + 0.3).astype(np.float32)).to(dtype)
+    gamma, beta = (torch.from_numpy(a) for a in _gn_data(c=c, seed=6)[1:])
+    n = b if rows == "per_sample" else 1
+    ops = [torch.from_numpy((0.5 * rng.standard_normal((n, c))).astype(np.float32))
+           for _ in range(2 if mod == "scale_shift" else 1)]
+    names = ("scale", "shift") if mod == "scale_shift" else ("shift_in",)
+    gout = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(dtype)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, gamma, beta, *ops)]
+        out = fn(*leaves[:3], g, 1e-5, **dict(zip(names, leaves[3:])))
+        out.backward(gout.to(out.dtype))
+        return out, [t.grad for t in leaves]
+
+    calls = tgn.gn_silu.bwd_calls
+    out, grads = run(tgn.gn_silu)
+    assert tgn.gn_silu.bwd_calls == calls + 1
+    ref, ref_grads = run(_unfused_chain)
+    assert out.dtype == dtype and grads[0].dtype == dtype
+    assert [t.shape for t in grads[3:]] == [(n, c)] * len(ops)
+    # fp32: other rounding orders; bf16: the output and dx rounded once to
+    # bf16 at the end, the parameters' and operands' gradients fp32 sums
+    tol = 2 ** -8 if dtype == torch.bfloat16 else 1e-5
+    assert _rel_err(out.float().detach(), ref.detach()) <= tol
+    assert _rel_err(grads[0].float(), ref_grads[0].float()) <= tol
+    for got, want in zip(grads[1:], ref_grads[1:]):
+        assert got.dtype == torch.float32
+        assert _rel_err(got, want) <= (1e-4 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_gn_silu_refuses_mismatched_operands():
+    """scale without shift, shift_in beside scale, and operands of the
+    wrong shape are refused before anything runs."""
+    x, gamma, beta = (torch.from_numpy(a) for a in _gn_data(b=2, c=64))
+    row = torch.zeros(2, 64)
+    with pytest.raises(ValueError, match="together"):
+        tgn.gn_silu(x, gamma, beta, 16, scale=row)
+    with pytest.raises(ValueError, match="together"):
+        tgn.gn_silu(x, gamma, beta, 16, scale=row, shift=row, shift_in=row)
+    for bad in (torch.zeros(3, 64), torch.zeros(2, 32), torch.zeros(64)):
+        with pytest.raises(ValueError, match="shift_in"):
+            tgn.gn_silu(x, gamma, beta, 16, shift_in=bad)
+
+
+def _rel_err(a, b):
+    """Largest absolute difference over the reference's largest value."""
+    a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
 def _qkv(L, nh=2, b=2, seed=0):
@@ -450,6 +527,27 @@ def test_attention_refuses_heads_past_128():
     assert tatt.kernel_width(256) == tatt.MAX_HEAD_DIM == 256
 
 
+def test_gn_silu_counts_launches_by_mod(fake_lib, monkeypatch):
+    """K1's launches counted by modulation: unmodulated, with per-sample
+    (scale, shift) views of one (B, 2C) affine output (in place: batch
+    stride 2C), and with a shared (1, C) shift added before the norm (batch
+    stride 0); the entry point gets mod, the operands and their strides."""
+    monkeypatch.setattr(tgn, "_num_sms", lambda index: 132)
+    monkeypatch.setattr(tgn.gn_silu, "launches_by_mod", {})
+    x, gamma, beta = (torch.from_numpy(a) for a in _gn_data(b=2, c=64))
+    params = torch.randn(2, 128)
+    scale, shift = params.chunk(2, dim=1)
+    row = torch.randn(1, 64)
+    tgn._launch(x, gamma, beta, 16, 1e-5)
+    tgn._launch(x, gamma, beta, 16, 1e-5, scale=scale, shift=shift)
+    tgn._launch(x, gamma, beta, 16, 1e-5, shift_in=row)
+    tail = [args[17:22] for _, args in fake_lib.calls]
+    assert tail == [(0, None, None, 0, 0),
+                    (1, scale.data_ptr(), shift.data_ptr(), 128, 128),
+                    (2, None, row.data_ptr(), 0, 0)]
+    assert tgn.gn_silu.launches_by_mod == {"none": 1, "scale_shift": 1, "shift_in": 1}
+
+
 def test_gn_silu_counts_launches_by_plan(fake_lib, monkeypatch):
     """K1's launches counted by plan beside the total: a slice that fits a
     cluster (b2, 8x8x64) under on_chip, CorrDiff's 448x448 level of 128
@@ -538,12 +636,50 @@ def _k1_sites(res=128):
                                           cfg.num_blocks, cfg.attn_resolutions), (res, res))
 
 
+@pytest.mark.parametrize("ddpmpp", [False, True], ids=["adm", "ddpmpp"])
+def test_gn_silu_sites_are_the_k1_calls(monkeypatch, ddpmpp):
+    """gn_silu_sites against the GroupNorm+SiLU calls of one forward of an
+    ADM and a DDPM++ U-Net on the CPU, recorded in call order by a wrapper
+    of the layers' gn_silu: each block's norm0, then its norm1 with the
+    embedding's terms ((scale, shift) per sample in the ADM block, the
+    shift added before the norm in the DDPM++ block), then out_norm."""
+    from probunet_torch.models import layers as tl
+
+    calls = []
+    plain = tl.gn_silu
+
+    def record(x, *args, **kw):
+        mod = ("scale_shift" if kw.get("scale") is not None
+               else "shift_in" if kw.get("shift_in") is not None else "none")
+        operand = kw.get("shift") if mod == "scale_shift" else kw.get("shift_in")
+        calls.append((tuple(x.shape[1:]), mod, None if operand is None else operand.shape[0]))
+        return plain(x, *args, **kw)
+
+    monkeypatch.setattr(tl, "gn_silu", record)
+    kw = dict(model_channels=16, channel_mult=(1, 2), num_blocks=1, attn_resolutions=(),
+              dropout=0.0, device="cpu")
+    net = (tunet.UNet((16, 16), 4, 3, ddpmpp=True, **kw) if ddpmpp
+           else tunet.UNet((16, 16), 4, 3, use_diffuse=True, **kw)).eval()
+    with torch.no_grad():
+        net(torch.randn(2, 16, 16, 4), torch.tensor([0.3, 1.2]))
+    enc, dec = net.enc_specs, net.dec_specs
+    sites = gn_silu_sites(enc, dec, dec[-1].out_channels, (16, 16))
+    blocks = sum(s.kind == "block" for s in enc + dec)
+    assert [site for site, _, _ in calls] == sites and len(sites) == 2 * blocks + 1
+    mod = "shift_in" if ddpmpp else "scale_shift"
+    assert [m for _, m, _ in calls] == ["none", mod] * blocks + ["none"]
+    assert all(rows == 2 for _, m, rows in calls if m != "none")   # per sample
+
+
 def test_k1_sites_of_the_default_unet():
-    """The 29 sites per forward that chip_smoke.py counts on the card by
-    hooks: 7 at each of 128, 64 and 32, 8 at 16."""
+    """The 57 sites per forward that chip_smoke.py counts on the card by
+    hooks: norm0 of the 28 blocks (7 at each of 128, 64 and 32, 8 at 16),
+    their norm1 at their outputs' resolution (a down block's is half its
+    norm0's, an up block's twice) and out_norm."""
     sites = _k1_sites()
-    assert len(sites) == 29
-    assert sorted(Counter(h for h, _, _ in sites).items()) == [(16, 8), (32, 7), (64, 7), (128, 7)]
+    assert len(sites) == 57
+    assert sorted(Counter(h for h, _, _ in sites).items()) == [(16, 16), (32, 14), (64, 14),
+                                                               (128, 13)]
 
 
 def _check_plan(b, h, w, c, groups, itemsize, num_sms=132):
@@ -619,6 +755,7 @@ def test_gn_silu_wrapper_passes_the_declared_arguments(fake_lib, monkeypatch, dt
     p = tgn.plan(2, 8, 8, 64, 16, x.element_size(), 132)
     assert args[6:14] == (2, 64, 64, 16, p.cb, p.n, p.rows, p.chunk_rows)
     assert args[14:17] == (1e-5, int(dtype == torch.bfloat16), vec)
+    assert args[17:22] == (0, None, None, 0, 0)       # unmodulated: no operands
     assert (out.shape, out.dtype, mean.shape, rstd.shape) == (x.shape, dtype, (2, 16), (2, 16))
     assert tgn.gn_silu.launches == 1
 

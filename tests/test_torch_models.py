@@ -141,6 +141,48 @@ def test_unet_block_qkv_reorder_matches_jax():
         _assert_close(p.grad.numpy(), ref_g[name], 1e-4)
 
 
+@pytest.mark.parametrize("emb_rows", [2, 1], ids=["per_sample", "shared"])
+@pytest.mark.parametrize("adaptive_scale", [True, False], ids=["adm", "ddpmpp"])
+def test_unet_block_norm1_forward_and_backward_match_jax(adaptive_scale, emb_rows):
+    """norm1 with the embedding's terms in the one GroupNorm+SiLU call: the
+    ADM block's (scale, shift) and the DDPM++ block's shift added before
+    the norm (its skip_scale, eps and 1x1 skip with it), per sample (B, E)
+    and one (1, E) row for the batch, as the downscaling U-Net's silu(0)
+    embedding is. Forward and the gradients of x, the embedding and every
+    parameter against the JAX block with the same weights."""
+    cin, cout, emb = 32, 64, 16
+    fields = {} if adaptive_scale else dict(num_heads=1, skip_scale=np.sqrt(0.5), eps=1e-6,
+                                            resample_proj=True, adaptive_scale=False)
+    jm = JUNetBlock(cin, cout, emb, **fields)
+    x, e, g = _x((2, 8, 8, cin), 31), _x((emb_rows, emb), 32), _x((2, 8, 8, cout), 33)
+    params = _params(jm, jnp.asarray(x), jnp.asarray(e), seed=34)
+    tm = tunet.UNetBlock(cin, cout, emb, device="cpu", **fields).eval()
+    assert isinstance(tm.norm1, tl.GroupNormSiLU)
+    prefix = "enc.8x8_block0."
+    tm.load_state_dict({k[len(prefix):]: v for k, v in
+                        flax_unet_to_torch({"enc_8x8_block0": params}).items()})
+
+    def loss(p, xx, ee):
+        return jnp.sum(jm.apply({"params": p}, xx, ee) * jnp.asarray(g))
+
+    ref = _apply(jm, params, jnp.asarray(x), jnp.asarray(e))
+    gp, gx, ge = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(params, jnp.asarray(x),
+                                                             jnp.asarray(e))
+    xt = tl.nchw(torch.from_numpy(x)).requires_grad_()
+    et = torch.from_numpy(e).requires_grad_()
+    out = tm(xt, et)
+    out.backward(tl.nchw(torch.from_numpy(g)))
+    # fp32 through two convs and two norms: 1e-4 of each result's scale
+    _assert_close(tl.nhwc(out).detach().numpy(), ref, 1e-4)
+    _assert_close(tl.nhwc(xt.grad).numpy(), gx, 1e-4)
+    _assert_close(et.grad.numpy(), ge, 1e-4)
+    ref_g = {k[len(prefix):]: v.numpy()
+             for k, v in flax_unet_to_torch({"enc_8x8_block0": gp}).items()}
+    assert set(ref_g) == {k for k, _ in tm.named_parameters()}
+    for name, p in tm.named_parameters():
+        _assert_close(p.grad.numpy(), ref_g[name], 1e-4)
+
+
 def test_unet_block_hands_unit_stride_qkv_views(monkeypatch):
     """q, k and v reach fused_attention as views of the qkv conv output with
     a unit-stride head dim (row stride 3C, head stride 64), which the
