@@ -19,7 +19,11 @@ heads of 72 run the bf16 kernels' exact-width kD = 80 instantiation (the
 fp32 kernels' kD = 128), then the convolutions in 3xTF32 against IEEE
 fp32, then CorrDiff's denoiser at 448x448 (``ds_model=corrdiff``, two
 DDPM++ U-Nets of 79,985,411 parameters), whose one 256-wide head runs the
-fp32 kernel's kD = 256 build. Phases:
+fp32 kernel's kD = 256 build. It checks every kernel against its plain
+version, the launch counts, the kernels' resources, and the paths against
+the CPU, and times the kernels alone and the paths no cell of the
+benchmark runs; the rates of the calls the cells run (BENCHMARK.json,
+``perfbench/``) are the benchmark's. Phases:
 
   1. card and build: nvidia-smi name and power limit; nvcc for sm_90a with
      ptxas registers, shared memory and spills; ``cuobjdump -sass`` of the
@@ -51,9 +55,9 @@ fp32 kernel's kD = 256 build. Phases:
      bit-equal to the first;
   4. the main path: a checkpoint, then ``downscale`` of synthetic 128x128
      days with 16 members in both modes; files read back and checked;
-     launch counters must show 57 K1 (29 unmodulated, 28 with the
-     blocks' (scale, shift): ``gn_silu.launches_by_mod``) and 11 K2
-     launches per batch, and ``kernel_layout`` no copy of q/k/v;
+     the launch counter (``ops/_build.py::launches``) must show 57 K1 (29
+     unmodulated, 28 with the blocks' (scale, shift)) and 11 K2 launches
+     per batch, and ``kernel_layout`` no copy of q/k/v;
   5. the path against the plain path: one input, two members, the same
      weights and eps, on the card and on the CPU;
   6. timings with CUDA events and by device time (torch.profiler): each
@@ -64,8 +68,8 @@ fp32 kernel's kD = 256 build. Phases:
      the copy it makes of stride-3 views, timed), its plain version, one
      PyTorch call computing the same function (a yardstick the port never
      calls), the bound (strict attention: the smaller of the fp32 CUDA-core
-     and the 3xTF32 tensor-core bound); the serving rate; a profile of one
-     batch;
+     and the 3xTF32 tensor-core bound; the peaks of perfbench/peaks.json);
+     the strict sampler's rate and a profile of one of its batches;
   7. K3 attention backward against its plain version, and K2's row
      log-sum-exp against logsumexp, in the cases of phase 3, a second K3
      call bit-equal to the first; strict mode with bf16 activations also
@@ -81,9 +85,7 @@ fp32 kernel's kD = 256 build. Phases:
  10. timings: K3 per U-Net backward on the block's views (kernel, its
      device time split by kernel: row pass, dK/dV, dQ; plain, bound, the
      backward of scaled_dot_product_attention as yardstick, by events and
-     by device time), K2 with its lse, the
-     training rate over 10 steps after 3 warm-up steps, a profile of one
-     step;
+     by device time), K2 with its lse;
  11. the trainer (``probunet_torch.train.loop.train_probunet``, the model
      with its own init) on synthetic netCDF (3 train years of 8 days, one
      val and one test year): 2 epochs of 3 steps with eval, CRPS (4
@@ -95,9 +97,9 @@ fp32 kernel's kD = 256 build. Phases:
      ingest against resident (2 epochs, the same train and val losses);
      remat on a fixed batch, strict and fast (loss and every gradient
      against the step without it, 113 K1, 22 K2 and 11 K3 launches); the
-     trainer's samples/s beside phase 10's bare step, streaming samples/s,
-     peak memory, memory held by the forward and ms per step with and
-     without remat;
+     trainer's samples/s beside the bare step's (the step without remat),
+     streaming samples/s, peak memory, memory held by the forward and ms
+     per step with and without remat;
  12. the EDM diffusion downscaler at full width (``ds_model="edm"``; its
      U-Net runs fp32 in both modes, fast mode only sets fast attention):
      card against CPU (the denoiser at b=1, a 4-step Heun chain at b=1, K=2
@@ -109,7 +111,8 @@ fp32 kernel's kD = 256 build. Phases:
      b2, K=4, 18 steps, strict and fast: 35 x 57 = 1995 K1 (35 x 28
      ``scale_shift``) and 35 x 11 = 385
      K2 launches per batch, no q/k/v copy, files finite with members that
-     differ, ms per batch of the sampler alone, inputs/s and members/s; one
+     differ, in fast mode ms per batch of the sampler alone, inputs/s and
+     members/s (strict is the cell ``edm_mc128.serve_b2_k4``); one
      denoiser pass at 8 and at 128 rows, both modes, by CUDA events and
      device time, and 35 times the 128-row pass printed as the computed
      (not run) cost of one b8 K=16 Heun batch; 3 + 10 DSM steps at b8,
@@ -222,10 +225,10 @@ fp32 kernel's kD = 256 build. Phases:
      weights in each order the convolutions use, and timed on the level-0
      activation beside its bound (4 bytes read or written per element and
      part); one strict training step at b8 whose every convolution takes
-     the strict paths (``conv2d.calls``: an IEEE forward at every site,
-     some as transposed convolutions, the weight gradient at every site,
-     the 3xTF32 input gradient where the input needs one, two split
-     launches each, no ``F.conv2d``, ``cudnn.allow_tf32`` as before); one
+     the strict paths (the counter's ``conv2d`` paths: an IEEE forward at
+     every site, some as transposed convolutions, the weight gradient at
+     every site, the 3xTF32 input gradient where the input needs one, two
+     split launches each, no ``F.conv2d``, ``cudnn.allow_tf32`` as before); one
      EDM pass (8 rows) all in 3xTF32, and the device time of its
      non-vectorized elementwise kernels (BROADCAST_KERNEL) by the module
      and the ops that launched them; the EDM pass again with all but
@@ -242,17 +245,16 @@ fp32 kernel's kD = 256 build. Phases:
      against ``fp32_plan(256)``, registers, no spill); (a) K2 at kD = 256
      against its plain version, O and the row lse, at the path's site (b2,
      L = 784, one head of 256) and at KD256_CASES, every layout, within the
-     strict limit, a second call bit-equal, each launch counted under
-     ``fp32_kd256``; (b) K1 at every distinct site of the path (b2 and b1,
+     strict limit, a second call bit-equal, each launch counted at fp32 kD
+     256; (b) K1 at every distinct site of the path (b2 and b1,
      on chip and streamed, as ``gn_silu.plan`` picks) against its plain
      version, fp32, eps 1e-6, unmodulated and with a per-sample shift
      added (``shift_in``), two calls bit-equal; (c) the path's sites by hooks
      against ``gn_silu_sites`` and the plan's 6 attention
-     blocks, then the launch counters set to 0 just before one denoiser pass
-     at 2 rows and one regression pass at 1 row: 111 K1 each, by plan
-     (``gn_silu.launches_by_plan``) as ``gn_silu.plan`` gives them and
-     by modulation 55 ``shift_in`` (``gn_silu.launches_by_mod``), 6 K2 at
-     ``fp32_kd256`` and none else, no K3, no copy, finite output; a profile
+     blocks, then the launch counter reset just before one denoiser pass
+     at 2 rows and one regression pass at 1 row: 111 K1 each, by plan as
+     ``gn_silu.plan`` gives them and by modulation 55 ``shift_in``, 6 K2 at
+     fp32 kD 256 and none else, no K3, no copy, finite output; a profile
      of the pass, and its BROADCAST_KERNEL time by launching module and
      ops; (d) K2 at the site by CUDA events and device time beside
      its plain version, SDPA (fp32, TF32 off) and the bound. The kernels
@@ -280,18 +282,17 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12       # CUDA cores, no tensor cores
-BF16_FLOPS = 989e12      # tensor cores
-TF32_FLOPS = 495e12      # tensor cores; strict attention runs 3 TF32 products per fp32 one
+# the launch counter's kernels (probunet_torch/ops/_build.py::launches) the
+# checks read: K1, K2 and K3, then the tensors copied before an attention launch
+KERNELS = ("gn_silu", "attention_fwd", "attention_bwd")
+COUNTED = KERNELS + ("kernel_layout",)
 
 RES, BATCH, MEMBERS = 128, 8, 16
 DAYS = 32                # four batches of 8 test days
 K1_PER_BATCH, K2_PER_BATCH = 57, 11
 # of the K1 launches a forward, the 28 blocks' norm1 take the embedding's
-# (scale, shift) in the launch (gn_silu.launches_by_mod "scale_shift"); the
-# blocks' norm0 and out_norm are unmodulated ("none")
+# (scale, shift) in the launch (counted under "scale_shift"); the blocks'
+# norm0 and out_norm are unmodulated ("none")
 K1_MOD_PER_BATCH = {"none": 29, "scale_shift": 28}
 K3_PER_STEP = 11          # one K3 launch per attention block in the backward
 TRAIN_STEPS, WARMUP_STEPS = 10, 3
@@ -747,16 +748,26 @@ def device_ms(torch, fn, reps=50, traces=5, warm=True, whole=False, split=None, 
     return sum(per.values())
 
 
+def peak_rates():
+    """The card's peak rates, as the benchmark takes them
+    (perfbench/peaks.json): ``hbm_bytes_per_s`` and ``flops_per_s`` by
+    type."""
+    with open(os.path.join(ROOT, "perfbench", "peaks.json")) as f:
+        return json.load(f)
+
+
 def attn_bound(flops, nbytes, mode):
     """The bound terms in ms of one attention site's work, ``flops`` and
     ``nbytes``: fast against the bf16 tensor-core rate; strict (fp32, or
     bf16 activations with fp32 products) against the smaller of the fp32
     CUDA-core time and three TF32 tensor-core products. Summed over sites."""
-    mem = nbytes / HBM_BYTES_PER_S * 1e3
+    p = peak_rates()
+    mem = nbytes / p["hbm_bytes_per_s"] * 1e3
     if mode == "fast":
-        ops = flops / BF16_FLOPS * 1e3
+        ops = flops / p["flops_per_s"]["bf16"] * 1e3
         return {"bound_ms": max(ops, mem), "ops_ms": ops, "bytes_ms": mem}
-    fp32, tf32x3 = flops / FP32_FLOPS * 1e3, 3 * flops / TF32_FLOPS * 1e3
+    fp32 = flops / p["flops_per_s"]["fp32"] * 1e3
+    tf32x3 = 3 * flops / p["flops_per_s"]["tf32"] * 1e3
     return {"bound_ms": max(min(fp32, tf32x3), mem), "ops_ms": min(fp32, tf32x3),
             "bytes_ms": mem, "bound_fp32_ms": max(fp32, mem), "bound_3xtf32_ms": max(tf32x3, mem)}
 
@@ -818,7 +829,7 @@ def time_k1(torch, sites, dtype, dev, gen, phase):
                  "plain_ms": cuda_ms(torch, lambda: K1._plain_gn_silu(x, gamma, beta, g)),
                  "library_ms": cuda_ms(torch, lib),
                  "library_device_ms": device_ms(torch, lib, whole=True)}
-        t["bound_ms"] = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        t["bound_ms"] = 2 * x.numel() * x.element_size() / peak_rates()["hbm_bytes_per_s"] * 1e3
         log(f"[{phase}] K1 {str(dtype)[6:]:8s} {BATCH}x{h}x{w}x{c} x{mult}: kernel "
             f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}: "
             f"{t['bound_ms'] / t['device_ms']:.0%} of the bound), plain "
@@ -838,6 +849,7 @@ def k1_modulated_check(torch, K1, dev, cases, gen, num_sms, eps=1e-5, phase=2):
     shift) and shift_in, each per sample (B, C) and shared (1, C); output
     and statistics, two calls bit-equal, each launch counted under its
     modulation. Returns the largest error by dtype; raises on a miss."""
+    from probunet_torch.ops import _build
     from probunet_torch.ops.norm import group_stats, num_groups_for
 
     worst = {}
@@ -855,7 +867,7 @@ def k1_modulated_check(torch, K1, dev, cases, gen, num_sms, eps=1e-5, phase=2):
                     s, t = (0.5 * torch.randn(rows, c, device=dev, generator=gen)
                             for _ in range(2))
                     kw = {"scale": s, "shift": t} if mod == "scale_shift" else {"shift_in": t}
-                    before = K1.gn_silu.launches_by_mod.get(mod, 0)
+                    _build.reset_launches()
                     with torch.inference_mode():
                         out, mean, rstd = K1.gn_silu(x, gamma, beta, g, eps, True, **kw)
                         again = K1.gn_silu(x, gamma, beta, g, eps, True, **kw)
@@ -870,7 +882,7 @@ def k1_modulated_check(torch, K1, dev, cases, gen, num_sms, eps=1e-5, phase=2):
                     ok &= torch.allclose(mean, smean, rtol=1e-5, atol=1e-5)
                     ok &= torch.allclose(rstd, srstd, rtol=1e-5, atol=1e-5)
                     ok &= torch.equal(rmean, smean) and torch.equal(rrstd, srstd)
-                    ok &= K1.gn_silu.launches_by_mod.get(mod, 0) == before + 2
+                    ok &= _build.launches("gn_silu") == _build.launches("gn_silu", mod) == 2
                     log(f"[{phase}] K1 {mod} ({rows}, {c}) {str(dtype)[6:]:8s} {b}x{h}x{w}x{c} "
                         f"({what}; {'on chip' if p.on_chip else 'streamed'}): max abs err "
                         f"{d.max().item():.3e} (atol {atol}, rtol {rtol:.3g}), two calls "
@@ -910,7 +922,7 @@ def time_k1_mod(torch, sites, dtype, dev, gen, phase):
                   "unmodulated_device_ms": device_ms(
                       torch, lambda: K1.gn_silu(x, gamma, beta, g), whole=True),
                   "chain_device_ms": device_ms(torch, chain)}
-        t_["bound_ms"] = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        t_["bound_ms"] = 2 * x.numel() * x.element_size() / peak_rates()["hbm_bytes_per_s"] * 1e3
         log(f"[{phase}] K1 norm1 {str(dtype)[6:]:8s} {BATCH}x{h}x{w}x{c} x{mult}: (scale, shift) "
             f"in the launch {t_['modulated_device_ms']:.4f} ms device, unmodulated "
             f"{t_['unmodulated_device_ms']:.4f}, the plain chain {t_['chain_device_ms']:.4f}, "
@@ -962,6 +974,7 @@ def run_phases(torch, dev, card, sass):
     from probunet_torch.data.netcdf import NetCDFFile
     from probunet_torch.data.synthetic import generate_climex_like
     from probunet_torch.models.unet import build_unet_plan, gn_silu_sites
+    from probunet_torch.ops import _build
     from probunet_torch.ops import attention as K2
     from probunet_torch.ops import gn_silu as K1
     from probunet_torch.ops.norm import group_stats, num_groups_for
@@ -1089,11 +1102,7 @@ def run_phases(torch, dev, card, sass):
     ckpt = os.path.join(WORK, "ckpt")
     save_checkpoint(ckpt, TrainState(model, None))   # parameters only, as serving holds them
     nb = DAYS // BATCH
-    K1.gn_silu.launches = 0
-    K1.gn_silu.launches_by_mod.clear()
-    K2.fused_attention.launches = 0
-    K2.attention_bwd.launches = 0
-    K2.kernel_layout.copies = 0
+    _build.reset_launches()
     outs, secs = {}, {}
     for name, c in (("strict", cfg), ("fast", fast_cfg)):
         secs[name] = []
@@ -1102,21 +1111,19 @@ def run_phases(torch, dev, card, sass):
         outs[name] = downscale(c, ckpt, os.path.join(WORK, f"out_{name}.nc"),
                                batch_seconds=secs[name], device=dev)
         wall = time.perf_counter() - t0
-        n1, n2 = K1.gn_silu.launches, K2.fused_attention.launches
+        n1, n2 = _build.launches("gn_silu"), _build.launches("attention_fwd")
         log(f"[4] downscale {name}: {DAYS} days x {MEMBERS} members in {wall:.2f} s "
             f"(netCDF output), per batch {[round(s, 3) for s in secs[name]]} s, peak device "
             f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
             f"launches so far K1 {n1}, K2 {n2}")
-    launches = {"gn": K1.gn_silu.launches, "attn": K2.fused_attention.launches,
-                "attn_bwd": K2.attention_bwd.launches}
-    copies = K2.kernel_layout.copies
+    launches = {k: _build.launches(k) for k in KERNELS}
+    copies = _build.launches("kernel_layout")
     want = (2 * nb * K1_PER_BATCH, 2 * nb * K2_PER_BATCH, 0)
-    serve_mods = dict(K1.gn_silu.launches_by_mod)
+    serve_mods = {k: _build.launches("gn_silu", k) for k in K1_MOD_PER_BATCH}
     want_mods = {k: 2 * nb * v for k, v in K1_MOD_PER_BATCH.items()}
     log(f"[4] q/k/v copies before the attention launches: {copies}; K1 by modulation "
         f"{serve_mods} (expected {want_mods})")
-    if (launches["gn"], launches["attn"], launches["attn_bwd"]) != want or copies \
-            or serve_mods != want_mods:
+    if tuple(launches.values()) != want or copies or serve_mods != want_mods:
         raise AssertionError(f"launches {launches}, expected {want} "
                              f"({K1_PER_BATCH} K1 and {K2_PER_BATCH} K2 per batch); "
                              f"{copies} tensors copied before a launch, expected 0")
@@ -1165,11 +1172,11 @@ def run_phases(torch, dev, card, sass):
                 return F.scaled_dot_product_attention(qs, ks, vs)
 
             with torch.inference_mode():
-                K2.kernel_layout.copies = 0
+                _build.reset_launches()
                 # copy_ms: what the wrapper's layout step costs on these views
                 t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run, whole=True),
                      "copy_ms": cuda_ms(torch, lambda: [K2.kernel_layout(a) for a in (q, k, v)])}
-                if K2.kernel_layout.copies:
+                if _build.launches("kernel_layout"):
                     raise AssertionError("the block's q/k/v views were copied")
                 t.update({"plain_ms": cuda_ms(torch, lambda: K2._plain_attention(
                               q, k, v, mode == "fast")),
@@ -1212,36 +1219,30 @@ def run_phases(torch, dev, card, sass):
         log(f"[6] K1 norm1 per forward at b{BATCH} ({name}, {len(norm1_sites)} sites): "
             + ", ".join(f"{k} {v:.4f}" for k, v in tt["norm1"].items()))
 
+    # the strict sampler (the fast one is the cell probunet_mc128.serve_fast_k16's)
     hr_all = ds.hr_device()
-    rates = {}
-    for name, c in (("strict", cfg), ("fast", fast_cfg)):
-        dtype = torch.bfloat16 if name == "fast" else torch.float32
-        m = build_probunet(c, device="meta").to_empty(device=dev).eval()
-        m.load_state_dict(model.state_dict())
-        fn = make_sample_fn(m, 4, cfg.standardization, MEMBERS, dtype)
-        e = torch.randn(MEMBERS, BATCH, cfg.latent_dim)
-        batches = [torch.arange(i * BATCH, (i + 1) * BATCH, device=dev) for i in range(nb)]
-        with full_fp32():
-            for i in range(2):
-                fn(hr_all, ds.stats, batches[i % nb], eps=e)
-            torch.cuda.synchronize()
-            reps = 8
-            t0 = time.perf_counter()
-            for i in range(reps):
-                fn(hr_all, ds.stats, batches[i % nb], eps=e)
-            torch.cuda.synchronize()
-            per = (time.perf_counter() - t0) / reps
-            rates[name] = (BATCH / per, BATCH * MEMBERS / per)
-            log(f"[6] sampler {name}: {per * 1e3:.2f} ms per batch of {BATCH} inputs x "
-                f"{MEMBERS} members at {RES}x{RES}: {rates[name][0]:.2f} inputs/s, "
-                f"{rates[name][1]:.1f} members/s ({card})")
-            profile(torch, lambda: fn(hr_all, ds.stats, batches[0], eps=e),
-                    f"sampler {name}", "one batch")
-        del m
+    fn = make_sample_fn(model, 4, cfg.standardization, MEMBERS, torch.float32)
+    e = torch.randn(MEMBERS, BATCH, cfg.latent_dim)
+    batches = [torch.arange(i * BATCH, (i + 1) * BATCH, device=dev) for i in range(nb)]
+    with full_fp32():
+        for i in range(2):
+            fn(hr_all, ds.stats, batches[i % nb], eps=e)
+        torch.cuda.synchronize()
+        reps = 8
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fn(hr_all, ds.stats, batches[i % nb], eps=e)
+        torch.cuda.synchronize()
+        per = (time.perf_counter() - t0) / reps
+        log(f"[6] sampler strict: {per * 1e3:.2f} ms per batch of {BATCH} inputs x {MEMBERS} "
+            f"members at {RES}x{RES}: {BATCH / per:.2f} inputs/s, {BATCH * MEMBERS / per:.1f} "
+            f"members/s ({card})")
+        profile(torch, lambda: fn(hr_all, ds.stats, batches[0], eps=e), "sampler strict",
+                "one batch")
     mark(6)
 
     train = training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark)
-    trainer = trainer_phase(torch, dev, card, train["rates"], mark)
+    trainer = trainer_phase(torch, dev, card, mark)
     edm = edm_phase(torch, dev, card, ds, ds_cpu, gen, mark)
     baseline = baseline_phase(torch, dev, card, ds, ds_cpu, gen, mark)
     multi = multiprocess_phase(torch, dev, card, gn_sites, mark)
@@ -1265,16 +1266,16 @@ def run_phases(torch, dev, card, sass):
                      **{f"spatial_{path}": n[key] for path, n in spatial["launches"].items()},
                      **{path: n[key] for path, n in mc96["launches"].items()},
                      **{f"corrdiff_{path}": n[key] for path, n in corrdiff["launches"].items()}}
-               for key in ("gn", "attn", "attn_bwd")}
+               for key in KERNELS}
     launches = {key: sum(by_path[key].values()) for key in by_path}
     return [
         entry("gn_silu_fwd", "probunet_torch/csrc/gn_silu.cu",
-              "probunet_tpu/ops/pallas_gn.py:72", launches["gn"],
+              "probunet_tpu/ops/pallas_gn.py:72", launches["gn_silu"],
               k1_err[torch.float32], GN_TOL["float32"], k1_t["fp32"],
               {"timed": per.format(K1_PER_BATCH) + ", fp32", "device_ms": k1_t["fp32"]["device_ms"],
                "library_device_ms": k1_t["fp32"]["library_device_ms"], "fp32": k1_t["fp32"],
                "bf16": k1_t["bf16"], "bf16_max_abs_err": k1_err[torch.bfloat16],
-               "launches_by_path": by_path["gn"], "largest_site": k1_info,
+               "launches_by_path": by_path["gn_silu"], "largest_site": k1_info,
                "modulated_max_abs_err": k1_mod_err,
                "launches_by_mod": {"serve": serve_mods,
                                    **{f"edm_serve_{m}": r["k1_by_mod"]
@@ -1291,11 +1292,11 @@ def run_phases(torch, dev, card, sass):
                             "fp32": baseline["k1_t"]["fp32"], "bf16": baseline["k1_t"]["bf16"],
                             "max_abs_err": baseline["k1_err"], "report": baseline["report"]}}),
         entry("attention_fwd", "probunet_torch/csrc/attention_fwd.cu",
-              "probunet_tpu/ops/pallas_attn.py:69", launches["attn"],
+              "probunet_tpu/ops/pallas_attn.py:69", launches["attention_fwd"],
               k2_err["strict"], ATTN_TOL["strict"], k2_t["strict"],
               {"timed": per.format(K2_PER_BATCH) + ", strict fp32, on the block's views",
                "strict": k2_t["strict"], "fast": k2_t["fast"],
-               "max_abs_err_by_mode": k2_err, "launches_by_path": by_path["attn"],
+               "max_abs_err_by_mode": k2_err, "launches_by_path": by_path["attention_fwd"],
                "edm_fp32_fast_max_abs_err": edm["k2_err"], "edm": edm["report"],
                "with_lse": train["k2_lse"], "bf16_kernels_by_site": attn_info,
                "fp32_kernels": attn_info_f32,
@@ -1308,15 +1309,15 @@ def run_phases(torch, dev, card, sass):
                         "max_err": mc96["report"]["max_err"]},
                "sass": {n: c for n, c in sass.items() if n.startswith("attention_fwd")}}),
         entry("attention_bwd", "probunet_torch/csrc/attention_bwd.cu",
-              "probunet_tpu/ops/pallas_attn.py:91", launches["attn_bwd"],
+              "probunet_tpu/ops/pallas_attn.py:91", launches["attention_bwd"],
               train["k3_err"]["float32"], ATTN_BWD_TOL, train["k3_t"]["strict"],
               {"timed": f"sum over the {K2_PER_BATCH} sites of one U-Net backward at b{BATCH}, "
                         f"{RES}x{RES}, strict fp32, on the block's views",
                "strict": train["k3_t"]["strict"], "fast": train["k3_t"]["fast"],
                "max_rel_err": train["k3_rel"], "strict_bf16_ds_check": train["ds_check"],
-               "launches_by_path": by_path["attn_bwd"],
+               "launches_by_path": by_path["attention_bwd"],
                "edm_fp32_fast_max_rel_err": edm["k3_rel"],
-               "training": train["rates"], "trainer": trainer["report"],
+               "trainer": trainer["report"],
                "multiprocess": multi["report"], "spatial": spatial["report"],
                "mc96": {"timed": f"sum over the {sum(MC96_SITES.values())} sites of one "
                                  f"model_channels {MC96} U-Net backward at b{BATCH}",
@@ -1327,8 +1328,7 @@ def run_phases(torch, dev, card, sass):
         *exact_width_entries(entry, mc96, attn_info_exact),
         entry("attention_fwd_kd256", "probunet_torch/csrc/attention_fwd.cu",
               "probunet_tpu/ops/pallas_attn.py:69",
-              sum(p["by_kd"]["fwd"].get("fp32_kd256", 0)
-                  for p in corrdiff["report"]["passes"].values()),
+              sum(p["fp32_kd256"] for p in corrdiff["report"]["passes"].values()),
               corrdiff["k2_err"]["out"], ATTN_TOL["strict"], corrdiff["k2_t"],
               {"timed": f"CorrDiff's attention site (B={KD256_SITE[0]}, L={KD256_SITE[1]}, one "
                         f"head of {KD256_SITE[3]}), strict fp32, on the block's views; "
@@ -1337,7 +1337,7 @@ def run_phases(torch, dev, card, sass):
                "plain_device_ms": corrdiff["k2_t"]["plain_device_ms"],
                "library_device_ms": corrdiff["k2_t"]["library_device_ms"],
                "lse_max_abs_err": corrdiff["k2_err"]["lse"],
-               "launches_by_path": {path: p["by_kd"] for path, p in
+               "launches_by_path": {path: p["fp32_kd256"] for path, p in
                                     corrdiff["report"]["passes"].items()},
                "corrdiff": corrdiff["report"],
                "sass": {n: c for n, c in sass.items()
@@ -1359,7 +1359,7 @@ def exact_width_entries(entry, mc96, info):
     plain versions at c = 65-96 in fast mode (phase 16 (c)), and their
     times, bound and SDPA's at the path's exact-width sites in fast mode
     (phase 16 (d)), beside the kD = 128 kernels' on the same inputs."""
-    launches = {leg: sum(n["by_kd"][leg].get(f"bf16_kd{kd}", 0)
+    launches = {leg: sum(n["by_kd"][leg].get(("bf16", kd), 0)
                          for n in mc96["launches"].values() for kd in (80, 96))
                 for leg in ("fwd", "bwd")}
     rep = mc96["report"]
@@ -1467,13 +1467,13 @@ def step_card_vs_cpu(torch, dev, cfg, ds, ds_cpu, phase):
 
 def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
     """Phases 7-10: K3 on its own, the training path, the step against the
-    plain step on the CPU, and the timings. Returns the launch counts of the
-    training path, K3's errors and times, K2's time with its lse, and the
-    training rates."""
+    plain step on the CPU, and the kernels' timings. Returns the launch
+    counts of the training path, K3's errors and times, and K2's time with
+    its lse."""
     import torch.nn.functional as F
 
+    from probunet_torch.ops import _build
     from probunet_torch.ops import attention as K2
-    from probunet_torch.ops import gn_silu as K1
     from probunet_torch.train.loop import build_probunet, init_probunet_state
     from probunet_torch.train.state import make_optimizer
     from probunet_torch.train.steps import beta_schedule, make_probunet_train_step
@@ -1531,7 +1531,7 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
     hr_all = ds.hr_device()
     fixed_idx = torch.arange(BATCH, device=dev)
     fixed_eps = torch.randn(BATCH, cfg.latent_dim, generator=torch.Generator().manual_seed(3))
-    runs, counts = {}, {"gn": 0, "attn": 0, "attn_bwd": 0}
+    counts = dict.fromkeys(KERNELS, 0)
     for name, c in train_cfgs.items():
         dtype = torch.bfloat16 if c.compute_dtype == "bfloat16" else torch.float32
         tx = make_optimizer(c.lr, c.weight_decay, c.accum, c.optimizer, None, c.opt_state_dtype)
@@ -1541,15 +1541,14 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
             beta_schedule(c.beta_schedule, c.beta, c.beta_warmup_steps), dtype, c.accum)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        K1.gn_silu.launches = K2.fused_attention.launches = K2.attention_bwd.launches = 0
-        K2.kernel_layout.copies = 0
+        _build.reset_launches()
         t0 = time.perf_counter()
         ms = [step(state, hr_all, ds.stats, fixed_idx, c.seed, eps=fixed_eps.to(dev))
               for _ in range(TRAIN_STEPS)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches)
-        copies = K2.kernel_layout.copies
+        n = tuple(map(_build.launches, KERNELS))
+        copies = _build.launches("kernel_layout")
         want = (TRAIN_STEPS * K1_PER_BATCH, TRAIN_STEPS * K2_PER_BATCH, TRAIN_STEPS * K3_PER_STEP)
         losses = [m["train_loss"].item() for m in ms]
         norms = [m["grad_norm"].item() for m in ms]
@@ -1568,9 +1567,9 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
             raise AssertionError(f"{name}: non-finite loss or gradient norm")
         if not losses[-1] < losses[0]:
             raise AssertionError(f"{name}: the loss did not fall on a fixed batch")
-        for key, val in zip(("gn", "attn", "attn_bwd"), n):
+        for key, val in zip(KERNELS, n):
             counts[key] += val
-        runs[name] = (state, step, c)
+        del state, step, ms
     mark(8)
 
     # ---- 9. one step on the card against the plain step on the CPU ---------------
@@ -1639,38 +1638,19 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
     for name, tt in list(k3_t.items()) + [(f"K2 {m}", v) for m, v in k2_lse.items()]:
         log(f"[10] per U-Net pass at b{BATCH} ({name}): " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in tt.items()))
-
-    rates = {}
-    batches = [torch.arange(i * BATCH, (i + 1) * BATCH, device=dev) for i in range(DAYS // BATCH)]
-    for name, (state, step, c) in runs.items():
-        for i in range(WARMUP_STEPS):
-            step(state, hr_all, ds.stats, batches[i % len(batches)], c.seed)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(TRAIN_STEPS):
-            m = step(state, hr_all, ds.stats, batches[i % len(batches)], c.seed)
-        torch.cuda.synchronize()
-        per = (time.perf_counter() - t0) / TRAIN_STEPS
-        rates[name] = {"ms_per_step": per * 1e3, "samples_per_s": BATCH / per,
-                       "final_loss": m["train_loss"].item()}
-        log(f"[10] train {name}: {per * 1e3:.2f} ms per step of {BATCH} samples at {RES}x{RES}:"
-            f" {BATCH / per:.2f} samples/s over {TRAIN_STEPS} steps after {WARMUP_STEPS} "
-            f"warm-up steps")
-        profile(torch, lambda: step(state, hr_all, ds.stats, batches[0], c.seed),
-                f"train step {name}", "one step", phase=10, top=16)
     mark(10)
     return {"launches": counts, "k3_err": {"float32": k3_abs["strict"]}, "k3_rel": k3_rel,
-            "k3_t": k3_t, "k2_lse": k2_lse, "rates": rates,
-            "ds_check": {**ds_seen, "limit": DS_SPLIT_TOL}}
+            "k3_t": k3_t, "k2_lse": k2_lse, "ds_check": {**ds_seen, "limit": DS_SPLIT_TOL}}
 
 
-def trainer_phase(torch, dev, card, bare_rates, mark):
+def trainer_phase(torch, dev, card, mark):
     """Phase 11: the trainer end to end (see the module docstring). Returns
     its launch counts (the strict and fast runs) and its report."""
     import numpy as np
 
     from probunet_torch.config import Config
     from probunet_torch.data.synthetic import generate_climex_like
+    from probunet_torch.ops import _build
     from probunet_torch.serve import downscale
     from probunet_torch.train.loop import build_probunet, init_probunet_state, train_probunet
     from probunet_torch.train.state import make_optimizer
@@ -1718,7 +1698,7 @@ def trainer_phase(torch, dev, card, bare_rates, mark):
 
     report = {"card": card}
     # ---- the trainer, strict and fast, as a user runs it -------------------------
-    reset_launch_counts()
+    _build.reset_launches()
     rates, ckpts = {}, {}
     for name, c in (("strict", base), ("fast", fast)):
         res, recs, ckpt = run(name, c)
@@ -1732,15 +1712,11 @@ def trainer_phase(torch, dev, card, bare_rates, mark):
         if res["state"].step != n_steps or len(res["val_losses"]) != TRAINER_EPOCHS:
             raise AssertionError(f"trainer {name}: {res['state'].step} steps")
         rates[name] = epoch_rates(recs)
-        bare = bare_rates[name]["samples_per_s"]
-        log(f"[11] trainer {name}: {rates[name][-1]:.2f} samples/s in epoch {TRAINER_EPOCHS} "
-            f"(StepTimer, CUDA-synced, metrics fetched every step; epoch 1 {rates[name][0]:.2f}), "
-            f"phase 10's bare step {bare:.2f} samples/s: {rates[name][-1] / bare - 1:+.1%} ({card})")
         ckpts[name] = ckpt
         del res
         torch.cuda.empty_cache()
-    n = launch_counts()
-    launches = {"gn": n[0], "attn": n[1], "attn_bwd": n[2]}
+    n = tuple(map(_build.launches, COUNTED))
+    launches = dict(zip(KERNELS, n))
     per_eval = (K1_PER_BATCH, K2_PER_BATCH, 0)
     want = tuple(2 * (n_steps * k + n_evals * e)
                  for k, e in zip((K1_PER_BATCH, K2_PER_BATCH, K3_PER_STEP), per_eval)) + (0,)
@@ -1761,7 +1737,7 @@ def trainer_phase(torch, dev, card, bare_rates, mark):
         f"state and step saved): {a.shape} finite")
     for name in ckpts:
         shutil.rmtree(os.path.join(WORK, name), ignore_errors=True)
-    report.update(rates=rates, bare=bare_rates, launches=launches)
+    report.update(rates=rates, launches=launches)
     mark(11)
 
     # ---- exact resume and streaming ingest, deterministic cuDNN --------------------
@@ -1817,7 +1793,7 @@ def trainer_phase(torch, dev, card, bare_rates, mark):
     eps = torch.randn(BATCH, base.latent_dim, generator=torch.Generator().manual_seed(6)).to(dev)
     want = {False: (K1_PER_BATCH, K2_PER_BATCH, K3_PER_STEP),
             True: (2 * K1_PER_BATCH - 1, 2 * K2_PER_BATCH, K3_PER_STEP)}
-    report["remat"] = {}
+    report["remat"], report["bare_samples_per_s"] = {}, {}
     for mode, mc in (("strict", base), ("fast", fast)):
         dtype = torch.bfloat16 if mode == "fast" else torch.float32
         seen = {}
@@ -1830,11 +1806,11 @@ def trainer_phase(torch, dev, card, bare_rates, mark):
             step = make_probunet_train_step(state.model, c.lowres_scale, c.standardization,
                                             compute_dtype=dtype)
             torch.backends.cudnn.deterministic = True
-            reset_launch_counts()
+            _build.reset_launches()
             m = step(state, ds.hr_device(), ds.stats, idx, c.seed, eps=eps)
             torch.cuda.synchronize()
             torch.backends.cudnn.deterministic = False
-            counts = launch_counts()
+            counts = tuple(map(_build.launches, COUNTED))
             grads = {k: p.grad.detach().clone() for k, p in state.model.named_parameters()}
             step(state, ds.hr_device(), ds.stats, idx, c.seed, eps=eps)   # warm-up
             torch.cuda.synchronize()
@@ -1886,6 +1862,12 @@ def trainer_phase(torch, dev, card, bare_rates, mark):
         report["remat"][mode] = {"loss_rel": loss_rel, "grad_rel": grad_rel, **{
             name: {k: v for k, v in r.items() if k != "grads"}
             for name, r in (("off", plain), ("on", rem))}}
+        bare = 1e3 * BATCH / plain["ms_per_step"]
+        report["bare_samples_per_s"][mode] = bare
+        log(f"[11] trainer {mode}: {rates[mode][-1]:.2f} samples/s in epoch {TRAINER_EPOCHS} "
+            f"(StepTimer, CUDA-synced, metrics fetched every step; epoch 1 "
+            f"{rates[mode][0]:.2f}), the bare step without remat above {bare:.2f} samples/s: "
+            f"{rates[mode][-1] / bare - 1:+.1%} ({card})")
     mark(11)
     return {"launches": launches, "report": report}
 
@@ -1900,6 +1882,7 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
     from probunet_torch.data.dataset import ClimexDataset
     from probunet_torch.data.netcdf import NetCDFFile
     from probunet_torch.models.unet import build_unet_plan, gn_silu_sites
+    from probunet_torch.ops import _build
     from probunet_torch.ops import attention as K2
     from probunet_torch.ops import gn_silu as K1
     from probunet_torch.ops.norm import num_groups_for
@@ -2057,14 +2040,14 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
     serve_n = np.zeros(3, np.int64)
     report["serve"] = {}
     for name, c in modes.items():
-        reset_launch_counts()
+        _build.reset_launches()
         t0 = time.perf_counter()
         path = downscale(c, ckpt, os.path.join(WORK, f"edm_{name}.nc"), dataset=sds,
                          num_samples=sk, batch_size=sb, device=dev)
         wall = time.perf_counter() - t0
-        n = launch_counts()
+        n = tuple(map(_build.launches, COUNTED))
         want = (passes * K1_PER_BATCH, passes * K2_PER_BATCH, 0, 0)
-        mods = dict(K1.gn_silu.launches_by_mod)
+        mods = {k: _build.launches("gn_silu", k) for k in K1_MOD_PER_BATCH}
         want_mods = {k: passes * v for k, v in K1_MOD_PER_BATCH.items()}
         serve_n += n[:3]
         with NetCDFFile(path) as f:
@@ -2073,27 +2056,32 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
         ok = n == want and mods == want_mods and all(
             a.shape == (sb, sk, RES, RES) and np.isfinite(a).all()
             for a in fields.values()) and min(spread.values()) > 0
-        # the sampler alone on one batch, data on the card, no file I/O
+        report["serve"][name] = {"downscale_wall_s": wall, "launches": n[:3], "copies": n[3],
+                                 "k1_by_mod": mods}
         dtype = torch.bfloat16 if c.compute_dtype == "bfloat16" else torch.float32
         m = build_edm_model(c, device="meta").to_empty(device=dev).eval()
         m.load_state_dict(card_model.state_dict())
-        fn = make_edm_sample_fn(m, 4, c.standardization, sk, EDM_STEPS, compute_dtype=dtype)
-        e = torch.randn(sk * sb, RES, RES, 3, device=dev, generator=gen)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        fn(sds.hr_device(), sds.stats, torch.arange(sb, device=dev), noise=e)
-        torch.cuda.synchronize()
-        per = time.perf_counter() - t1
-        report["serve"][name] = {"downscale_wall_s": wall, "ms_per_batch": per * 1e3,
-                                 "inputs_per_s": sb / per, "members_per_s": sb * sk / per,
-                                 "launches": n[:3], "copies": n[3], "k1_by_mod": mods}
+        rate = ""
+        if name == "fast":   # the strict sampler's rate is the cell edm_mc128.serve_b2_k4's
+            # the sampler alone on one batch, data on the card, no file I/O
+            fn = make_edm_sample_fn(m, 4, c.standardization, sk, EDM_STEPS, compute_dtype=dtype)
+            e = torch.randn(sk * sb, RES, RES, 3, device=dev, generator=gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn(sds.hr_device(), sds.stats, torch.arange(sb, device=dev), noise=e)
+            torch.cuda.synchronize()
+            per = time.perf_counter() - t1
+            report["serve"][name].update(ms_per_batch=per * 1e3, inputs_per_s=sb / per,
+                                         members_per_s=sb * sk / per)
+            rate = (f"; the sampler alone {per * 1e3:.1f} ms per batch: {sb / per:.3f} "
+                    f"inputs/s, {sb * sk / per:.3f} members/s")
+            del fn
         log(f"[12] EDM downscale {name} (b{sb}, K={sk}, {EDM_STEPS} steps): {wall:.2f} s for one "
             f"batch (restore and netCDF output included); launches K1 {n[0]}, K2 {n[1]}, K3 "
             f"{n[2]}, q/k/v copies {n[3]} (expected {want}); K1 by modulation {mods} (expected "
             f"{want_mods}); members finite, spread "
-            f"{', '.join(f'{v} {s:.4g}' for v, s in spread.items())}; the sampler alone "
-            f"{per * 1e3:.1f} ms per batch: {sb / per:.3f} inputs/s, {sb * sk / per:.3f} "
-            f"members/s ({card}) {'ok' if ok else 'FAIL'}")
+            f"{', '.join(f'{v} {s:.4g}' for v, s in spread.items())}{rate} ({card}) "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"EDM serving {name}: launches {n}, expected {want}, or bad "
                                  f"output")
@@ -2128,7 +2116,7 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
         del x, cond, cd
     for name in modes:
         modes[name] = modes[name][0]
-    del m, fn
+    del m
     torch.cuda.empty_cache()
     mark(12)
 
@@ -2151,13 +2139,13 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
         ms = [step(state, ds.hr_device(), ds.stats, fixed_idx, c.seed, sigma=sigma, noise=noise)
               for _ in range(WARMUP_STEPS)]
         torch.cuda.synchronize()
-        reset_launch_counts()
+        _build.reset_launches()
         t0 = time.perf_counter()
         ms += [step(state, ds.hr_device(), ds.stats, fixed_idx, c.seed, sigma=sigma, noise=noise)
                for _ in range(TRAIN_STEPS)]
         torch.cuda.synchronize()
         per = (time.perf_counter() - t0) / TRAIN_STEPS
-        n = launch_counts()
+        n = tuple(map(_build.launches, COUNTED))
         train_n += n[:3]
         want = (TRAIN_STEPS * K1_PER_BATCH, TRAIN_STEPS * K2_PER_BATCH,
                 TRAIN_STEPS * K3_PER_STEP, 0)
@@ -2191,12 +2179,12 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
                   edm_steps=EDM_CHAIN_STEPS, log_every=1, num_samples=2,
                   plotdir=os.path.join(WORK, "edm_trainer", "plots"),
                   checkpoints_dir=os.path.join(WORK, "edm_trainer", "ckpt"))
-    reset_launch_counts()
+    _build.reset_launches()
     t0 = time.perf_counter()
     res = train_edm(base, make_plots=False)   # on the card: its default device
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n = launch_counts()
+    n = tuple(map(_build.launches, COUNTED))
     with open(os.path.join(base.plotdir, "metrics_edm.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     steps_per_epoch = 3 * TRAINER_DAYS // BATCH
@@ -2236,9 +2224,9 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
     shutil.rmtree(os.path.join(WORK, "edm_trainer"), ignore_errors=True)
     torch.cuda.empty_cache()
     mark(12)
-    return {"launches": {"serve": as_launches(serve_n.tolist()),
-                         "train": as_launches(train_n.tolist()),
-                         "trainer": as_launches(trainer_n.tolist())},
+    return {"launches": {"serve": dict(zip(KERNELS, serve_n.tolist())),
+                         "train": dict(zip(KERNELS, train_n.tolist())),
+                         "trainer": dict(zip(KERNELS, trainer_n.tolist()))},
             "k1_err": k1_err, "k2_err": k2_err, "k3_rel": k3_rel, "report": report}
 
 
@@ -2254,6 +2242,7 @@ def baseline_phase(torch, dev, card, ds, ds_cpu, gen, mark):
     from probunet_torch.data.transforms import make_pair, time_features
     from probunet_torch.models.baselines import bcsd
     from probunet_torch.models.unet import build_unet_plan, gn_silu_sites
+    from probunet_torch.ops import _build
     from probunet_torch.ops import gn_silu as K1
     from probunet_torch.ops.norm import group_stats, num_groups_for
     from probunet_torch.serve import downscale
@@ -2432,21 +2421,21 @@ def baseline_phase(torch, dev, card, ds, ds_cpu, gen, mark):
         ms = [step(state, ds.hr_device(), ds.stats, fixed_idx, ts_b, c.seed)
               for _ in range(WARMUP_STEPS)]
         torch.cuda.synchronize()
-        reset_launch_counts()
+        _build.reset_launches()
         t0 = time.perf_counter()
         ms += [step(state, ds.hr_device(), ds.stats, fixed_idx, ts_b, c.seed)
                for _ in range(TRAIN_STEPS)]
         torch.cuda.synchronize()
         per = (time.perf_counter() - t0) / TRAIN_STEPS
-        n = launch_counts()
+        n = tuple(map(_build.launches, COUNTED))
         train_n += n[:3]
         peak = torch.cuda.max_memory_allocated() / 2**30
-        reset_launch_counts()
+        _build.reset_launches()
         ev = make_deterministic_eval_step(state.model, c.lowres_scale, c.standardization,
                                           c.variables, timetransform=c.timetransform)(
             ds.hr_device(), ds.stats, fixed_idx, ts_b)
         torch.cuda.synchronize()
-        ne = launch_counts()
+        ne = tuple(map(_build.launches, COUNTED))
         eval_n += ne[:3]
         losses = [m_["train_loss"].item() for m_ in ms]
         want = (TRAIN_STEPS * K1_PER_BATCH, 0, 0, 0)
@@ -2492,12 +2481,12 @@ def baseline_phase(torch, dev, card, ds, ds_cpu, gen, mark):
     for ds_model in ("deterministic_unet", "linearcnn", "vae", "bcsd"):
         c = base.replace(ds_model=ds_model, plotdir=os.path.join(WORK, "bl", ds_model, "plots"),
                          checkpoints_dir=os.path.join(WORK, "bl", ds_model, "ckpt"))
-        reset_launch_counts()
+        _build.reset_launches()
         t0 = time.perf_counter()
         res = train_baseline(c, make_plots=False)   # on the card: its default device
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = launch_counts()
+        n = tuple(map(_build.launches, COUNTED))
         trainer_n += n[:3]
         want_n = (want_gn.get(ds_model, 0), 0, 0, 0)
         if ds_model == "bcsd":
@@ -2563,9 +2552,9 @@ def baseline_phase(torch, dev, card, ds, ds_cpu, gen, mark):
     del m, fn, sds
     torch.cuda.empty_cache()
     mark(13)
-    return {"launches": {"train": as_launches(train_n.tolist()),
-                         "eval": as_launches(eval_n.tolist()),
-                         "trainer": as_launches(trainer_n.tolist())},
+    return {"launches": {"train": dict(zip(KERNELS, train_n.tolist())),
+                         "eval": dict(zip(KERNELS, eval_n.tolist())),
+                         "trainer": dict(zip(KERNELS, trainer_n.tolist()))},
             "k1_err": k1_err, "k1_t": k1_t, "report": report}
 
 
@@ -2613,6 +2602,7 @@ def mp_rank(spec_path):
 
     sys.path.insert(0, ROOT)
     from probunet_torch.data.dataset import ClimexDataset
+    from probunet_torch.ops import _build
     from probunet_torch.parallel.multihost import maybe_initialize_distributed, process_info
     from probunet_torch.serve import downscale
     from probunet_torch.train.engine import load_datasets
@@ -2632,14 +2622,14 @@ def mp_rank(spec_path):
     def train(tag, **kw):
         c = cfg.replace(plotdir=os.path.join(root, tag, "plots"),
                         checkpoints_dir=os.path.join(root, tag, "ckpt"), **kw)
-        reset_launch_counts()
+        _build.reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = train_probunet(c, make_plots=False, device=dev)
         torch.cuda.synchronize()
         out[tag] = {"wall_s": time.perf_counter() - t0, "steps": res["state"].step,
-                    "launches": as_launches(launch_counts()),
+                    "launches": {k: _build.launches(k) for k in KERNELS},
                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         del res
         torch.cuda.empty_cache()
@@ -2659,12 +2649,13 @@ def mp_rank(spec_path):
                          lat=full.lat, lon=full.lon, standardization=serve_cfg.standardization,
                          lowres_scale=serve_cfg.lowres_scale, device=dev)
     for tag, c in (("serve", serve_cfg), ("serve_strict", strict_cfg)):
-        reset_launch_counts()
+        _build.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         downscale(c, spec["serve_checkpoint"], os.path.join(root, f"mp_{tag}.nc"),
                   dataset=days, device=dev)
-        out[tag] = {"wall_s": time.perf_counter() - t0, "launches": as_launches(launch_counts())}
+        out[tag] = {"wall_s": time.perf_counter() - t0,
+                    "launches": {k: _build.launches(k) for k in KERNELS}}
 
     res = run_bcsd(bcsd_cfg, load_datasets(bcsd_cfg, dev), device=dev)
     if rank == 0:
@@ -2736,6 +2727,7 @@ def multiprocess_phase(torch, dev, card, gn_sites, mark):
     from probunet_torch.data.dataset import ClimexDataset
     from probunet_torch.data.netcdf import NetCDFFile
     from probunet_torch.data.pipeline import compute_lr_stats_streaming
+    from probunet_torch.ops import _build
     from probunet_torch.ops import gn_silu as K1
     from probunet_torch.ops.norm import num_groups_for
     from probunet_torch.parallel import mesh
@@ -2801,11 +2793,11 @@ def multiprocess_phase(torch, dev, card, gn_sites, mark):
                                         make_optimizer(), device=dev)
             step = make_probunet_train_step(state.model, cfg.lowres_scale, cfg.standardization,
                                             dp=dp)
-            reset_launch_counts()
+            _build.reset_launches()
             ms = [step(state, ds.hr_device(), ds.stats,
                        torch.arange(BATCH, device=dev) + BATCH * (i % 2), 11) for i in range(3)]
             ms = [{k: float(v) for k, v in m.items()} for m in ms]
-            n = launch_counts()
+            n = tuple(map(_build.launches, COUNTED))
             runs.append((ms, {k: v.clone() for k, v in state.model.state_dict().items()}, n))
             del state, step
         (m0, p0, _), (m1, p1, n1) = runs
@@ -2818,7 +2810,7 @@ def multiprocess_phase(torch, dev, card, gn_sites, mark):
         if m0 != m1 or diff != 0 or tuple(n1[:3]) != (3 * K1_PER_BATCH, 3 * K2_PER_BATCH,
                                                        3 * K3_PER_STEP):
             raise AssertionError("the one-rank NCCL steps differ from the steps without a group")
-        launches["nccl_steps"] = as_launches(n1)
+        launches["nccl_steps"] = dict(zip(KERNELS, n1))
         del runs, p0, p1, ds
     finally:
         dist.destroy_process_group()
@@ -3034,8 +3026,7 @@ def multiprocess_phase(torch, dev, card, gn_sites, mark):
     per_step = (K1_PER_BATCH, K2_PER_BATCH, K3_PER_STEP)
     per_eval = (K1_PER_BATCH, K2_PER_BATCH, 0)
     n_evals = TRAINER_EPOCHS * 2     # one val and one CRPS batch per epoch
-    want = {k: n_steps * s + n_evals * e for k, s, e in zip(("gn", "attn", "attn_bwd"),
-                                                               per_step, per_eval)}
+    want = {k: n_steps * s + n_evals * e for k, s, e in zip(KERNELS, per_step, per_eval)}
     for rk in ranks:
         got = {k: rk["mp_full"]["launches"][k] for k in want}
         log(f"[14] rank {rk['rank']} launches in its uninterrupted run: {got}, expected {want} "
@@ -3091,7 +3082,7 @@ def multiprocess_phase(torch, dev, card, gn_sites, mark):
             f"per rank, one process {serve_wall[tag]:.2f} s ({card})")
         check(ok, f"the merged {mode} serving file differs from one process's")
         for rk, nb in zip(ranks, (2, 1)):
-            want_s = {"gn": nb * K1_PER_BATCH, "attn": nb * K2_PER_BATCH, "attn_bwd": 0}
+            want_s = dict(zip(KERNELS, (nb * K1_PER_BATCH, nb * K2_PER_BATCH, 0)))
             got_s = {k: rk[tag]["launches"][k] for k in want_s}
             log(f"[14] rank {rk['rank']} {mode} serving launches {got_s}, expected {want_s} for "
                 f"{nb} batches")
@@ -3167,6 +3158,7 @@ def sp_rank(spec_path):
     import torch
 
     sys.path.insert(0, ROOT)
+    from probunet_torch.ops import _build
     from probunet_torch.parallel.mesh import DataParallel, SpatialMesh
     from probunet_torch.parallel.multihost import maybe_initialize_distributed, process_info
     from probunet_torch.parallel.spatial_train import (make_spatial_probunet_train_step,
@@ -3189,15 +3181,15 @@ def sp_rank(spec_path):
             c = spatial_cfg if job == "trainer" else two_d_cfg
             c = c.replace(plotdir=os.path.join(root, job, "plots"),
                           checkpoints_dir=os.path.join(root, job, "ckpt"))
-            reset_launch_counts()
+            _build.reset_launches()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = train_probunet(c, make_plots=False, device=dev)
             torch.cuda.synchronize()
             out[job] = {"wall_s": time.perf_counter() - t0, "steps": res["state"].step,
-                        "launches": as_launches(launch_counts()),
-                        "copies": launch_counts()[3],
+                        "launches": {k: _build.launches(k) for k in KERNELS},
+                        "copies": _build.launches("kernel_layout"),
                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
             del res
         else:   # the 256x256 tile
@@ -3213,11 +3205,11 @@ def sp_rank(spec_path):
                     state.model, mesh, beta_schedule(c.beta_schedule, c.beta,
                                                      c.beta_warmup_steps),
                     dtype, remat=True, dp=DataParallel())
-                reset_launch_counts()
+                _build.reset_launches()
                 losses, ms, peak = _tile_steps(torch, lambda: step(state, x, y, c.seed))
                 out["tile"][mode] = {"losses": losses, "ms": ms, "peak_gib": peak,
-                                     "launches": as_launches(launch_counts()),
-                                     "copies": launch_counts()[3]}
+                                     "launches": {k: _build.launches(k) for k in KERNELS},
+                                     "copies": _build.launches("kernel_layout")}
                 del state, step
             del pair, x, y
         torch.cuda.empty_cache()
@@ -3270,6 +3262,7 @@ def spatial_phase(torch, dev, card, ds, mark):
 
     from probunet_torch.data.synthetic import generate_climex_like
     from probunet_torch.models.unet import build_unet_plan
+    from probunet_torch.ops import _build
     from probunet_torch.parallel import mesh as M
     from probunet_torch.parallel.spatial_train import make_spatial_probunet_train_step
     from probunet_torch.train.loop import build_probunet, init_probunet_state, train_probunet
@@ -3305,13 +3298,13 @@ def spatial_phase(torch, dev, card, ds, mark):
         step(state, x, y, 0, z=z)   # warm-up: cuDNN picks its algorithms
         model.load_state_dict(init)
         state = create_train_state(model, make_optimizer(cfg.lr, cfg.weight_decay))
-        reset_launch_counts()
+        _build.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = step(state, x, y, 0, z=z)
         torch.cuda.synchronize()
         sharded_ms = (time.perf_counter() - t0) * 1e3
-        n_a = launch_counts()
+        n_a = tuple(map(_build.launches, COUNTED))
         got = (float(m["train_loss"]), float(m["grad_norm"]),
                {k: p.grad.detach().clone() for k, p in model.named_parameters()})
     finally:
@@ -3340,7 +3333,7 @@ def spatial_phase(torch, dev, card, ds, mark):
     log(f"[15] (a) launches of one sharded step (K1, K2, K3, q/k/v copies): {tuple(n_a)}, "
         f"expected {want} {'ok' if tuple(n_a) == want else 'FAIL'}")
     check(tuple(n_a) == want, f"(a) launches {tuple(n_a)}")
-    launches["nccl_step"] = as_launches(n_a)
+    launches["nccl_step"] = dict(zip(KERNELS, n_a))
     report["nccl_step"] = {"loss_rel": loss_rel, "norm_rel": norm_rel, "grad_rel": grad_rel,
                            "ms": sharded_ms}
     del model, state, step, init, got, ref_g, total, x, y, pair
@@ -3440,7 +3433,7 @@ def spatial_phase(torch, dev, card, ds, mark):
     n_steps = TRAINER_EPOCHS * (2 * TRAINER_DAYS // BATCH)
     report["trainer"] = compare("trainer", "ref", n_steps)
     n_evals = TRAINER_EPOCHS * 2     # one val and one CRPS batch per epoch
-    want = {"gn": 0, "attn": (n_steps + n_evals) * K2_PER_BATCH, "attn_bwd": n_steps * K3_PER_STEP}
+    want = dict(zip(KERNELS, (0, (n_steps + n_evals) * K2_PER_BATCH, n_steps * K3_PER_STEP)))
     for rk in ranks:
         got_l = rk["trainer"]["launches"]
         ok = got_l == want and rk["trainer"]["copies"] == 0
@@ -3456,7 +3449,7 @@ def spatial_phase(torch, dev, card, ds, mark):
         f"; one process's peak {ref_peak:.2f} GiB; the ranks share one card and stage every "
         f"halo, gather and the gradient through the host: not a scaling figure ({card})")
 
-    per_step = {"gn": 0, "attn": 2 * n_attn, "attn_bwd": n_attn}   # remat: K2 twice
+    per_step = dict(zip(KERNELS, (0, 2 * n_attn, n_attn)))   # remat: K2 twice
     report["tile"] = {"batch": tile_b, "one_process": tile_one, "ranks": {}}
     for mode in ("strict", "fast"):
         for rk in ranks:
@@ -3483,7 +3476,7 @@ def spatial_phase(torch, dev, card, ds, mark):
     ranks4, wall4 = _run_ranks(SP_2D_RANKS, {"jobs": ["2d"]}, root)
     log(f"[15] (d) {SP_2D_RANKS} ranks, --parallel_mode 2d --mesh_shape 2,-1, in {wall4:.1f} s")
     report["2d"] = compare("2d", "ref2d", two_d_cfg.max_steps)
-    want4 = {"gn": 0, "attn": 2 * K2_PER_BATCH, "attn_bwd": 2 * K3_PER_STEP}
+    want4 = dict(zip(KERNELS, (0, 2 * K2_PER_BATCH, 2 * K3_PER_STEP)))
     for rk in ranks4:
         got_l = rk["2d"]["launches"]
         log(f"[15] (d) rank {rk['rank']} launches {got_l}, expected {want4}; peak "
@@ -3508,6 +3501,7 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
     import torch.nn.functional as F
 
     from probunet_torch.config import Config
+    from probunet_torch.ops import _build
     from probunet_torch.ops import attention as K2
     from probunet_torch.train.loop import build_probunet, init_probunet_state
     from probunet_torch.train.state import make_optimizer
@@ -3553,6 +3547,13 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
     batches = [torch.arange(i * BATCH, (i + 1) * BATCH, device=dev)
                for i in range(DAYS // BATCH)]
     by_path, rates = {}, {}
+
+    def by_kd(want):
+        """K2's ("fwd") and K3's ("bwd") launches counted at each (dtype,
+        kd) of ``want``'s."""
+        return {leg: {key: _build.launches(kernel, *key) for key in want[leg]}
+                for leg, kernel in (("fwd", "attention_fwd"), ("bwd", "attention_bwd"))}
+
     for name, c in modes.items():
         dtype = torch.bfloat16 if name == "fast" else torch.float32
         m = build_probunet(c, device="meta").to_empty(device=dev).eval()
@@ -3563,17 +3564,17 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
             for i in range(MC96_WARMUP):
                 fn(hr_all, ds.stats, batches[i], eps=e)
             torch.cuda.synchronize()
-            reset_launch_counts()
+            _build.reset_launches()
             t0 = time.perf_counter()
             outs = [fn(hr_all, ds.stats, batches[i], eps=e) for i in range(MC96_BATCHES)]
             torch.cuda.synchronize()
             per = (time.perf_counter() - t0) / MC96_BATCHES
-            n, kds = launch_counts(), launches_by_kd()
+            want_kd = {"fwd": mc96_by_kd(K2, dtype == torch.bfloat16, MC96_BATCHES), "bwd": {}}
+            n, kds = tuple(map(_build.launches, COUNTED)), by_kd(want_kd)
             device = profile(torch, lambda: fn(hr_all, ds.stats, batches[0], eps=e),
                              f"mc96 sampler {name}", "one batch", phase=16, top=8)
-        by_path[f"mc96_serve_{name}"] = {**as_launches(n), "by_kd": kds}
+        by_path[f"mc96_serve_{name}"] = dict(zip(KERNELS, n), by_kd=kds)
         want = (MC96_BATCHES * K1_PER_BATCH, MC96_BATCHES * K2_PER_BATCH, 0, 0)
-        want_kd = {"fwd": mc96_by_kd(K2, dtype == torch.bfloat16, MC96_BATCHES), "bwd": {}}
         finite = all(bool(torch.isfinite(o[0]).all()) for o in outs)
         shape = tuple(outs[0][0].shape)
         rates[f"sampler_{name}"] = {"ms_per_batch": per * 1e3, "device_ms": device,
@@ -3597,21 +3598,21 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
             step(state, hr_all, ds.stats, batches[i], c.seed)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
+        _build.reset_launches()
         t0 = time.perf_counter()
         ms = [step(state, hr_all, ds.stats, batches[i % len(batches)], c.seed)
               for i in range(MC96_STEPS)]
         torch.cuda.synchronize()
         per = (time.perf_counter() - t0) / MC96_STEPS
-        n, kds = launch_counts(), launches_by_kd()
+        want_kd = {leg: mc96_by_kd(K2, dtype == torch.bfloat16, MC96_STEPS)
+                   for leg in ("fwd", "bwd")}
+        n, kds = tuple(map(_build.launches, COUNTED)), by_kd(want_kd)
         losses = [x["train_loss"].item() for x in ms]
         peak = torch.cuda.max_memory_allocated() / 2**30
         device = profile(torch, lambda: step(state, hr_all, ds.stats, batches[0], c.seed),
                          f"mc96 train step {name}", "one step", phase=16, top=8)
-        by_path[f"mc96_train_{name}"] = {**as_launches(n), "by_kd": kds}
+        by_path[f"mc96_train_{name}"] = dict(zip(KERNELS, n), by_kd=kds)
         want = (MC96_STEPS * K1_PER_BATCH, MC96_STEPS * K2_PER_BATCH, MC96_STEPS * K3_PER_STEP, 0)
-        want_kd = {leg: mc96_by_kd(K2, dtype == torch.bfloat16, MC96_STEPS)
-                   for leg in ("fwd", "bwd")}
         rates[f"train_{name}"] = {"ms_per_step": per * 1e3, "device_ms": device,
                                   "samples_per_s": BATCH / per, "peak_gib": peak,
                                   "losses": losses}
@@ -3639,10 +3640,10 @@ def mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark):
                 q, k, v = qkv_views(torch, layout, b, L, nh, dtype, dev, gen, c)
                 do = torch.randn(b, L, nh, c, device=dev, generator=gen).to(dtype)
                 with torch.no_grad():
-                    K2.kernel_layout.copies = 0
+                    _build.reset_launches()
                     out = K2.fused_attention(q, k, v, fast)
                     again = K2.fused_attention(q, k, v, fast)
-                    copies = K2.kernel_layout.copies
+                    copies = _build.launches("kernel_layout")
                     ref = K2._plain_attention(q, k, v, fast)
                     lo, lse = K2._launch(*map(K2.kernel_layout, (q, k, v)), with_lse=True, c=c)
                     got = K2.attention_bwd(q, k, v, lo, lse, do, fast)
@@ -3814,6 +3815,7 @@ def conv_phase(torch, dev, card, mark):
     import torch.nn.functional as F
 
     from probunet_torch.config import Config
+    from probunet_torch.ops import _build
     from probunet_torch.ops import conv as C
     from probunet_torch.train.loop import build_edm_model, build_probunet, init_probunet_state
     from probunet_torch.train.state import make_optimizer
@@ -3825,9 +3827,8 @@ def conv_phase(torch, dev, card, mark):
     flag0 = torch.backends.cudnn.allow_tf32
     aten = torch.ops.aten
 
-    def reset_calls():
-        for k in C.conv2d.calls:
-            C.conv2d.calls[k] = 0
+    def conv_calls():
+        return {k: _build.launches("conv2d", k) for k in C.PATHS}
 
     # ---- the split kernel against its plain version, bit for bit ---------------------
     cases = [((BATCH, 128, RES, RES), "channels_last"), ((BATCH, 512, 16, 16), "channels_last"),
@@ -3864,7 +3865,7 @@ def conv_phase(torch, dev, card, mark):
     split_t = {"ms": cuda_ms(torch, split0),
                "device_ms": device_ms(torch, split0, whole=True),
                "plain_ms": cuda_ms(torch, lambda: C._plain_split(x0, C.X_FWD, 1), reps=5),
-               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "bound_ms": nbytes / peak_rates()["hbm_bytes_per_s"] * 1e3, "bound_by": "bytes",
                "library_ms": None}
     log(f"[17] split of the level-0 activation ({BATCH}x128x{RES}x{RES} fp32 -> hi and "
         f"[lo, hi]): kernel {split_t['ms']:.4f} ms (device {split_t['device_ms']:.4f}), plain "
@@ -3895,17 +3896,17 @@ def conv_phase(torch, dev, card, mark):
     stats = (hr.mean(0), hr.std(0))
     idx = torch.arange(BATCH, device=dev)
     step(state, hr, stats, idx, 0)
-    reset_calls()
+    _build.reset_launches()
     C.forward_ieee = recorder("forward_ieee")
     try:
         step(state, hr, stats, idx, 1)
         torch.cuda.synchronize()
     finally:
         C.forward_ieee = orig["forward_ieee"]
-    step_calls = dict(C.conv2d.calls)
+    step_calls = conv_calls()
     train_sites = list(sites)
     n_fwd, n_dgrad = len(train_sites), sum(1 for s in train_sites if s[-1])
-    log(f"[17] strict training step (b{BATCH}, {RES}x{RES}): conv2d.calls {step_calls}; "
+    log(f"[17] strict training step (b{BATCH}, {RES}x{RES}): conv2d by path {step_calls}; "
         f"{n_fwd} sites, {n_dgrad} of them with an input that needs a gradient; "
         f"cudnn.allow_tf32 after it {torch.backends.cudnn.allow_tf32}")
     if (step_calls["plain"] or step_calls["tf32x3_fwd"]
@@ -3929,15 +3930,15 @@ def conv_phase(torch, dev, card, mark):
         with full_fp32(), torch.inference_mode():
             return edm(xe, sig, condition_img=ce)
 
-    reset_calls()
+    _build.reset_launches()
     C.forward_3x = recorder("forward_3x")
     try:
         edm_pass()
     finally:
         C.forward_3x = orig["forward_3x"]
-    edm_calls = dict(C.conv2d.calls)
+    edm_calls = conv_calls()
     edm_sites = list(sites)
-    log(f"[17] EDM pass ({BATCH} rows): {len(edm_sites)} sites; conv2d.calls {edm_calls}")
+    log(f"[17] EDM pass ({BATCH} rows): {len(edm_sites)} sites; conv2d by path {edm_calls}")
     if (edm_calls["tf32x3_fwd"] != len(edm_sites) or edm_calls["plain"]
             or edm_calls["split"] != 2 * len(edm_sites)):
         raise AssertionError("the EDM pass's convolutions did not all run in 3xTF32")
@@ -4095,6 +4096,7 @@ def corrdiff_phase(torch, dev, card, gen, mark):
 
     from probunet_torch.config import Config
     from probunet_torch.models.unet import build_unet_plan, gn_silu_sites
+    from probunet_torch.ops import _build
     from probunet_torch.ops import attention as K2
     from probunet_torch.ops import gn_silu as K1
     from probunet_torch.ops.norm import num_groups_for
@@ -4109,7 +4111,7 @@ def corrdiff_phase(torch, dev, card, gen, mark):
     for b, L, nh, c in KD256_CASES:
         for layout in LAYOUTS:
             q, k, v = qkv_views(torch, layout, b, L, nh, torch.float32, dev, gen, c)
-            before = K2.fused_attention.launches_by_kd.get("fp32_kd256", 0)
+            _build.reset_launches()
             with torch.inference_mode():
                 out = K2.fused_attention(q, k, v)
                 again = K2.fused_attention(q, k, v)
@@ -4121,7 +4123,7 @@ def corrdiff_phase(torch, dev, card, gen, mark):
             err = (out - ref).abs().max().item()
             lse_err = (lse - ref_lse).abs().max().item()
             same = torch.equal(out, again)
-            n = K2.fused_attention.launches_by_kd.get("fp32_kd256", 0) - before
+            n = _build.launches("attention_fwd", "fp32", 256)
             ok = (torch.allclose(out, ref, atol=tol, rtol=tol) and lse_err <= tol and same
                   and n == 3 and out.shape == (b, L, nh, c))
             worst = {"out": max(worst["out"], err), "lse": max(worst["lse"], lse_err)}
@@ -4203,32 +4205,34 @@ def corrdiff_phase(torch, dev, card, gen, mark):
         with torch.inference_mode():
             fn()
             torch.cuda.synchronize()
-            reset_launch_counts()
+            _build.reset_launches()
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            n, kds, plans = launch_counts(), launches_by_kd(), dict(K1.gn_silu.launches_by_plan)
-            mods = dict(K1.gn_silu.launches_by_mod)
+            n = tuple(map(_build.launches, COUNTED))
+            kd256 = _build.launches("attention_fwd", "fp32", 256)
+            plans = {k: _build.launches("gn_silu", k) for k in ("on_chip", "streamed")}
+            mods = {k: _build.launches("gn_silu", k) for k in K1.MODS}
             device = profile(torch, fn, f"CorrDiff {name.replace('_', ' ')} at {rows} rows",
                              "one pass", phase=18, top=8)
             owners = kernel_owners(torch, model, fn, BROADCAST_KERNEL,
                                    f"CorrDiff {name.replace('_', ' ')}", 18)
         want = (CORRDIFF_K1_PER_PASS, CORRDIFF_K2_PER_PASS, 0, 0)
-        want_kd = {"fwd": {"fp32_kd256": CORRDIFF_K2_PER_PASS}, "bwd": {}}
-        want_plan = {k: v for k, v in by_plan(rows).items() if v}
+        want_plan = by_plan(rows)
+        want_mods = {k: CORRDIFF_K1_MOD_PER_PASS.get(k, 0) for k in K1.MODS}
         finite = bool(torch.isfinite(out).all())
-        launches[name] = as_launches(n)
+        launches[name] = dict(zip(KERNELS, n))
         passes[name] = {"rows": rows, "ms": wall * 1e3, "device_ms": device,
-                        "launches": {**as_launches(n), "copies": n[3]}, "by_kd": kds,
+                        "launches": {**launches[name], "copies": n[3]}, "fp32_kd256": kd256,
                         "k1_by_plan": plans, "k1_by_mod": mods, "broadcast_owners": owners}
         log(f"[18] {name} at {rows} rows: {wall * 1e3:.1f} ms (device {device} ms), output "
             f"{tuple(out.shape)}, finite {finite}; launches K1 {n[0]}, K2 {n[1]}, K3 {n[2]}, "
-            f"copies {n[3]} (expected {want}); K2 by head width {kds} (expected {want_kd}); K1 "
-            f"by plan {plans} (expected {want_plan}), by modulation {mods} (expected "
-            f"{CORRDIFF_K1_MOD_PER_PASS}) ({card})")
-        if (n != want or kds != want_kd or plans != want_plan or not finite
-                or mods != CORRDIFF_K1_MOD_PER_PASS
+            f"copies {n[3]} (expected {want}); K2 at fp32 kD 256 {kd256} (expected "
+            f"{CORRDIFF_K2_PER_PASS}); K1 by plan {plans} (expected {want_plan}), by modulation "
+            f"{mods} (expected {want_mods}) ({card})")
+        if (n != want or kd256 != CORRDIFF_K2_PER_PASS or plans != want_plan or not finite
+                or mods != want_mods
                 or tuple(out.shape) != (rows, *res, cfg.nvars)):
             raise AssertionError(f"CorrDiff's {name}: launches or output are off")
         del out
@@ -4251,13 +4255,13 @@ def corrdiff_phase(torch, dev, card, gen, mark):
         return F.scaled_dot_product_attention(qs, ks, vs)
 
     with torch.inference_mode():
-        K2.kernel_layout.copies = 0
+        _build.reset_launches()
         t = {"ms": cuda_ms(torch, run), "device_ms": device_ms(torch, run, whole=True),
              "plain_ms": cuda_ms(torch, plain), "plain_device_ms": device_ms(torch, plain,
                                                                             whole=True),
              "library_ms": cuda_ms(torch, lib), "library_device_ms": device_ms(torch, lib,
                                                                               whole=True)}
-        if K2.kernel_layout.copies:
+        if _build.launches("kernel_layout"):
             raise AssertionError("the block's q/k/v views were copied")
     flops = 4.0 * b * nh * L * L * c
     t.update(attn_bound(flops, 4.0 * b * L * nh * c * 4, "strict"))
@@ -4275,14 +4279,14 @@ def corrdiff_phase(torch, dev, card, gen, mark):
 
 
 def mc96_by_kd(K2, bf16, passes):
-    """K2's (or K3's) launches by head width over ``passes`` U-Net passes of
-    the model_channels 96 path, bf16 or fp32: its 32x32 sites (4 heads of
-    72) on the bf16 kernels' kD = 80 or the fp32 kernels' 128, its 16x16
-    sites (6 of 64) on kD = 64."""
+    """K2's (or K3's) launches by (dtype, head width) over ``passes`` U-Net
+    passes of the model_channels 96 path, bf16 or fp32: its 32x32 sites (4
+    heads of 72) on the bf16 kernels' kD = 80 or the fp32 kernels' 128, its
+    16x16 sites (6 of 64) on kD = 64."""
     out = {}
     for (L, nh, c), n in MC96_SITES.items():
         w = K2.kernel_width(c)
-        key = f"{'bf16' if bf16 else 'fp32'}_kd{K2._kd(w) if bf16 else K2._fp32_kd(w)}"
+        key = ("bf16", K2._kd(w)) if bf16 else ("fp32", K2._fp32_kd(w))
         out[key] = out.get(key, 0) + n * passes
     return out
 
@@ -4327,40 +4331,6 @@ def exact_vs_kd128(torch, K2, q, k, v, do, fast, c):
     return {"k2_own_plan": max(diff(own[0], wide[0]), diff(own[1], wide[1])),
             "k2_kd128_shape": max(diff(same[0], wide[0]), diff(same[1], wide[1])),
             "k3_same_inputs": max(diff(x, y) for x, y in zip(g, g128))}
-
-
-def launch_counts():
-    """(K1, K2, K3 launches, q/k/v copies before an attention launch) so far."""
-    from probunet_torch.ops import attention as K2
-    from probunet_torch.ops import gn_silu as K1
-
-    return (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches,
-            K2.kernel_layout.copies)
-
-
-def reset_launch_counts():
-    from probunet_torch.ops import attention as K2
-    from probunet_torch.ops import gn_silu as K1
-
-    K1.gn_silu.launches = K2.fused_attention.launches = K2.attention_bwd.launches = 0
-    K1.gn_silu.launches_by_plan.clear()
-    K1.gn_silu.launches_by_mod.clear()
-    K2.fused_attention.launches_by_kd.clear()
-    K2.attention_bwd.launches_by_kd.clear()
-    K2.kernel_layout.copies = 0
-
-
-def launches_by_kd():
-    """K2's and K3's launches so far by dtype and head width, e.g.
-    {"fwd": {"bf16_kd80": 5, ...}, "bwd": {...}}."""
-    from probunet_torch.ops import attention as K2
-
-    return {"fwd": dict(K2.fused_attention.launches_by_kd),
-            "bwd": dict(K2.attention_bwd.launches_by_kd)}
-
-
-def as_launches(n):
-    return {"gn": n[0], "attn": n[1], "attn_bwd": n[2]}
 
 
 def max_rel(a, b):

@@ -56,10 +56,10 @@
 //   consumer (two would be held to 168), two blocks an SM at KD = 80 (one
 //   at 96, by registers). What still holds it back: the serial order below,
 //   the tail's m64nTk16 products, which cost about what a whole-atom
-//   product does (scripts/torch_attn_variants.py no_tail), and dQ at 143 /
-//   156 registers, two blocks an SM where KD = 64's fits three (asking
-//   ptxas for three holds it to 128 registers, which spills and serializes
-//   the products: dq_three_blocks).
+//   product does (dK/dV at KD = 80 took 66 us with them, 51 without, on an
+//   H100), and dQ at 143 / 156 registers, two blocks an SM where KD = 64's
+//   fits three (asking ptxas for three holds it to 128 registers, which
+//   spills and serializes the products).
 //
 // bf16 (fast, and strict with bf16 activations): the machinery of
 // attention_hopper.cuh, warp-specialised as the forward kernel:

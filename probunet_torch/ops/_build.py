@@ -10,6 +10,7 @@ triggers a rebuild. Nothing here runs at import time.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import os
@@ -26,6 +27,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
+#: Launches since the last :func:`reset_launches`, keyed by kernel and
+#: variant: ("gn_silu", "on_chip" | "streamed", a ``gn_silu.MODS`` name);
+#: ("gn_silu_bwd",) a call of K1's plain backward (any device);
+#: ("attention_fwd" | "attention_bwd", "bf16" | "fp32", kd) K2 and K3;
+#: ("kernel_layout",) a tensor copied before an attention launch (any
+#: device); ("conv2d", one of ``conv.PATHS``) a call of that path ("plain"
+#: on any device) or a split-kernel launch ("split"). CPU calls of the plain
+#: K1, K2, K3 and split count nothing.
+LAUNCHES: collections.Counter = collections.Counter()
 _vp, _int, _i64, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # x, gamma, beta, out, mean, rstd, B, HW, C, G, cb, cluster, rows,
@@ -58,6 +68,21 @@ _SIGNATURES = {
     # strides s0..s3, nslots, lo_mask, slot_outer, vec, stream
     "probunet_tf32_split": [_vp] * 3 + [_int] * 4 + [_i64] * 4 + [_int] * 4 + [_vp],
 }
+
+
+def launches(kernel: str, *variant) -> int:
+    """The count in :data:`LAUNCHES` of ``kernel`` over the keys that hold
+    every value of ``variant``: ``launches("gn_silu")`` every K1 launch,
+    ``launches("gn_silu", "streamed")`` by plan, ``launches("gn_silu",
+    "shift_in")`` by modulation, ``launches("attention_fwd", "fp32", 256)``
+    K2's at kD = 256, ``launches("conv2d", "plain")`` one path."""
+    return sum(n for key, n in LAUNCHES.items()
+               if key[0] == kernel and all(v in key[1:] for v in variant))
+
+
+def reset_launches() -> None:
+    """Set every count of :data:`LAUNCHES` to zero."""
+    LAUNCHES.clear()
 
 
 def find_tool(name: str) -> str:

@@ -304,10 +304,11 @@ def kernel_layout(a: torch.Tensor) -> torch.Tensor:
     view is copied to a new contiguous tensor (not ``contiguous()``, which
     keeps a contiguous but misaligned view), its columns past c zeros where
     w > c. This is layout normalisation, not a fallback: the kernel runs
-    either way. Each copy adds one to ``kernel_layout.copies``."""
+    either way. Each copy counts under ``("kernel_layout",)`` in
+    ``_build.LAUNCHES``."""
     if _in_place(a):
         return a
-    kernel_layout.copies += 1
+    _build.LAUNCHES[("kernel_layout",)] += 1
     c, w = a.shape[-1], kernel_width(a.shape[-1])
     if w == c:
         return a.clone(memory_format=torch.contiguous_format)
@@ -379,13 +380,6 @@ def _rows(q: torch.Tensor, fast: bool = False, kd: Optional[int] = None):
     return p.fwd_rows, p.fwd_tile, p.bwd_rows if fast else p.bwd_split_rows, p.kd
 
 
-def _count(fn, kd: int, bf16: bool) -> None:
-    """One launch of ``fn``'s kernel: its count and its count by head width."""
-    fn.launches += 1
-    key = f"{'bf16' if bf16 else 'fp32'}_kd{kd}"
-    fn.launches_by_kd[key] = fn.launches_by_kd.get(key, 0) + 1
-
-
 @torch.no_grad()
 def _launch(q, k, v, with_lse: bool, c: Optional[int] = None, kd: Optional[int] = None):
     """K2 on q/k/v as they lie (see :func:`kernel_layout`), rows of w
@@ -408,7 +402,7 @@ def _launch(q, k, v, with_lse: bool, c: Optional[int] = None, kd: Optional[int] 
         lse.data_ptr() if with_lse else None, b, h, L, w, *strides,
         1.0 / math.sqrt(c), int(bf16), rows, tile, kd, _build.stream_handle(q.device))
     _build.check(code, "attention kernel")
-    _count(fused_attention, kd, bf16)
+    _build.LAUNCHES["attention_fwd", "bf16" if bf16 else "fp32", kd] += 1
     return out, lse
 
 
@@ -435,7 +429,7 @@ def _launch_bwd(q, k, v, out, lse, do, fast: bool, c: Optional[int] = None,
         b, h, L, w, *strides, 1.0 / math.sqrt(c), int(bf16), int(fast), rows, kd,
         _build.stream_handle(q.device))
     _build.check(code, "attention backward kernel")
-    _count(attention_bwd, kd, bf16)
+    _build.LAUNCHES["attention_bwd", "bf16" if bf16 else "fp32", kd] += 1
     return dq, dk, dv
 
 
@@ -527,11 +521,3 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _plain_attention(q, k, v, fast)
     c = q.shape[-1]
     return _first_columns(_launch(*map(kernel_layout, (q, k, v)), with_lse=False, c=c)[0], c)
-
-
-fused_attention.launches = 0  # K2 launches; CPU calls of the plain version do not count
-attention_bwd.launches = 0    # K3 launches (one per call, for its three CUDA kernels)
-# the same by dtype and head width, e.g. {"bf16_kd80": 5}
-fused_attention.launches_by_kd = {}
-attention_bwd.launches_by_kd = {}
-kernel_layout.copies = 0      # tensors copied before a launch (on any device)

@@ -114,7 +114,7 @@ def _launch_split(x: torch.Tensor, order: Sequence[str], dim: int):
         x.data_ptr(), hi.data_ptr(), out.data_ptr(), b, h, w, c, s0, s2, s3, s1, n, lo_mask,
         int(dim == 0), vec, _build.stream_handle(x.device))
     _build.check(code, "tf32 split kernel")
-    conv2d.calls["split"] += 1
+    _build.LAUNCHES["conv2d", "split"] += 1
     return hi, out
 
 
@@ -166,7 +166,7 @@ def forward_3x(x, w, b, stride, padding) -> torch.Tensor:
     summed in fp32."""
     xh, x2 = split(x, X_FWD, 1)
     wh, w2 = split(w, W_FWD, 1)
-    conv2d.calls["tf32x3_fwd"] += 1
+    _build.LAUNCHES["conv2d", "tf32x3_fwd"] += 1
     small = _conv(True, x2, w2, None, stride, padding)
     del x2, w2
     return _conv(True, xh, wh, b, stride, padding).add_(small)
@@ -179,7 +179,7 @@ def dgrad_3x(dy, x, w, stride, padding) -> torch.Tensor:
     summed in fp32. ``x`` gives the shape."""
     dh, d2 = split(dy, DY_DGRAD, 1)
     wh, w2 = split(w, W_DGRAD, 0)
-    conv2d.calls["tf32x3_dgrad"] += 1
+    _build.LAUNCHES["conv2d", "tf32x3_dgrad"] += 1
     small = _backward(True, d2, x, w2, stride, padding, (True, False, False))
     del d2, w2
     return _backward(True, dh, x, wh, stride, padding, (True, False, False)).add_(small)
@@ -201,14 +201,14 @@ def forward_ieee(x, w, b, stride, padding) -> torch.Tensor:
     sum: y[o, p] = sum_{c, k} x[c, p + k - pad] w[o, c, k] is dgrad with
     grad x and weight w'[c, o, k] = w[o, c, K - 1 - k] at padding K - 1 - pad."""
     if not _transposed(x, w, stride):
-        conv2d.calls["ieee_fwd"] += 1
+        _build.LAUNCHES["conv2d", "ieee_fwd"] += 1
         return _conv(False, x, w, b, stride, padding)
     kh, kw = w.shape[-2:]
     out = (x.shape[0], w.shape[0], x.shape[2] + 2 * padding[0] - kh + 1,
            x.shape[3] + 2 * padding[1] - kw + 1)
     like = torch.empty(out, device=x.device, memory_format=torch.channels_last)
     wt = w.transpose(0, 1).flip(2, 3).contiguous(memory_format=torch.channels_last)
-    conv2d.calls["ieee_fwd_transposed"] += 1
+    _build.LAUNCHES["conv2d", "ieee_fwd_transposed"] += 1
     y = _backward(False, x, like, wt, (1, 1), (kh - 1 - padding[0], kw - 1 - padding[1]),
                   (True, False, False))
     return y if b is None else y.add_(b[:, None, None])
@@ -233,7 +233,7 @@ class _StrictConv(torch.autograd.Function):
         dx = dgrad_3x(dy, x, w, s, p) if need_x else None
         dw = None
         if need_w:
-            conv2d.calls["ieee_wgrad"] += 1
+            _build.LAUNCHES["conv2d", "ieee_wgrad"] += 1
             dw = _backward(False, dy, x, w, s, p, (False, True, False))
         db = dy.sum((0, 2, 3)) if ctx.has_bias and need_b else None
         return dx, dw, db, None, None
@@ -253,13 +253,10 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
         if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b)):
             return _StrictConv.apply(x, w, b, stride, padding)
         return forward_3x(x, w, b, stride, padding)
-    conv2d.calls["plain"] += 1
+    _build.LAUNCHES["conv2d", "plain"] += 1
     return F.conv2d(x, w, b, stride, padding)
 
 
-#: calls by path: the 3xTF32 forward and input gradient, the IEEE forward
-#: (cuDNN's, or as a transposed convolution) and weight gradient,
-#: F.conv2d, and split-kernel launches (CPU calls of the plain split do
-#: not count)
-conv2d.calls = {"tf32x3_fwd": 0, "tf32x3_dgrad": 0, "ieee_fwd": 0, "ieee_fwd_transposed": 0,
-                "ieee_wgrad": 0, "plain": 0, "split": 0}
+#: what :func:`conv2d` counts under ("conv2d", path) in ``_build.LAUNCHES``
+PATHS = ("tf32x3_fwd", "tf32x3_dgrad", "ieee_fwd", "ieee_fwd_transposed", "ieee_wgrad", "plain",
+         "split")

@@ -220,10 +220,7 @@ def _launch(x, weight, bias, groups, eps, scale=None, shift=None, shift_in=None)
         *(0 if t is None or t.shape[0] == 1 else t.stride(0) for t in (ms, mt)),
         _build.stream_handle(dev))
     _build.check(code, "gn_silu kernel")
-    gn_silu.launches += 1
-    plan_key = "on_chip" if p.on_chip else "streamed"
-    gn_silu.launches_by_plan[plan_key] = gn_silu.launches_by_plan.get(plan_key, 0) + 1
-    gn_silu.launches_by_mod[MODS[mod]] = gn_silu.launches_by_mod.get(MODS[mod], 0) + 1
+    _build.LAUNCHES["gn_silu", "on_chip" if p.on_chip else "streamed", MODS[mod]] += 1
     return out, mean, rstd
 
 
@@ -247,7 +244,7 @@ class _GNSiLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _gmean, _grstd):
         x, weight, bias, scale, shift, shift_in, mean, rstd = ctx.saved_tensors
-        gn_silu.bwd_calls += 1
+        _build.LAUNCHES[("gn_silu_bwd",)] += 1
         return (*_plain_gn_silu_bwd(x, weight, bias, mean, rstd, g, ctx.groups, scale, shift,
                                     shift_in), None, None)
 
@@ -296,13 +293,3 @@ def gn_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: i
     else:
         res = _forward(x, weight, bias, groups, eps, scale, shift, shift_in)
     return res if return_stats else res[0]
-
-
-gn_silu.launches = 0   # kernel launches; CPU calls of the plain version do not count
-# the same by plan: "on_chip" (the slice held in a cluster, x read once) or
-# "streamed" (a slice too large for a cluster, read twice), e.g. {"on_chip": 29}
-gn_silu.launches_by_plan = {}
-# the same by modulation (MODS): "none", "scale_shift" (an ADM block's norm1),
-# "shift_in" (a DDPM++ block's norm1)
-gn_silu.launches_by_mod = {}
-gn_silu.bwd_calls = 0  # backward calls (plain PyTorch on every device)

@@ -38,7 +38,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_k1_timing: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import BATCH, GN_TOL, HBM_BYTES_PER_S, RES, _counts, cuda_ms, device_ms
+    from chip_smoke import BATCH, GN_TOL, RES, _counts, cuda_ms, device_ms, peak_rates
     from probunet_torch.ops import gn_silu as K1
     from probunet_torch.ops.norm import num_groups_for
 
@@ -57,6 +57,7 @@ def main() -> int:
              + [(16, 16, 384), (16, 16, 896)] + [(16, 16, 512)] * 4 + [(16, 16, 1024)] * 2)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    hbm = peak_rates()["hbm_bytes_per_s"]
     run = {"card": card, "tree": tree}
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = GN_TOL[str(dtype)[6:]]
@@ -77,7 +78,7 @@ def main() -> int:
                 if not bool((d <= atol + rtol * ref.abs()).all()):
                     raise AssertionError(f"K1 off its plain version by {d.max().item()}")
                 t = {"ms": cuda_ms(torch, fn), "device_ms": device_ms(torch, fn),
-                     "bound_ms": 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3}
+                     "bound_ms": 2 * x.numel() * x.element_size() / hbm * 1e3}
             per_site.append({"site": [BATCH, h, w, c], "count": mult, **t})
             print(f"  {str(dtype)[6:]:8s} {BATCH}x{h}x{w}x{c} x{mult}: device "
                   f"{t['device_ms'] * 1e3:.1f} us ({t['bound_ms'] / t['device_ms']:.0%} of the "

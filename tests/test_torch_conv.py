@@ -6,7 +6,7 @@ convolution of the flipped weight) and weight gradient, held against
 ``F.conv2d`` and its autograd gradients in float64; the split's plain
 version against tests/_tf32x3.py bit for bit; the split kernel's
 indexing, emulated, and the arguments its wrapper passes; the dispatch
-(CPU tensors and bf16 take ``F.conv2d``) and ``conv2d.calls``.
+(CPU tensors and bf16 take ``F.conv2d``) and its count of each path.
 
 On the CPU the TF32 parts' products are exact in fp32 (11 significant bits
 each) and the sums round to nearest, so the compositions here are the
@@ -31,7 +31,7 @@ from probunet_torch.ops import conv as C
 #: itself up to 1e-6); one TF32 product is ~2^-12 off (2e-4 measured)
 TOL_3X = 2 ** -18
 TF32_AT_LEAST = 5e-5
-ZERO_CALLS = dict.fromkeys(C.conv2d.calls, 0)
+ZERO_CALLS = dict.fromkeys(C.PATHS, 0)
 
 
 def _err(got, ref):
@@ -39,9 +39,10 @@ def _err(got, ref):
 
 
 @pytest.fixture
-def calls(monkeypatch):
-    monkeypatch.setattr(C.conv2d, "calls", dict(ZERO_CALLS))
-    return C.conv2d.calls
+def calls():
+    """The launch counter zeroed, and a reader of conv2d's counts by path."""
+    _build.reset_launches()
+    return lambda: {path: _build.launches("conv2d", path) for path in ZERO_CALLS}
 
 
 CASES = [(3, 7, 1, 0, 1), (5, 7, 3, 1, 1), (7, 5, 3, 0, 1), (9, 6, 3, (0, 1), 1),
@@ -78,7 +79,7 @@ def test_3xtf32_compositions_match_float64(calls, cin, cout, k, padding, stride)
     for got, want in ((y, ref), (dx, dx_ref)):
         assert got.dtype == torch.float32 and got.shape == want.shape
         assert _err(got, want) <= TOL_3X
-    assert calls == {**ZERO_CALLS, "tf32x3_fwd": 1, "tf32x3_dgrad": 1}
+    assert calls() == {**ZERO_CALLS, "tf32x3_fwd": 1, "tf32x3_dgrad": 1}
 
     (xh, xl), (wh, wl), (dh, dl) = (split_ref(t.contiguous()) for t in (x, w, dy))
 
@@ -119,7 +120,7 @@ def test_strict_training_conv_matches_float64(monkeypatch, calls, cin, cout, k, 
         assert got.dtype == torch.float32 and got.shape == want.shape
         assert _err(got, want) <= TOL_3X
     routed = transposed and stride == 1 and k > 1
-    assert calls == {**ZERO_CALLS, "ieee_fwd": int(not routed),
+    assert calls() == {**ZERO_CALLS, "ieee_fwd": int(not routed),
                      "ieee_fwd_transposed": int(routed), "tf32x3_dgrad": 1, "ieee_wgrad": 1}
 
 
@@ -245,7 +246,7 @@ def test_split_kernel_arguments_and_indexing(monkeypatch, calls, dim, layout, ve
     assert out.shape == ((2 * b, c, h, w) if dim == 0 else (b, 2 * c, h, w))
     assert out.is_contiguous(memory_format=torch.channels_last)
     assert hi.shape == x.shape and hi.is_contiguous(memory_format=torch.channels_last)
-    assert calls["split"] == 1
+    assert calls()["split"] == 1
     for got, want in zip(_emulate_kernel(x, order, dim, vec),
                          C._plain_split(x, order, dim)):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -268,7 +269,7 @@ def test_cpu_and_bf16_take_f_conv2d(calls, dtype):
     assert torch.equal(y, ref)
     for got, want in ((xa, xr), (wa, wr), (ba, br)):
         assert torch.equal(got.grad, want.grad)
-    assert calls == {**ZERO_CALLS, "plain": 1}
+    assert calls() == {**ZERO_CALLS, "plain": 1}
 
 
 def test_calls_count_only_the_gradients_asked_for(calls):
@@ -281,7 +282,7 @@ def test_calls_count_only_the_gradients_asked_for(calls):
     y = C._StrictConv.apply(x, w, None, (1, 1), (1, 1))
     y.sum().backward()
     assert w.grad is not None and w.grad.shape == w.shape
-    assert calls == {**ZERO_CALLS, "ieee_fwd": 1, "ieee_wgrad": 1}
+    assert calls() == {**ZERO_CALLS, "ieee_fwd": 1, "ieee_wgrad": 1}
 
 
 def test_cudnn_calls_set_and_restore_the_tf32_flag():
@@ -327,8 +328,8 @@ def test_every_model_convolution_goes_through_conv2d(monkeypatch, calls):
     x = torch.rand(2, 16, 16, 3, generator=torch.Generator().manual_seed(1))
     loss = model.elbo(x, x, eps=torch.zeros(2, 4))[0]
     loss.backward()
-    assert calls["plain"] == len(made) > 10
-    assert calls == {**ZERO_CALLS, "plain": len(made)}
+    assert calls()["plain"] == len(made) > 10
+    assert calls() == {**ZERO_CALLS, "plain": len(made)}
 
 
 def test_split_refuses_what_the_kernel_does_not_take():

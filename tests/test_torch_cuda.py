@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from probunet_torch.ops import _build
 from probunet_torch.ops import attention as K2
 from probunet_torch.ops import gn_silu as K1
 from probunet_torch.ops.norm import group_stats, num_groups_for
@@ -59,13 +60,13 @@ def test_gn_silu_kernel_matches_plain(dev, dtype, b, h, w, c):
     x = (torch.randn(b, h, w, c, device=dev, generator=gen) * 2 + 1).to(dtype)
     gamma = torch.randn(c, device=dev, generator=gen)
     beta = torch.randn(c, device=dev, generator=gen)
-    before = K1.gn_silu.launches
+    _build.reset_launches()
     with torch.no_grad():
         out, mean, rstd = K1.gn_silu(x, gamma, beta, g, return_stats=True)
         again = K1.gn_silu(x, gamma, beta, g, return_stats=True)
         ref = K1._plain_gn_silu(x, gamma, beta, g)[0]
         rmean, rrstd = group_stats(x, g)
-    assert K1.gn_silu.launches == before + 2
+    assert _build.launches("gn_silu") == 2
     # fp32: summation order only; bf16: one rounding of an fp32 result apart
     atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 2 ** -8)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
@@ -100,13 +101,12 @@ def test_gn_silu_kernel_modulated_matches_plain(dev, dtype, mod, rows, b, h, w, 
     n = b if rows == "per_sample" else 1
     s, t = (0.5 * torch.randn(n, c, device=dev, generator=gen) for _ in range(2))
     kw = {"scale": s, "shift": t} if mod == "scale_shift" else {"shift_in": t}
-    before = dict(K1.gn_silu.launches_by_mod)
+    _build.reset_launches()
     with torch.no_grad():
         out, mean, rstd = K1.gn_silu(x, gamma, beta, g, 1e-5, True, **kw)
         again = K1.gn_silu(x, gamma, beta, g, 1e-5, True, **kw)
         ref, rmean, rrstd = K1._plain_gn_silu(x, gamma, beta, g, 1e-5, **kw)
-    assert K1.gn_silu.launches_by_mod[mod] == before.get(mod, 0) + 2
-    assert K1.gn_silu.launches_by_mod.get("none", 0) == before.get("none", 0)
+    assert _build.launches("gn_silu") == _build.launches("gn_silu", mod) == 2
     # fp32: the constants folded in another order; bf16: the same fp32
     # results rounded once each, so at most one bf16 ulp apart (2^-7 of the
     # value: the modulated outputs reach past 4, where 2^-8 is under an ulp)
@@ -134,11 +134,11 @@ def test_gn_silu_modulated_gradients_on_card(dev, mod):
             leaves = [t.detach().to(where).requires_grad_() for t in (x, gamma, beta, *ops)]
             kw = (dict(zip(("scale", "shift"), leaves[3:])) if mod == "scale_shift"
                   else {"shift_in": leaves[3]})
-            before = K1.gn_silu.launches
+            _build.reset_launches()
             out = K1.gn_silu(*leaves[:3], 16, **kw)
             (out * torch.linspace(-1, 1, out.numel(), device=where).view(out.shape)).sum() \
                 .backward()
-            assert K1.gn_silu.launches == before + (where != "cpu")
+            assert _build.launches("gn_silu") == (where != "cpu")
             grads[str(where)] = [t.grad.cpu() for t in leaves]
         for got, want in zip(grads[str(dev)], grads["cpu"]):
             torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
@@ -169,11 +169,12 @@ def test_k1_launches_by_mod_over_an_edm_and_a_corrdiff_pass(dev):
                 p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(max(1, p[0].numel())))
         x, cond = (torch.randn(shape, device=dev) for _ in range(2))
         sigma = torch.full((shape[0],), 1.3, device=dev)
-        K1.gn_silu.launches_by_mod.clear()
+        _build.reset_launches()
         with torch.inference_mode():
             out = model(x, sigma, condition_img=cond)
         torch.cuda.synchronize()
-        assert K1.gn_silu.launches_by_mod == want
+        assert {m: _build.launches("gn_silu", m) for m in K1.MODS} == {
+            m: want.get(m, 0) for m in K1.MODS}
         assert torch.isfinite(out).all()
         del model, out
 
@@ -199,10 +200,10 @@ def test_gn_silu_kernel_refusals(dev):
         K1.gn_silu(x.half(), w, w, 2)
     with pytest.raises(ValueError):
         K1.gn_silu(x.permute(0, 2, 1, 3), w, w, 2)
-    before, calls = K1.gn_silu.launches, K1.gn_silu.bwd_calls
+    _build.reset_launches()
     xg = x.clone().requires_grad_()
     K1.gn_silu(xg, w, w, 2).sum().backward()
-    assert (K1.gn_silu.launches, K1.gn_silu.bwd_calls) == (before + 1, calls + 1)
+    assert (_build.launches("gn_silu"), _build.launches("gn_silu_bwd")) == (1, 1)
     xc = x.cpu().requires_grad_()
     K1.gn_silu(xc, w.cpu(), w.cpu(), 2).sum().backward()
     torch.testing.assert_close(xg.grad.cpu(), xc.grad, atol=1e-5, rtol=1e-5)
@@ -239,10 +240,10 @@ def test_tf32_split_kernel_matches_tf32x3_split(dev, shape, layout, role):
     elif layout == "unaligned":
         x = torch.cat([torch.zeros(1, device=dev), x.flatten()])[1:].view(shape)
         assert x.data_ptr() % 16
-    before = C.conv2d.calls["split"]
+    _build.reset_launches()
     hi_got, got = C.split(x, order, dim)
     torch.cuda.synchronize()
-    assert C.conv2d.calls["split"] == before + 1
+    assert _build.launches("conv2d", "split") == 1
     hi, lo = split_ref(x.cpu().contiguous())
     want = torch.cat([{"hi": hi, "lo": lo}[p] for p in order], dim)
     for a, b in ((got, want), (hi_got, hi)):
@@ -324,8 +325,11 @@ def test_conv2d_paths_and_the_cudnn_flag_on_card(dev):
     from probunet_torch.ops import conv as C
     from probunet_torch.utils.device import full_fp32
 
-    def delta(before):
-        return {k: v - before[k] for k, v in C.conv2d.calls.items() if v != before[k]}
+    def delta():
+        """The conv2d paths counted since the last call, then reset."""
+        out = {k: _build.launches("conv2d", k) for k in C.PATHS if _build.launches("conv2d", k)}
+        _build.reset_launches()
+        return out
 
     x = torch.randn(2, 8, 16, 16, device=dev).contiguous(memory_format=torch.channels_last)
     w = torch.randn(4, 8, 3, 3, device=dev)
@@ -333,18 +337,16 @@ def test_conv2d_paths_and_the_cudnn_flag_on_card(dev):
     saved = torch.backends.cudnn.allow_tf32
     try:
         with full_fp32():
-            c0 = dict(C.conv2d.calls)
+            _build.reset_launches()
             xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
             C.conv2d(xg, wg, b, 1).square().sum().backward()
             assert torch.backends.cudnn.allow_tf32 is False
-            assert delta(c0) == {"ieee_fwd": 1, "tf32x3_dgrad": 1, "ieee_wgrad": 1, "split": 2}
-            c1 = dict(C.conv2d.calls)
+            assert delta() == {"ieee_fwd": 1, "tf32x3_dgrad": 1, "ieee_wgrad": 1, "split": 2}
             with torch.no_grad():
                 C.conv2d(x, w, b, 1)
-            assert delta(c1) == {"tf32x3_fwd": 1, "split": 2}
-            c2 = dict(C.conv2d.calls)
+            assert delta() == {"tf32x3_fwd": 1, "split": 2}
             C.conv2d(x.bfloat16(), w.bfloat16(), b.bfloat16(), 1)
-            assert delta(c2) == {"plain": 1}
+            assert delta() == {"plain": 1}
             with pytest.raises(RuntimeError):
                 C.conv2d(x, torch.randn(4, 6, 3, 3, device=dev), b, 1)   # 8 != 6 channels
             assert torch.backends.cudnn.allow_tf32 is False
@@ -392,11 +394,11 @@ def test_attention_kernel_matches_plain(dev, mode, layout, b, L, nh):
     gen = torch.Generator(device=dev).manual_seed(L)
     (q, k, v), _ = _qkv(layout, b, L, nh, dtype, dev, gen)
     assert (q.stride(-1) == 1) == (layout != "stride3")
-    before = K2.fused_attention.launches
+    _build.reset_launches()
     with torch.no_grad():
         out = K2.fused_attention(q, k, v, fast)
         ref = K2._plain_attention(q, k, v, fast)
-    assert K2.fused_attention.launches == before + 1
+    assert _build.launches("attention_fwd") == 1
     assert out.shape == (b, L, nh, 64) and out.dtype == dtype and out.is_contiguous()
     # fp32: 3xTF32 against fp32 einsums; bf16: the plain version rounds the
     # logits to bf16, the kernel keeps them fp32
@@ -431,7 +433,7 @@ def test_attention_kernels_refuse_strided_head_dim(dev):
     flat = torch.randn(2 * 16 * 2 * 64 + 1, device=dev)
     odd = flat[1:].view(2, 16, 2, 64)  # unit stride, 4 bytes off alignment
     c = q.contiguous()
-    before = (K2.fused_attention.launches, K2.attention_bwd.launches)
+    _build.reset_launches()
     for bad in ((q, c, c), (c, k, c), (c, c, v), (odd, c, c)):
         with pytest.raises(ValueError, match="unit-stride"):
             K2._launch(*bad, with_lse=True)
@@ -439,7 +441,7 @@ def test_attention_kernels_refuse_strided_head_dim(dev):
     for bad in ((q, c, c, out, c), (c, c, c, out, v), (c, c, c, out, odd)):
         with pytest.raises(ValueError, match="unit-stride"):
             K2._launch_bwd(*bad[:4], lse, bad[4], False)
-    assert (K2.fused_attention.launches, K2.attention_bwd.launches) == (before[0] + 1, before[1])
+    assert (_build.launches("attention_fwd"), _build.launches("attention_bwd")) == (1, 0)
     assert K2.kernel_layout(q).is_contiguous() and K2.kernel_layout(c) is c
 
 
@@ -454,10 +456,9 @@ def test_attention_bwd_kernel_matches_plain(dev, mode, layout, b, L, nh):
     gen = torch.Generator(device=dev).manual_seed(L * nh)
     (q, k, v), grad = _qkv(layout, b, L, nh, dtype, dev, gen, grad=True)
     do = torch.randn(b, L, nh, 64, device=dev, generator=gen).to(dtype)
-    launches = (K2.fused_attention.launches, K2.attention_bwd.launches)
+    _build.reset_launches()
     K2.fused_attention(q, k, v, fast).backward(do)
-    assert (K2.fused_attention.launches, K2.attention_bwd.launches) == \
-        (launches[0] + 1, launches[1] + 1)
+    assert (_build.launches("attention_fwd"), _build.launches("attention_bwd")) == (1, 1)
     ref = K2._plain_attention_bwd(q.detach(), k.detach(), v.detach(), do, fast)
     # the tolerances of test_pallas_attn.py's gradient test, relative to the
     # largest reference gradient but no less than 1e-3 (at L=1 dq and dk are
@@ -546,13 +547,11 @@ def test_attention_head_dims_match_plain(dev, mode, layout, b, L, nh, c):
     gen = torch.Generator(device=dev).manual_seed(L * nh + c)
     (q, k, v), grad = _qkv(layout, b, L, nh, dtype, dev, gen, grad=True, c=c)
     do = torch.randn(b, L, nh, c, device=dev, generator=gen).to(dtype)
-    counts = (K2.fused_attention.launches, K2.attention_bwd.launches)
-    K2.kernel_layout.copies = 0
+    _build.reset_launches()
     out = K2.fused_attention(q, k, v, fast)
     out.backward(do)
-    assert (K2.fused_attention.launches - counts[0], K2.attention_bwd.launches - counts[1]) == \
-        (1, 1)
-    assert K2.kernel_layout.copies == _head_dim_copies(layout, c)
+    assert (_build.launches("attention_fwd"), _build.launches("attention_bwd")) == (1, 1)
+    assert _build.launches("kernel_layout") == _head_dim_copies(layout, c)
     assert out.shape == (b, L, nh, c) and out.dtype == dtype and out.is_contiguous()
     with torch.no_grad():
         ref = K2._plain_attention(q, k, v, fast)
@@ -616,10 +615,9 @@ def test_attention_exact_width_matches_kd128(dev, monkeypatch, fast, b, L, nh, c
     (q, k, v), _ = _qkv("block", b, L, nh, torch.bfloat16, dev, gen, c=c)
     do = torch.randn(b, L, nh, c, device=dev, generator=gen).to(torch.bfloat16)
     with torch.no_grad():
-        before = dict(K2.fused_attention.launches_by_kd)
+        _build.reset_launches()
         own = K2._launch(q, k, v, with_lse=True)
-        assert K2.fused_attention.launches_by_kd.get(f"bf16_kd{kd}", 0) == \
-            before.get(f"bf16_kd{kd}", 0) + 1
+        assert _build.launches("attention_fwd") == _build.launches("attention_fwd", "bf16", kd) == 1
         wide = K2._launch(q, k, v, with_lse=True, kd=128)
         grads = K2._launch_bwd(q, k, v, wide[0], wide[1], do, fast)
         grads_wide = K2._launch_bwd(q, k, v, wide[0], wide[1], do, fast, kd=128)
@@ -685,13 +683,11 @@ def test_attention_fp32_kernels_match_plain(dev, layout, L, c):
     gen = torch.Generator(device=dev).manual_seed(L + c)
     (q, k, v), grad = _qkv(layout, b, L, nh, torch.float32, dev, gen, grad=True, c=c)
     do = torch.randn(b, L, nh, c, device=dev, generator=gen)
-    counts = (K2.fused_attention.launches, K2.attention_bwd.launches)
-    K2.kernel_layout.copies = 0
+    _build.reset_launches()
     out = K2.fused_attention(q, k, v)
     out.backward(do)
-    assert (K2.fused_attention.launches - counts[0], K2.attention_bwd.launches - counts[1]) == \
-        (1, 1)
-    assert K2.kernel_layout.copies == _head_dim_copies(layout, c)
+    assert (_build.launches("attention_fwd"), _build.launches("attention_bwd")) == (1, 1)
+    assert _build.launches("kernel_layout") == _head_dim_copies(layout, c)
     assert out.shape == (b, L, nh, c) and out.dtype == torch.float32 and out.is_contiguous()
     with torch.no_grad():
         ref = K2._plain_attention(q, k, v, False)
@@ -783,13 +779,13 @@ def test_attention_fp32_kd256_matches_plain(dev, layout, b, L, nh, c):
     one launch, counted under ``fp32_kd256``; results of c columns."""
     gen = torch.Generator(device=dev).manual_seed(L + c)
     (q, k, v), _ = _qkv(layout, b, L, nh, torch.float32, dev, gen, c=c)
-    before = K2.fused_attention.launches_by_kd.get("fp32_kd256", 0)
+    _build.reset_launches()
     with torch.no_grad():
         out = K2.fused_attention(q, k, v)
         ref = K2._plain_attention(q, k, v, False)
         _, lse = K2._launch(*map(K2.kernel_layout, (q, k, v)), with_lse=True, c=c)
         logits = torch.einsum("bqhc,bkhc->bhqk", q, k) / math.sqrt(c)
-    assert K2.fused_attention.launches_by_kd["fp32_kd256"] == before + 2
+    assert _build.launches("attention_fwd") == _build.launches("attention_fwd", "fp32", 256) == 2
     assert out.shape == (b, L, nh, c) and out.dtype == torch.float32 and out.is_contiguous()
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
     torch.testing.assert_close(lse, torch.logsumexp(logits, -1).reshape(b * nh, L),
@@ -813,14 +809,14 @@ def test_attention_kd256_backward_raises(dev):
     gen = torch.Generator(device=dev).manual_seed(3)
     (q, k, v), _ = _qkv("contiguous", 2, 64, 1, torch.float32, dev, gen, grad=True, c=256)
     out = K2.fused_attention(q, k, v)
-    before = K2.attention_bwd.launches
+    _build.reset_launches()
     with pytest.raises(NotImplementedError, match="up to 128"):
         out.backward(torch.ones_like(out))
     with torch.no_grad():
         o, lse = K2._launch(q.detach(), k.detach(), v.detach(), with_lse=True)
         with pytest.raises(NotImplementedError, match="kD = 256"):
             K2.attention_bwd(q.detach(), k.detach(), v.detach(), o, lse, torch.ones_like(o))
-    assert K2.attention_bwd.launches == before
+    assert _build.launches("attention_bwd") == 0
 
 
 def _rms_rel(got, ref):
@@ -884,11 +880,10 @@ def test_unet_block_copies_nothing_before_attention(dev, fast, mc):
     assert {b.qkv.weight.shape[0] // 3 // b.heads for b in net.modules()
             if getattr(b, "heads", 0)} == ({64} if mc == 64 else {72})
     x = torch.randn(2, 16, 16, 3, device=dev).to(torch.bfloat16 if fast else torch.float32)
-    K2.kernel_layout.copies = 0
-    launches = (K2.fused_attention.launches, K2.attention_bwd.launches)
+    _build.reset_launches()
     net(x).float().square().sum().backward()
-    assert K2.fused_attention.launches > launches[0] and K2.attention_bwd.launches > launches[1]
-    assert K2.kernel_layout.copies == 0
+    assert _build.launches("attention_fwd") > 0 and _build.launches("attention_bwd") > 0
+    assert _build.launches("kernel_layout") == 0
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -994,13 +989,11 @@ def test_remat_launch_counts_and_gradients(dev):
             state, step, hr, stats = _tiny_train_state(dev, remat=remat)
             blocks = [m for m in state.model.unet.modules() if isinstance(m, UNetBlock)]
             attn = sum(1 for m in blocks if m.heads)
-            counts = (K1.gn_silu.launches, K2.fused_attention.launches,
-                      K2.attention_bwd.launches, K2.kernel_layout.copies)
+            _build.reset_launches()
             m = step(state, hr, stats, torch.tensor([0, 3], device=dev), 5)
             torch.cuda.synchronize()
-            n = tuple(after - before for after, before in zip(
-                (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches,
-                 K2.kernel_layout.copies), counts))
+            n = tuple(_build.launches(k) for k in ("gn_silu", "attention_fwd", "attention_bwd",
+                                                   "kernel_layout"))
             k = 2 if remat else 1
             assert n == (2 * k * len(blocks) + 1, k * attn, attn, 0), (remat, n)
             out[remat] = (m["train_loss"].item(),
@@ -1075,11 +1068,10 @@ def test_deterministic_step_launches_k1_only(dev):
         state = create_train_state(m, make_optimizer())
         step = make_deterministic_train_step(m, 4, "perpixel", timetransform="cyclic")
         h = hr.to(where)
-        counts = (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches)
+        _build.reset_launches()
         metrics = step(state, h, (h.mean(0), h.std(0)), torch.tensor([0, 4], device=where),
                        ts[[0, 4]].to(where), 3)
-        n = tuple(a - b for a, b in zip(
-            (K1.gn_silu.launches, K2.fused_attention.launches, K2.attention_bwd.launches), counts))
+        n = tuple(_build.launches(k) for k in ("gn_silu", "attention_fwd", "attention_bwd"))
         out[str(where)] = (metrics["train_loss"].item(), n,
                            {k: p.grad.cpu() for k, p in m.named_parameters()})
     sites = sum(isinstance(mod, GroupNormSiLU) for mod in model.modules())

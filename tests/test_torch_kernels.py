@@ -108,9 +108,9 @@ def test_gn_silu_modulated_plain_matches_the_unfused_chain(mod, rows, dtype):
         out.backward(gout.to(out.dtype))
         return out, [t.grad for t in leaves]
 
-    calls = tgn.gn_silu.bwd_calls
+    calls = _build.launches("gn_silu_bwd")
     out, grads = run(tgn.gn_silu)
-    assert tgn.gn_silu.bwd_calls == calls + 1
+    assert _build.launches("gn_silu_bwd") == calls + 1
     ref, ref_grads = run(_unfused_chain)
     assert out.dtype == dtype and grads[0].dtype == dtype
     assert [t.shape for t in grads[3:]] == [(n, c)] * len(ops)
@@ -218,19 +218,20 @@ def test_kernel_layout_reads_block_views_in_place():
     assert odd.data_ptr() % 16 and tatt.kernel_layout(odd) is not odd
 
 
-def test_kernel_layout_counts_its_copies(monkeypatch):
-    """kernel_layout.copies moves by one for each tensor copied and not at
-    all for the block's views, which chip_smoke.py relies on to show that
-    the main paths copy nothing before the attention kernels."""
-    monkeypatch.setattr(tatt.kernel_layout, "copies", 0)
+def test_kernel_layout_counts_its_copies():
+    """The count of kernel_layout's copies moves by one for each tensor
+    copied and not at all for the block's views, which chip_smoke.py relies
+    on to show that the main paths copy nothing before the attention
+    kernels."""
+    _build.reset_launches()
     y, views = _qkv_leaf("block")
     for a in views(y):
         tatt.kernel_layout(a)
-    assert tatt.kernel_layout.copies == 0
+    assert _build.launches("kernel_layout") == 0
     y3, views3 = _qkv_leaf("stride3")
     for a in views3(y3):
         tatt.kernel_layout(a)
-    assert tatt.kernel_layout.copies == 3
+    assert _build.launches("kernel_layout") == 3
 
 
 # ---- the C entry points against the wrappers -------------------------------------
@@ -295,10 +296,7 @@ def fake_lib(monkeypatch):
     monkeypatch.setattr(_build, "lib", lambda: lib)
     monkeypatch.setattr(_build, "stream_handle", lambda device: ctypes.c_void_p(0))
     monkeypatch.setattr(_build, "num_sms", lambda index: 132)
-    monkeypatch.setattr(tatt.fused_attention, "launches", 0)
-    monkeypatch.setattr(tatt.attention_bwd, "launches", 0)
-    monkeypatch.setattr(tatt.fused_attention, "launches_by_kd", {})
-    monkeypatch.setattr(tatt.attention_bwd, "launches_by_kd", {})
+    _build.reset_launches()
     return lib
 
 
@@ -353,10 +351,10 @@ def test_attention_wrappers_pass_the_declared_arguments(fake_lib, monkeypatch):
             p = tatt.fp32_plan(64)
             assert fargs[-5:-1] == (0, 64, p.fwd_tile, 64) == (0, 64, 64, 64)
             assert bargs[-5:-1] == (0, 1, p.bwd_tile, 64) and strict_args[-5:-1] == (0, 0, 64, 64)
-        assert tatt.fused_attention.launches_by_kd == {f"{'bf16' if bf16 else 'fp32'}_kd64": 1}
-        assert tatt.attention_bwd.launches_by_kd == {f"{'bf16' if bf16 else 'fp32'}_kd64": 2}
-        tatt.fused_attention.launches_by_kd.clear()
-        tatt.attention_bwd.launches_by_kd.clear()
+        dt = "bf16" if bf16 else "fp32"
+        assert _build.launches("attention_fwd") == _build.launches("attention_fwd", dt, 64) == 1
+        assert _build.launches("attention_bwd") == _build.launches("attention_bwd", dt, 64) == 2
+        _build.reset_launches()
         scratch = next(t for t in made if t.data_ptr() == bargs[6])
         assert scratch.dtype == torch.float32
         assert tuple(scratch.shape) == tatt.bwd_scratch_shape(b, h, L) == (b * h, -(-L // 64), 2, 64)
@@ -375,13 +373,12 @@ def test_attention_wrappers_at_other_head_dims(fake_lib, monkeypatch, dtype, c, 
     results are the first c columns. (fake_lib: the outputs' bits are
     whatever torch.empty left.)"""
     assert tatt.kernel_width(c) == width
-    monkeypatch.setattr(tatt.kernel_layout, "copies", 0)
     rng = np.random.default_rng(c)
     y = torch.from_numpy(rng.standard_normal((2, 64, 3, 2, c)).astype(np.float32)).to(dtype)
     q, k, v = y.unbind(2)
     in_place = width == c
     kq, kk, kv = map(tatt.kernel_layout, (q, k, v))
-    assert tatt.kernel_layout.copies == (0 if in_place else 3)
+    assert _build.launches("kernel_layout") == (0 if in_place else 3)
     assert (kq is q) == in_place and kq.shape == (2, 64, 2, width)
     if not in_place:  # zero-padded copies: the first c columns, then zeros
         assert torch.equal(kq[..., :c], q) and not kq[..., c:].any() and kq.is_contiguous()
@@ -389,7 +386,7 @@ def test_attention_wrappers_at_other_head_dims(fake_lib, monkeypatch, dtype, c, 
     assert out.shape == (2, 64, 2, width)
     do = torch.zeros(2, 64, 2, c, dtype=dtype)
     grads = tatt._kernel_bwd(kq, kk, kv, out, lse, do, True, c)  # attention_bwd's CUDA path
-    assert tatt.kernel_layout.copies == (0 if in_place else 4)   # + dO padded
+    assert _build.launches("kernel_layout") == (0 if in_place else 4)   # + dO padded
     assert [g.shape for g in grads] == [(2, 64, 2, c)] * 3
     assert all(g.is_contiguous() for g in grads)
     (fwd, fargs), (bwd, bargs) = fake_lib.calls
@@ -422,12 +419,11 @@ def test_attention_wrappers_pass_the_exact_head_width(fake_lib, monkeypatch, c, 
     the counts by head width see each launch; a kd not built is refused
     before any call."""
     monkeypatch.setattr(_build, "num_sms", lambda index: 8)
-    monkeypatch.setattr(tatt.kernel_layout, "copies", 0)
     rng = np.random.default_rng(c)
     y = torch.from_numpy(rng.standard_normal((2, 256, 3, 2, c)).astype(np.float32)).to(
         torch.bfloat16)
     q, k, v = map(tatt.kernel_layout, y.unbind(2))
-    assert tatt.kernel_layout.copies == (0 if width == c else 3)
+    assert _build.launches("kernel_layout") == (0 if width == c else 3)
     assert (q.data_ptr() == y.data_ptr()) == (width == c)
     do = torch.zeros(2, 256, 2, width, dtype=torch.bfloat16)
     for want in (kd, 128):
@@ -442,10 +438,10 @@ def test_attention_wrappers_pass_the_exact_head_width(fake_lib, monkeypatch, c, 
         assert bargs[-4:-1] == (1, p.bwd_rows, want) and sargs[-4:-1] == (0, p.bwd_split_rows, want)
         rows = {80: (128, 128, 64, 64), 96: (64, 64, 64, 64), 128: (64, 64, 64, 64)}[want]
         assert p[:4] == rows
-    assert tatt.fused_attention.launches_by_kd == ({"bf16_kd128": 2} if kd == 128 else
-                                                   {f"bf16_kd{kd}": 1, "bf16_kd128": 1})
-    assert tatt.attention_bwd.launches_by_kd == ({"bf16_kd128": 4} if kd == 128 else
-                                                 {f"bf16_kd{kd}": 2, "bf16_kd128": 2})
+    for kernel, per_run in (("attention_fwd", 1), ("attention_bwd", 2)):
+        assert _build.launches(kernel) == 2 * per_run
+        assert _build.launches(kernel, "bf16", kd) == (2 if kd == 128 else 1) * per_run
+        assert _build.launches(kernel, "bf16", 128) == (2 if kd == 128 else 1) * per_run
     fake_lib.calls.clear()
     for bad in (72, 112):
         with pytest.raises(ValueError, match="kd"):
@@ -533,7 +529,6 @@ def test_gn_silu_counts_launches_by_mod(fake_lib, monkeypatch):
     stride 2C), and with a shared (1, C) shift added before the norm (batch
     stride 0); the entry point gets mod, the operands and their strides."""
     monkeypatch.setattr(tgn, "_num_sms", lambda index: 132)
-    monkeypatch.setattr(tgn.gn_silu, "launches_by_mod", {})
     x, gamma, beta = (torch.from_numpy(a) for a in _gn_data(b=2, c=64))
     params = torch.randn(2, 128)
     scale, shift = params.chunk(2, dim=1)
@@ -545,7 +540,7 @@ def test_gn_silu_counts_launches_by_mod(fake_lib, monkeypatch):
     assert tail == [(0, None, None, 0, 0),
                     (1, scale.data_ptr(), shift.data_ptr(), 128, 128),
                     (2, None, row.data_ptr(), 0, 0)]
-    assert tgn.gn_silu.launches_by_mod == {"none": 1, "scale_shift": 1, "shift_in": 1}
+    assert [_build.launches("gn_silu", m) for m in tgn.MODS] == [1, 1, 1]
 
 
 def test_gn_silu_counts_launches_by_plan(fake_lib, monkeypatch):
@@ -553,14 +548,13 @@ def test_gn_silu_counts_launches_by_plan(fake_lib, monkeypatch):
     cluster (b2, 8x8x64) under on_chip, CorrDiff's 448x448 level of 128
     channels (a 3.2 MB group slice in fp32) under streamed."""
     monkeypatch.setattr(tgn, "_num_sms", lambda index: 132)
-    monkeypatch.setattr(tgn.gn_silu, "launches", 0)
-    monkeypatch.setattr(tgn.gn_silu, "launches_by_plan", {})
     for shape in ((2, 8, 8, 64), (1, 448, 448, 128), (2, 8, 8, 64)):
         x = torch.empty(shape)
         tgn._launch(x, torch.ones(shape[-1]), torch.zeros(shape[-1]), 32, 1e-6)
     assert not tgn.plan(1, 448, 448, 128, 32, 4, 132).on_chip
-    assert tgn.gn_silu.launches == 3
-    assert tgn.gn_silu.launches_by_plan == {"on_chip": 2, "streamed": 1}
+    assert _build.launches("gn_silu") == 3
+    assert _build.launches("gn_silu", "on_chip") == 2
+    assert _build.launches("gn_silu", "streamed") == 1
 
 
 @pytest.mark.parametrize("c", [256, 200, 136])
@@ -579,7 +573,7 @@ def test_attention_wrappers_at_kd256(fake_lib, c):
     assert fwd == "probunet_attention_fwd" and fargs[5:9] == (2, 1, 64, c)
     assert fargs[18] == pytest.approx(1 / math.sqrt(c), rel=1e-7)
     assert fargs[-5:-1] == (0, 64, 32, 256)
-    assert tatt.fused_attention.launches_by_kd == {"fp32_kd256": 1}
+    assert _build.launches("attention_fwd") == _build.launches("attention_fwd", "fp32", 256) == 1
     assert out.shape == (2, 64, 1, c) and lse.shape == (2, 64)
 
 
@@ -599,13 +593,12 @@ def test_attention_launch_refuses_strided_head_dim(fake_lib):
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
-    tgn.gn_silu.launches = 0
-    tatt.fused_attention.launches = 0
+    _build.reset_launches()
     x, gamma, beta = _gn_data()
     tgn.gn_silu(torch.from_numpy(x), torch.from_numpy(gamma), torch.from_numpy(beta), 16)
     q, k, v = (torch.from_numpy(a) for a in _qkv(64))
     tatt.fused_attention(q, k, v)
-    assert tgn.gn_silu.launches == 0 and tatt.fused_attention.launches == 0
+    assert _build.launches("gn_silu") == 0 and _build.launches("attention_fwd") == 0
 
 
 def test_cpu_autograd_leaves_launch_counters_at_zero():
@@ -613,7 +606,7 @@ def test_cpu_autograd_leaves_launch_counters_at_zero():
     q/k/v views of the block's interleaved qkv tensor, by the plain versions:
     no kernel counter moves, and the views' gradients are those of
     contiguous copies."""
-    tgn.gn_silu.launches = tatt.fused_attention.launches = tatt.attention_bwd.launches = 0
+    _build.reset_launches()
     x, gamma, beta = _gn_data()
     xt = torch.from_numpy(x).requires_grad_()
     tgn.gn_silu(xt, torch.from_numpy(gamma), torch.from_numpy(beta), 16).square().sum().backward()
@@ -626,8 +619,42 @@ def test_cpu_autograd_leaves_launch_counters_at_zero():
     tatt.fused_attention(*parts).square().sum().backward()
     for i in range(3):
         torch.testing.assert_close(yg.grad[..., i], parts[i].grad, rtol=0, atol=0)
-    assert (tgn.gn_silu.launches, tatt.fused_attention.launches,
-            tatt.attention_bwd.launches) == (0, 0, 0)
+    assert [_build.launches(k) for k in ("gn_silu", "attention_fwd", "attention_bwd")] == [0] * 3
+
+
+def test_one_reset_clears_every_launch_count(fake_lib, monkeypatch):
+    """One reset_launches zeroes every kernel's total and each split the
+    counter keeps: K1 by plan and by modulation, K2 and K3 by dtype and
+    head width, the copies before an attention launch, conv2d's paths and
+    the split kernel (launched here through the recorder, CPU tensors
+    standing in). After it a CPU call of the plain K1, K2 and K3 counts
+    nothing, a plain convolution counts under "plain" and a copy of a
+    stride-3 view counts under "kernel_layout"."""
+    from probunet_torch.ops import conv as C
+
+    monkeypatch.setattr(tgn, "_num_sms", lambda index: 132)
+    x, gamma, beta = (torch.from_numpy(a) for a in _gn_data(b=2, c=64))
+    tgn._launch(x, gamma, beta, 16, 1e-5, shift_in=torch.randn(1, 64))
+    y3, views3 = _qkv_leaf("stride3")
+    q, k, v = map(tatt.kernel_layout, views3(y3))
+    out, lse = tatt._launch(q, k, v, with_lse=True)
+    tatt._launch_bwd(q, k, v, out, lse, torch.zeros_like(out), fast=False)
+    C._launch_split(torch.zeros(2, 4, 3, 3), C.X_FWD, 1)
+    C.conv2d(torch.zeros(1, 4, 3, 3), torch.zeros(2, 4, 1, 1))
+    keys = [("gn_silu",), ("gn_silu", "on_chip"), ("gn_silu", "shift_in"), ("attention_fwd",),
+            ("attention_fwd", "fp32", 64), ("attention_bwd",), ("attention_bwd", "fp32", 64),
+            ("kernel_layout",), ("conv2d",), ("conv2d", "split"), ("conv2d", "plain")]
+    assert [_build.launches(*key) for key in keys] == [1, 1, 1, 1, 1, 1, 1, 3, 2, 1, 1]
+    _build.reset_launches()
+    assert [_build.launches(*key) for key in keys] == [0] * len(keys)
+    tgn.gn_silu(x, gamma, beta, 16)
+    cq, ck, cv = views3(y3)
+    tatt.fused_attention(cq, ck, cv)
+    tatt.attention_bwd(cq, ck, cv, None, None, torch.zeros_like(cq))
+    C.conv2d(torch.zeros(1, 4, 3, 3), torch.zeros(2, 4, 1, 1))
+    tatt.kernel_layout(cq)
+    assert fake_lib.calls[-1][0] == "probunet_tf32_split" and len(fake_lib.calls) == 4
+    assert [_build.launches(*key) for key in keys] == [0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 1]
 
 
 def _k1_sites(res=128):
@@ -737,7 +764,6 @@ def test_gn_silu_wrapper_passes_the_declared_arguments(fake_lib, monkeypatch, dt
     the three outputs (no partials buffer), then the shape and the plan; one
     launch counted. A view off a 16-byte boundary goes scalar (vec 1)."""
     monkeypatch.setattr(tgn, "_num_sms", lambda index: 132)
-    monkeypatch.setattr(tgn.gn_silu, "launches", 0)
     x, gamma, beta = (torch.from_numpy(a) for a in _gn_data(b=2, h=8, w=8, c=64))
     if not aligned:
         x = torch.cat([torch.zeros(1), x.flatten()])[1:].view(x.shape)
@@ -757,7 +783,7 @@ def test_gn_silu_wrapper_passes_the_declared_arguments(fake_lib, monkeypatch, dt
     assert args[14:17] == (1e-5, int(dtype == torch.bfloat16), vec)
     assert args[17:22] == (0, None, None, 0, 0)       # unmodulated: no operands
     assert (out.shape, out.dtype, mean.shape, rstd.shape) == (x.shape, dtype, (2, 16), (2, 16))
-    assert tgn.gn_silu.launches == 1
+    assert _build.launches("gn_silu") == _build.launches("gn_silu", "on_chip", "none") == 1
 
 
 def test_kernel_modules_import_without_nvcc_or_triton():

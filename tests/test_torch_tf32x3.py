@@ -22,10 +22,8 @@ import pytest
 import torch
 from _tf32x3 import _bh, emulated_bwd, emulated_fwd, split, tf32
 
+from chip_smoke import ATTN_BWD_TOL, ATTN_TOL
 from probunet_tpu.ops.pallas_attn import _bwd_pallas, _xla_attention
-
-ATTN_TOL_STRICT = 2e-5        # chip_smoke.py ATTN_TOL["strict"]
-ATTN_BWD_TOL_FLOAT32 = 1e-4   # chip_smoke.py ATTN_BWD_TOL["float32"]
 
 
 def _blhc(a, b, h):
@@ -61,8 +59,8 @@ def test_tf32x3_attention_matches_jax_strict(c, L):
     tq, tk, tv, tdo = (_bh(torch.from_numpy(a)) for a in (q, k, v, do))
     o, lse = emulated_fwd(tq, tk, tv)
     ref = np.asarray(_xla_attention(*(jnp.asarray(a) for a in (q, k, v)), False))
-    np.testing.assert_allclose(_blhc(o, b, h).numpy(), ref, atol=ATTN_TOL_STRICT,
-                               rtol=ATTN_TOL_STRICT)
+    np.testing.assert_allclose(_blhc(o, b, h).numpy(), ref, atol=ATTN_TOL["strict"],
+                               rtol=ATTN_TOL["strict"])
     ref_lse = torch.logsumexp(tq.double() @ tk.double().transpose(-1, -2) / math.sqrt(c), -1)
     assert (lse.double() - ref_lse).abs().max().item() <= 1e-5
 
@@ -72,7 +70,7 @@ def test_tf32x3_attention_matches_jax_strict(c, L):
     for g, r in zip(grads, ref_g):
         r = np.asarray(r)
         err = np.abs(_blhc(g, b, h).numpy() - r).max() / max(1e-3, np.abs(r).max())
-        assert err <= ATTN_BWD_TOL_FLOAT32, err
+        assert err <= ATTN_BWD_TOL["float32"], err
 
 
 def test_tf32x3_one_hot_rows_give_zero_ds():

@@ -15,6 +15,7 @@ from test_torch_models import PROB_KW, _params
 from probunet_torch.data import transforms as tt
 from probunet_torch.models import ProbabilisticUNet as TProbUNet
 from probunet_torch.models.layers import dropout
+from probunet_torch.ops import _build
 from probunet_torch.ops import attention as tatt
 from probunet_torch.ops import crps as tcrps
 from probunet_torch.ops import gn_silu as tgn
@@ -97,9 +98,9 @@ def test_gn_silu_bwd_matches_jax(dtype):
                      jnp.asarray(beta.numpy()))
     ref = vjp(jnp.asarray(_np(gout)).astype(jdt))
     xs, ws, bs = (t.clone().requires_grad_() for t in (x, gamma, beta))
-    calls = tgn.gn_silu.bwd_calls
+    calls = _build.launches("gn_silu_bwd")
     tgn.gn_silu(xs, ws, bs, g).backward(gout)
-    assert tgn.gn_silu.bwd_calls == calls + 1
+    assert _build.launches("gn_silu_bwd") == calls + 1
     assert xs.grad.dtype == dtype and ws.grad.dtype == bs.grad.dtype == torch.float32
     # the same fp32 math line for line, fp32 sums in another order; a bf16
     # dx is rounded once on each side, which may land one bf16 ulp apart
