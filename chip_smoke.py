@@ -77,8 +77,9 @@ benchmark runs; the rates of the calls the cells run (BENCHMARK.json,
   8. the training path: the model with its own init, 10 AdamW steps at b8
      in each mode on a fixed batch and eps with dropout 0.1; launch
      counters must show 57 K1, 11 K2 and 11 K3 launches per step and no
-     copy before them; loss and
-     gradient norm finite, the loss falling; peak device memory;
+     copy before them, and in fast mode (bf16 AdamW state) one fused
+     AdamW launch per step and no foreach update (neither in strict); loss
+     and gradient norm finite, the loss falling; peak device memory;
   9. one training step on the card against the plain step on the CPU: b=1,
      dropout 0, the same filled weights and eps; loss, gradient norm, every
      gradient and the parameters after the AdamW step;
@@ -260,8 +261,17 @@ benchmark runs; the rates of the calls the cells run (BENCHMARK.json,
      its plain version, SDPA (fp32, TF32 off) and the bound. The kernels
      line gets an ``attention_fwd_kd256`` entry and K1's entry the path's
      launches by plan.
+ 19. the bf16 AdamW update (``csrc/adamw_bf16.cu``) on the 128x128
+     prob-U-Net's 103,541,083 parameters in their own layouts: the
+     kernel's threads, registers and spills (none allowed); 3 updates
+     against the foreach path on a copy with the same gradients, p, mu and
+     nu bit-equal after each, one launch a step; the kernel alone by
+     device time and CUDA events, and the host's ms a call (the table
+     built and written each call), beside the foreach path and the bytes
+     bound (24 bytes an element). The kernels line gets an
+     ``adamw_bf16`` entry.
 
-Every device time of a kernel or of SDPA (phases 6, 10, 16-18) comes from one
+Every device time of a kernel or of SDPA (phases 6, 10, 16-19) comes from one
 estimator, ``device_ms(whole=True)``: each kernel's mean launch pooled over
 five traces times its launches per call, which records the profiler loses
 late in a long run do not bias. Any failed phase
@@ -449,6 +459,13 @@ BROADCAST_KERNEL = "elementwise_kernel<128, 2"
 # copied zero-padded (129 -> 136)
 KD256_SITE = (2, 784, 1, 256)
 KD256_CASES = [KD256_SITE, (1, 1, 1, 256), (1, 65, 2, 256), (2, 100, 1, 200), (2, 100, 1, 129)]
+# phase 19, the bf16 AdamW update (csrc/adamw_bf16.cu) on the prob-U-Net's
+# parameter list (EXPECTED_PARAMS): the fused launch against the foreach path
+# over ADAMW_STEPS steps, bit-equal; its bound reads p, grad and nu in fp32
+# and mu in bf16 and writes p, mu and nu, ADAMW_BYTES an element
+ADAMW_STEPS = 3
+ADAMW_BYTES = 24
+ADAMW_HYPER = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01, lr=1e-3)
 
 
 def log(msg=""):
@@ -1250,6 +1267,7 @@ def run_phases(torch, dev, card, sass):
     mc96 = mc96_phase(torch, dev, card, ds, ds_cpu, gen, mark)
     conv = conv_phase(torch, dev, card, mark)
     corrdiff = corrdiff_phase(torch, dev, card, gen, mark)
+    adamw = adamw_phase(torch, dev, card, mark)
 
     def entry(name, source, replaces, n, err, tol, t, extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1349,6 +1367,18 @@ def run_phases(torch, dev, card, sass):
                         f"hi and [lo, hi]; bit-equal to the plain version",
                "device_ms": conv["split"]["device_ms"], "launches_by_path": conv["launches"],
                "convolutions": conv["report"]}),
+        entry("adamw_bf16", "probunet_torch/csrc/adamw_bf16.cu",
+              "none: the bf16-state AdamW update (train/state.py::AdamWBf16State)",
+              adamw["launches"]["fused"] + train["adamw"]["fused"], 0.0, 0.0, adamw["t"],
+              {"timed": f"one update of the {EXPECTED_PARAMS:,} parameters of the {RES}x{RES} "
+                        f"prob-U-Net ({adamw['layouts']['tensors']} tensors); bit-equal to the "
+                        f"foreach path",
+               "device_ms": adamw["t"]["device_ms"],
+               "plain_device_ms": adamw["t"]["plain_device_ms"],
+               "host_ms": adamw["t"]["host_ms"], "plain_host_ms": adamw["t"]["plain_host_ms"],
+               "launches_by_path": {"train_fast": train["adamw"]["fused"],
+                                    "phase19": adamw["launches"]["fused"]},
+               "kernel": adamw["info"]}),
     ]
 
 
@@ -1549,6 +1579,7 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
         wall = time.perf_counter() - t0
         n = tuple(map(_build.launches, KERNELS))
         copies = _build.launches("kernel_layout")
+        adamw = {k: _build.launches("adamw_bf16", k) for k in ("fused", "foreach")}
         want = (TRAIN_STEPS * K1_PER_BATCH, TRAIN_STEPS * K2_PER_BATCH, TRAIN_STEPS * K3_PER_STEP)
         losses = [m["train_loss"].item() for m in ms]
         norms = [m["grad_norm"].item() for m in ms]
@@ -1556,6 +1587,8 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
             f"{n[0]}, K2 {n[1]}, K3 {n[2]} (expected {want}); q/k/v/out/dO copies before "
             f"the attention launches {copies}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"[8] train {name}: the bf16 AdamW update's fused launches {adamw['fused']}, "
+            f"foreach updates {adamw['foreach']}")
         log(f"[8] train {name}: loss {[round(x, 1) for x in losses]}")
         log(f"[8] train {name}: grad norm {[round(x, 2) for x in norms]}; kl "
             f"{ms[-1]['kl_div'].item():.4g}, beta {ms[-1]['beta']}")
@@ -1563,6 +1596,12 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
             raise AssertionError(f"training launches {n}, expected {want} ({K1_PER_BATCH} K1, "
                                  f"{K2_PER_BATCH} K2 and {K3_PER_STEP} K3 per step); {copies} "
                                  f"tensors copied before a launch, expected 0")
+        fused = TRAIN_STEPS if c.opt_state_dtype == "bfloat16" else 0
+        if (adamw["fused"], adamw["foreach"]) != (fused, 0):
+            raise AssertionError(f"{name}: expected {fused} fused AdamW launches (one a step) "
+                                 f"and no foreach update, got {adamw}")
+        if fused:
+            counts_adamw = adamw
         if not all(math.isfinite(x) for x in losses + norms):
             raise AssertionError(f"{name}: non-finite loss or gradient norm")
         if not losses[-1] < losses[0]:
@@ -1639,7 +1678,8 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
         log(f"[10] per U-Net pass at b{BATCH} ({name}): " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in tt.items()))
     mark(10)
-    return {"launches": counts, "k3_err": {"float32": k3_abs["strict"]}, "k3_rel": k3_rel,
+    return {"launches": counts, "adamw": counts_adamw,
+            "k3_err": {"float32": k3_abs["strict"]}, "k3_rel": k3_rel,
             "k3_t": k3_t, "k2_lse": k2_lse, "ds_check": {**ds_seen, "limit": DS_SPLIT_TOL}}
 
 
@@ -4276,6 +4316,104 @@ def corrdiff_phase(torch, dev, card, gen, mark):
     mark(18)
     return {"k2_err": worst, "k1_err": k1_worst, "k2_t": t, "launches": launches,
             "report": report}
+
+
+def adamw_phase(torch, dev, card, mark):
+    """Phase 19: the bf16 AdamW update on the 128x128 prob-U-Net's parameter
+    list (EXPECTED_PARAMS, in the model's own layouts: channels_last
+    convolution weights): the kernel's threads, registers and spills (none
+    allowed); ADAMW_STEPS updates by ``AdamWBf16State`` (the fused launch)
+    against ``adamw_bf16._plain_update`` (the foreach path) on a copy with
+    the same gradients, p, mu and nu bit-equal after each, one launch a
+    step; then both timed alone, device time and CUDA events, and the
+    host's ms a call (the fused one builds and writes its table each call),
+    beside the bytes bound. Returns the kernel's entry fields."""
+    from probunet_torch.config import Config
+    from probunet_torch.ops import _build
+    from probunet_torch.ops import adamw_bf16 as A
+    from probunet_torch.train.loop import build_probunet
+    from probunet_torch.train.state import AdamWBf16State
+
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.lib().probunet_adamw_bf16_query(out), "adamw_bf16 query")
+    info = dict(zip(("threads", "registers", "spill_bytes", "chunk", "blocks_per_sm"), out))
+    log(f"[19] adamw_bf16 kernel: {info['threads']} threads, {info['registers']} registers, "
+        f"{info['spill_bytes']} bytes spilled, chunks of {info['chunk']}, "
+        f"{info['blocks_per_sm']} blocks an SM")
+    if info["spill_bytes"]:
+        raise AssertionError("the adamw_bf16 kernel spills")
+
+    model = build_probunet(Config(coords=(0, RES, 0, RES), resolution=(RES, RES)),
+                           device="meta").to_empty(device=dev)
+    fill_weights(torch, model)
+    params = list(model.parameters())
+    n = sum(p.numel() for p in params)
+    if n != EXPECTED_PARAMS:
+        raise AssertionError(f"expected {EXPECTED_PARAMS:,} parameters, got {n:,}")
+    layouts = {"tensors": len(params), "channels_last": sum(not p.is_contiguous() for p in params)}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    ref = [p.detach().clone() for p in params]
+    ref_states = [{"mu": torch.zeros_like(r, dtype=torch.bfloat16),
+                   "nu": torch.zeros_like(r, dtype=torch.float32)} for r in ref]
+    for p, r in zip(params, ref):
+        p.grad = torch.empty_like(p)
+        r.grad = p.grad
+    h = ADAMW_HYPER
+    opt = AdamWBf16State(params, lr=h["lr"], betas=(h["b1"], h["b2"]), eps=h["eps"],
+                         weight_decay=h["weight_decay"])
+
+    def plain(count):
+        A._plain_update(ref, ref_states, h["b1"], h["b2"], 1 - h["b1"] ** count,
+                        1 - h["b2"] ** count, h["eps"], h["weight_decay"], h["lr"])
+
+    _build.reset_launches()
+    for step in range(1, ADAMW_STEPS + 1):
+        for p in params:
+            p.grad.normal_(generator=gen)
+        opt.step()
+        plain(step)
+        torch.cuda.synchronize()
+        same = [all(torch.equal(a, b) for a, b in pairs) for pairs in (
+            zip(params, ref), ((opt.state[p]["mu"], st["mu"]) for p, st in zip(params, ref_states)),
+            ((opt.state[p]["nu"], st["nu"]) for p, st in zip(params, ref_states)))]
+        log(f"[19] step {step} on {n:,} parameters in {layouts['tensors']} tensors "
+            f"({layouts['channels_last']} channels_last): fused against foreach bit-equal "
+            f"p {same[0]}, mu {same[1]}, nu {same[2]}")
+        if not all(same):
+            raise AssertionError("the fused AdamW update differs from the foreach path")
+    launches = {k: _build.launches("adamw_bf16", k) for k in ("fused", "foreach")}
+    log(f"[19] launches over {ADAMW_STEPS} steps: {launches}")
+    if launches != {"fused": ADAMW_STEPS, "foreach": 0}:
+        raise AssertionError(f"expected one fused launch a step, got {launches}")
+
+    def host_ms(fn, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / reps * 1e3
+
+    nbytes = ADAMW_BYTES * n
+    t = {"bound_ms": nbytes / peak_rates()["hbm_bytes_per_s"] * 1e3, "bound_by": "bytes",
+         "library_ms": None, "bytes": nbytes,
+         "ms": cuda_ms(torch, opt.step), "device_ms": device_ms(torch, opt.step, whole=True),
+         "host_ms": host_ms(opt.step, 20),
+         "plain_ms": cuda_ms(torch, lambda: plain(ADAMW_STEPS), reps=5, warmup=1),
+         "plain_device_ms": device_ms(torch, lambda: plain(ADAMW_STEPS), reps=3, traces=3,
+                                      whole=True),
+         "plain_host_ms": host_ms(lambda: plain(ADAMW_STEPS), 5)}
+    t["bound_share_device"] = t["bound_ms"] / t["device_ms"]
+    t["device_tb_per_s"] = nbytes / t["device_ms"] / 1e9
+    log(f"[19] adamw_bf16 on {n:,} parameters: kernel {t['ms']:.4f} ms by events (device "
+        f"{t['device_ms']:.4f}, {t['device_tb_per_s']:.2f} TB/s), host {t['host_ms']:.3f} ms a "
+        f"call; foreach {t['plain_ms']:.3f} ms (device {t['plain_device_ms']:.3f}), host "
+        f"{t['plain_host_ms']:.3f} ms a call; bound {t['bound_ms']:.4f} ms ({nbytes / 1e9:.3f} "
+        f"GB at HBM), {100 * t['bound_share_device']:.1f} % of it")
+    del opt, model, params, ref, ref_states
+    mark(19)
+    return {"t": t, "info": info, "layouts": layouts, "launches": launches}
 
 
 def mc96_by_kd(K2, bf16, passes):

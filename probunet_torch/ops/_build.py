@@ -33,8 +33,10 @@ _lib: Optional[ctypes.CDLL] = None
 #: ("attention_fwd" | "attention_bwd", "bf16" | "fp32", kd) K2 and K3;
 #: ("kernel_layout",) a tensor copied before an attention launch (any
 #: device); ("conv2d", one of ``conv.PATHS``) a call of that path ("plain"
-#: on any device) or a split-kernel launch ("split"). CPU calls of the plain
-#: K1, K2, K3 and split count nothing.
+#: on any device) or a split-kernel launch ("split"); ("adamw_bf16",
+#: "fused" | "foreach") the bf16 AdamW update's launch, an update on its
+#: plain path (the CPU). CPU calls of the plain K1, K2, K3 and split count
+#: nothing.
 LAUNCHES: collections.Counter = collections.Counter()
 _vp, _int, _i64, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -67,6 +69,11 @@ _SIGNATURES = {
     # x, hi_out, out, d0..d3 (the 4-D view read), its element
     # strides s0..s3, nslots, lo_mask, slot_outer, vec, stream
     "probunet_tf32_split": [_vp] * 3 + [_int] * 4 + [_i64] * 4 + [_int] * 4 + [_vp],
+    # table, ntensors, nchunks, b1, 1 - b1, b2, 1 - b2, 1 / bc1, 1 / bc2, eps,
+    # weight decay, -lr, stream
+    "probunet_adamw_bf16": [_vp, _int, _int] + [_float] * 9 + [_vp],
+    # out (int[5]): threads, registers, spilled bytes, chunk, blocks per SM
+    "probunet_adamw_bf16_query": [_vp],
 }
 
 

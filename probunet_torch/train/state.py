@@ -18,6 +18,7 @@ from typing import Callable, Iterable, List, Optional
 import torch
 from torch import nn
 
+from probunet_torch.ops import adamw_bf16
 from probunet_torch.utils.logging import span
 
 
@@ -38,48 +39,38 @@ class AdamWBf16State(torch.optim.Optimizer):
                  weight_decay: float = 0.01):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
                                       count=0))
+        self._table = adamw_bf16.Table()   # the fused launch's buffer, on the card
 
     @torch.no_grad()
     def step(self, closure=None):
-        """One update of every parameter with a gradient. The fp32 math runs
-        as multi-tensor (``torch._foreach_*``) ops over the parameter list;
-        only the bf16 roundings go tensor by tensor."""
-        bf16 = torch.bfloat16
+        """One update of every parameter with a gradient
+        (``ops/adamw_bf16.py::update``): one kernel launch a group on the
+        card, multi-tensor (``torch._foreach_*``) ops with the bf16 roundings
+        tensor by tensor on the CPU; the two give equal bits."""
         for group in self.param_groups:
-            b1, b2 = group["betas"]
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
             for p in params:
                 if not self.state[p]:
-                    self.state[p].update(mu=torch.zeros_like(p, dtype=bf16),
+                    self.state[p].update(mu=torch.zeros_like(p, dtype=torch.bfloat16),
                                          nu=torch.zeros_like(p, dtype=torch.float32))
-            states = [self.state[p] for p in params]
-            g = [p.grad.to(bf16).float() for p in params]
-            mu = torch._foreach_mul([st["mu"].float() for st in states], b1)
-            torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
-            nu = [st["nu"] for st in states]
-            torch._foreach_mul_(nu, b2)
-            torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2))
-            for st, m in zip(states, mu):
-                st["mu"] = m.to(bf16)
+            adamw_bf16.update(params, [self.state[p] for p in params], betas=group["betas"],
+                              count=group["count"] + 1, lr=group["lr"], eps=group["eps"],
+                              weight_decay=group["weight_decay"], table=self._table)
             group["count"] += 1  # one count for the group, as optax keeps one
-            bc1, bc2 = 1 - b1 ** group["count"], 1 - b2 ** group["count"]
-            upd = torch._foreach_div([st["mu"].float() for st in states], bc1)
-            denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
-            torch._foreach_add_(denom, group["eps"])
-            torch._foreach_div_(upd, denom)
-            torch._foreach_add_(upd, torch._foreach_mul(params, group["weight_decay"]))
-            torch._foreach_mul_(upd, -group["lr"])
-            torch._foreach_add_(params, upd)
 
     def load_state_dict(self, state_dict):
         """torch's load casts each state tensor to its parameter's dtype;
-        mu goes back to bf16 (bf16 -> fp32 -> bf16 is exact)."""
+        mu goes back to bf16 (bf16 -> fp32 -> bf16 is exact). Both moments
+        take their parameter's memory layout, as at their first step (a
+        checkpoint holds them contiguous; the fused launch reads p, mu and
+        nu in one layout)."""
         super().load_state_dict(state_dict)
-        for st in self.state.values():
+        for p, st in self.state.items():
             if "mu" in st:
-                st["mu"] = st["mu"].to(torch.bfloat16)
+                st["mu"] = torch.empty_like(p, dtype=torch.bfloat16).copy_(st["mu"])
+                st["nu"] = torch.empty_like(p).copy_(st["nu"])
 
 
 class Optimizer:

@@ -1010,10 +1010,13 @@ def test_remat_launch_counts_and_gradients(dev):
 def test_checkpoint_roundtrip_of_optimizer_state_on_card(dev, tmp_path, opt_kw):
     """Saved after 3 steps, restored into a fresh state on the card: every
     moment, count and accumulation buffer lands on the card with its dtype
-    and bits, and one more step on each state gives equal parameters."""
+    and bits, and one more step on each state gives equal parameters. The
+    bf16 state's five updates are each one fused launch, the restored
+    state's too."""
     from probunet_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 
     torch.backends.cudnn.deterministic = True
+    _build.reset_launches()
     try:
         state, step, hr, stats = _tiny_train_state(dev, **opt_kw)
         for i in range(3):
@@ -1037,6 +1040,9 @@ def test_checkpoint_roundtrip_of_optimizer_state_on_card(dev, tmp_path, opt_kw):
         fresh_step(fresh, hr, stats, idx, 7)
         for p, q in zip(state.model.parameters(), fresh.model.parameters()):
             assert torch.equal(p, q)
+        fused = 5 if opt_kw.get("state_dtype") == "bfloat16" else 0
+        assert _build.launches("adamw_bf16", "fused") == fused
+        assert _build.launches("adamw_bf16", "foreach") == 0
     finally:
         torch.backends.cudnn.deterministic = False
 
@@ -1166,3 +1172,77 @@ def test_flat_gradient_allreduce_on_one_nccl_rank(dev):
         dp.check_same_params(model)
     finally:
         dist.destroy_process_group()
+
+
+# the last two channels_last, as the models' convolution weights (not
+# default-contiguous at 3x3)
+ADAMW_SHAPES = [(1,), (3,), (4097,), (2 ** 22 + 3,), (), (6, 5, 3, 3), (7, 9, 1, 1)]
+
+
+@pytest.mark.parametrize("case", ["ragged", "new_grad", "unaligned", "strided_grad"])
+def test_adamw_bf16_fused_update_bit_equal_to_foreach(dev, case):
+    """AdamWBf16State on the card against the plain multi-tensor update
+    (``adamw_bf16._plain_update``, the foreach ops on the card) on the same
+    gradients, 5 steps (the bias corrections at count 1-5), tensors of
+    ragged lengths (1, 3, 4k + 1, past 2^22, 0-dim) and two channels_last
+    convolution weights: p, mu and nu bit-equal after every step, one
+    fused launch a step.
+    new_grad: one gradient becomes a new tensor before step 3, and the bits
+    stay equal. unaligned: parameters and gradients are views 4 bytes past
+    16-byte alignment (the kernel's one-element path). strided_grad: one
+    gradient is a transposed view, which the kernel does not take: the step
+    raises a ValueError that names that parameter, and updates nothing."""
+    from probunet_torch.ops import adamw_bf16 as A
+    from probunet_torch.train.state import AdamWBf16State
+
+    shapes = ADAMW_SHAPES + ([(6, 7)] if case == "strided_grad" else [])
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def make(shape):
+        n = math.prod(shape)
+        if case == "unaligned":
+            flat = torch.randn(n + 1, device=dev, generator=gen)
+            return flat[1:].view(shape)   # one fp32 past the allocation's alignment
+        x = torch.randn(shape, device=dev, generator=gen)
+        return x.contiguous(memory_format=torch.channels_last) if x.dim() == 4 else x
+
+    params = [torch.nn.Parameter(make(s)) for s in shapes]
+    grads = [make(s) for s in shapes]
+    if case == "strided_grad":
+        grads[-1] = torch.randn(7, 6, device=dev, generator=gen).t()
+    ref = [p.detach().clone() for p in params]
+    start = [p.detach().clone() for p in params]
+    ref_states = [{"mu": torch.zeros_like(p, dtype=torch.bfloat16),
+                   "nu": torch.zeros_like(p, dtype=torch.float32)} for p in ref]
+    opt = AdamWBf16State(params, lr=1e-2, weight_decay=0.05)
+    _build.reset_launches()
+    if case == "strided_grad":
+        for p, g in zip(params, grads):
+            p.grad = g
+        with pytest.raises(ValueError, match=f"parameter {len(shapes) - 1} of the group has p "
+                                             f"\\(6, 7\\).* grad \\(6, 7\\) .* strides \\(1, 6\\)"):
+            opt.step()
+        assert all(torch.equal(p.detach(), p0) for p, p0 in zip(params, start))
+        assert opt.param_groups[0]["count"] == 0
+        assert _build.launches("adamw_bf16") == 0
+        return
+    for step in range(1, 6):
+        for g in grads:
+            g.copy_(torch.randn(g.shape, device=dev, generator=gen) * 10 ** (step - 3))
+        if case == "new_grad" and step == 3:
+            grads[2] = grads[2].clone()   # made while the old one lives: another address
+        for p, r, g in zip(params, ref, grads):
+            p.grad = g
+            r.grad = g
+        opt.step()
+        b1, b2 = 0.9, 0.999
+        A._plain_update(ref, ref_states, b1, b2, 1 - b1 ** step, 1 - b2 ** step, 1e-8, 0.05, 1e-2)
+        torch.cuda.synchronize()
+        for p, r, st, rst in zip(params, ref, [opt.state[p] for p in params], ref_states):
+            assert torch.equal(p.detach(), r), (case, step, p.shape)
+            assert torch.equal(st["mu"], rst["mu"]) and torch.equal(st["nu"], rst["nu"])
+            assert st["mu"].dtype == torch.bfloat16 and st["nu"].dtype == torch.float32
+        assert _build.launches("adamw_bf16", "fused") == step
+        assert _build.launches("adamw_bf16", "foreach") == 0
+    assert opt.param_groups[0]["count"] == 5
+    assert not any(torch.equal(p.detach(), p0) for p, p0 in zip(params, start))

@@ -804,3 +804,88 @@ def test_kernel_modules_import_without_nvcc_or_triton():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=importlib.import_module("probunet_torch").__path__[0] + "/..")
     assert res.returncode == 0, res.stderr
+
+
+# ---- the bf16 AdamW update (ops/adamw_bf16.py) ---------------------------------------------
+
+
+def test_adamw_bf16_takes_the_foreach_path_on_the_cpu():
+    """AdamWBf16State on CPU tensors runs the plain multi-tensor update:
+    one ("adamw_bf16", "foreach") count a step and no launch;
+    mu stays bf16 and nu fp32, and the parameters move."""
+    from probunet_torch.train.state import AdamWBf16State
+
+    gen = torch.Generator().manual_seed(5)
+    params = [torch.nn.Parameter(torch.randn(shape, generator=gen))
+              for shape in [(), (3,), (4, 5), (4097,)]]
+    start = [p.detach().clone() for p in params]
+    opt = AdamWBf16State(params, lr=1e-2)
+    _build.reset_launches()
+    for step in range(1, 4):
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=gen)
+        opt.step()
+        assert _build.launches("adamw_bf16", "foreach") == step
+    assert _build.launches("adamw_bf16", "fused") == 0
+    assert opt.param_groups[0]["count"] == 3
+    for p, p0 in zip(params, start):
+        st = opt.state[p]
+        assert st["mu"].dtype == torch.bfloat16 and st["nu"].dtype == torch.float32
+        assert not torch.equal(p.detach(), p0)
+
+
+@pytest.mark.parametrize("numels", [[1, 3, 4097, 2 ** 22 + 3, 1], [0, 65536, 65537, 5]],
+                         ids=["ragged", "edges"])
+def test_adamw_bf16_table_covers_every_element_once(numels):
+    """The table starts with the rows (p, grad, mu, nu, length), and its
+    chunks walk each tensor from element 0 in CHUNK steps, tensor after
+    tensor: every element in exactly one chunk (none for an empty tensor)."""
+    from probunet_torch.ops import adamw_bf16 as A
+
+    rows = [x for i, n in enumerate(numels) for x in (16 * i, 32 * i, 48 * i, 64 * i, n)]
+    words, ntensors, nchunks = A.table_words(rows)
+    assert ntensors == len(numels) and len(words) == 5 * ntensors + nchunks
+    assert words[:5 * ntensors].tolist() == rows
+    chunks = words[5 * ntensors:]
+    tensor, chunk = (chunks & 0xFFFFFFFF).tolist(), (chunks >> 32).tolist()
+    want = [(i, c) for i, n in enumerate(numels) for c in range(-(-n // A.CHUNK))]
+    assert list(zip(tensor, chunk)) == want
+    covered = Counter()
+    for i, c in want:
+        covered[i] += min(A.CHUNK, numels[i] - c * A.CHUNK)
+    assert [covered[i] for i in range(len(numels))] == numels
+
+
+def test_adamw_bf16_launch_writes_the_table_each_call(fake_lib):
+    """The launch passes the table, its counts and the hyperparameters (1 -
+    b1, 1 - b2, the bias corrections' reciprocals and -lr, as the foreach
+    ops take them); the table is written every call, into the same buffer
+    while its length and card hold, into a new one when they change."""
+    from probunet_torch.ops import adamw_bf16 as A
+
+    table, writes = A.Table(), []
+
+    def write(words, card):   # the device copy, in host memory
+        writes.append(card)
+        if table.words is None or len(table.words) != len(words):
+            table.words = torch.empty(len(words), dtype=torch.int64)
+        table.words.copy_(torch.from_numpy(words))
+
+    table._write = write
+    hyper = dict(b1=0.9, b2=0.999, bc1=1 - 0.9 ** 2, bc2=1 - 0.999 ** 2, eps=1e-8,
+                 weight_decay=0.01, lr=3e-3)
+    rows = [[64, 128, 192, 256, 70000], [64, 512, 192, 256, 70000],
+            [64, 512, 192, 256, 70000, 8, 16, 24, 32, 3]]
+    buffers = []
+    for r in (rows[0], rows[0], rows[1], rows[2]):
+        table.launch(r, 0, **hyper)
+        buffers.append(table.words.data_ptr())
+        assert table.words.tolist() == A.table_words(r)[0].tolist()
+    assert _build.launches("adamw_bf16", "fused") == len(writes) == 4
+    assert _build.launches("adamw_bf16", "foreach") == 0
+    assert buffers[0] == buffers[1] == buffers[2] != buffers[3]   # a longer table, a new buffer
+    name, args = fake_lib.calls[0]
+    assert name == "probunet_adamw_bf16" and args[1:3] == (1, 2)
+    assert args[3:12] == (0.9, 1 - 0.9, 0.999, 1 - 0.999, 1 / hyper["bc1"], 1 / hyper["bc2"],
+                          1e-8, 0.01, -3e-3)
+    assert fake_lib.calls[-1][1][1:3] == (2, 3)
