@@ -34,8 +34,9 @@ class Config:
     # reference's dead EDMPrecond a live diffusion downscaler, "vae" its dead
     # vae enum a live conditional conv-VAE) ---
     # "corrdiff" (the port only) serves NVIDIA's CorrDiff: a regression
-    # DDPM++ U-Net, then an EDM residual chain on a second one
-    ds_model: str = "probabilistic_unet"  # {deterministic_unet, probabilistic_unet, linearcnn, bcsd, edm, vae, corrdiff}
+    # DDPM++ U-Net, then an EDM residual chain on a second one; "climax" (the
+    # port only) trains ClimaX, a vision transformer, as a deterministic downscaler
+    ds_model: str = "probabilistic_unet"  # {deterministic_unet, probabilistic_unet, linearcnn, bcsd, edm, vae, corrdiff, climax}
 
     # --- prob-U-Net architecture (reference main.py:32-37, prob_unet.py:129) ---
     latent_dim: int = 6
@@ -46,6 +47,16 @@ class Config:
     attn_resolutions: Tuple[int, ...] = (32, 16, 8)
     dropout: float = 0.10
     baseline_channels: int = 64  # deterministic U-Net width (baseline/deterministic_unet.py:232)
+
+    # --- ClimaX (ds_model="climax"; arXiv:2301.10343, the 1.40625 deg model's
+    # widths); its drop_rate is ``dropout`` ---
+    embed_dim: int = 1024
+    depth: int = 8
+    num_heads: int = 16
+    patch_size: int = 4
+    decoder_depth: int = 2
+    mlp_ratio: float = 4.0
+    drop_path: float = 0.1
 
     # --- ML training arguments (reference train_prob_unet_model.py:34-39) ---
     batch_size: int = 8
@@ -119,7 +130,7 @@ class Config:
 
     def __post_init__(self) -> None:
         if self.ds_model not in ("deterministic_unet", "probabilistic_unet",
-                                 "linearcnn", "bcsd", "edm", "vae", "corrdiff"):
+                                 "linearcnn", "bcsd", "edm", "vae", "corrdiff", "climax"):
             raise ValueError(f"unknown ds_model {self.ds_model!r}")
         if self.standardization not in ("none", "perpixel", "pertimestep", "minmax"):
             raise ValueError(f"unknown standardization {self.standardization!r}")

@@ -39,6 +39,9 @@ class Init(NamedTuple):
 ADM_INIT = Init(mode="kaiming_uniform", weight=math.sqrt(1.0 / 3.0), bias=math.sqrt(1.0 / 3.0))
 #: reference networks.py:246 — zero-init for conv1 / out_conv / attn proj
 ADM_INIT_ZERO = Init(mode="kaiming_uniform", weight=0.0, bias=0.0)
+#: timm's ViT Linear init, ``trunc_normal_(std=0.02)`` and a zero bias: the
+#: truncation is at +-2 absolute, 100 standard deviations, so a plain normal
+VIT_INIT = Init(mode="normal", weight=0.02, bias=0.0)
 
 
 def _uniform(shape, generator) -> torch.Tensor:
@@ -56,6 +59,8 @@ def weight_init(shape: Sequence[int], mode: str, fan_in: int, fan_out: int,
         return math.sqrt(3 / fan_in) * _uniform(shape, generator)
     if mode == "kaiming_normal":
         return math.sqrt(1 / fan_in) * torch.randn(shape, generator=generator)
+    if mode == "normal":   # N(0, 1), scaled by the recipe's weight (timm's ViT init, below)
+        return torch.randn(shape, generator=generator)
     raise ValueError(f'Invalid init mode "{mode}"')
 
 
@@ -185,6 +190,43 @@ class Linear(_Layer):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
+class LayerNorm(_Layer):
+    """Learned-affine layer norm over the last axis (``torch.nn.LayerNorm``,
+    eps 1e-5), weight 1 and bias 0 at init; fp32 statistics whatever x's
+    dtype (``F.layer_norm``)."""
+
+    def __init__(self, num_features: int, *, device=None, generator=None):
+        super().__init__()
+        self.weight = self._param(num_features, device=device)
+        self.bias = self._param(num_features, device=device)
+        self._fill(device, generator)
+
+    def reset_parameters(self, generator=None) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.weight.shape, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                            1e-5)
+
+
+class Mlp(nn.Module):
+    """timm's ViT MLP on tokens (..., D), its Linears at :data:`VIT_INIT`:
+    ``fc1``, exact (erf) GELU, dropout, ``fc2``, dropout; the masks drawn as
+    :func:`token_dropout` draws them, fc1's output's first."""
+
+    def __init__(self, features: int, hidden: int, rate: float, *, device=None, generator=None):
+        super().__init__()
+        self.rate = rate
+        self.fc1 = Linear(features, hidden, VIT_INIT, device=device, generator=generator)
+        self.fc2 = Linear(hidden, features, VIT_INIT, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+        h = token_dropout(F.gelu(self.fc1(x)), self.rate, self.training, generator, shard)
+        return token_dropout(self.fc2(h), self.rate, self.training, generator, shard)
+
+
 class GroupNorm(_Layer):
     """Learned-affine group norm (reference networks.py:95-105), plain PyTorch
     with two-pass fp32 statistics."""
@@ -272,4 +314,35 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     b, c, h, w = x.shape
     # drawn NHWC so the mask, and the result, keep x's channels_last layout
     mask = nchw(rand_rows((b, h, w, c), generator, x.device, shard, rows) < keep)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def token_dropout(x: torch.Tensor, rate: float, training: bool,
+                  generator: Optional[torch.Generator] = None,
+                  shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """:func:`dropout` on tokens (B, L, ...): one uniform of x's shape per
+    element, from ``generator``, as ``shard``'s rows of the global batch's
+    draw (:func:`rand_rows`); kept below 1 - rate and scaled by 1 / (1 -
+    rate). The identity when not ``training`` or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = rand_rows(x.shape, generator, x.device, shard) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator] = None,
+              shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """Stochastic depth (timm's ``DropPath``) on a residual branch x (B,
+    ...): each sample's branch kept whole with probability 1 - rate and then
+    scaled by 1 / (1 - rate), from one uniform a sample, drawn as (B, 1)
+    from ``generator`` as ``shard``'s rows of the global batch's draw (timm
+    draws ``bernoulli_(1 - rate)``: the same law). The identity when not
+    ``training`` or at rate 0, with no draw."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = rand_rows((x.shape[0], 1), generator, x.device, shard) < keep
+    mask = mask.reshape(x.shape[0], *(1,) * (x.ndim - 1))
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,12 +1,15 @@
 """End-to-end training (reference main.py) — the port's
 ``scripts/train_probunet.py`` and, with any other ``--ds_model``, its
 ``scripts/train_baseline.py``: ``edm`` (the diffusion downscaler), ``vae``
-(the conv-VAE), ``deterministic_unet``, ``linearcnn`` and ``bcsd``.
+(the conv-VAE), ``deterministic_unet``, ``linearcnn``, ``bcsd`` and
+``climax`` (ClimaX, a vision transformer; the port only).
 
     python -m probunet_torch.train --datadir /path/to/climex [config flags...]
     python -m probunet_torch.train --synthetic [config flags...]   # generated data
     python -m probunet_torch.train --device cpu ...                # default: the card
     python -m probunet_torch.train --ds_model deterministic_unet [config flags...]
+    python -m probunet_torch.train --ds_model climax --compute_dtype bfloat16 \
+        --fast_attention true --opt_state_dtype bfloat16 --resolution 128,256 [...]
 
 All Config fields are flags (see probunet_torch/config.py). ``--synthetic``
 writes ClimEx-like files for every year of the three splits into

@@ -30,6 +30,7 @@ import torch
 
 from probunet_torch.config import Config
 from probunet_torch.models.baselines import ConvVAE, LinearCNN
+from probunet_torch.models.climax import ClimaX
 from probunet_torch.models.corrdiff import CorrDiff
 from probunet_torch.models.edm import EDMPrecond
 from probunet_torch.models.layers import reset_parameters
@@ -296,13 +297,33 @@ def _label_dim(cfg: Config) -> int:
     return 2 if cfg.timetransform == "cyclic" else 0
 
 
+def build_climax_model(cfg: Config, device=None,
+                       generator: Optional[torch.Generator] = None) -> ClimaX:
+    """ClimaX for ``cfg`` (``ds_model="climax"``) on ``device`` (default the
+    CUDA card): ``cfg.nvars`` variables in and out on the ``resolution``
+    grid, ``embed_dim``, ``depth``, ``num_heads``, ``patch_size``,
+    ``mlp_ratio``, ``decoder_depth``, ``drop_path``, and ``dropout`` as its
+    drop_rate; ``fast_attention`` to its attention. Its weights are drawn
+    from ``generator``; on the ``meta`` device nothing is allocated. It
+    trains as the deterministic baselines do (:func:`train_baseline`)."""
+    return ClimaX(img_size=tuple(cfg.resolution), variables=cfg.nvars,
+                  patch_size=cfg.patch_size, embed_dim=cfg.embed_dim, depth=cfg.depth,
+                  num_heads=cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
+                  decoder_depth=cfg.decoder_depth, drop_path=cfg.drop_path,
+                  drop_rate=cfg.dropout, fast_attention=cfg.fast_attention,
+                  device=resolve_device(device), generator=generator)
+
+
 def build_baseline_model(cfg: Config, device=None, generator: Optional[torch.Generator] = None):
     """The deterministic baseline for ``cfg`` on ``device`` (default the
     CUDA card), in ``channels_last`` memory format: the U-Net of the
     reference's baseline (width ``baseline_channels``, no attention, not
     even at the bottleneck; baseline/deterministic_unet.py:232,274,283) or
-    the LinearCNN. Its weights are drawn from ``generator``; on the
+    the LinearCNN; or ClimaX (:func:`build_climax_model`, which has no
+    convolution layout). Its weights are drawn from ``generator``; on the
     ``meta`` device nothing is allocated."""
+    if cfg.ds_model == "climax":
+        return build_climax_model(cfg, device, generator)
     device = resolve_device(device)
     if cfg.ds_model == "deterministic_unet":
         model = UNet(tuple(cfg.resolution), cfg.nvars, cfg.nvars, label_dim=_label_dim(cfg),
@@ -322,7 +343,7 @@ def train_baseline(cfg: Config, datasets=None, make_plots: bool = True, device=N
     """The reference ``baseline/main.py`` pipeline on ``device`` (default
     the CUDA card): ``bcsd`` -> :func:`run_bcsd`, ``edm`` ->
     :func:`train_edm`, ``vae`` -> :func:`train_probunet`; the deterministic
-    U-Net and the LinearCNN train with per-variable MSE, log
+    U-Net, the LinearCNN and ClimaX train with per-variable MSE, log
     ``metrics_baseline.jsonl``, checkpoint under ``<checkpoints_dir>/<ds_model>``
     and end with the validation MAE in physical units (mm/day, deg C).
     Those return {state, tr_losses, val_losses, mae, samples_per_sec}, the

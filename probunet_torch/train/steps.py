@@ -25,7 +25,9 @@ synthesis), ``probunet.regression`` (CorrDiff's mean, before its chains),
 ``probunet.forward``, ``probunet.backward`` (with the zero gradients of
 unused parameters), ``probunet.allreduce`` and ``probunet.optimizer``
 (``parallel/mesh.py``, ``train/state.py``) and ``probunet.output``
-(residual -> HR), in that order.
+(residual -> HR), in that order. ClimaX's forward marks its tokenizer and
+its head inside ``probunet.forward`` (``probunet.tokenize``,
+``probunet.head``; ``models/climax.py``).
 """
 
 from __future__ import annotations

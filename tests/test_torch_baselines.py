@@ -11,6 +11,7 @@ across by ``utils/transplant.py``) and the same numpy inputs on both sides;
 where the JAX side draws (the VAE's latents), its draws are recomputed and
 handed to the port; dropout is off where the two sides are compared."""
 
+import dataclasses
 import json
 import os
 
@@ -201,7 +202,9 @@ def test_run_bcsd_chunked_matches_unchunked_and_jax():
     datasets = _bcsd_datasets(TDataset, device="cpu")
     chunked = t_run_bcsd(cfg, datasets, chunk=7, device="cpu")
     whole = t_run_bcsd(cfg, datasets, device="cpu")
-    ref = j_run_bcsd(JConfig(**vars(cfg)), _bcsd_datasets(JDataset), chunk=7)
+    # the JAX config's fields of the port's (the port's has ClimaX's besides)
+    jcfg = JConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(JConfig)})
+    ref = j_run_bcsd(jcfg, _bcsd_datasets(JDataset), chunk=7)
     for split in ("val", "test"):
         assert chunked[split]["preds"].shape == (len(datasets[split]), 16, 16, 3)
         assert np.isfinite(chunked[split]["preds"]).all()

@@ -14,8 +14,9 @@ deterministic step's launches, BCSD's day-of-year sums bit-equal), the
 convolutions' paths (the split kernel bit-equal to tests/_tf32x3.py, the
 3xTF32 and IEEE paths at the U-Net's level-0 and level-3 shapes against
 float64 beside plain TF32, the paths taken and cuDNN's TF32 flag
-restored), and the wrappers' and kernels' refusals. Marked ``cuda``: they skip without a
-card. On the card, without JAX (this file imports none):
+restored), ClimaX's attention sites on a Linear's qkv views and its fast step with
+the fused AdamW over its whole parameter group, and the wrappers' and kernels'
+refusals. Marked ``cuda``: they skip without a card. On the card, without JAX (this file imports none):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -562,6 +563,40 @@ def test_attention_head_dims_match_plain(dev, mode, layout, b, L, nh, c):
     for i, r in enumerate(ref_b):
         got = grad(i)
         assert got.shape == r.shape and got.dtype == dtype
+        assert (got.float() - r.float()).abs().max().item() <= \
+            tol * max(1e-3, r.float().abs().max().item())
+
+
+@pytest.mark.parametrize("mode", list(ATTN_MODES))
+def test_attention_on_climax_linear_qkv_views(dev, mode):
+    """K2 and K3 at ClimaX's sites, (B, 2048, 16, 64), on the q/k/v views of
+    a Linear's (B, L, 3 D) output laid out (3, heads, 64), through autograd,
+    against the plain versions at the tolerances of
+    test_attention_head_dims_match_plain: one launch of each and no
+    ``kernel_layout`` copy (the views are read in place). B = 2 keeps the
+    plain versions' (B heads, L, L) fp32 weights small."""
+    dtype, fast = ATTN_MODES[mode]
+    b, L, nh, c = 2, 2048, 16, 64
+    gen = torch.Generator(device=dev).manual_seed(2048)
+    x = torch.randn(b, L, nh * c, device=dev, generator=gen).to(dtype)
+    w = (torch.randn(3 * nh * c, nh * c, device=dev, generator=gen) / 32).to(dtype)
+    bias = (0.1 * torch.randn(3 * nh * c, device=dev, generator=gen)).to(dtype)
+    qkv = torch.nn.functional.linear(x, w, bias).requires_grad_()
+    q, k, v = qkv.view(b, L, 3, nh, c).unbind(2)
+    do = torch.randn(b, L, nh, c, device=dev, generator=gen).to(dtype)
+    _build.reset_launches()
+    out = K2.fused_attention(q, k, v, fast)
+    out.backward(do)
+    assert (_build.launches("attention_fwd"), _build.launches("attention_bwd")) == (1, 1)
+    assert _build.launches("kernel_layout") == 0
+    with torch.no_grad():
+        ref = K2._plain_attention(q, k, v, fast)
+        ref_b = K2._plain_attention_bwd(q.detach(), k.detach(), v.detach(), do, fast)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.detach().float(), ref.float(), atol=tol, rtol=tol)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    grads = qkv.grad.view(b, L, 3, nh, c).unbind(2)
+    for got, r in zip(grads, ref_b):
         assert (got.float() - r.float()).abs().max().item() <= \
             tol * max(1e-3, r.float().abs().max().item())
 
@@ -1246,3 +1281,58 @@ def test_adamw_bf16_fused_update_bit_equal_to_foreach(dev, case):
         assert _build.launches("adamw_bf16", "foreach") == 0
     assert opt.param_groups[0]["count"] == 5
     assert not any(torch.equal(p.detach(), p0) for p, p0 in zip(params, start))
+
+
+def test_climax_fast_step_and_fused_adamw_on_card(dev):
+    """ClimaX at its published widths (128x256, D 1,024, depth 8, 16 heads;
+    109,274,160 parameters) through the fast deterministic step at b2: 8 K2
+    and 8 K3 launches, no ``kernel_layout`` copy, one fused AdamW launch for
+    the whole group (2-D Linear weights, (1, L, D) embeddings, 1-D
+    LayerNorm vectors, (D, 1, 4, 4) tokenizer weights: no ValueError). Then
+    one more update on the step's own gradients, bit-equal to the foreach
+    path (``adamw_bf16._plain_update``) on copies of the parameters and
+    moments, as test_adamw_bf16_fused_update_bit_equal_to_foreach checks for
+    the U-Net's."""
+    from perfbench.reference.unet import perpixel_stats
+    from probunet_torch.config import Config
+    from probunet_torch.ops import adamw_bf16 as A
+    from probunet_torch.train.loop import build_climax_model
+    from probunet_torch.train.state import create_train_state, make_optimizer
+    from probunet_torch.train.steps import make_deterministic_train_step
+
+    cfg = Config(ds_model="climax", resolution=(128, 256), compute_dtype="bfloat16",
+                 fast_attention=True, opt_state_dtype="bfloat16", lr=5e-4, weight_decay=1e-5)
+    model = build_climax_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    assert sum(p.numel() for p in model.parameters()) == 109_274_160
+    state = create_train_state(model, make_optimizer(cfg.lr, cfg.weight_decay, 1, "adamw", None,
+                                                     cfg.opt_state_dtype))
+    step = make_deterministic_train_step(model, 4, "perpixel", torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    hr = 270.0 + 5.0 * torch.randn(6, 128, 256, 3, device=dev, generator=gen)
+    stats = perpixel_stats(hr, 4)
+    idx = torch.tensor([0, 3], device=dev)
+    _build.reset_launches()
+    m = step(state, hr, stats, idx, torch.zeros(2, device=dev), gen)
+    assert math.isfinite(float(m["train_loss"]))
+    assert _build.launches("attention_fwd", "bf16", 64) == 8
+    assert _build.launches("attention_bwd", "bf16", 64) == 8
+    assert _build.launches("kernel_layout") == 0
+    assert _build.launches("adamw_bf16", "fused") == 1
+    assert _build.launches("adamw_bf16", "foreach") == 0
+    opt = state.optimizer.inner
+    params = [p for p in model.parameters()]
+    assert all(p.grad is not None for p in params)
+    ref = [p.detach().clone() for p in params]
+    ref_states = [{"mu": opt.state[p]["mu"].clone(), "nu": opt.state[p]["nu"].clone()}
+                  for p in params]
+    for p, r in zip(params, ref):
+        r.grad = p.grad
+    opt.step()
+    b1, b2 = opt.param_groups[0]["betas"]
+    A._plain_update(ref, ref_states, b1, b2, 1 - b1 ** 2, 1 - b2 ** 2, 1e-8, 1e-5, 5e-4)
+    torch.cuda.synchronize()
+    for p, r, rst in zip(params, ref, ref_states):
+        assert torch.equal(p.detach(), r), p.shape
+        assert torch.equal(opt.state[p]["mu"], rst["mu"])
+        assert torch.equal(opt.state[p]["nu"], rst["nu"])
+    assert _build.launches("adamw_bf16", "fused") == 2
