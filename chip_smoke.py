@@ -270,8 +270,21 @@ benchmark runs; the rates of the calls the cells run (BENCHMARK.json,
      built and written each call), beside the foreach path and the bytes
      bound (24 bytes an element). The kernels line gets an
      ``adamw_bf16`` entry.
+ 20. dropout's compare, scale and select (``csrc/dropout.cu``) alone:
+     each (dtype, mode) instantiation's threads, registers and spills (none
+     allowed); at ClimaX's MLP-hidden site (64 x 2,048 x 4,096, bf16,
+     element mode), its drop_path site (64 x 2,048 x 1,024, bf16, row mode)
+     and the U-Net's level-0 site (b8, 128 channels at 128x128, fp32,
+     channels_last against the NHWC draw) the output and input gradient
+     bit-equal to the plain chain's, then both directions of the kernel
+     and of the plain chain by device time and CUDA events, beside the
+     bytes bound; the host's time a call of each, forward and backward, at
+     a small site. Phases 8 and 11-15 hold every training path's dropout
+     counts to one element launch each way a U-Net block and a step (two
+     forwards under remat; spatial ranks copy each forward's uniforms).
+     The kernels line gets a ``dropout`` entry with the counts by path.
 
-Every device time of a kernel or of SDPA (phases 6, 10, 16-19) comes from one
+Every device time of a kernel or of SDPA (phases 6, 10, 16-20) comes from one
 estimator, ``device_ms(whole=True)``: each kernel's mean launch pooled over
 five traces times its launches per call, which records the profiler loses
 late in a long run do not bias. Any failed phase
@@ -466,6 +479,22 @@ KD256_CASES = [KD256_SITE, (1, 1, 1, 256), (1, 65, 2, 256), (2, 100, 1, 200), (2
 ADAMW_STEPS = 3
 ADAMW_BYTES = 24
 ADAMW_HYPER = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01, lr=1e-3)
+# phase 20, dropout's select (csrc/dropout.cu) alone: (name, shape, dtype,
+# mode) at ClimaX's MLP-hidden site, its drop_path site and the U-Net's
+# level-0 site (NCHW, channels_last), all at the configurations' rate 0.1
+DROPOUT_SITES = [("climax_mlp_hidden", (64, 2048, 4096), "bfloat16", "element"),
+                 ("climax_drop_path", (64, 2048, 1024), "bfloat16", "row"),
+                 ("unet_level0", (BATCH, 128, RES, RES), "float32", "element")]
+DROPOUT_RATE = 0.1
+# and its host cost a call, forward and backward through autograd, beside
+# the plain chain's: a site small enough that the card keeps ahead of the host
+DROPOUT_HOST_SITE, DROPOUT_HOST_REPS = (2, 64, 8, 8), 200
+# dropout in the training phases: one element site a U-Net block (UNetBlock),
+# 28 in each U-Net they train (prob-U-Net, EDM denoiser, deterministic
+# baseline); no row site. dropout_check holds each path's counts to them and
+# keeps them here for the kernels line's dropout entry
+DROPOUT_PER_STEP = 28
+DROPOUT_BY_PATH = {}
 
 
 def log(msg=""):
@@ -1268,6 +1297,7 @@ def run_phases(torch, dev, card, sass):
     conv = conv_phase(torch, dev, card, mark)
     corrdiff = corrdiff_phase(torch, dev, card, gen, mark)
     adamw = adamw_phase(torch, dev, card, mark)
+    drop = dropout_phase(torch, dev, card, mark)
 
     def entry(name, source, replaces, n, err, tol, t, extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1379,6 +1409,18 @@ def run_phases(torch, dev, card, sass):
                "launches_by_path": {"train_fast": train["adamw"]["fused"],
                                     "phase19": adamw["launches"]["fused"]},
                "kernel": adamw["info"]}),
+        entry("dropout", "probunet_torch/csrc/dropout.cu",
+              "none: dropout's compare, scale and select (models/layers.py; the JAX package's "
+              "flax nn.Dropout, fused by XLA)", drop["launches"] + sum(
+                  n for got in DROPOUT_BY_PATH.values() for k, n in got.items()
+                  if not k.endswith("copy")), 0.0, 0.0,
+              drop["sites"]["climax_mlp_hidden"]["fwd"],
+              {"timed": "each site forward and backward, the kernel alone and the plain chain; "
+                        "bit-equal to the plain chain",
+               "device_ms": drop["sites"]["climax_mlp_hidden"]["fwd"]["device_ms"],
+               "host": drop["host"],
+               "launches_by_path": {**DROPOUT_BY_PATH, "phase20": drop["launches"]},
+               "sites": drop["sites"], "kernels": drop["info"]}),
     ]
 
 
@@ -1580,6 +1622,7 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
         n = tuple(map(_build.launches, KERNELS))
         copies = _build.launches("kernel_layout")
         adamw = {k: _build.launches("adamw_bf16", k) for k in ("fused", "foreach")}
+        drop_ok = dropout_check(8, f"train_{name}", dropout_counts(_build), TRAIN_STEPS)
         want = (TRAIN_STEPS * K1_PER_BATCH, TRAIN_STEPS * K2_PER_BATCH, TRAIN_STEPS * K3_PER_STEP)
         losses = [m["train_loss"].item() for m in ms]
         norms = [m["grad_norm"].item() for m in ms]
@@ -1596,6 +1639,8 @@ def training_phases(torch, dev, cfg, ds, ds_cpu, attn_sites, gen, mark):
             raise AssertionError(f"training launches {n}, expected {want} ({K1_PER_BATCH} K1, "
                                  f"{K2_PER_BATCH} K2 and {K3_PER_STEP} K3 per step); {copies} "
                                  f"tensors copied before a launch, expected 0")
+        if not drop_ok:
+            raise AssertionError(f"{name}: dropout launches {DROPOUT_BY_PATH[f'train_{name}']}")
         fused = TRAIN_STEPS if c.opt_state_dtype == "bfloat16" else 0
         if (adamw["fused"], adamw["foreach"]) != (fused, 0):
             raise AssertionError(f"{name}: expected {fused} fused AdamW launches (one a step) "
@@ -1757,6 +1802,8 @@ def trainer_phase(torch, dev, card, mark):
         torch.cuda.empty_cache()
     n = tuple(map(_build.launches, COUNTED))
     launches = dict(zip(KERNELS, n))
+    if not dropout_check(11, "trainer", dropout_counts(_build), 2 * n_steps):
+        raise AssertionError("trainer dropout launch counts differ")
     per_eval = (K1_PER_BATCH, K2_PER_BATCH, 0)
     want = tuple(2 * (n_steps * k + n_evals * e)
                  for k, e in zip((K1_PER_BATCH, K2_PER_BATCH, K3_PER_STEP), per_eval)) + (0,)
@@ -1851,6 +1898,8 @@ def trainer_phase(torch, dev, card, mark):
             torch.cuda.synchronize()
             torch.backends.cudnn.deterministic = False
             counts = tuple(map(_build.launches, COUNTED))
+            drop_ok = dropout_check(11, f"trainer_{mode}_{'remat' if remat else 'no_remat'}",
+                                    dropout_counts(_build), 1, remat=remat)
             grads = {k: p.grad.detach().clone() for k, p in state.model.named_parameters()}
             step(state, ds.hr_device(), ds.stats, idx, c.seed, eps=eps)   # warm-up
             torch.cuda.synchronize()
@@ -1875,7 +1924,7 @@ def trainer_phase(torch, dev, card, mark):
             torch.cuda.synchronize()
             held = (torch.cuda.memory_allocated() - before) / 2**30
             total.backward()
-            seen[remat] = {"loss": m["train_loss"].item(), "grads": grads,
+            seen[remat] = {"loss": m["train_loss"].item(), "grads": grads, "dropout_ok": drop_ok,
                            "launches": counts[:3], "copies": counts[3], "ms_per_step": ms,
                            "step_ms": times, "peak_gib": peak, "forward_holds_gib": held}
             log(f"[11] {mode} {'remat' if remat else 'no remat'} (b{BATCH}, {RES}x{RES}): first "
@@ -1889,7 +1938,8 @@ def trainer_phase(torch, dev, card, mark):
         loss_rel = abs(rem["loss"] - plain["loss"]) / abs(plain["loss"])
         grad_rel, worst = worst_grad(rem["grads"], plain["grads"])
         ok = (loss_rel <= REMAT_TOL and grad_rel <= REMAT_TOL and rem["copies"] == 0
-              and plain["copies"] == 0 and all(seen[r]["launches"] == want[r] for r in seen))
+              and plain["copies"] == 0 and all(seen[r]["launches"] == want[r] for r in seen)
+              and all(seen[r]["dropout_ok"] for r in seen))
         log(f"[11] {mode}: remat against no remat (dropout 0.1, the same seed, deterministic "
             f"cuDNN): loss rel err {loss_rel:.3e}, worst gradient max|err| / max|g| "
             f"{grad_rel:.3e} ({worst}; tol {REMAT_TOL}); launches {rem['launches']} (expected "
@@ -1900,7 +1950,7 @@ def trainer_phase(torch, dev, card, mark):
         if not ok:
             raise AssertionError(f"{mode}: remat disagrees with the step without it")
         report["remat"][mode] = {"loss_rel": loss_rel, "grad_rel": grad_rel, **{
-            name: {k: v for k, v in r.items() if k != "grads"}
+            name: {k: v for k, v in r.items() if k not in ("grads", "dropout_ok")}
             for name, r in (("off", plain), ("on", rem))}}
         bare = 1e3 * BATCH / plain["ms_per_step"]
         report["bare_samples_per_s"][mode] = bare
@@ -2189,10 +2239,11 @@ def edm_phase(torch, dev, card, ds, ds_cpu, gen, mark):
         train_n += n[:3]
         want = (TRAIN_STEPS * K1_PER_BATCH, TRAIN_STEPS * K2_PER_BATCH,
                 TRAIN_STEPS * K3_PER_STEP, 0)
+        drop_ok = dropout_check(12, f"edm_train_{name}", dropout_counts(_build), TRAIN_STEPS)
         losses = [m_["train_loss"].item() for m_ in ms]
         norms = [m_["grad_norm"].item() for m_ in ms]
         peak = torch.cuda.max_memory_allocated() / 2**30
-        ok = (n == want and all(math.isfinite(v) for v in losses + norms)
+        ok = (n == want and drop_ok and all(math.isfinite(v) for v in losses + norms)
               and losses[-1] < losses[0])
         report["train"][name] = {"ms_per_step": per * 1e3, "samples_per_s": BATCH / per,
                                  "peak_gib": peak, "losses": losses}
@@ -2469,6 +2520,8 @@ def baseline_phase(torch, dev, card, ds, ds_cpu, gen, mark):
         per = (time.perf_counter() - t0) / TRAIN_STEPS
         n = tuple(map(_build.launches, COUNTED))
         train_n += n[:3]
+        drop_ok = dropout_check(13, f"baseline_train_{name}", dropout_counts(_build),
+                                TRAIN_STEPS)
         peak = torch.cuda.max_memory_allocated() / 2**30
         _build.reset_launches()
         ev = make_deterministic_eval_step(state.model, c.lowres_scale, c.standardization,
@@ -2479,7 +2532,7 @@ def baseline_phase(torch, dev, card, ds, ds_cpu, gen, mark):
         eval_n += ne[:3]
         losses = [m_["train_loss"].item() for m_ in ms]
         want = (TRAIN_STEPS * K1_PER_BATCH, 0, 0, 0)
-        ok = (n == want and ne == (K1_PER_BATCH, 0, 0, 0)
+        ok = (n == want and ne == (K1_PER_BATCH, 0, 0, 0) and drop_ok
               and all(math.isfinite(v) for v in losses)
               and all(math.isfinite(v.item()) for v in ev.values()) and losses[-1] < losses[0])
         report["train"][name] = {"ms_per_step": per * 1e3, "samples_per_s": BATCH / per,
@@ -2670,6 +2723,7 @@ def mp_rank(spec_path):
         torch.cuda.synchronize()
         out[tag] = {"wall_s": time.perf_counter() - t0, "steps": res["state"].step,
                     "launches": {k: _build.launches(k) for k in KERNELS},
+                    "dropout": dropout_counts(_build),
                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         del res
         torch.cuda.empty_cache()
@@ -3073,6 +3127,8 @@ def multiprocess_phase(torch, dev, card, gn_sites, mark):
             f"(per step {per_step}, per eval or CRPS batch {per_eval}) "
             f"{'ok' if got == want else 'FAIL'}")
         check(got == want, f"rank {rk['rank']}: launches {got}")
+        check(dropout_check(14, f"multiprocess_rank{rk['rank']}", rk["mp_full"]["dropout"],
+                            n_steps), f"rank {rk['rank']}: dropout {rk['mp_full']['dropout']}")
         launches[f"rank{rk['rank']}_trainer"] = rk["mp_full"]["launches"]
         launches[f"rank{rk['rank']}_serve"] = rk["serve"]["launches"]
         launches[f"rank{rk['rank']}_serve_strict"] = rk["serve_strict"]["launches"]
@@ -3230,6 +3286,7 @@ def sp_rank(spec_path):
             out[job] = {"wall_s": time.perf_counter() - t0, "steps": res["state"].step,
                         "launches": {k: _build.launches(k) for k in KERNELS},
                         "copies": _build.launches("kernel_layout"),
+                        "dropout": dropout_counts(_build),
                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
             del res
         else:   # the 256x256 tile
@@ -3249,7 +3306,8 @@ def sp_rank(spec_path):
                 losses, ms, peak = _tile_steps(torch, lambda: step(state, x, y, c.seed))
                 out["tile"][mode] = {"losses": losses, "ms": ms, "peak_gib": peak,
                                      "launches": {k: _build.launches(k) for k in KERNELS},
-                                     "copies": _build.launches("kernel_layout")}
+                                     "copies": _build.launches("kernel_layout"),
+                                     "dropout": dropout_counts(_build)}
                 del state, step
             del pair, x, y
         torch.cuda.empty_cache()
@@ -3482,6 +3540,8 @@ def spatial_phase(torch, dev, card, ds, mark):
             f"q/k/v copies {rk['trainer']['copies']}; peak {rk['trainer']['peak_gib']:.2f} GiB, "
             f"wall {rk['trainer']['wall_s']:.1f} s {'ok' if ok else 'FAIL'}")
         check(ok, f"(b) rank {rk['rank']} launches {got_l}")
+        check(dropout_check(15, f"spatial_trainer_rank{rk['rank']}", rk["trainer"]["dropout"],
+                            n_steps, copied=True), f"(b) rank {rk['rank']} dropout")
         launches[f"rank{rk['rank']}_trainer"] = got_l
     ref_ms = 1e3 * BATCH / [r for r in records("ref") if "train_loss" in r][-1]["samples_per_sec"]
     log(f"[15] (b) ms per step (epoch {TRAINER_EPOCHS}, b{BATCH}): 2 ranks sharing the card over "
@@ -3503,6 +3563,9 @@ def spatial_phase(torch, dev, card, ds, mark):
                 f"{SP_TILE_STEPS} x {per_step} (from build_unet_plan: {n_attn} attention "
                 f"blocks, K2 twice with remat) {'ok' if ok else 'FAIL'}")
             check(ok, f"(c) {mode} rank {rk['rank']}")
+            check(dropout_check(15, f"spatial_tile_{mode}_rank{rk['rank']}", t["dropout"],
+                                SP_TILE_STEPS, remat=True, copied=True),
+                  f"(c) {mode} rank {rk['rank']} dropout")
             launches[f"rank{rk['rank']}_tile_{mode}"] = t["launches"]
             report["tile"]["ranks"].setdefault(mode, []).append(
                 {k: t[k] for k in ("ms", "peak_gib", "losses")})
@@ -3522,6 +3585,8 @@ def spatial_phase(torch, dev, card, ds, mark):
         log(f"[15] (d) rank {rk['rank']} launches {got_l}, expected {want4}; peak "
             f"{rk['2d']['peak_gib']:.2f} GiB {'ok' if got_l == want4 else 'FAIL'}")
         check(got_l == want4, f"(d) rank {rk['rank']} launches {got_l}")
+        check(dropout_check(15, f"spatial_2d_rank{rk['rank']}", rk["2d"]["dropout"],
+                            two_d_cfg.max_steps, copied=True), f"(d) rank {rk['rank']} dropout")
         launches[f"rank{rk['rank']}_2d"] = got_l
     if failed:
         raise AssertionError("phase 15: " + "; ".join(failed))
@@ -4416,6 +4481,150 @@ def adamw_phase(torch, dev, card, mark):
     return {"t": t, "info": info, "layouts": layouts, "launches": launches}
 
 
+def dropout_phase(torch, dev, card, mark):
+    """Phase 20: dropout's compare, scale and select (``csrc/dropout.cu``)
+    at DROPOUT_SITES: the instantiations' resources (no spill allowed); at
+    each site the kernel path (``ops/dropout.apply``, one launch each way)
+    against the plain chain (``ops/dropout.plain`` and its autograd
+    backward), output and input gradient bit-equal; then the kernel alone
+    each way (the wrapper's launch on preallocated operands) and the plain
+    chain each way (compare, divide and select; select and divide), by
+    device time and CUDA events, beside the bytes the kernel needs: element
+    forward u, x, y and the mask's bits, backward the bits, dy and dx; row
+    mode x of the kept rows, y and the (B, 1) uniforms. Returns the entry's
+    fields."""
+    from probunet_torch.models.layers import nchw
+    from probunet_torch.ops import _build
+    from probunet_torch.ops import dropout as D
+
+    info = {}
+    for dtype in ("float32", "bfloat16"):
+        for mode, code in (("element_fwd", D.ELEMENT_FWD), ("element_bwd", D.ELEMENT_BWD),
+                           ("row", D.ROW)):
+            out = (ctypes.c_int * 5)()
+            _build.check(_build.lib().probunet_dropout_query(int(dtype == "bfloat16"), code, out),
+                         "dropout query")
+            info[f"{dtype}_{mode}"] = dict(zip(("threads", "registers", "spill_bytes",
+                                                "blocks_per_sm", "max_blocks"), out))
+    for name, i in info.items():
+        log(f"[20] dropout kernel {name}: {i['threads']} threads, {i['registers']} registers, "
+            f"{i['spill_bytes']} bytes spilled, {i['blocks_per_sm']} blocks an SM, grid at most "
+            f"{i['max_blocks']} blocks")
+    if any(i["spill_bytes"] for i in info.values()):
+        raise AssertionError("a dropout kernel spills")
+
+    keep = 1.0 - DROPOUT_RATE
+    hbm = peak_rates()["hbm_bytes_per_s"]
+    gen = torch.Generator(device=dev).manual_seed(20)
+    sites, launches = {}, 0
+    for name, shape, dtype_name, mode in DROPOUT_SITES:
+        dtype = getattr(torch, dtype_name)
+        size = dtype.itemsize
+        if len(shape) == 4:   # NCHW channels_last, u the NCHW view of the NHWC draw
+            b, c, h, w = shape
+            x, u, dy = (nchw(t) for t in (
+                torch.randn(b, h, w, c, device=dev, generator=gen).to(dtype),
+                torch.rand(b, h, w, c, device=dev, generator=gen),
+                torch.randn(b, h, w, c, device=dev, generator=gen).to(dtype)))
+        else:
+            x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            dy = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            u = torch.rand(shape if mode == "element" else (shape[0], 1), device=dev,
+                           generator=gen)
+        n = x.numel()
+        _build.reset_launches()
+        xi, rx = x.clone().requires_grad_(), x.clone().requires_grad_()
+        y = D.apply(xi, u, keep)
+        y.backward(dy)
+        ref = D.plain(rx, u, keep)
+        ref.backward(dy)
+        torch.cuda.synchronize()
+        view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        same = {"y": torch.equal(y.detach().view(view), ref.detach().view(view)),
+                "dx": torch.equal(xi.grad.view(view), rx.grad.view(view))}
+        counted = {key: _build.launches("dropout", *key.split("_", 1)) for key in
+                   (f"fwd_{mode}", f"bwd_{mode}")}
+        counted["copies"] = _build.launches("dropout", "u_copy") + _build.launches("dropout",
+                                                                                 "dy_copy")
+        launches += _build.launches("dropout")
+        del xi, rx, y, ref
+        log(f"[20] {name} {tuple(shape)} {dtype_name} {mode}: kernel against the plain chain "
+            f"bit-equal {same}, launches {counted}")
+        if not all(same.values()) or counted != {f"fwd_{mode}": 1, f"bwd_{mode}": 1,
+                                                 "copies": 0}:
+            raise AssertionError(f"dropout kernel at {name}: bits {same}, launches {counted}")
+
+        zero = torch.zeros((), dtype=dtype, device=dev)
+        if mode == "element":
+            bits = D._mask_words(n, dev)
+            mask = u < keep
+            kernel = {"fwd": lambda: D._launch(x, u, bits, keep, D.ELEMENT_FWD),
+                      "bwd": lambda: D._launch(dy, None, bits, keep, D.ELEMENT_BWD)}
+            need = {"fwd": n * (4 + 2 * size) + bits.numel() * 4,
+                    "bwd": n * 2 * size + bits.numel() * 4}
+        else:
+            bits = None
+            mask = u.reshape(shape[0], *(1,) * (len(shape) - 1)) < keep
+            kept = int((u < keep).sum())
+            kernel = {"fwd": lambda: D._launch(x, u, None, keep, D.ROW),
+                      "bwd": lambda: D._launch(dy, u, None, keep, D.ROW)}
+            need = {d: n * size * (1 + kept / shape[0]) + 4 * shape[0] for d in ("fwd", "bwd")}
+        plain = {"fwd": lambda: D.plain(x, u, keep),
+                 "bwd": lambda: torch.where(mask, dy, zero) / keep}
+        reps = 10 if n > 2 ** 27 else 50
+        site = {"shape": list(shape), "dtype": dtype_name, "mode": mode, "elements": n,
+                "bit_equal": same}
+        for d in ("fwd", "bwd"):
+            t = {"bytes": need[d], "bound_ms": need[d] / hbm * 1e3, "bound_by": "bytes",
+                 "library_ms": None,
+                 "ms": cuda_ms(torch, kernel[d], reps=reps),
+                 "device_ms": device_ms(torch, kernel[d], reps=reps, traces=3, whole=True),
+                 "plain_ms": cuda_ms(torch, plain[d], reps=reps),
+                 "plain_device_ms": device_ms(torch, plain[d], reps=reps, traces=3, whole=True)}
+            t["bound_share_device"] = t["bound_ms"] / t["device_ms"]
+            t["device_tb_per_s"] = need[d] / t["device_ms"] / 1e9
+            site[d] = t
+            log(f"[20] {name} {d}: kernel {t['ms']:.4f} ms by events (device "
+                f"{t['device_ms']:.4f}, {t['device_tb_per_s']:.2f} TB/s, "
+                f"{100 * t['bound_share_device']:.1f} % of the {t['bound_ms']:.4f} ms bound, "
+                f"{need[d] / 1e9:.3f} GB); plain chain {t['plain_ms']:.4f} ms (device "
+                f"{t['plain_device_ms']:.4f}) ({card})")
+        sites[name] = site
+        del x, u, dy, bits, mask
+        torch.cuda.empty_cache()
+
+    # the host's time a call, forward and backward through autograd, of the
+    # kernel path and of the plain chain it replaced: the issuing alone (the
+    # clock stops before the sync), the median over 5 batches of calls
+    b, c, h, w = DROPOUT_HOST_SITE
+    x = torch.randn(b, c, h, w, device=dev, generator=gen).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    dy = torch.randn_like(x)
+    u = nchw(torch.rand(b, h, w, c, device=dev, generator=gen))
+
+    def host_us(fn):
+        fn()
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DROPOUT_HOST_REPS):
+                fn()
+            runs.append((time.perf_counter() - t0) / DROPOUT_HOST_REPS * 1e6)
+        torch.cuda.synchronize()
+        return sorted(runs)[2]
+
+    host = {"site": list(DROPOUT_HOST_SITE),
+            "kernel_us": host_us(lambda: torch.autograd.grad(D.apply(x, u, keep), x, dy)),
+            "plain_us": host_us(lambda: torch.autograd.grad(D.plain(x, u, keep), x, dy))}
+    host["per_step_ms"] = DROPOUT_PER_STEP * (host["kernel_us"] - host["plain_us"]) / 1e3
+    log(f"[20] host time a call, forward and backward, at {DROPOUT_HOST_SITE} fp32: kernel path "
+        f"{host['kernel_us']:.1f} us, plain chain {host['plain_us']:.1f} us; over the "
+        f"{DROPOUT_PER_STEP} sites of a U-Net training step {host['per_step_ms']:+.3f} ms ({card})")
+    mark(20)
+    return {"sites": sites, "info": info, "launches": launches, "host": host}
+
+
 def mc96_by_kd(K2, bf16, passes):
     """K2's (or K3's) launches by (dtype, head width) over ``passes`` U-Net
     passes of the model_channels 96 path, bf16 or fp32: its 32x32 sites (4
@@ -4538,6 +4747,30 @@ def split_ds_check(torch, K2, q, k, v, out, lse, do, got, ref, seen, case, phase
         f"_plain_attention_bwd {err_plain:.3e} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the dS check does not separate strict_bf16 from rounded dS")
+
+
+def dropout_counts(_build):
+    """Dropout's launches and copies since the last reset of the counter."""
+    got = {f"{d}_{m}": _build.launches("dropout", d, m)
+           for d in ("fwd", "bwd") for m in ("element", "row")}
+    return {**got, **{k: _build.launches("dropout", k) for k in ("u_copy", "dy_copy")}}
+
+
+def dropout_check(phase, path, got, steps, remat=False, copied=False):
+    """Whether ``got`` (:func:`dropout_counts`) is what ``steps`` training
+    steps of DROPOUT_PER_STEP element sites launch: one launch each way a
+    site, two forwards where remat recomputes every block, no row launch,
+    no gradient copied, and each forward's uniforms copied where
+    ``copied`` (a spatial rank's H rows of the draw). Logs the counts and
+    keeps them in DROPOUT_BY_PATH under ``path``."""
+    fwd = steps * DROPOUT_PER_STEP * (2 if remat else 1)
+    want = {"fwd_element": fwd, "bwd_element": steps * DROPOUT_PER_STEP, "fwd_row": 0,
+            "bwd_row": 0, "u_copy": fwd if copied else 0, "dy_copy": 0}
+    ok = got == want
+    DROPOUT_BY_PATH[path] = got
+    log(f"[{phase}] {path}: dropout {got}, expected {want} ({steps} steps of "
+        f"{DROPOUT_PER_STEP} sites{', remat' if remat else ''}) {'ok' if ok else 'FAIL'}")
+    return ok
 
 
 def _counts(sites):

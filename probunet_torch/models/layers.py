@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from probunet_torch.ops import dropout as masks
 from probunet_torch.ops.conv import conv2d
 from probunet_torch.ops.gn_silu import gn_silu
 from probunet_torch.ops.norm import group_norm, num_groups_for
@@ -310,11 +311,10 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     ``training`` or at rate 0."""
     if not training or rate == 0.0:
         return x
-    keep = 1.0 - rate
     b, c, h, w = x.shape
-    # drawn NHWC so the mask, and the result, keep x's channels_last layout
-    mask = nchw(rand_rows((b, h, w, c), generator, x.device, shard, rows) < keep)
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    # drawn NHWC so the uniforms, and the result, keep x's channels_last layout
+    u = nchw(rand_rows((b, h, w, c), generator, x.device, shard, rows))
+    return masks.apply(x, u, 1.0 - rate)
 
 
 def token_dropout(x: torch.Tensor, rate: float, training: bool,
@@ -326,9 +326,7 @@ def token_dropout(x: torch.Tensor, rate: float, training: bool,
     rate). The identity when not ``training`` or at rate 0."""
     if not training or rate == 0.0:
         return x
-    keep = 1.0 - rate
-    mask = rand_rows(x.shape, generator, x.device, shard) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    return masks.apply(x, rand_rows(x.shape, generator, x.device, shard), 1.0 - rate)
 
 
 def drop_path(x: torch.Tensor, rate: float, training: bool,
@@ -342,7 +340,4 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
     ``training`` or at rate 0, with no draw."""
     if not training or rate == 0.0:
         return x
-    keep = 1.0 - rate
-    mask = rand_rows((x.shape[0], 1), generator, x.device, shard) < keep
-    mask = mask.reshape(x.shape[0], *(1,) * (x.ndim - 1))
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    return masks.apply(x, rand_rows((x.shape[0], 1), generator, x.device, shard), 1.0 - rate)

@@ -35,8 +35,10 @@ _lib: Optional[ctypes.CDLL] = None
 #: device); ("conv2d", one of ``conv.PATHS``) a call of that path ("plain"
 #: on any device) or a split-kernel launch ("split"); ("adamw_bf16",
 #: "fused" | "foreach") the bf16 AdamW update's launch, an update on its
-#: plain path (the CPU). CPU calls of the plain K1, K2, K3 and split count
-#: nothing.
+#: plain path (the CPU); ("dropout", "fwd" | "bwd", "element" | "row") a
+#: dropout launch, ("dropout", "u_copy" | "dy_copy") its uniforms or
+#: gradient made dense in the kernel's order. CPU calls of the plain K1, K2,
+#: K3, split and dropout count nothing.
 LAUNCHES: collections.Counter = collections.Counter()
 _vp, _int, _i64, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -74,6 +76,12 @@ _SIGNATURES = {
     "probunet_adamw_bf16": [_vp, _int, _int] + [_float] * 9 + [_vp],
     # out (int[5]): threads, registers, spilled bytes, chunk, blocks per SM
     "probunet_adamw_bf16_query": [_vp],
+    # in, out, u, bits, n, row, keep, 1 / keep, is_bf16, mode (0 element
+    # forward, 1 element backward, 2 row), vec, stream
+    "probunet_dropout": [_vp] * 4 + [_i64] * 2 + [_float] * 2 + [_int] * 3 + [_vp],
+    # is_bf16, mode, out (int[5]): threads, registers, spilled bytes, blocks
+    # per SM, the grid's cap
+    "probunet_dropout_query": [_int] * 2 + [_vp],
 }
 
 

@@ -15,8 +15,10 @@ convolutions' paths (the split kernel bit-equal to tests/_tf32x3.py, the
 3xTF32 and IEEE paths at the U-Net's level-0 and level-3 shapes against
 float64 beside plain TF32, the paths taken and cuDNN's TF32 flag
 restored), ClimaX's attention sites on a Linear's qkv views and its fast step with
-the fused AdamW over its whole parameter group, and the wrappers' and kernels'
-refusals. Marked ``cuda``: they skip without a card. On the card, without JAX (this file imports none):
+the fused AdamW over its whole parameter group, dropout's select in one
+launch each way (bit-equal to the plain chain in every layout it meets, the
+mask saved as bits, the ClimaX and U-Net steps' launches), and the
+wrappers' and kernels' refusals. Marked ``cuda``: they skip without a card. On the card, without JAX (this file imports none):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -1336,3 +1338,239 @@ def test_climax_fast_step_and_fused_adamw_on_card(dev):
         assert torch.equal(opt.state[p]["mu"], rst["mu"])
         assert torch.equal(opt.state[p]["nu"], rst["nu"])
     assert _build.launches("adamw_bf16", "fused") == 2
+
+
+# ---- dropout's compare, scale and select (csrc/dropout.cu) --------------------------------
+
+
+def _same_bits(a, b):
+    """Equal shapes and equal bits, +0 against -0 and NaN payloads included."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def _dropout_case(case, dtype, dev, gen):
+    """(x, u, dy) of a case: x and dy in x's layout, u as the layers draw it."""
+    from probunet_torch.models.layers import nchw, rand_rows
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    cl = torch.channels_last
+    if case == "ragged":           # 1,443 elements: neither a multiple of 8 nor of 32
+        x = randn(3, 37, 13)
+        return x, torch.rand(x.shape, device=dev, generator=gen), randn(3, 37, 13)
+    if case == "tokens":
+        x = randn(2, 256, 1024)
+        return x, rand_rows(x.shape, gen, dev), randn(2, 256, 1024)
+    if case in ("channels_last", "rank_slice", "spatial_rows"):
+        x = randn(2, 24, 9, 11).contiguous(memory_format=cl)
+        shard, rows = {"channels_last": ((0, 1), (0, 1)), "rank_slice": ((1, 2), (0, 1)),
+                       "spatial_rows": ((0, 1), (1, 3))}[case]
+        u = nchw(rand_rows((2, 9, 11, 24), gen, dev, shard, rows))
+        return x, u, randn(2, 24, 9, 11).contiguous(memory_format=cl)
+    if case == "unaligned":        # x, u and dy one element past 16-byte alignment
+        x = randn(2 * 9 * 61 + 1)[1:].view(2, 9, 61)
+        u = torch.rand(2 * 9 * 61 + 1, device=dev, generator=gen)[1:].view(2, 9, 61)
+        return x, u, randn(2 * 9 * 61 + 1)[1:].view(2, 9, 61)
+    if case == "row_ragged":       # 481 elements a row
+        return randn(4, 37, 13), rand_rows((4, 1), gen, dev), randn(4, 37, 13)
+    if case == "row_tokens":
+        return randn(8, 64, 128), rand_rows((8, 1), gen, dev, (1, 2)), randn(8, 64, 128)
+    if case == "row_unaligned":
+        x = randn(4 * 40 + 1)[1:].view(4, 40)
+        return x, rand_rows((4, 1), gen, dev), randn(4 * 40 + 1)[1:].view(4, 40)
+    raise ValueError(case)
+
+
+DROPOUT_CASES = ["ragged", "tokens", "channels_last", "rank_slice", "spatial_rows", "unaligned",
+                 "row_ragged", "row_tokens", "row_unaligned"]
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("case", DROPOUT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernel_bit_equal_to_the_plain_chain(dev, dtype, case, rate):
+    """The kernel's output and input gradient against the plain chain
+    ``where(u < keep, x / keep, 0)`` and its autograd backward on the card,
+    bit for bit: element mode (u of x's shape) at 1,443 elements, on
+    (B, L, D) tokens, on an NCHW channels_last map against the NCHW view of
+    its NHWC draw, against a rank's rows of the global draw, past 16-byte
+    alignment (the one-element path), and against a spatial rank's H rows
+    (not dense: copied once, counted); row mode (u (B, 1)) at 481 elements
+    a row, on tokens with a rank's rows, unaligned. One launch each way, y
+    and dx in x's layout, no gradient copied."""
+    from probunet_torch.ops import dropout as D
+
+    gen = torch.Generator(device=dev).manual_seed(DROPOUT_CASES.index(case))
+    x0, u, dy = _dropout_case(case, dtype, dev, gen)
+    keep = 1.0 - rate
+    if case.startswith("row"):   # a sample dropped and one kept, whatever the draw
+        u[0], u[-1] = 0.995, 0.005
+    ref_x = x0.clone().requires_grad_()
+    ref = D.plain(ref_x, u, keep)
+    ref.backward(dy)
+    x = x0.detach().clone().requires_grad_()
+    _build.reset_launches()
+    y = D.apply(x, u, keep)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    mode = "row" if case.startswith("row") else "element"
+    assert _build.launches("dropout", "fwd", mode) == _build.launches("dropout", "bwd", mode) == 1
+    assert _build.launches("dropout", "u_copy") == (case == "spatial_rows")
+    assert _build.launches("dropout", "dy_copy") == 0
+    assert _build.launches("dropout") == 2 + (case == "spatial_rows")
+    assert _same_bits(y.detach(), ref.detach()) and y.stride() == x.stride()
+    assert _same_bits(x.grad, ref_x.grad)
+    assert (y == 0).any() and (y != 0).any()
+
+
+def test_dropout_kernel_nan_inf_reruns_and_saved_bits(dev):
+    """NaN and inf at dropped elements give +0 forward and backward; kept
+    ones scale as the plain chain does; two calls are bit-equal; the saved
+    mask is ceil(n / 32) int32 words, bit i of the little-endian words the
+    element i of x's memory order kept, the bits past n zero; a gradient in
+    another layout is copied once (counted) and still bit-equal; row mode
+    saves the (B, 1) uniforms alone."""
+    from probunet_torch.ops import dropout as D
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        n = 8 * 1000 + 5
+        x = torch.randn(n, device=dev, generator=gen).to(dtype)
+        u = torch.rand(n, device=dev, generator=gen)
+        special = torch.tensor([float("nan"), float("inf"), -float("inf")], device=dev)
+        x[:3000] = special.repeat(1000).to(dtype)
+        dy = torch.randn(n, device=dev, generator=gen).to(dtype)
+        dy[:3000] = special.repeat(1000).to(dtype)
+        outs = []
+        for _ in range(2):
+            xi = x.clone().requires_grad_()
+            y = D.apply(xi, u, 0.9)
+            (bits,) = y.grad_fn.saved_tensors
+            y.backward(dy)
+            outs.append((y.detach(), xi.grad, bits))
+        (y, g, bits), (y2, g2, bits2) = outs
+        assert _same_bits(y, y2) and _same_bits(g, g2) and torch.equal(bits, bits2)
+        ref_x = x.clone().requires_grad_()
+        ref = D.plain(ref_x, u, 0.9)
+        ref.backward(dy)
+        assert _same_bits(y, ref.detach()) and _same_bits(g, ref_x.grad)
+        dropped = u >= np.float32(0.9)
+        assert dropped[:3000].any()
+        for t in (y, g):
+            assert (t[dropped].view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+                    == 0).all()
+        assert bits.dtype == torch.int32 and bits.numel() * 4 == -(-n // 32) * 4
+        flags = np.unpackbits(bits.cpu().numpy().view(np.uint8), bitorder="little")
+        assert np.array_equal(flags[:n], (~dropped).cpu().numpy()) and not flags[n:].any()
+    # a gradient of another layout than x's
+    x = torch.randn(2, 16, 5, 7, device=dev).contiguous(memory_format=torch.channels_last)
+    u = torch.rand(2, 5, 7, 16, device=dev).permute(0, 3, 1, 2)
+    dy = torch.randn(2, 16, 5, 7, device=dev)
+    xi, ref_x = x.clone().requires_grad_(), x.clone().requires_grad_()
+    _build.reset_launches()
+    D.apply(xi, u, 0.9).backward(dy)
+    D.plain(ref_x, u, 0.9).backward(dy)
+    assert _build.launches("dropout", "dy_copy") == 1 and _same_bits(xi.grad, ref_x.grad)
+    assert xi.grad.stride() == x.stride()
+    # row mode keeps the uniforms alone
+    x = torch.randn(4, 64, 32, device=dev).requires_grad_()
+    u = torch.rand(4, 1, device=dev)
+    y = D.apply(x, u, 0.9)
+    (saved,) = y.grad_fn.saved_tensors
+    assert saved.shape == (4, 1) and saved.dtype == torch.float32
+
+
+def test_dropout_kernel_refusals(dev):
+    """On the card the kernel or a ValueError that names each tensor's shape,
+    dtype, strides and device: x in fp16, u in bf16, u on the CPU, u of
+    another shape, x neither contiguous nor channels_last (strided, or its
+    samples not outermost in row mode).
+    Nothing launched."""
+    from probunet_torch.ops import dropout as D
+
+    _build.reset_launches()
+    x = torch.randn(4, 6, 8, device=dev)
+    u = torch.rand(4, 6, 8, device=dev)
+    cases = [(x.half(), u, "a dtype"), (x, u.bfloat16(), "a dtype"), (x, u.cpu(), "one card"),
+             (x, u[:, :3], "neither x's nor"), (x[:, ::2], u[:, ::2], "not dense"),
+             (x.transpose(0, 1).contiguous().transpose(0, 1), u[:, :1, 0], "not dense")]
+    for xi, ui, what in cases:
+        with pytest.raises(ValueError, match=rf"{what}.*x \({xi.shape[0]}, .*\) torch\.\w+ "
+                                             rf"strides .* on cuda:\d, u .* strides .* on "):
+            D.apply(xi, ui, 0.9)
+    assert _build.launches("dropout") == 0
+
+
+def test_climax_step_dropout_in_kernel_launches_bit_equal_to_the_plain_chain(dev, monkeypatch):
+    """ClimaX at its published widths through the fast deterministic step
+    at b2 (as test_climax_fast_step_and_fused_adamw_on_card): 25 element
+    launches (pos_drop; each block's attention output, MLP hidden and MLP
+    output) and 14 row launches (blocks 1-7, two drop_path each) in each
+    direction, no uniform or gradient copied; the loss, every gradient and
+    every updated parameter bit-equal to the same step with the plain chain
+    (``ops/dropout.plain``) on the same seed."""
+    from perfbench.reference.unet import perpixel_stats
+    from probunet_torch.config import Config
+    from probunet_torch.ops import dropout as D
+    from probunet_torch.train.loop import build_climax_model
+    from probunet_torch.train.state import create_train_state, make_optimizer
+    from probunet_torch.train.steps import make_deterministic_train_step
+
+    cfg = Config(ds_model="climax", resolution=(128, 256), compute_dtype="bfloat16",
+                 fast_attention=True, opt_state_dtype="bfloat16", lr=5e-4, weight_decay=1e-5)
+
+    def run():
+        model = build_climax_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model, make_optimizer(cfg.lr, cfg.weight_decay, 1, "adamw",
+                                                         None, cfg.opt_state_dtype))
+        step = make_deterministic_train_step(model, 4, "perpixel", torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        hr = 270.0 + 5.0 * torch.randn(6, 128, 256, 3, device=dev, generator=gen)
+        _build.reset_launches()
+        m = step(state, hr, perpixel_stats(hr, 4), torch.tensor([0, 3], device=dev),
+                 torch.zeros(2, device=dev), gen)
+        torch.cuda.synchronize()
+        counts = {key: _build.launches("dropout", *key) for key in
+                  [("fwd", "element"), ("bwd", "element"), ("fwd", "row"), ("bwd", "row"),
+                   ("u_copy",), ("dy_copy",)]}
+        return (m["train_loss"].float().cpu(),
+                [(p.detach().clone(), p.grad.clone()) for p in model.parameters()], counts)
+
+    loss, params, counts = run()
+    assert counts == {("fwd", "element"): 25, ("bwd", "element"): 25, ("fwd", "row"): 14,
+                      ("bwd", "row"): 14, ("u_copy",): 0, ("dy_copy",): 0}
+    monkeypatch.setattr(D, "apply", D.plain)
+    loss0, params0, counts0 = run()
+    assert all(n == 0 for n in counts0.values())
+    assert torch.equal(loss, loss0)
+    for (p, g), (p0, g0) in zip(params, params0):
+        assert _same_bits(g, g0) and _same_bits(p, p0), p.shape
+
+
+def test_unet_step_one_dropout_launch_each_way_a_residual_block(dev):
+    """One prob-U-Net training step at the mc128 widths (b2, 128x128, dropout
+    0.1): one element launch each way per residual block (its dropout after
+    norm1), no row launch, no uniform or gradient copied."""
+    from probunet_torch.config import Config
+    from probunet_torch.models.unet import UNetBlock
+    from probunet_torch.train.loop import build_probunet
+    from probunet_torch.train.state import create_train_state, make_optimizer
+    from probunet_torch.train.steps import make_probunet_train_step
+
+    cfg = Config(coords=(0, 128, 0, 128), resolution=(128, 128))
+    model = build_probunet(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    blocks = sum(isinstance(m, UNetBlock) for m in model.modules())
+    assert blocks == 28
+    state = create_train_state(model, make_optimizer())
+    step = make_probunet_train_step(model, 4, "perpixel")
+    hr = torch.rand(4, 128, 128, 3, device=dev) + 1
+    _build.reset_launches()
+    m = step(state, hr, (hr.mean(0), hr.std(0)), torch.tensor([0, 3], device=dev), 5)
+    torch.cuda.synchronize()
+    assert math.isfinite(float(m["train_loss"]))
+    assert _build.launches("dropout", "fwd", "element") == blocks
+    assert _build.launches("dropout", "bwd", "element") == blocks
+    assert _build.launches("dropout", "row") == 0
+    assert _build.launches("dropout", "u_copy") == _build.launches("dropout", "dy_copy") == 0

@@ -889,3 +889,142 @@ def test_adamw_bf16_launch_writes_the_table_each_call(fake_lib):
     assert args[3:12] == (0.9, 1 - 0.9, 0.999, 1 - 0.999, 1 / hyper["bc1"], 1 / hyper["bc2"],
                           1e-8, 0.01, -3e-3)
     assert fake_lib.calls[-1][1][1:3] == (2, 3)
+
+
+# ---- dropout's compare, scale and select (ops/dropout.py) ----------------------------------
+
+
+def _former_select(fn, x, rate, gen, shard):
+    """The three functions' select as written before ops/dropout.py:
+    compare, divide and a where over a 0-dim zero, the mask from the same
+    draw."""
+    from probunet_torch.models.layers import nchw, rand_rows
+
+    keep = 1.0 - rate
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if fn == "dropout":
+        b, c, h, w = x.shape
+        mask = nchw(rand_rows((b, h, w, c), gen, x.device, shard) < keep)
+    elif fn == "token_dropout":
+        mask = rand_rows(x.shape, gen, x.device, shard) < keep
+    else:
+        mask = rand_rows((x.shape[0], 1), gen, x.device, shard) < keep
+        mask = mask.reshape(x.shape[0], *(1,) * (x.ndim - 1))
+    return torch.where(mask, x / keep, zero)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("fn", ["dropout", "token_dropout", "drop_path"])
+def test_dropout_helper_reproduces_the_former_selects(fn, rate):
+    """dropout (an NCHW channels_last map), token_dropout and drop_path
+    (tokens (B, L, D)) through the one helper give the former expressions'
+    output and input gradient bit for bit on the CPU, in fp32 and bf16, as
+    one process and as rank 1 of 2; at rate 0 the identity with no draw;
+    nothing counted."""
+    from probunet_torch.models import layers
+
+    _build.reset_launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        for shard in ((0, 1), (1, 2)):
+            x0 = torch.randn(4, 6, 5, 7, generator=torch.Generator().manual_seed(3))
+            if fn == "dropout":
+                x0 = x0.contiguous(memory_format=torch.channels_last)
+            x0 = x0.to(dtype)
+            dy = torch.randn(x0.shape, generator=torch.Generator().manual_seed(4)).to(dtype)
+            outs = []
+            for new in (True, False):
+                x = x0.clone().requires_grad_()
+                gen = torch.Generator().manual_seed(11)
+                if new:
+                    y = getattr(layers, fn)(x, rate, True, gen, shard)
+                elif rate == 0.0:
+                    y = x
+                else:
+                    y = _former_select(fn, x, rate, gen, shard)
+                y.backward(dy)
+                outs.append((y.detach(), x.grad, gen.get_state()))
+            (y, g, state), (y0, g0, state0) = outs
+            bits = torch.int32 if dtype == torch.float32 else torch.int16
+            assert torch.equal(y.view(bits), y0.view(bits)), (dtype, shard)
+            assert torch.equal(g.view(bits), g0.view(bits)), (dtype, shard)
+            assert torch.equal(state, state0)
+            if rate == 0.0:
+                assert torch.equal(state, torch.Generator().manual_seed(11).get_state())
+            else:
+                assert not torch.equal(y, x0)
+    assert _build.launches("dropout") == 0
+
+
+def test_dropout_layouts_the_kernel_reads_in_place():
+    """The kernel's order checks, on the CPU: the U-Net's channels_last map
+    and the NCHW view of its NHWC draw (whole, a rank's rows of the global
+    draw, a view past 16-byte alignment) have one order; a spatial rank's H
+    rows of the tile's draw do not (copied on the card), nor does a dense
+    draw in NCHW order; x is taken contiguous or channels_last, with size-1
+    dims' strides ignored."""
+    from probunet_torch.models.layers import nchw, rand_rows
+    from probunet_torch.ops import dropout as D
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 24, 9, 11).contiguous(memory_format=torch.channels_last)
+    whole = nchw(rand_rows((2, 9, 11, 24), gen, "cpu"))
+    rank = nchw(rand_rows((2, 9, 11, 24), gen, "cpu", (1, 2)))
+    rows = nchw(rand_rows((2, 9, 11, 24), gen, "cpu", (0, 1), (1, 3)))
+    flat = torch.rand(2 * 24 * 9 * 11 + 1, generator=gen)
+    off = nchw(flat[1:].view(2, 9, 11, 24))
+    assert D._dense(x) and D._dense(off)
+    for u in (whole, rank, off):
+        assert D._same_order(u, x.shape, x.stride())
+    assert not D._same_order(rows, x.shape, x.stride())
+    assert not D._same_order(torch.rand(x.shape), x.shape, x.stride())   # dense, NCHW order
+    assert not D._dense(torch.rand(4, 6)[:, ::2])
+    tokens = torch.rand(4, 8, 16)
+    assert D._dense(tokens) and D._dense(tokens[1:3])
+    assert not D._dense(tokens.transpose(0, 1).contiguous().transpose(0, 1))
+    one = torch.rand(3, 1, 5)
+    assert D._dense(one.transpose(0, 1))
+    assert D._same_order(torch.rand(1, 3, 5).transpose(0, 1), one.shape, one.stride())
+
+
+def test_dropout_launch_passes_the_declared_arguments(fake_lib):
+    """What one launch hands the C entry point (here a recorder, CPU tensors
+    standing in): the declared arity, n, the row length, keep and 1 / keep
+    as fp32, the dtype, the mode, and the vector flag from the pointers'
+    alignment; the mask takes ceil(n / 32) words."""
+    from probunet_torch.ops import dropout as D
+
+    x = torch.zeros(3, 5, 7, dtype=torch.bfloat16)
+    u = torch.zeros(3, 5, 7)
+    bits = D._mask_words(x.numel(), x.device)
+    assert bits.dtype == torch.int32 and bits.numel() == -(-105 // 32)
+    D._launch(x, u, bits, 0.9, D.ELEMENT_FWD)
+    D._launch(x, u[:, :1, :1].reshape(3, 1), None, 0.9, D.ROW)
+    flat = torch.zeros(106)
+    D._launch(flat[1:].view(3, 5, 7), u, bits, 0.5, D.ELEMENT_FWD)
+    for name, args in fake_lib.calls:
+        assert name == "probunet_dropout"
+        assert len(args) == len(_build._SIGNATURES[name])
+    (_, a), (_, r), (_, f) = fake_lib.calls
+    keep = np.float32(0.9)
+    assert a[4:10] == (105, 1, float(keep), float(np.float32(1) / keep), 1, D.ELEMENT_FWD)
+    assert a[10] == int(x.data_ptr() % 16 == 0 and u.data_ptr() % 16 == 0)
+    assert r[4:10] == (105, 35, float(keep), float(np.float32(1) / keep), 1, D.ROW)
+    assert f[4:11] == (105, 1, 0.5, 2.0, 0, D.ELEMENT_FWD, 0)   # 4 bytes past alignment
+    assert _build.launches("dropout") == 0   # counted by the autograd Function, per direction
+
+
+def test_dropout_refuses_what_the_kernel_cannot_take():
+    """A CPU x with uniforms on another device, and the dtypes and shapes
+    the kernel does not take, raise a ValueError naming each tensor's shape,
+    dtype, strides and device; nothing is launched or counted."""
+    from probunet_torch.ops import dropout as D
+
+    _build.reset_launches()
+    x = torch.zeros(4, 6)
+    cases = [(x.half(), torch.zeros(4, 6), "a dtype"), (x, torch.zeros(4, 6).double(), "a dtype"),
+             (x, torch.zeros(4, 6), "one card")]
+    for xi, ui, what in cases:
+        with pytest.raises(ValueError, match=rf"{what}.*x \(4, 6\) torch\.\w+ strides \(6, 1\) "
+                                             rf"on cpu, u \(4, 6\) torch\.\w+ strides"):
+            D._operands(xi, ui)
+    assert _build.launches("dropout") == 0
