@@ -35,8 +35,10 @@ class Config:
     # vae enum a live conditional conv-VAE) ---
     # "corrdiff" (the port only) serves NVIDIA's CorrDiff: a regression
     # DDPM++ U-Net, then an EDM residual chain on a second one; "climax" (the
-    # port only) trains ClimaX, a vision transformer, as a deterministic downscaler
-    ds_model: str = "probabilistic_unet"  # {deterministic_unet, probabilistic_unet, linearcnn, bcsd, edm, vae, corrdiff, climax}
+    # port only) trains ClimaX, a vision transformer, as a deterministic
+    # downscaler; "fourcastnet" (the port only) trains FourCastNet's AFNO
+    # backbone, a Fourier token mixer, as one
+    ds_model: str = "probabilistic_unet"  # {deterministic_unet, probabilistic_unet, linearcnn, bcsd, edm, vae, corrdiff, climax, fourcastnet}
 
     # --- prob-U-Net architecture (reference main.py:32-37, prob_unet.py:129) ---
     latent_dim: int = 6
@@ -49,7 +51,9 @@ class Config:
     baseline_channels: int = 64  # deterministic U-Net width (baseline/deterministic_unet.py:232)
 
     # --- ClimaX (ds_model="climax"; arXiv:2301.10343, the 1.40625 deg model's
-    # widths); its drop_rate is ``dropout`` ---
+    # widths); its drop_rate is ``dropout``. FourCastNet (ds_model=
+    # "fourcastnet"; arXiv:2202.11214, AFNO.yaml's backbone) reads embed_dim,
+    # depth, patch_size, mlp_ratio, drop_path and ``dropout`` alike ---
     embed_dim: int = 1024
     depth: int = 8
     num_heads: int = 16
@@ -130,7 +134,8 @@ class Config:
 
     def __post_init__(self) -> None:
         if self.ds_model not in ("deterministic_unet", "probabilistic_unet",
-                                 "linearcnn", "bcsd", "edm", "vae", "corrdiff", "climax"):
+                                 "linearcnn", "bcsd", "edm", "vae", "corrdiff", "climax",
+                                 "fourcastnet"):
             raise ValueError(f"unknown ds_model {self.ds_model!r}")
         if self.standardization not in ("none", "perpixel", "pertimestep", "minmax"):
             raise ValueError(f"unknown standardization {self.standardization!r}")

@@ -7,6 +7,7 @@ from probunet_torch.models.prob_unet import (  # noqa: F401
 from probunet_torch.models.edm import EDMPrecond  # noqa: F401
 from probunet_torch.models.corrdiff import CorrDiff  # noqa: F401
 from probunet_torch.models.climax import ClimaX  # noqa: F401
+from probunet_torch.models.fourcastnet import FourCastNet  # noqa: F401
 from probunet_torch.models.baselines import (  # noqa: F401
     ConvVAE,
     LinearCNN,

@@ -84,6 +84,14 @@ def sincos_2d(dim: int, h: int, w: int) -> np.ndarray:
     return np.concatenate([sincos_1d(dim // 2, cols), sincos_1d(dim // 2, rows)], axis=1)
 
 
+def unpatchify(t: torch.Tensor, grid: Tuple[int, int], p: int, c: int) -> torch.Tensor:
+    """Tokens (B, gh gw, p^2 c) or (B, gh, gw, p^2 c), each laid out (p1, p2,
+    c), -> NHWC (B, gh p, gw p, c): ``b h w (p1 p2 c) -> b (h p1) (w p2) c``."""
+    gh, gw = grid
+    t = t.reshape(t.shape[0], gh, gw, p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return t.reshape(t.shape[0], gh * p, gw * p, c)
+
+
 class _PatchProj(_Layer):
     """A variable's patch embedding, ``Conv2d(1, D, p, stride p)``'s weight
     (D, 1, p, p) and bias (D)."""
@@ -245,9 +253,7 @@ class ClimaX(_Layer):
 
     def unpatchify(self, t: torch.Tensor) -> torch.Tensor:
         """(B, L, V p^2) -> NHWC (B, H, W, V), ClimaX's ``unpatchify``."""
-        (gh, gw), p = self.grid, self.patch_size
-        t = t.reshape(t.shape[0], gh, gw, p, p, self.variables).permute(0, 1, 3, 2, 4, 5)
-        return t.reshape(t.shape[0], gh * p, gw * p, self.variables)
+        return unpatchify(t, self.grid, self.patch_size, self.variables)
 
     def forward(self, x: torch.Tensor, class_labels: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,

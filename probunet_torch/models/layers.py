@@ -193,11 +193,12 @@ class Linear(_Layer):
 
 class LayerNorm(_Layer):
     """Learned-affine layer norm over the last axis (``torch.nn.LayerNorm``,
-    eps 1e-5), weight 1 and bias 0 at init; fp32 statistics whatever x's
-    dtype (``F.layer_norm``)."""
+    eps 1e-5 unless given), weight 1 and bias 0 at init; fp32 statistics
+    whatever x's dtype (``F.layer_norm``)."""
 
-    def __init__(self, num_features: int, *, device=None, generator=None):
+    def __init__(self, num_features: int, eps: float = 1e-5, *, device=None, generator=None):
         super().__init__()
+        self.eps = eps
         self.weight = self._param(num_features, device=device)
         self.bias = self._param(num_features, device=device)
         self._fill(device, generator)
@@ -208,7 +209,7 @@ class LayerNorm(_Layer):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x, self.weight.shape, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                            1e-5)
+                            self.eps)
 
 
 class Mlp(nn.Module):

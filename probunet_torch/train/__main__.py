@@ -1,8 +1,9 @@
 """End-to-end training (reference main.py) — the port's
 ``scripts/train_probunet.py`` and, with any other ``--ds_model``, its
 ``scripts/train_baseline.py``: ``edm`` (the diffusion downscaler), ``vae``
-(the conv-VAE), ``deterministic_unet``, ``linearcnn``, ``bcsd`` and
-``climax`` (ClimaX, a vision transformer; the port only).
+(the conv-VAE), ``deterministic_unet``, ``linearcnn``, ``bcsd``,
+``climax`` (ClimaX, a vision transformer) and ``fourcastnet`` (FourCastNet's
+AFNO backbone, a Fourier token mixer); the last two the port only.
 
     python -m probunet_torch.train --datadir /path/to/climex [config flags...]
     python -m probunet_torch.train --synthetic [config flags...]   # generated data
@@ -10,6 +11,9 @@
     python -m probunet_torch.train --ds_model deterministic_unet [config flags...]
     python -m probunet_torch.train --ds_model climax --compute_dtype bfloat16 \
         --fast_attention true --opt_state_dtype bfloat16 --resolution 128,256 [...]
+    python -m probunet_torch.train --ds_model fourcastnet --compute_dtype bfloat16 \
+        --opt_state_dtype bfloat16 --resolution 720,1440 --patch_size 8 --embed_dim 768 \
+        --depth 12 --dropout 0 --drop_path 0 [...]
 
 All Config fields are flags (see probunet_torch/config.py). ``--synthetic``
 writes ClimEx-like files for every year of the three splits into

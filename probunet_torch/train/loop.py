@@ -33,6 +33,7 @@ from probunet_torch.models.baselines import ConvVAE, LinearCNN
 from probunet_torch.models.climax import ClimaX
 from probunet_torch.models.corrdiff import CorrDiff
 from probunet_torch.models.edm import EDMPrecond
+from probunet_torch.models.fourcastnet import FourCastNet
 from probunet_torch.models.layers import reset_parameters
 from probunet_torch.models.prob_unet import ProbabilisticUNet
 from probunet_torch.models.unet import UNet
@@ -314,16 +315,34 @@ def build_climax_model(cfg: Config, device=None,
                   device=resolve_device(device), generator=generator)
 
 
+def build_fourcastnet_model(cfg: Config, device=None,
+                            generator: Optional[torch.Generator] = None) -> FourCastNet:
+    """FourCastNet for ``cfg`` (``ds_model="fourcastnet"``) on ``device``
+    (default the CUDA card): ``cfg.nvars`` channels in and out on the
+    ``resolution`` grid, ``embed_dim``, ``depth``, ``patch_size``,
+    ``mlp_ratio``, ``drop_path`` and ``dropout`` as its drop_rate; the
+    filter at its published settings. Its weights are drawn from
+    ``generator``; on the ``meta`` device nothing is allocated. It trains
+    as the deterministic baselines do (:func:`train_baseline`)."""
+    return FourCastNet(img_size=tuple(cfg.resolution), in_chans=cfg.nvars, out_chans=cfg.nvars,
+                       patch_size=cfg.patch_size, embed_dim=cfg.embed_dim, depth=cfg.depth,
+                       mlp_ratio=cfg.mlp_ratio, drop_rate=cfg.dropout, drop_path=cfg.drop_path,
+                       device=resolve_device(device), generator=generator)
+
+
 def build_baseline_model(cfg: Config, device=None, generator: Optional[torch.Generator] = None):
     """The deterministic baseline for ``cfg`` on ``device`` (default the
     CUDA card), in ``channels_last`` memory format: the U-Net of the
     reference's baseline (width ``baseline_channels``, no attention, not
     even at the bottleneck; baseline/deterministic_unet.py:232,274,283) or
-    the LinearCNN; or ClimaX (:func:`build_climax_model`, which has no
-    convolution layout). Its weights are drawn from ``generator``; on the
-    ``meta`` device nothing is allocated."""
+    the LinearCNN; or ClimaX (:func:`build_climax_model`) or FourCastNet
+    (:func:`build_fourcastnet_model`), which have no convolution layout.
+    Its weights are drawn from ``generator``; on the ``meta`` device
+    nothing is allocated."""
     if cfg.ds_model == "climax":
         return build_climax_model(cfg, device, generator)
+    if cfg.ds_model == "fourcastnet":
+        return build_fourcastnet_model(cfg, device, generator)
     device = resolve_device(device)
     if cfg.ds_model == "deterministic_unet":
         model = UNet(tuple(cfg.resolution), cfg.nvars, cfg.nvars, label_dim=_label_dim(cfg),
@@ -343,7 +362,7 @@ def train_baseline(cfg: Config, datasets=None, make_plots: bool = True, device=N
     """The reference ``baseline/main.py`` pipeline on ``device`` (default
     the CUDA card): ``bcsd`` -> :func:`run_bcsd`, ``edm`` ->
     :func:`train_edm`, ``vae`` -> :func:`train_probunet`; the deterministic
-    U-Net, the LinearCNN and ClimaX train with per-variable MSE, log
+    U-Net, the LinearCNN, ClimaX and FourCastNet train with per-variable MSE, log
     ``metrics_baseline.jsonl``, checkpoint under ``<checkpoints_dir>/<ds_model>``
     and end with the validation MAE in physical units (mm/day, deg C).
     Those return {state, tr_losses, val_losses, mae, samples_per_sec}, the

@@ -25,9 +25,10 @@ synthesis), ``probunet.regression`` (CorrDiff's mean, before its chains),
 ``probunet.forward``, ``probunet.backward`` (with the zero gradients of
 unused parameters), ``probunet.allreduce`` and ``probunet.optimizer``
 (``parallel/mesh.py``, ``train/state.py``) and ``probunet.output``
-(residual -> HR), in that order. ClimaX's forward marks its tokenizer and
-its head inside ``probunet.forward`` (``probunet.tokenize``,
-``probunet.head``; ``models/climax.py``).
+(residual -> HR), in that order. ClimaX's and FourCastNet's forwards mark
+their tokenizer and head inside ``probunet.forward`` (``probunet.tokenize``,
+``probunet.head``; ``models/climax.py``, ``models/fourcastnet.py``), and
+FourCastNet's each block's filter (``probunet.spectral``).
 """
 
 from __future__ import annotations

@@ -15,7 +15,9 @@ convolutions' paths (the split kernel bit-equal to tests/_tf32x3.py, the
 3xTF32 and IEEE paths at the U-Net's level-0 and level-3 shapes against
 float64 beside plain TF32, the paths taken and cuDNN's TF32 flag
 restored), ClimaX's attention sites on a Linear's qkv views and its fast step with
-the fused AdamW over its whole parameter group, dropout's select in one
+the fused AdamW over its whole parameter group, FourCastNet's fast step at its
+published widths against the plain reference (its filter counted once a
+block), dropout's select in one
 launch each way (bit-equal to the plain chain in every layout it meets, the
 mask saved as bits, the ClimaX and U-Net steps' launches), and the
 wrappers' and kernels' refusals. Marked ``cuda``: they skip without a card. On the card, without JAX (this file imports none):
@@ -1338,6 +1340,71 @@ def test_climax_fast_step_and_fused_adamw_on_card(dev):
         assert torch.equal(opt.state[p]["mu"], rst["mu"])
         assert torch.equal(opt.state[p]["nu"], rst["nu"])
     assert _build.launches("adamw_bf16", "fused") == 2
+
+
+def test_fourcastnet_fast_step_against_the_reference_on_card(dev):
+    """FourCastNet at its published widths (720x1440, patch 8, D 768, depth
+    12, 8 filter blocks of 96; 73,019,136 parameters) through the fast
+    deterministic step at b1: the filter's ``probunet.spectral`` span once
+    a block (12 a forward), one fused AdamW launch for the whole group (the filters' 4-D
+    and 3-D fp32 leaves among them); the first loss and every leaf's
+    gradient against the fp32 reference on the same weights (AFNONet's
+    init) and day, within tests/test_torch_fourcastnet.py's bf16 limits:
+    loss 4e-3, leaves 0.06 by the benchmark's rule, the filters' leaves
+    0.15 each against its own norm."""
+    import statistics
+
+    from perfbench.families.fourcastnet import published_weights
+    from perfbench.reference import fourcastnet as ref
+    from perfbench.reference.unet import fp32_math, make_pair, perpixel_stats
+    from probunet_torch.config import Config
+    from probunet_torch.train.loop import build_fourcastnet_model
+    from probunet_torch.train.state import create_train_state, make_optimizer
+    from probunet_torch.train.steps import make_deterministic_train_step
+
+    cfg = Config(ds_model="fourcastnet", resolution=(720, 1440), patch_size=8, embed_dim=768,
+                 depth=12, dropout=0.0, drop_path=0.0, compute_dtype="bfloat16",
+                 opt_state_dtype="bfloat16", lr=5e-4, weight_decay=0.0)
+    rcfg = {"resolution": [720, 1440], "embed_dim": 768, "patch_size": 8,
+            "variables": ["pr", "tasmin", "tasmax"], "depth": 12, "mlp_ratio": 4.0,
+            "num_blocks": 8, "sparsity_threshold": 0.01, "hard_thresholding_fraction": 1.0,
+            "drop_path": 0.0, "dropout": 0.0}
+    model = build_fourcastnet_model(cfg, device="meta").to_empty(device=dev)
+    weights = published_weights(model, rcfg, 11, dev)
+    model.load_state_dict(weights)
+    assert sum(p.numel() for p in model.parameters()) == 73_019_136
+    state = create_train_state(model, make_optimizer(cfg.lr, cfg.weight_decay, 1, "adamw", None,
+                                                     cfg.opt_state_dtype))
+    step = make_deterministic_train_step(model, 4, "perpixel", torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    hr = 270.0 + 5.0 * torch.randn(3, 720, 1440, 3, device=dev, generator=gen)
+    stats = perpixel_stats(hr, 4)
+    idx = torch.tensor([1], device=dev)
+    _build.reset_launches()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        m = step(state, hr, stats, idx, torch.zeros(1, device=dev), gen)
+    assert [e.name for e in prof.events()].count("probunet.spectral") == 12
+    assert _build.launches("adamw_bf16", "fused") == 1
+    assert _build.launches("adamw_bf16", "foreach") == 0
+    got = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    loss = float(m["train_loss"])
+    del state, step, model
+    torch.cuda.empty_cache()
+    with torch.device("meta"):
+        r = ref.FourCastNet(rcfg)
+    r = r.to_empty(device=dev)
+    r.load_state_dict(weights)
+    r.train()
+    with fp32_math():
+        pair = make_pair(hr[idx], 4, stats)
+        want = (r(pair["inputs"]) - pair["targets"]).square().mean()
+        want.backward()
+    assert abs(loss - want.item()) / want.item() <= 4e-3
+    norms = {n: float(p.grad.norm()) for n, p in r.named_parameters()}
+    med = statistics.median(norms.values())
+    gaps = {n: float((got[n] - p.grad).norm()) for n, p in r.named_parameters()}
+    assert max(gaps[n] / max(norms[n], med) for n in norms) <= 0.06, gaps
+    assert max(gaps[n] / norms[n] for n in norms if ".filter." in n) <= 0.15, gaps
 
 
 # ---- dropout's compare, scale and select (csrc/dropout.cu) --------------------------------
